@@ -5,23 +5,37 @@
 
 Phases, one JSON line each; any failure raises and exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build the four kernels from luminair_tpu_torch/csrc (nvcc, sm_90a);
-  3. each kernel against its plain PyTorch twin on the card, bit for bit, at
-     the shapes the N=256 prove gives it, with CUDA-event times of both and
-     the least time the card could take for the same work;
-  4. the main path: the 256x256 a*b + a graph through Graph -> compile ->
+  2. build the seven kernels from luminair_tpu_torch/csrc (nvcc, sm_90a,
+     one process per source, all at once), with ptxas' register and spill
+     report;
+  3. the black-scholes PINN's settings and trace on the host (batch 256);
+  4. each kernel against its plain PyTorch twin on the card, bit for bit:
+     K1-K4 at the shapes the N=256 prove gives them, K5/K6 on the tape of
+     every PINN component at its batch-256 trace and commit sizes, K7 at
+     the PINN's OODS groups; CUDA-event times of kernel and twin and the
+     least time the card could take for the same work;
+  5. the bench path: the 256x256 a*b + a graph through Graph -> compile ->
      gen_circuit_settings -> gen_trace -> prove on the card; every kernel's
      launch counter must grow during the prove, the prover's self-check
-     must pass and the native C++ verifier must accept the proof;
-  5. one more N=256 prove under torch.profiler: device busy time, idle
-     share, and the kernels that take the device's time;
-  6. the proof of the 16x16 graph on the card equals, byte for byte, the
+     must pass and the native C++ verifier must accept the proof; then one
+     more prove that keeps the inputs of each kernel call at each distinct
+     shape, and every kept call run again through the kernel and through
+     its plain twin, bit for bit (so each kernel is checked at every shape
+     the path gives it, on the path's own data); then one prove under
+     torch.profiler: device busy time, idle share, and the kernels that
+     take the device's time;
+  6. the PINN path: the 2-64-64-1 network (Linear + tanh, random weights
+     from a seed) at batch 256 through Graph -> nn.Linear -> compile ->
+     gen_circuit_settings -> gen_trace -> prove, the same checks, the
+     model's output within 0.05 of its float64 forward pass, and a profile;
+  7. the proof of the 16x16 graph on the card equals, byte for byte, the
      proof made on the CPU.
 Then the `kernels` line, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import statistics
@@ -37,6 +51,7 @@ OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 
 N_MAIN = 256  # the repository's benchmark graph size
 N_PARITY = 16
+PINN_BATCH = 256  # the flagship's recorded batch
 REPS = 7  # timed calls per kernel (median)
 
 # Published H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s of HBM3, and
@@ -53,7 +68,42 @@ OPS_MUL = 6
 OPS_ADD = 3
 OPS_QMUL = 16 * OPS_MUL + 14 * OPS_ADD
 OPS_QINV = 58 * OPS_MUL + 17 * OPS_ADD  # tower + norm + 38-multiply Fermat chain
+OPS_INV = 38 * OPS_MUL
 OPS_BLAKE2S_BLOCK = 80 * 14 + 16  # 10 rounds x 8 G x 14 ops, final xors
+OPS_DENOM = 4 * OPS_MUL + 8 * OPS_ADD  # v0 + alpha * v1 - z
+
+PORT_KERNEL_NAMES = (
+    "fft_stage_kernel", "fft_embed_kernel", "merkle_layer_kernel", "fri_fold_kernel",
+    "deep_quotient_kernel", "air_witness_kernel", "scan_tile", "air_domain_kernel",
+    "oods_partial_kernel", "oods_combine_kernel",
+)
+
+
+def tape_ops(tp) -> int:
+    """Integer operations of one row's tape arithmetic."""
+    from luminair_tpu_torch.air import tape
+
+    cost = {tape.OP_ADD: OPS_ADD, tape.OP_SUB: OPS_ADD, tape.OP_NEG: OPS_ADD, tape.OP_MUL: OPS_MUL}
+    return sum(cost.get(ins[0], 0) for ins in tp.instructions())
+
+
+def witness_row_ops(tp) -> int:
+    """K5 per trace row: the tape, per entry a denominator, a QM31 inverse,
+    a product by the multiplicity and a sum; the scan's 4 adds."""
+    return tape_ops(tp) + tp.n_relations * (OPS_DENOM + OPS_QINV + 4 * OPS_MUL + 4 * OPS_ADD) + 4 * OPS_ADD
+
+
+def domain_row_ops(tp, log_trace: int) -> int:
+    """K6 per commit row: the tape, a QM31-by-M31 product and a sum per
+    constraint, per entry a denominator and two QM31 products, the
+    vanishing value's squarings and inverse."""
+    return (
+        tape_ops(tp)
+        + tp.n_constraints * (4 * OPS_MUL + 4 * OPS_ADD)
+        + tp.n_relations * (OPS_DENOM + 2 * OPS_QMUL + 16 * OPS_ADD)
+        + 8 * OPS_ADD + 4 * OPS_MUL
+        + (log_trace - 1) * (OPS_MUL + 2 * OPS_ADD) + OPS_INV + 4 * OPS_MUL
+    )
 
 
 def emit(obj) -> None:
@@ -104,14 +154,15 @@ def phase_build(kernels):
     reports = kernels.build()
     kernels.load_all()
     regs = {
-        name: [l.split("ptxas info    : ")[-1] for l in rep.splitlines() if "registers" in l]
+        name: [l.split("ptxas info    : ")[-1].strip() for l in rep.splitlines() if "registers" in l or "spill" in l]
         for name, rep in reports.items()
     }
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": regs})
 
 
-def phase_kernels(kernels, circle, f, dev):
-    """Each kernel against its twin at the N=256 prove's shapes."""
+def phase_kernels(kernels, circle, f, dev, pinn_logs):
+    """Each kernel against its twin: K1-K4 at the N=256 prove's shapes,
+    K5-K7 at the PINN's."""
     rng = np.random.default_rng(2024)
 
     def rnd(*shape):
@@ -222,9 +273,89 @@ def phase_kernels(kernels, circle, f, dev):
         plain_ms=time_ms(lambda: kernels.deep_quotient_plain(cols, gam, consts, log)),
         bound=bound(4 * S * (1 << log) + 8 * (1 << log) + 16 * (1 << log), (1 << log) * row_ops),
     )
+    rows.update(tape_kernels(kernels, f, dev, pinn_logs, rng, rnd, check))
+    rows.update(oods_kernel(kernels, circle, f, dev, rng, rnd, check))
     for name, r in rows.items():
         emit({"phase": "kernel_time", "kernel": name, "shape": r["shape"], "ms": r["ms"],
               "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1]})
+    return rows
+
+
+def tape_kernels(kernels, f, dev, pinn_logs, rng, rnd, check):
+    """K5 and K6 on the tape of every PINN component at its batch-256 trace
+    size (2^n rows) and commit size (2^(n+1) rows, blowup 1); timed on mul,
+    the largest (2^21 and 2^22 rows)."""
+    from luminair_tpu_torch.air import tape
+    from luminair_tpu_torch.air.components import COMPONENTS_BY_NAME
+
+    ew = [[tuple(int(x) for x in rng.integers(0, f.P, 4)) for _ in range(2)] for _ in tape.ELEM_KINDS]
+    err5 = err6 = 0
+    rows = {}
+    for name, n in pinn_logs.items():
+        comp = COMPONENTS_BY_NAME[name]
+        tpw = tape.record(comp, witness=True)
+        main = [rnd(1 << n) for _ in comp.MAIN]
+        pp = [rnd(1 << n) for _ in comp.PP_IDS]
+        err5 |= check(f"air_witness {name} 2^{n}", lambda: torch.cat([o.reshape(-1) for o in kernels.air_witness(tpw, main, pp, ew)]),
+                      lambda: torch.cat([o.reshape(-1) for o in tape.witness_plain(tpw, main, pp, ew)]))
+        if name == "mul":
+            n_in, n_out = (len(main) + len(pp)) << n, (16 * tpw.n_relations) << n
+            rows["air_witness"] = dict(
+                shape=f"mul, 2^{n} rows, {len(main)} columns, E = {tpw.n_relations}", err=0,
+                ms=time_ms(lambda: kernels.air_witness(tpw, main, pp, ew)),
+                plain_ms=time_ms(lambda: tape.witness_plain(tpw, main, pp, ew)),
+                bound=bound(4 * n_in + n_out, (1 << n) * witness_row_ops(tpw)),
+            )
+        del main, pp
+        tpd = tape.record(comp)
+        m = 1 << (n + 1)
+        args = (
+            tpd, [rnd(m) for _ in comp.MAIN], [rnd(m) for _ in comp.PP_IDS],
+            [rnd(m) for _ in range(4 * tpd.n_relations)], rnd(m),
+            tuple(int(x) for x in rng.integers(0, f.P, 4)), ew,
+            [tuple(int(x) for x in rng.integers(0, f.P, 4)) for _ in range(tpd.n_pows)], n, 2,
+        )
+        err6 |= check(f"air_domain {name} 2^{n + 1}", lambda: kernels.air_domain(*args), lambda: tape.domain_plain(*args))
+        if name == "mul":
+            base = rnd(m, 4)
+            err6 |= check(f"air_domain {name} 2^{n + 1} accumulate", lambda: kernels.air_domain(*args, acc=base.clone()),
+                          lambda: tape.domain_plain(*args, acc=base))
+            n_cols = len(comp.MAIN) + len(comp.PP_IDS) + 4 * tpd.n_relations + 2  # + is_first, xs
+            rows["air_domain"] = dict(
+                shape=f"mul, 2^{n + 1} rows (blowup 1), K = {tpd.n_constraints}, E = {tpd.n_relations}", err=0,
+                ms=time_ms(lambda: kernels.air_domain(*args)),
+                plain_ms=time_ms(lambda: tape.domain_plain(*args)),
+                bound=bound((4 * n_cols + 16) * m, m * domain_row_ops(tpd, n)),
+            )
+        del args
+    rows["air_witness"]["err"], rows["air_domain"]["err"] = err5, err6
+    return rows
+
+
+def oods_kernel(kernels, circle, f, dev, rng, rnd, check):
+    """K7 at the PINN's OODS groups: the composition's 4 columns at 2^22
+    (timed), and a 64-column group at 2^21 (the main and interaction
+    columns of mul and sum_reduce)."""
+    from luminair_tpu_torch import fft
+
+    point = circle.point_from_t_qm31(torch.from_numpy(rng.integers(0, f.P, 4)))
+    err, rows = 0, {}
+    for log, C in ((22, 4), (21, 64)):
+        cols = [rnd(1 << log) for _ in range(C)]
+        chain = fft.twiddle_chain(log, point)
+        err |= check(f"oods_eval {C} x 2^{log}", lambda: kernels.oods_eval(cols, chain),
+                     lambda: kernels.oods_eval_plain(cols, chain))
+        ms = time_ms(lambda: kernels.oods_eval(cols, chain))
+        n = 1 << log
+        b = bound(4 * C * n + 16 * C, C * n * (4 * OPS_MUL + 4 * OPS_ADD) + n * OPS_QMUL)
+        if log == 22:
+            rows["oods_eval"] = dict(shape=f"{C} columns x 2^{log}", err=0, ms=ms,
+                                     plain_ms=time_ms(lambda: kernels.oods_eval_plain(cols, chain)), bound=b)
+        else:
+            emit({"phase": "kernel_time_extra", "kernel": "oods_eval", "shape": f"{C} columns x 2^{log}",
+                  "ms": ms, "bound_ms": b[0], "bound_by": b[1]})
+        del cols
+    rows["oods_eval"]["err"] = err
     return rows
 
 
@@ -240,24 +371,72 @@ def bench_graph(T, n: int):
     return pie, settings
 
 
-def phase_main(T, kernels, serde, tracing, card):
-    t0 = time.perf_counter()
-    pie, settings = bench_graph(T, N_MAIN)
-    trace_s = time.perf_counter() - t0
-    cells = sum(t.n_rows * len(t.columns) for t in pie.trace_tables.values() if t.n_rows)
-    emit({"phase": "trace", "n": N_MAIN, "trace_cells": cells, "host_seconds": trace_s,
-          "tables": {k: [t.log_size, len(t.columns)] for k, t in pie.trace_tables.items()}})
+def trace_cells(pie) -> int:
+    return sum(t.n_rows * len(t.columns) for t in pie.trace_tables.values() if t.n_rows)
 
+
+def phase_pinn_trace(T, BS):
+    """The PINN at batch 256 through the user's entry points: weights from
+    load_weights() (a seeded initialisation when examples/model/weights.npz
+    is absent), inputs drawn as the flagship bench draws them."""
+    w = BS.load_weights()
+    rng = np.random.default_rng(7)
+    xs = np.column_stack([rng.uniform(5.0, 30.0, PINN_BATCH), rng.uniform(0.05, 1.0, PINN_BATCH)])
+    cx = T.Graph()
+    x, out = BS.build(cx, w, batch=PINN_BATCH)
+    x.set(xs)
+    cx.compile()
+    t0 = time.perf_counter()
+    settings = T.gen_circuit_settings(cx)
+    settings_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pie = T.gen_trace(cx, settings)
+    trace_s = time.perf_counter() - t0
+    got = np.asarray(out.data()).reshape(-1)
+    model_err = float(np.max(np.abs(got - BS.reference_forward(w, xs).reshape(-1))))
+    emit({"phase": "pinn_trace", "batch": PINN_BATCH, "trace_cells": trace_cells(pie),
+          "settings_host_seconds": settings_s, "trace_host_seconds": trace_s,
+          "model_max_abs_err": model_err,
+          "tables": {k: [t.n_rows, t.log_size, len(t.columns)] for k, t in pie.trace_tables.items()}})
+    if not model_err < 0.05:
+        raise AssertionError(f"PINN output drifts {model_err} from its float64 forward pass")
+    return pie, settings
+
+
+def native_verify(serde, proof_bytes: bytes, settings, tag: str) -> float:
+    os.makedirs(OUT_DIR, exist_ok=True)
+    proof_path = os.path.join(OUT_DIR, f"proof_{tag}.lmv")
+    settings_path = os.path.join(OUT_DIR, f"settings_{tag}.lms")
+    with open(proof_path, "wb") as fh:
+        fh.write(proof_bytes)
+    with open(settings_path, "wb") as fh:
+        fh.write(serde.settings_to_flat_bytes(settings))
+    subprocess.run(["make", "-C", os.path.join(ROOT, "native")], check=True,
+                   capture_output=True, text=True, timeout=600)
+    t0 = time.perf_counter()
+    res = subprocess.run([os.path.join(ROOT, "native", "build", "luminair-verify"), proof_path,
+                          settings_path], capture_output=True, text=True, timeout=600)
+    verify_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"{tag}: native verifier rejected the proof: {res.stdout}{res.stderr}")
+    return verify_s
+
+
+def phase_path(T, kernels, serde, tracing, card, tag: str, pie, settings):
+    """One path: a first prove with every launch counter set to 0 just
+    before it and read just after (each kernel must have launched), then
+    the median of 3 proves, and the native verifier on the proof."""
+    cells = trace_cells(pie)
     kernels.reset_counts()
     t0 = time.perf_counter()
-    proof = T.prove(pie, settings)  # the main path: one prove on the card
+    proof = T.prove(pie, settings)  # one prove on the card
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = kernels.counts()
-    emit({"phase": "main_path", "first_prove_seconds": first_s, "launches": launches})
+    emit({"phase": "path", "path": tag, "first_prove_seconds": first_s, "launches": launches})
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
-        raise AssertionError(f"the prove launched no {missing}")
+        raise AssertionError(f"{tag}: the prove launched no {missing}")
 
     times, phases = [], []
     for _ in range(3):
@@ -269,33 +448,121 @@ def phase_main(T, kernels, serde, tracing, card):
     med = statistics.median(times)
     pb = serde.proof_to_flat_bytes(proof)
     if serde.proof_to_flat_bytes(again) != pb:
-        raise AssertionError("repeated proves of one PIE differ")
-
-    os.makedirs(OUT_DIR, exist_ok=True)
-    proof_path = os.path.join(OUT_DIR, f"proof_{N_MAIN}.lmv")
-    settings_path = os.path.join(OUT_DIR, f"settings_{N_MAIN}.lms")
-    with open(proof_path, "wb") as fh:
-        fh.write(pb)
-    with open(settings_path, "wb") as fh:
-        fh.write(serde.settings_to_flat_bytes(settings))
-    subprocess.run(["make", "-C", os.path.join(ROOT, "native")], check=True,
-                   capture_output=True, text=True, timeout=600)
-    t0 = time.perf_counter()
-    res = subprocess.run([os.path.join(ROOT, "native", "build", "luminair-verify"), proof_path,
-                          settings_path], capture_output=True, text=True, timeout=600)
-    verify_s = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise AssertionError(f"native verifier rejected the proof: {res.stdout}{res.stderr}")
+        raise AssertionError(f"{tag}: repeated proves of one PIE differ")
+    verify_s = native_verify(serde, pb, settings, tag)
     emit({
-        "phase": "prove", "n": N_MAIN, "card": card, "prove_seconds": times,
+        "phase": "prove", "path": tag, "card": card, "trace_cells": cells, "prove_seconds": times,
         "prove_seconds_median": med, "trace_cells_per_s": cells / med,
         "phases_s": phases[times.index(med)], "proof_bytes": len(pb),
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
         "self_check": "passed", "native_verify": "accepted", "native_verify_seconds": verify_s,
     })
-    return launches, pie, settings
+    return launches
 
 
-def phase_profile(T, pie, settings):
+# The wrappers a prove calls: the kernel each launches, its plain twin on
+# the call's bound arguments, and the arguments whose shapes (or, for a
+# tape, its component) set the work of the call.
+def path_twins(kernels, tape, f):
+    return {
+        "circle_ifft": ("circle_fft", lambda a: kernels.circle_ifft_plain(a["values"]), ("values",)),
+        "circle_fft": ("circle_fft", lambda a: kernels.circle_fft_plain(a["coeffs"], a["m_start"]),
+                       ("coeffs", "m_start")),
+        "circle_lde": ("circle_fft", lambda a: kernels.circle_lde_plain(a["coeffs"], a["log_blowup"]),
+                       ("coeffs", "log_blowup")),
+        "merkle_layer": ("blake2s_merkle", lambda a: kernels.merkle_layer_plain(a["prev"], a["cols"]),
+                         ("prev", "cols")),
+        "fri_fold": ("fri_fold", lambda a: kernels.fri_fold_plain(a["values"], a["twiddles"], a["alpha"],
+                                                                  a["mix"], a["beta2"]), ("values", "mix")),
+        "deep_quotient": ("deep_quotient", lambda a: kernels.deep_quotient_plain(
+            a["cols"], a["gammas"], a["consts"], a["log"], a["acc"]), ("cols", "log", "acc")),
+        "air_witness": ("air_witness", lambda a: tape.witness_plain(a["tp"], a["main"], a["pp"], a["ew"]),
+                        ("tp", "main")),
+        "air_domain": ("air_domain", lambda a: tape.domain_plain(
+            a["tp"], a["main"], a["pp"], a["inter"], a["is_first"], f.qm31_words(a["claimed"]), a["ew"],
+            a["pows"], a["log_trace"], a["stride"], a["acc"]), ("tp", "is_first", "stride", "acc")),
+        "oods_eval": ("oods_eval", lambda a: kernels.oods_eval_plain(a["cols"], a["chain"]), ("cols",)),
+    }
+
+
+def describe(x):
+    """The part of an argument that sets a call's work: a tensor's shape
+    (and strides when it is a view), a column list's length and column
+    shape, a tape's component."""
+    if isinstance(x, torch.Tensor):
+        return tuple(x.shape) if x.is_contiguous() else (tuple(x.shape), x.stride())
+    if isinstance(x, (list, tuple)) and x and isinstance(x[0], torch.Tensor):
+        return (len(x),) + tuple(x[0].shape)
+    if hasattr(x, "n_relations"):
+        return x.name
+    return x
+
+
+def flat(out) -> torch.Tensor:
+    """One int32 vector of a wrapper's result (K5 returns columns and sum)."""
+    return torch.cat([o.reshape(-1) for o in out]) if isinstance(out, tuple) else out
+
+
+def phase_path_kernels(T, kernels, tape, f, tag: str, pie, settings, device=None):
+    """One more prove of the path with every wrapper recording: the first
+    call at each distinct key (wrapper, the shapes of its work) keeps its
+    arguments (an `acc` the kernel adds into is cloned first).  After the
+    prove each kept call runs through the kernel and through its twin; any
+    word that differs fails the run, and so does a kernel the path never
+    called."""
+    twins = path_twins(kernels, tape, f)
+    originals = {name: getattr(kernels, name) for name in twins}
+    kept, calls = {}, {}
+
+    def recorder(name, fn):
+        sig = inspect.signature(fn)
+        key_args = twins[name][2]
+
+        def rec(*args, **kw):
+            bound = sig.bind(*args, **kw)
+            bound.apply_defaults()
+            a = dict(bound.arguments)
+            calls[name] = calls.get(name, 0) + 1
+            key = (name,) + tuple(describe(a[k]) for k in key_args)
+            if key not in kept:
+                kept[key] = {k: v.clone() if k == "acc" and v is not None else v for k, v in a.items()}
+            return fn(*args, **kw)
+
+        return rec
+
+    try:
+        for name, fn in originals.items():
+            setattr(kernels, name, recorder(name, fn))
+        T.prove(pie, settings, device=device)
+    finally:
+        for name, fn in originals.items():
+            setattr(kernels, name, fn)
+
+    by_kernel = {k.name: {"calls": 0, "shapes": [], "max_abs_err": 0} for k in kernels.KERNELS}
+    for name, n in calls.items():
+        by_kernel[twins[name][0]]["calls"] += n
+    for key, a in kept.items():
+        name = key[0]
+        kernel_name, plain, _ = twins[name]
+        args = dict(a)
+        if args.get("acc") is not None:
+            args["acc"] = args["acc"].clone()
+        got = flat(getattr(kernels, name)(**args))
+        want = flat(plain(a))
+        err = max_abs_err(got, want)
+        row = by_kernel[kernel_name]
+        row["shapes"].append(repr(key))
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+    del kept
+    for kernel_name, row in by_kernel.items():
+        emit({"phase": "path_kernel_check", "path": tag, "kernel": kernel_name, **row})
+    bad = [k for k, r in by_kernel.items() if r["max_abs_err"] != 0 or not r["shapes"]]
+    if bad:
+        raise AssertionError(f"{tag}: at the path's shapes, kernels disagree with their twins or never ran: {bad}")
+    return {k: r["max_abs_err"] for k, r in by_kernel.items()}
+
+
+def phase_profile(T, tag: str, pie, settings):
     """One prove under torch.profiler: the device's busy time (the sum of
     kernel times; one stream, so kernels do not overlap), its idle share of
     the profiled wall time, and the kernels that take the most device time
@@ -322,15 +589,14 @@ def phase_profile(T, pie, settings):
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     emit({
-        "phase": "profile", "n": N_MAIN, "wall_ms_profiled": wall_ms,
+        "phase": "profile", "path": tag, "wall_ms_profiled": wall_ms,
         "device_busy_ms": busy_ms if rows else "not measured",
         "device_idle_share": 1 - busy_ms / wall_ms if rows else "not measured",
         "device_kernels": len(rows),
         "port_kernels": {
             name: {"ms": sum(ms for k, ms, _ in rows if name in k),
                    "count": sum(c for k, _, c in rows if name in k)}
-            for name in ("fft_stage_kernel", "fft_embed_kernel", "merkle_layer_kernel",
-                         "fri_fold_kernel", "deep_quotient_kernel")
+            for name in PORT_KERNEL_NAMES
         },
         "top": [{"name": k[:90], "ms": ms, "count": c} for k, ms, c in rows[:15]],
     })
@@ -353,14 +619,34 @@ def main() -> int:
     from luminair_tpu_torch import fields as f
     from luminair_tpu_torch import circle, kernels, serde, tracing
     from luminair_tpu_torch import prelude as T
+    from luminair_tpu_torch.air import tape
+    from luminair_tpu_torch.models import black_scholes as BS
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     card = phase_card()
     phase_build(kernels)
-    rows = phase_kernels(kernels, circle, f, dev)
-    launches, pie, settings = phase_main(T, kernels, serde, tracing, card)
-    phase_profile(T, pie, settings)
+    pinn_pie, pinn_settings = phase_pinn_trace(T, BS)
+    pinn_logs = {k: t.log_size for k, t in pinn_pie.trace_tables.items() if t.n_rows}
+    rows = phase_kernels(kernels, circle, f, dev, pinn_logs)
+
+    t0 = time.perf_counter()
+    pie, settings = bench_graph(T, N_MAIN)
+    emit({"phase": "trace", "path": f"bench_n{N_MAIN}", "trace_cells": trace_cells(pie),
+          "host_seconds": time.perf_counter() - t0,
+          "tables": {k: [t.log_size, len(t.columns)] for k, t in pie.trace_tables.items()}})
+    bench = f"bench_n{N_MAIN}"
+    launches = {bench: phase_path(T, kernels, serde, tracing, card, bench, pie, settings)}
+    path_errs = {bench: phase_path_kernels(T, kernels, tape, f, bench, pie, settings)}
+    phase_profile(T, bench, pie, settings)
+    del pie, settings
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tag = f"pinn_b{PINN_BATCH}"
+    launches[tag] = phase_path(T, kernels, serde, tracing, card, tag, pinn_pie, pinn_settings)
+    path_errs[tag] = phase_path_kernels(T, kernels, tape, f, tag, pinn_pie, pinn_settings)
+    torch.cuda.empty_cache()
+    phase_profile(T, tag, pinn_pie, pinn_settings)
     phase_parity(T, serde)
 
     line = []
@@ -368,7 +654,9 @@ def main() -> int:
         r = rows[k.name]
         line.append({
             "name": k.name, "route": "cuda", "source": f"luminair_tpu_torch/csrc/{k.source}",
-            "replaces": k.replaces, "launches": launches[k.name], "max_abs_err": r["err"],
+            "replaces": k.replaces, "launches": launches[tag][k.name],
+            "launches_by_path": {p: c[k.name] for p, c in launches.items()},
+            "max_abs_err": max([r["err"]] + [e[k.name] for e in path_errs.values()]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": None,
         })

@@ -1,5 +1,5 @@
-"""AIR constraint framework: one `evaluate()` per component, three
-interpreters, over torch tensors.
+"""AIR constraint framework: one `evaluate()` per component, two
+interpreters.
 
 A component defines its constraints once against the `AirEval` API:
 
@@ -8,15 +8,14 @@ A component defines its constraints once against the `AirEval` API:
     ev.relation(elements, mult, vals)  # LogUp entry: mult / combine(vals)
 
 interpreted by
-  * WitnessEval  -- trace-domain columns; builds the LogUp interaction
-    columns and the claimed sum;
-  * DomainEval   -- commit-domain evaluations; accumulates
-    sum(alpha^i * C_i) for the composition polynomial;
-  * PointEval    -- OODS-sampled scalars; the same combination at the
-    sample point (the prover's self-check).
+  * TapeEval (air/tape.py) -- records the component as a straight-line
+    program that the witness and domain kernels run row by row (the
+    prover's phases 2 and 3a);
+  * PointEval -- OODS-sampled QM31 scalars (int64 (4,) tensors); the
+    combination sum(alpha^i * C_i) at the sample point (the prover's
+    self-check).
 
-Values are QM31 int64 tensors: (4,) scalars or (N, 4) columns, all on the
-evaluator's device.  LogUp (reference package air/framework.py): column b
+LogUp (reference package air/framework.py): column b
 carries the within-row chain S_b = S_{b-1} + n_b/d_b; the last column also
 carries the running prefix sum down the rows.
   b < last: (S_b - S_{b-1}) * d_b - n_b = 0
@@ -40,10 +39,6 @@ class Felt:
 
     def __init__(self, v: torch.Tensor):
         self.v = v
-
-    @staticmethod
-    def from_m31(col: torch.Tensor) -> "Felt":
-        return Felt(f.qm31_from_m31(col.to(f.I64)))
 
     def _coerce(self, other):
         if isinstance(other, Felt):
@@ -84,9 +79,9 @@ class LookupElements:
             self._alpha_pows.append(f.qm31_mul(self._alpha_pows[-1], alpha))
 
     @classmethod
-    def draw(cls, channel, size: int, device="cpu"):
-        z = f.u32_to_tensor(channel.draw_felt(), device, f.I64)
-        alpha = f.u32_to_tensor(channel.draw_felt(), device, f.I64)
+    def draw(cls, channel, size: int):
+        z = f.u32_to_tensor(channel.draw_felt(), "cpu", f.I64)
+        alpha = f.u32_to_tensor(channel.draw_felt(), "cpu", f.I64)
         return cls(z, alpha, size)
 
     def combine(self, values: List[Felt]) -> Felt:
@@ -134,50 +129,6 @@ class AirEval:
         return Felt(f.qm31_from_ints(x, device=self.device))
 
 
-class WitnessEval(AirEval):
-    """Trace-domain columns -> interaction columns."""
-
-    def __init__(self, main_cols: Dict[str, torch.Tensor], preprocessed_cols: Dict[str, torch.Tensor]):
-        ref = next(iter(main_cols.values())) if main_cols else next(iter(preprocessed_cols.values()))
-        super().__init__(ref.device)
-        self._main = main_cols
-        self._pp = preprocessed_cols
-        self.n_rows = len(ref)
-
-    def main(self, name: str) -> Felt:
-        return Felt.from_m31(self._main[name])
-
-    def main_next(self, name: str) -> Felt:
-        return Felt.from_m31(torch.roll(self._main[name], -1, 0))
-
-    def preprocessed(self, pp_id: str) -> Felt:
-        return Felt.from_m31(self._pp[pp_id])
-
-    def constraint(self, expr: Felt):
-        pass  # witness generation ignores constraints
-
-    def finalize_logup(self):
-        pass  # interaction columns come from build_interaction
-
-    def build_interaction(self):
-        """(interaction columns [(N, 4) int64 per entry], claimed sum (4,)):
-        a batched QM31 inverse of the denominators, the within-row running
-        sums, and an M31 prefix sum down the rows of the last column."""
-        n = self.n_rows
-        row_acc = f.qm31_zero((n,), self.device)
-        cols = []
-        for e in self.relation_entries:
-            num = e.numerator.v.expand(n, 4)
-            row_acc = f.add(row_acc, f.qm31_mul(num, f.qm31_inv(e.denominator.v)))
-            cols.append(row_acc)
-        # The running sum goes down the rows: scan (4, N) along its inner
-        # axis (an outer-axis scan of (N, 4) runs on a handful of threads).
-        # Partial sums stay below 2^31 * rows, well inside int64.
-        prefix = (torch.cumsum(row_acc.t().contiguous(), dim=1) % f.P).t()
-        cols[-1] = prefix
-        return cols, prefix[-1]
-
-
 class ConstraintAccumulator:
     """sum(alpha^i * C_i) with the alpha power carried across components."""
 
@@ -189,53 +140,6 @@ class ConstraintAccumulator:
     def add(self, expr: Felt):
         self.acc = f.add(self.acc, f.qm31_mul(expr.v, self.pow))
         self.pow = f.qm31_mul(self.pow, self.alpha)
-
-
-class DomainEval(AirEval):
-    """Constraint evaluation on a component's commit domain; "next row" is a
-    cyclic roll by `roll_stride` = 2^log_blowup positions."""
-
-    def __init__(
-        self,
-        main_evals: Dict[str, torch.Tensor],
-        pp_evals: Dict[str, torch.Tensor],
-        interaction_evals: List[torch.Tensor],  # (M, 4) int64 per relation entry
-        is_first_evals: torch.Tensor,
-        claimed_sum: torch.Tensor,
-        accumulator: ConstraintAccumulator,
-        roll_stride: int,
-    ):
-        super().__init__(is_first_evals.device)
-        self._main = main_evals
-        self._pp = pp_evals
-        self._inter = interaction_evals
-        self._is_first = is_first_evals
-        self._claimed = claimed_sum
-        self._acc = accumulator
-        self._roll = roll_stride
-
-    def main(self, name: str) -> Felt:
-        return Felt.from_m31(self._main[name])
-
-    def main_next(self, name: str) -> Felt:
-        return Felt.from_m31(torch.roll(self._main[name], -self._roll, 0))
-
-    def preprocessed(self, pp_id: str) -> Felt:
-        return Felt.from_m31(self._pp[pp_id])
-
-    def constraint(self, expr: Felt):
-        self._acc.add(expr)
-
-    def finalize_logup(self):
-        _finalize_logup(
-            self.relation_entries,
-            [Felt(v) for v in self._inter],
-            Felt(torch.roll(self._inter[-1], self._roll, 0)) if self._inter else None,
-            Felt.from_m31(self._is_first),
-            Felt(self._claimed),
-            self._acc,
-            self.device,
-        )
 
 
 class PointEval(AirEval):

@@ -55,14 +55,15 @@ class AirLayout:
 
         self.composition_log = claim.max_log_size + 1
 
-    def draw_elements(self, channel, device="cpu") -> Dict[str, LookupElements]:
-        """Draw order is fixed: node, then the present LUT relations."""
-        elems = {"node": LookupElements.draw(channel, 2, device)}
+    def draw_elements(self, channel) -> Dict[str, LookupElements]:
+        """Draw order is fixed: node, then the present LUT relations.  The
+        elements stay on the host: the kernels take them as words."""
+        elems = {"node": LookupElements.draw(channel, 2)}
         for kind in ("sin", "exp2", "log2"):
             if f"{kind}_lookup" in self.claim.log_sizes:
-                elems[kind] = LookupElements.draw(channel, 2, device)
+                elems[kind] = LookupElements.draw(channel, 2)
         if "range_check_lookup" in self.claim.log_sizes:
-            elems["range_check"] = LookupElements.draw(channel, 1, device)
+            elems["range_check"] = LookupElements.draw(channel, 1)
         return elems
 
     def pp_index(self, pp_id: str) -> int:

@@ -9,8 +9,9 @@ twiddles.  Coefficient basis, index bits MSB..LSB = [y, x, pi(x), ...]:
 
 The low-degree extension embeds a 2^n coefficient vector into 2^(n+B) by
 striding (zeros in the low bits) and evaluates on the larger domain.  The
-transforms run in the circle-FFT kernel (kernels.circle_*, K1) for CUDA
-tensors and in its plain twin for CPU tensors.
+transforms run in the circle-FFT kernel (kernels.circle_*, K1) and the
+evaluation of many columns at a point in the OODS kernel (kernels.oods_eval,
+K7) for CUDA tensors, in their plain twins for CPU tensors.
 
 Columns are int32 (..., N) tensors; QM31 values are int64 (4,) tensors.
 """
@@ -19,7 +20,6 @@ from __future__ import annotations
 
 import torch
 
-from . import circle
 from . import fields as f
 from . import kernels
 
@@ -51,66 +51,24 @@ def lde(values: torch.Tensor, log_blowup: int) -> torch.Tensor:
     return extend_coeffs_and_fft(ifft(values), log_blowup)
 
 
-def _twiddle_chain(log_n: int, point):
-    """[y, x, pi(x), ..., pi^(n-2)(x)] of a QM31 point, MSB first."""
-    x, y = point
-    ts = [y]
-    cur = x
+def twiddle_chain(log_n: int, point) -> list:
+    """[y, x, pi(x), ..., pi^(n-2)(x)] of a QM31 point, MSB first, as
+    4-tuples of ints (host words)."""
+    x, y = f.qm31_words(point[0]), f.qm31_words(point[1])
+    ts, one = [y], (1, 0, 0, 0)
     for _ in range(log_n - 1):
-        ts.append(cur)
-        cur = circle.pi_x_qm31(cur)
-    return ts
+        ts.append(x)
+        x2 = f.qm31_mul_ints(x, x)
+        x = tuple((2 * a - b) % f.P for a, b in zip(x2, one))
+    return ts[:log_n]
 
 
-def eval_at_point(coeffs: torch.Tensor, point) -> torch.Tensor:
-    """Evaluate M31 coefficient vectors (..., N) at a QM31 point by halving
-    folds; (..., 4) int64."""
-    c = coeffs.to(f.I64)
-    log_n = c.shape[-1].bit_length() - 1
-    if log_n == 0:
-        return f.qm31_from_m31(c[..., 0])
-    ts = _twiddle_chain(log_n, (point[0].to(c.device), point[1].to(c.device)))
-    a = f.qm31_from_m31(c)  # (..., N, 4)
-    for lvl in range(log_n - 1, -1, -1):
-        a = f.add(a[..., 0::2, :], f.qm31_mul(a[..., 1::2, :], ts[lvl]))
-    return a[..., 0, :]
-
-
-def basis_at_point(log_n: int, point, device) -> torch.Tensor:
-    """All 2^log_n basis functions at a QM31 point, (N, 4) int64, built in
-    log_n doubling steps."""
-    ts = _twiddle_chain(log_n, (point[0].to(device), point[1].to(device)))
-    basis = f.qm31_one((1,), device)
-    for i in range(log_n):
-        basis = torch.cat([basis, f.qm31_mul(ts[log_n - 1 - i], basis)])
-    return basis
-
-
-# Elements of one modular-product chunk: bounds the (C, N, 4) int64 temp.
-_DOT_CHUNK = 1 << 24
-
-
-def mod_dot(coeffs: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
-    """(C, N) M31 x (N, 4) M31 -> (C, 4) mod P, exact: each product is
-    reduced below 2^31, so a sum of up to 2^32 of them fits int64."""
-    c64 = coeffs.to(f.I64)
-    n = c64.shape[1]
-    rows = max(1, _DOT_CHUNK // (4 * n))
-    out = []
-    for s in range(0, c64.shape[0], rows):
-        prod = (c64[s : s + rows, :, None] * basis[None]) % f.P
-        out.append(prod.sum(dim=1) % f.P)
-    return torch.cat(out)
-
-
-def eval_at_point_many(coeffs2d: torch.Tensor, point) -> torch.Tensor:
-    """Many same-size M31 coefficient vectors (C, N) at one QM31 point:
-    one basis vector and one modular product.  (C, 4) int64."""
-    n = coeffs2d.shape[1]
-    log_n = n.bit_length() - 1
-    if log_n == 0:
-        return f.qm31_from_m31(coeffs2d[:, 0].to(f.I64))
-    return mod_dot(coeffs2d, basis_at_point(log_n, point, coeffs2d.device))
+def eval_at_point_many(coeffs, point) -> torch.Tensor:
+    """Many same-size M31 coefficient columns ((C, N) tensor or C columns of
+    length N) at one QM31 point, through the OODS kernel (K7); (C, 4) int32."""
+    cols = list(coeffs)
+    log_n = cols[0].shape[0].bit_length() - 1
+    return kernels.oods_eval(cols, twiddle_chain(log_n, point))
 
 
 def line_ifft_qm31(values: torch.Tensor, twiddles_inv) -> torch.Tensor:

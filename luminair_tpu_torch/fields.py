@@ -195,3 +195,40 @@ def qm31_inv(x):
 def qm31_conj(x):
     """The Gal(QM31/CM31) involution (A + Bu) -> (A - Bu)."""
     return torch.stack([x[..., 0], x[..., 1], neg(x[..., 2]), neg(x[..., 3])], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# QM31 scalars as 4-tuples of python ints: the host side of a kernel launch
+# (power tables, twiddle chains) without a torch launch per operation.
+
+
+def qm31_words(x) -> tuple:
+    """A QM31 value from a (4,) tensor, array or sequence -> 4 ints."""
+    vals = x.tolist() if hasattr(x, "tolist") else list(x)
+    if len(vals) != 4:
+        raise ValueError("expected one QM31 value (4 words)")
+    return tuple(int(v) for v in vals)
+
+
+def qm31_mul_ints(x: tuple, y: tuple) -> tuple:
+    a, b, c, d = x
+    e, g, h, k = y
+    ac_r, ac_i = a * e - b * g, a * g + b * e
+    bd_r, bd_i = c * h - d * k, c * k + d * h
+    ad_r, ad_i = a * h - b * k, a * k + b * h
+    bc_r, bc_i = c * e - d * g, c * g + d * e
+    return (
+        (ac_r + 2 * bd_r - bd_i) % P,
+        (ac_i + bd_r + 2 * bd_i) % P,
+        (ad_r + bc_r) % P,
+        (ad_i + bc_i) % P,
+    )
+
+
+def qm31_powers_ints(start: tuple, base: tuple, count: int):
+    """([start * base^i for i < count], start * base^count)."""
+    out, cur = [], tuple(start)
+    for _ in range(count):
+        out.append(cur)
+        cur = qm31_mul_ints(cur, base)
+    return out, cur

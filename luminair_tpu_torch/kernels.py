@@ -1,9 +1,10 @@
 """The port's hand-written Hopper kernels: build, binding, wrappers.
 
-Four CUDA C++ sources under csrc/ (sharing csrc/m31.cuh) are compiled at
-first use with nvcc for sm_90a, one shared library per source, all sources
-compiled at once, into build/kernels/ at the repository root; each library
-is named by a hash of its sources, so an edit rebuilds it.  The libraries
+The CUDA C++ sources under csrc/ (sharing csrc/m31.cuh and csrc/tape.cuh)
+are compiled at first use with nvcc for sm_90a, one shared library per
+source, all sources compiled at once, into build/kernels/ at the repository
+root; each library is named by a hash of its source and every header it
+includes, so an edit to either rebuilds it.  The libraries
 have a plain C interface bound with ctypes: every entry point launches on
 PyTorch's current stream, allocates nothing, and returns
 cudaGetLastError(), which the wrapper turns into a KernelError.
@@ -22,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -53,20 +55,41 @@ _I = ctypes.c_int
 _U = ctypes.c_uint32
 
 
-class Kernel:
-    """One CUDA source, its C entry points, and a count of launches."""
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
-    def __init__(self, name: str, source: str, replaces: str, symbols: Dict[str, list]):
+
+def _sources(source: str) -> List[Path]:
+    """The source and every csrc/ header it includes, directly or not."""
+    seen, todo = [], [_CSRC / source]
+    while todo:
+        p = todo.pop()
+        if p in seen:
+            continue
+        seen.append(p)
+        todo.extend(_CSRC / name for name in _INCLUDE.findall(p.read_text()))
+    return seen
+
+
+class Kernel:
+    """One kernel: its CUDA source, C entry points, and a count of launches.
+    `abi` maps C functions without arguments to the value each must return:
+    the size of a struct passed by value, or a limit that this module and
+    the source both use; checked when the library loads."""
+
+    def __init__(self, name: str, source: str, replaces: str, symbols: Dict[str, list],
+                 abi: Optional[Dict[str, int]] = None):
         self.name = name
         self.source = source
         self.replaces = replaces
         self.symbols = symbols
+        self.abi = abi or {}
         self.launches = 0
         self._fns = None
 
     def library_path(self) -> Path:
         h = hashlib.sha256()
-        for p in (_CSRC / self.source, _CSRC / "m31.cuh"):
+        for p in _sources(self.source):
+            h.update(p.name.encode())
             h.update(p.read_bytes())
         return BUILD_DIR / f"{Path(self.source).stem}-{h.hexdigest()[:16]}.so"
 
@@ -77,6 +100,11 @@ class Kernel:
                 if not path.exists():
                     build()
                 lib = ctypes.CDLL(str(path))
+                for sym, want in self.abi.items():
+                    fn = getattr(lib, sym)
+                    fn.argtypes, fn.restype = [], ctypes.c_longlong
+                    if fn() != want:
+                        raise KernelError(f"{self.name}: {sym}() is {fn()} in {self.source}, {want} here")
                 fns = {}
                 for sym, argtypes in self.symbols.items():
                     fn = getattr(lib, sym)
@@ -125,7 +153,87 @@ DEEP_QUOTIENT = Kernel(
     {"lum_deep_quotient": [_P, _P, _I, _P, _P, _P, _P, _LL, _I]},
 )
 
-KERNELS = (CIRCLE_FFT, MERKLE, FRI_FOLD, DEEP_QUOTIENT)
+# The tape's kernel ABI (csrc/tape.cuh): lookup-element kinds in the order
+# of the elements table, and the limits the kernels are compiled for
+# (air/tape.py checks them when it records a component).
+ELEM_KINDS = ("node", "sin", "exp2", "log2", "range_check")
+TAPE_MAX_REGS = 16
+TAPE_MAX_MAIN = 32
+TAPE_MAX_PP = 4
+TAPE_MAX_RELATIONS = 8
+TAPE_MAX_POWS = 32
+TAPE_MAX_INS = 128
+
+
+class AirArgs(ctypes.Structure):
+    """Mirror of lum::AirArgs (csrc/tape.cuh), passed to K5/K6 by value."""
+
+    _fields_ = [
+        ("main", ctypes.c_uint64 * TAPE_MAX_MAIN),
+        ("pp", ctypes.c_uint64 * TAPE_MAX_PP),
+        ("inter", ctypes.c_uint64 * (4 * TAPE_MAX_RELATIONS)),
+        ("is_first", ctypes.c_uint64),
+        ("xs", ctypes.c_uint64),
+        ("out", ctypes.c_uint64),
+        ("tape", ctypes.c_uint64),
+        ("n", ctypes.c_longlong),
+        ("n_ins", ctypes.c_int),
+        ("n_rel", ctypes.c_int),
+        ("n_constraints", ctypes.c_int),
+        ("stride", ctypes.c_int),
+        ("log_trace", ctypes.c_int),
+        ("accumulate", ctypes.c_int),
+        ("elems", ctypes.c_uint32 * (len(ELEM_KINDS) * 2 * 4)),
+        ("claimed", ctypes.c_uint32 * 4),
+        ("pows", ctypes.c_uint32 * (4 * TAPE_MAX_POWS)),
+    ]
+
+
+OODS_MAX_COLS = 256
+OODS_MAX_LOG = 32
+OODS_CHUNK_LOG = 11
+
+
+class OodsArgs(ctypes.Structure):
+    """Mirror of OodsArgs (csrc/oods.cu), passed to K7 by value."""
+
+    _fields_ = [
+        ("cols", ctypes.c_uint64 * OODS_MAX_COLS),
+        ("chain", ctypes.c_uint32 * (4 * OODS_MAX_LOG)),
+        ("n_cols", ctypes.c_int),
+        ("log_n", ctypes.c_int),
+    ]
+
+
+_AIR_ABI = {
+    "lum_air_args_size": ctypes.sizeof(AirArgs),
+    "lum_tape_max_regs": TAPE_MAX_REGS,
+    "lum_tape_max_ins": TAPE_MAX_INS,
+}
+
+AIR_WITNESS = Kernel(
+    "air_witness",
+    "air.cu",
+    "luminair_tpu/parallel/accel.py:1068 (_jit_witness; WitnessEval.build_interaction)",
+    {"lum_air_witness": [_P], "lum_m31_scan": [_P, _LL, _I, _P]},
+    abi=_AIR_ABI,
+)
+AIR_DOMAIN = Kernel(
+    "air_domain",
+    "air.cu",
+    "luminair_tpu/parallel/accel.py:1112 (_jit_domain; DomainEval)",
+    {"lum_air_domain": [_P]},
+    abi=_AIR_ABI,
+)
+OODS_EVAL = Kernel(
+    "oods_eval",
+    "oods.cu",
+    "luminair_tpu/parallel/accel.py:1792 (_jit_eval_at_point; fft.eval_at_point_many)",
+    {"lum_oods_eval": [_P, _P, _P]},
+    abi={"lum_oods_args_size": ctypes.sizeof(OodsArgs), "lum_oods_chunk_log": OODS_CHUNK_LOG},
+)
+
+KERNELS = (CIRCLE_FFT, MERKLE, FRI_FOLD, DEEP_QUOTIENT, AIR_WITNESS, AIR_DOMAIN, OODS_EVAL)
 
 
 def reset_counts() -> None:
@@ -146,25 +254,25 @@ def _nvcc() -> str:
 
 def build() -> Dict[str, str]:
     """Compile every kernel library that is missing, one nvcc process per
-    source, all started together.  Returns {kernel name: ptxas report}."""
+    source, all started together.  Returns {source: ptxas report}."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
+    jobs = {}
     for k in KERNELS:
         out = k.library_path()
-        if out.exists():
+        if out.exists() or k.source in jobs:
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp), str(_CSRC / k.source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        jobs.append((k, out, tmp, proc))
+        jobs[k.source] = (out, tmp, proc)
     reports, errors = {}, []
-    for k, out, tmp, proc in jobs:
+    for source, (out, tmp, proc) in jobs.items():
         stdout, stderr = proc.communicate()
         if proc.returncode != 0:
-            errors.append(f"{k.source}:\n{stderr}{stdout}")
+            errors.append(f"{source}:\n{stderr}{stdout}")
             continue
         os.replace(tmp, out)
-        reports[k.name] = stderr + stdout
+        reports[source] = stderr + stdout
     if errors:
         raise KernelError("kernel build failed:\n" + "\n".join(errors))
     return reports
@@ -358,10 +466,11 @@ def merkle_layer_plain(prev: Optional[torch.Tensor], cols: Optional[torch.Tensor
 # K3: FRI fold.
 
 
-def _qm31_words(x) -> List[int]:
-    vals = [int(v) for v in (x.tolist() if isinstance(x, torch.Tensor) else list(x))]
-    _require(len(vals) == 4, "expected one QM31 value (4 words)")
-    return vals
+def _words(x) -> List[int]:
+    try:
+        return list(f.qm31_words(x))
+    except ValueError as e:
+        raise KernelError(str(e)) from None
 
 
 def fri_fold(values: torch.Tensor, twiddles: torch.Tensor, alpha, mix: Optional[torch.Tensor] = None,
@@ -374,8 +483,8 @@ def fri_fold(values: torch.Tensor, twiddles: torch.Tensor, alpha, mix: Optional[
     _require(tuple(twiddles.shape) == (n,) and twiddles.dtype == f.I32, "fri_fold: twiddles (n,) int32")
     if mix is not None:
         _require(tuple(mix.shape) == (n, 4) and mix.dtype == f.I32, "fri_fold: mix (n, 4) int32")
-    a = _qm31_words(alpha)
-    b = _qm31_words(beta2) if mix is not None else [0, 0, 0, 0]
+    a = _words(alpha)
+    b = _words(beta2) if mix is not None else [0, 0, 0, 0]
     if _on_cpu(values):
         return fri_fold_plain(values, twiddles, a, mix, b)
     values = values.contiguous()
@@ -396,9 +505,9 @@ def fri_fold_plain(values, twiddles, alpha, mix=None, beta2=None) -> torch.Tenso
     v0, v1 = v[:n], v[n:].flip(0)
     e = f.mul(f.add(v0, v1), f.INV2)
     o = f.mul(f.sub(v0, v1), twiddles.to(f.I64)[:, None])
-    r = f.add(e, f.qm31_mul(torch.tensor(_qm31_words(alpha), dtype=f.I64, device=dev), o))
+    r = f.add(e, f.qm31_mul(torch.tensor(_words(alpha), dtype=f.I64, device=dev), o))
     if mix is not None:
-        b2 = torch.tensor(_qm31_words(beta2), dtype=f.I64, device=dev)
+        b2 = torch.tensor(_words(beta2), dtype=f.I64, device=dev)
         r = f.add(r, f.qm31_mul(b2, mix.to(f.I64)))
     return r.to(f.I32)
 
@@ -452,3 +561,137 @@ def deep_quotient_plain(cols, gammas, consts, log: int, acc=None) -> torch.Tenso
     if acc is not None:
         q = f.add(acc.to(f.I64), q)
     return q.to(f.I32)
+
+
+# ---------------------------------------------------------------------------
+# K5 / K6: the component tape on the trace domain and on the commit domain.
+
+
+def _check_rows(cols: Sequence[torch.Tensor], n: int, what: str) -> None:
+    for c in cols:
+        _require(c.dtype == f.I32 and tuple(c.shape) == (n,), f"{what}: columns must be int32 ({n},)")
+
+
+def _ptrs(cols: Sequence[torch.Tensor], device: torch.device) -> List[int]:
+    for c in cols:
+        _require(c.device == device and c.is_contiguous(), "columns must be contiguous, on one device")
+    return [c.data_ptr() for c in cols]
+
+
+def _air_args(tp, main, pp, ew, n: int, dev: torch.device) -> AirArgs:
+    a = AirArgs()
+    a.main[: len(main)] = _ptrs(main, dev)
+    a.pp[: len(pp)] = _ptrs(pp, dev)
+    a.tape = tp.tensor(dev).data_ptr()
+    a.n, a.n_ins, a.n_rel, a.n_constraints = n, tp.n_ins, tp.n_relations, tp.n_constraints
+    a.elems[:] = [w for kind in ew for q in kind for w in q]
+    return a
+
+
+def air_witness(tp, main: Sequence[torch.Tensor], pp: Sequence[torch.Tensor], ew):
+    """The LogUp interaction of one component on its trace domain: (4E, N)
+    int32 -- row 4b + k is coordinate k of entry b, the last entry summed
+    down the rows -- and the claimed sum (4,) int32 (see air.cu).
+
+    main / pp: the component's padded columns, int32 (N,), in MAIN / PP_IDS
+    order; ew: `tape.element_words` of the drawn lookup elements."""
+    _require(len(main) == tp.n_main and len(pp) == tp.n_pp, f"air_witness({tp.name}): column count")
+    ref = (list(main) + list(pp))[0]
+    n = ref.shape[0]
+    _log2(n)
+    _check_rows(list(main) + list(pp), n, "air_witness")
+    if _on_cpu(ref):
+        from .air import tape as tp_mod
+
+        return tp_mod.witness_plain(tp, main, pp, ew)
+    dev = ref.device
+    out = torch.empty((4 * tp.n_relations, n), dtype=f.I32, device=dev)
+    a = _air_args(tp, main, pp, ew, n, dev)
+    a.out, a.stride = out.data_ptr(), 1
+    AIR_WITNESS.launch("lum_air_witness", dev, ctypes.addressof(a))
+    last = out[-4:]
+    sums = torch.empty(4 * ((n + 1023) // 1024), dtype=f.I32, device=dev)
+    AIR_WITNESS.launch("lum_m31_scan", dev, last.data_ptr(), n, 4, sums.data_ptr())
+    return out, last[:, -1]
+
+
+def air_domain(tp, main, pp, inter, is_first: torch.Tensor, claimed, ew, pows, log_trace: int,
+               stride: int, acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Constraint quotients (M, 4) int32 of one component on its commit
+    domain D_log, M = 2^log (see air.cu); with `acc`, acc + quotients (the
+    kernel adds into `acc` in place).
+
+    main / pp: commit-domain evaluations int32 (M,) in MAIN / PP_IDS order;
+    inter: the 4E interaction coordinates; claimed: 4 words; pows: the
+    component's K + E alpha powers (`fields.qm31_powers_ints`)."""
+    m = is_first.shape[0]
+    log = _log2(m)
+    _require(len(main) == tp.n_main and len(pp) == tp.n_pp and len(inter) == 4 * tp.n_relations,
+             f"air_domain({tp.name}): column count")
+    _require(len(pows) == tp.n_pows, f"air_domain({tp.name}): {tp.n_pows} alpha powers")
+    _require(0 < stride < m and log_trace >= 1, "air_domain: bad stride or trace log")
+    _check_rows(list(main) + list(pp) + list(inter) + [is_first], m, "air_domain")
+    if acc is not None:
+        _require(acc.dtype == f.I32 and tuple(acc.shape) == (m, 4) and acc.is_contiguous(),
+                 "air_domain: acc (M, 4) contiguous int32")
+    if _on_cpu(is_first):
+        from .air import tape as tp_mod
+
+        return tp_mod.domain_plain(tp, main, pp, inter, is_first, f.qm31_words(claimed), ew, pows,
+                                   log_trace, stride, acc)
+    dev = is_first.device
+    out = acc if acc is not None else torch.empty((m, 4), dtype=f.I32, device=dev)
+    a = _air_args(tp, main, pp, ew, m, dev)
+    a.inter[: len(inter)] = _ptrs(inter, dev)
+    a.is_first = _ptrs([is_first], dev)[0]
+    a.xs = circle.domain_table(log, dev)[0].data_ptr()
+    a.out, a.stride, a.log_trace, a.accumulate = out.data_ptr(), stride, log_trace, int(acc is not None)
+    a.claimed[:] = list(f.qm31_words(claimed))
+    a.pows[: 4 * len(pows)] = [w for q in pows for w in q]
+    AIR_DOMAIN.launch("lum_air_domain", dev, ctypes.addressof(a))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K7: OODS values.
+
+
+def oods_eval(cols: Sequence[torch.Tensor], chain: Sequence[tuple]) -> torch.Tensor:
+    """(C, 4) int32: C M31 coefficient columns of length N = 2^L at the QM31
+    point whose twiddle chain (L QM31 words, `fft.twiddle_chain`) is given."""
+    cols = list(cols)
+    _require(len(cols) > 0, "oods_eval: no columns")
+    n = cols[0].shape[0]
+    log = _log2(n)
+    _require(len(chain) == log and log <= OODS_MAX_LOG, f"oods_eval: chain of {log} points expected")
+    _check_rows(cols, n, "oods_eval")
+    if _on_cpu(cols[0]):
+        return oods_eval_plain(cols, chain)
+    dev = cols[0].device
+    out = torch.empty((len(cols), 4), dtype=f.I32, device=dev)
+    n_chunks = 1 << (log - min(log, OODS_CHUNK_LOG))
+    for s in range(0, len(cols), OODS_MAX_COLS):
+        batch = cols[s : s + OODS_MAX_COLS]
+        a = OodsArgs()
+        a.cols[: len(batch)] = _ptrs(batch, dev)
+        a.chain[: 4 * log] = [w for q in chain for w in f.qm31_words(q)]
+        a.n_cols, a.log_n = len(batch), log
+        partial = torch.empty(len(batch) * n_chunks * 4, dtype=f.I32, device=dev)
+        OODS_EVAL.launch("lum_oods_eval", dev, ctypes.addressof(a), partial.data_ptr(), out[s].data_ptr())
+    return out
+
+
+def oods_eval_plain(cols: Sequence[torch.Tensor], chain: Sequence[tuple]) -> torch.Tensor:
+    """The basis by doubling (entry j: the product of chain[L-1-i] over the
+    set bits i of j), then an exact modular dot product."""
+    dev = cols[0].device
+    basis = f.qm31_one((1,), dev)
+    for q in reversed(chain):
+        basis = torch.cat([basis, f.qm31_mul(torch.tensor(q, dtype=f.I64, device=dev), basis)])
+    c64 = torch.stack(list(cols)).to(f.I64)
+    rows = max(1, (1 << 24) // (4 * c64.shape[1]))  # bounds the (rows, N, 4) int64 product
+    out = []
+    for s in range(0, c64.shape[0], rows):
+        prod = (c64[s : s + rows, :, None] * basis[None]) % f.P
+        out.append(prod.sum(dim=1) % f.P)
+    return torch.cat(out).to(f.I32)

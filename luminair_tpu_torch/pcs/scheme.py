@@ -96,8 +96,8 @@ class CommitmentSchemeProver:
         with timer.span("3b_oods_eval"):
             pending = []
             for pt, members in groups.values():
-                mat = torch.stack([self.trees[t].coeffs[c] for t, c, _ in members])
-                pending.append((members, fft.eval_at_point_many(mat, pt)))
+                cols = [self.trees[t].coeffs[c] for t, c, _ in members]
+                pending.append((members, fft.eval_at_point_many(cols, pt)))
             flat = f.tensor_to_u32(torch.cat([e.reshape(-1) for _, e in pending]))
             values = {}
             off = 0

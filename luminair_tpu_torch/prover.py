@@ -2,10 +2,10 @@
 
   Phase 0:  commit the preprocessed trace (LUT columns, is_first flags);
   Phase 1:  pad and commit the main trace columns per component;
-  Phase 2:  draw interaction elements, build the LogUp interaction columns,
-            mix the claimed sums, commit;
+  Phase 2:  draw interaction elements, build the LogUp interaction columns
+            (K5, kernels.air_witness), mix the claimed sums, commit;
   Phase 3a: composition polynomial from the per-component constraint
-            quotients, commit;
+            quotients (K6, kernels.air_domain), commit;
   Phase 3b: OODS sampling, DEEP quotients, FRI, PoW, decommitment
             (pcs/scheme.py).
 
@@ -26,9 +26,10 @@ import torch
 from . import circle
 from . import fields as f
 from . import fft
+from . import kernels
 from . import tracing
+from .air import tape
 from .air.claim import LuminairClaim, LuminairInteractionClaim
-from .air.framework import ConstraintAccumulator, DomainEval, WitnessEval
 from .air.layout import AirLayout
 from .air.pie import LuminairPie
 from .crypto.channel import Blake2sChannel
@@ -105,14 +106,16 @@ def _prove_once(pie: LuminairPie, settings, config: PcsConfig, dev: torch.device
 
     # ---- phase 2: interaction ------------------------------------------
     with timer.span("phase2_interaction"):
-        elems = layout.draw_elements(channel, dev)
+        elems = layout.draw_elements(channel)
+        ew = tape.element_words(elems)
         inter_cols: List[torch.Tensor] = []
         claimed: Dict[str, torch.Tensor] = {}
         for c in layout.components:
-            wev = WitnessEval(padded_by_comp.pop(c.name), pp_by_id)
-            c.evaluate(wev, elems)
-            cols_q, claimed[c.name] = wev.build_interaction()
-            inter_cols.extend(q[:, k] for q in cols_q for k in range(4))
+            cols = padded_by_comp.pop(c.name)
+            out, claimed[c.name] = kernels.air_witness(
+                tape.record(c, witness=True), [cols[n] for n in c.MAIN], [pp_by_id[p] for p in c.PP_IDS], ew
+            )
+            inter_cols.extend(out.unbind(0))
         # One download for every claimed sum.
         sums_u32 = f.tensor_to_u32(torch.stack(list(claimed.values())))
         interaction_claim = LuminairInteractionClaim(dict(zip(claimed, sums_u32)))
@@ -122,8 +125,8 @@ def _prove_once(pie: LuminairPie, settings, config: PcsConfig, dev: torch.device
 
     # ---- phase 3a: composition poly ------------------------------------
     with timer.span("phase3a_composition"):
-        alpha = f.u32_to_tensor(channel.draw_felt(), dev, f.I64)
-        comp_evals = _composition(layout, claim, pcs, config.log_blowup, claimed, alpha, elems, dev)
+        alpha = f.qm31_words(channel.draw_felt())
+        comp_evals = _composition(layout, claim, pcs, config.log_blowup, interaction_claim.sums, alpha, ew, dev)
         pcs.commit([comp_evals[:, k] for k in range(4)])
 
     # ---- phase 3b: OODS + FRI ------------------------------------------
@@ -147,58 +150,56 @@ def _prove_once(pie: LuminairPie, settings, config: PcsConfig, dev: torch.device
     )
 
 
-def _composition(layout, claim, pcs, B, claimed, alpha, elems, dev) -> torch.Tensor:
-    """(2^(max_log+1), 4) int64 evaluations of the composition polynomial.
+def _composition(layout, claim, pcs, B, claimed, alpha, ew, dev) -> torch.Tensor:
+    """(2^(max_log+1), 4) int32 evaluations of the composition polynomial.
 
     Constraints are evaluated pointwise on each component's commit domain
-    (trace log + B), where "next row" is a roll by 2^B.  Components whose
-    domain is the working domain (max_log + B) sum their quotient
-    evaluations directly; smaller ones interpolate and land strided in a
-    coefficient vector evaluated once at the end.  At B >= 2 the working
-    domain is larger than the composition's degree bound, so the sum is
-    down-committed to D_{max_log+1}."""
+    (trace log + B), where "next row" is a roll by 2^B, and divided by the
+    trace domain's vanishing polynomial (K6).  Components whose domain is
+    the working domain (max_log + B) add their quotients into it in place;
+    smaller ones interpolate and land strided in a coefficient vector
+    evaluated once at the end.  At B >= 2 the working domain is larger than
+    the composition's degree bound, so the sum is down-committed to
+    D_{max_log+1}.  The alpha powers run on across components in canonical
+    order."""
     comp_log = claim.max_log_size + B
-    comp_evals = None  # (2^comp_log, 4) int64
-    comp_coeffs = None  # (4, 2^comp_log) int64
-    acc_pow = f.qm31_from_ints(1, device=dev)
+    comp_evals = torch.zeros((1 << comp_log, 4), dtype=f.I32, device=dev)
+    comp_coeffs = None  # (4, 2^comp_log) int32
+    acc_pow = (1, 0, 0, 0)
     tree_pp, tree_main, tree_inter = pcs.trees[0], pcs.trees[1], pcs.trees[2]
     for c in layout.components:
+        tp = tape.record(c)
         n = claim.log_sizes[c.name]
-        eval_log = n + B
         s0, _ = layout.main_slices[c.name]
         b0, b1 = layout.inter_slices[c.name]
-        acc = ConstraintAccumulator(alpha, (1 << eval_log,), acc_pow)
-        ev = DomainEval(
-            {name: tree_main.evals[s0 + i] for i, name in enumerate(c.MAIN)},
-            {pid: tree_pp.evals[layout.pp_index(pid)] for pid in c.PP_IDS},
-            [
-                torch.stack([tree_inter.evals[(b0 + b) * 4 + k] for k in range(4)], dim=-1).to(f.I64)
-                for b in range(b1 - b0)
-            ],
+        pows, acc_pow = f.qm31_powers_ints(acc_pow, alpha, tp.n_pows)
+        stride = 1 << (comp_log - n - B)
+        q = kernels.air_domain(
+            tp,
+            tree_main.evals[s0 : s0 + len(c.MAIN)],
+            [tree_pp.evals[layout.pp_index(pid)] for pid in c.PP_IDS],
+            tree_inter.evals[4 * b0 : 4 * b1],
             tree_pp.evals[layout.pp_index(layout.is_first_id(c.name))],
             claimed[c.name],
-            acc,
-            roll_stride=1 << B,
+            ew,
+            pows,
+            n,
+            1 << B,
+            acc=comp_evals if stride == 1 else None,
         )
-        c.evaluate(ev, elems)
-        acc_pow = acc.pow
-        # Divide by the vanishing polynomial of the trace domain.
-        xs = circle.domain_table(eval_log, dev)[0].to(f.I64)
-        q = f.qm31_mul_m31(acc.acc, f.inv(circle.coset_vanishing_eval(xs, n)))
-        stride = 1 << (comp_log - eval_log)
         if stride == 1:
-            comp_evals = q if comp_evals is None else f.add(comp_evals, q)
+            comp_evals = q
             continue
-        coeffs = fft.ifft(q.t().to(f.I32).contiguous()).to(f.I64)
+        coeffs = fft.ifft(q.t().contiguous())
         if comp_coeffs is None:
-            comp_coeffs = torch.zeros((4, 1 << comp_log), dtype=f.I64, device=dev)
-        comp_coeffs[:, ::stride] = f.add(comp_coeffs[:, ::stride], coeffs)
+            comp_coeffs = torch.zeros((4, 1 << comp_log), dtype=f.I32, device=dev)
+        comp_coeffs[:, ::stride] = f.add(comp_coeffs[:, ::stride].to(f.I64), coeffs.to(f.I64)).to(f.I32)
     if comp_coeffs is not None:
-        extra = fft.fft(comp_coeffs.to(f.I32)).t().to(f.I64)
-        comp_evals = extra if comp_evals is None else f.add(comp_evals, extra)
+        extra = fft.fft(comp_coeffs).t()
+        comp_evals = f.add(comp_evals.to(f.I64), extra.to(f.I64)).to(f.I32)
     if B > 1:
         # The composition has degree < 2^(max_log + 1): its coefficients on
         # the working domain sit on the stride-2^(B-1) positions.
-        ct = fft.ifft(comp_evals.t().to(f.I32).contiguous())
-        comp_evals = fft.fft(ct[:, :: 1 << (B - 1)].contiguous()).t().to(f.I64)
+        ct = fft.ifft(comp_evals.t().contiguous())
+        comp_evals = fft.fft(ct[:, :: 1 << (B - 1)].contiguous()).t()
     return comp_evals
