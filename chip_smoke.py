@@ -5,31 +5,42 @@
 
 Phases, one JSON line each; any failure raises and exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build the seven kernels from luminair_tpu_torch/csrc (nvcc, sm_90a,
+  2. build the eleven kernels from luminair_tpu_torch/csrc (nvcc, sm_90a,
      one process per source, all at once), with ptxas' register and spill
      report;
-  3. the black-scholes PINN's settings and trace on the host (batch 256);
-  4. each kernel against its plain PyTorch twin on the card, bit for bit:
+  3. the black-scholes PINN's settings and trace on the host interpreter
+     (batch 256), timed;
+  4. K1-K7 against their plain PyTorch twins on the card, bit for bit:
      K1-K4 at the shapes the N=256 prove gives them, K5/K6 on the tape of
      every PINN component at its batch-256 trace and commit sizes, K7 at
      the PINN's OODS groups; CUDA-event times of kernel and twin and the
      least time the card could take for the same work;
   5. the bench path: the 256x256 a*b + a graph through Graph -> compile ->
-     gen_circuit_settings -> gen_trace -> prove on the card; every kernel's
-     launch counter must grow during the prove, the prover's self-check
-     must pass and the native C++ verifier must accept the proof; then one
-     more prove that keeps the inputs of each kernel call at each distinct
-     shape, and every kept call run again through the kernel and through
-     its plain twin, bit for bit (so each kernel is checked at every shape
-     the path gives it, on the path's own data); then one prove under
-     torch.profiler: device busy time, idle share, and the kernels that
-     take the device's time;
+     gen_circuit_settings -> gen_trace -> prove, all on the card by
+     default; every kernel of the path must launch between the counters'
+     reset and the first prove's end; the card's settings and PIE must
+     equal the host interpreter's (downloaded after the timed window);
+     card and host seconds of settings and trace; the prover's self-check
+     must pass, the host PIE's proof must have the same bytes, and the
+     native C++ verifier must accept the proof; then the path once more
+     keeping the inputs of each kernel call at each distinct shape (the
+     trace kernels' steps too), every kept call run again through the
+     kernel and through its plain twin, bit for bit; then one prove, one
+     settings pre-pass and one trace under torch.profiler: device busy
+     time, idle share, copies, and the kernels that take the device's
+     time;
   6. the PINN path: the 2-64-64-1 network (Linear + tanh, random weights
      from a seed) at batch 256 through Graph -> nn.Linear -> compile ->
      gen_circuit_settings -> gen_trace -> prove, the same checks, the
-     model's output within 0.05 of its float64 forward pass, and a profile;
-  7. the proof of the 16x16 graph on the card equals, byte for byte, the
-     proof made on the CPU.
+     model's output within 0.05 of its float64 forward pass, T1-T4 timed
+     at the largest call each made, and profiles of the prove, the
+     settings pre-pass and the trace;
+  7. the six op graphs (models/op_graphs.py): the card's settings and PIE
+     against the host interpreter's, each trace step through kernel and
+     twin, and all_ops proved on the card and accepted by the native
+     verifier;
+  8. the 16x16 graph traced and proved on the card equals, byte for byte,
+     the same traced and proved on the CPU.
 Then the `kernels` line, and last {"ok": true, "device": {...}}.
 """
 
@@ -75,7 +86,8 @@ OPS_DENOM = 4 * OPS_MUL + 8 * OPS_ADD  # v0 + alpha * v1 - z
 PORT_KERNEL_NAMES = (
     "fft_stage_kernel", "fft_embed_kernel", "merkle_layer_kernel", "fri_fold_kernel",
     "deep_quotient_kernel", "air_witness_kernel", "scan_tile", "air_domain_kernel",
-    "oods_partial_kernel", "oods_combine_kernel",
+    "oods_partial_kernel", "oods_combine_kernel", "trace_binary_kernel", "trace_unary_kernel",
+    "trace_reduce_kernel", "lut_minmax_kernel",
 )
 
 
@@ -110,9 +122,9 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, ops_per_s: float = INT32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / INT32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -360,47 +372,89 @@ def oods_kernel(kernels, circle, f, dev, rng, rnd, check):
 
 
 def bench_graph(T, n: int):
+    """The bench graph, compiled: (graph, retrieved tensor)."""
     cx = T.Graph()
     rng = np.random.default_rng(0)
     a = cx.tensor((n, n)).set(rng.normal(size=(n, n)))
     b = cx.tensor((n, n)).set(rng.normal(size=(n, n)))
-    (a * b + a).retrieve()
+    out = (a * b + a).retrieve()
     cx.compile()
-    settings = T.gen_circuit_settings(cx)
-    pie = T.gen_trace(cx, settings)
-    return pie, settings
+    return cx, out
+
+
+def pinn_inputs(BS):
+    """Weights from load_weights() (a seeded initialisation when
+    examples/model/weights.npz is absent), inputs drawn as the flagship
+    bench draws them."""
+    rng = np.random.default_rng(7)
+    xs = np.column_stack([rng.uniform(5.0, 30.0, PINN_BATCH), rng.uniform(0.05, 1.0, PINN_BATCH)])
+    return BS.load_weights(), xs
+
+
+def pinn_graph(T, BS):
+    """The PINN at batch 256, compiled: (graph, retrieved tensor)."""
+    w, xs = pinn_inputs(BS)
+    cx = T.Graph()
+    x, out = BS.build(cx, w, batch=PINN_BATCH)
+    x.set(xs)
+    cx.compile()
+    return cx, out
 
 
 def trace_cells(pie) -> int:
     return sum(t.n_rows * len(t.columns) for t in pie.trace_tables.values() if t.n_rows)
 
 
-def phase_pinn_trace(T, BS):
-    """The PINN at batch 256 through the user's entry points: weights from
-    load_weights() (a seeded initialisation when examples/model/weights.npz
-    is absent), inputs drawn as the flagship bench draws them."""
-    w = BS.load_weights()
-    rng = np.random.default_rng(7)
-    xs = np.column_stack([rng.uniform(5.0, 30.0, PINN_BATCH), rng.uniform(0.05, 1.0, PINN_BATCH)])
-    cx = T.Graph()
-    x, out = BS.build(cx, w, batch=PINN_BATCH)
-    x.set(xs)
-    cx.compile()
+def host_trace(build):
+    """Settings and PIE from the host interpreter, each timed."""
+    from luminair_tpu_torch.graph import trace as host
+
+    cx, _ = build()
     t0 = time.perf_counter()
-    settings = T.gen_circuit_settings(cx)
+    settings = host.gen_circuit_settings_host(cx)
     settings_s = time.perf_counter() - t0
     t0 = time.perf_counter()
+    pie = host.gen_trace_host(cx, settings)
+    return pie, settings, settings_s, time.perf_counter() - t0
+
+
+def card_trace(T, cx, counts=None):
+    """Settings and PIE from the user's entry points (on the card by
+    default), each timed to a synchronise; with `counts`, also the
+    launches each of the two made."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    settings = T.gen_circuit_settings(cx)
+    torch.cuda.synchronize()
+    settings_s = time.perf_counter() - t0
+    after_settings = counts() if counts else None
+    t0 = time.perf_counter()
     pie = T.gen_trace(cx, settings)
+    torch.cuda.synchronize()
     trace_s = time.perf_counter() - t0
-    got = np.asarray(out.data()).reshape(-1)
-    model_err = float(np.max(np.abs(got - BS.reference_forward(w, xs).reshape(-1))))
-    emit({"phase": "pinn_trace", "batch": PINN_BATCH, "trace_cells": trace_cells(pie),
-          "settings_host_seconds": settings_s, "trace_host_seconds": trace_s,
-          "model_max_abs_err": model_err,
-          "tables": {k: [t.n_rows, t.log_size, len(t.columns)] for k, t in pie.trace_tables.items()}})
-    if not model_err < 0.05:
-        raise AssertionError(f"PINN output drifts {model_err} from its float64 forward pass")
-    return pie, settings
+    stages = None
+    if counts:
+        after = counts()
+        stages = {"settings": {k: v for k, v in after_settings.items() if v},
+                  "trace": {k: after[k] - after_settings[k] for k in after if after[k] > after_settings[k]}}
+    return pie, settings, settings_s, trace_s, stages
+
+
+def pie_mismatches(f, card_pie, host_pie) -> list:
+    """Where a PIE on the card differs from the host's: tables, column
+    lists, rows, any word of any column (downloaded here), op counter."""
+    if list(card_pie.trace_tables) != list(host_pie.trace_tables):
+        return [("tables", list(card_pie.trace_tables), list(host_pie.trace_tables))]
+    bad = []
+    for name, ht in host_pie.trace_tables.items():
+        ct = card_pie.trace_tables[name]
+        if list(ct.columns) != list(ht.columns) or ct.n_rows != ht.n_rows:
+            bad.append((name, "columns"))
+            continue
+        bad += [(name, col) for col, v in ht.columns.items() if not np.array_equal(f.tensor_to_u32(ct.columns[col]), v)]
+    if dict(card_pie.metadata.execution_resources.op_counter) != dict(host_pie.metadata.execution_resources.op_counter):
+        bad.append(("op_counter",))
+    return bad
 
 
 def native_verify(serde, proof_bytes: bytes, settings, tag: str) -> float:
@@ -422,21 +476,48 @@ def native_verify(serde, proof_bytes: bytes, settings, tag: str) -> float:
     return verify_s
 
 
-def phase_path(T, kernels, serde, tracing, card, tag: str, pie, settings):
-    """One path: a first prove with every launch counter set to 0 just
-    before it and read just after (each kernel must have launched), then
-    the median of 3 proves, and the native verifier on the proof."""
-    cells = trace_cells(pie)
+def phase_path(T, kernels, serde, tracing, f, card, tag, build, host, expect, check_output=None):
+    """One path.  `host` is the host interpreter's (PIE, settings, seconds,
+    seconds).  With every launch counter set to 0 just before it and read
+    just after: the card's settings, trace and first prove through the
+    user's entry points (each kernel in `expect` must have launched).  Then
+    the card's PIE and settings against the host's (downloaded after the
+    timed window), two more timed card traces, the median of 3 proves, a
+    prove of the host's PIE (the same bytes), and the native verifier."""
+    host_pie, host_settings, host_settings_s, host_trace_s = host
+    cx, out = build()
     kernels.reset_counts()
+    pie, settings, settings_s, trace_s, stage_launches = card_trace(T, cx, kernels.counts)
     t0 = time.perf_counter()
-    proof = T.prove(pie, settings)  # one prove on the card
+    proof = T.prove(pie, settings)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = kernels.counts()
     emit({"phase": "path", "path": tag, "first_prove_seconds": first_s, "launches": launches})
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in expect if launches[k] == 0]
     if missing:
-        raise AssertionError(f"{tag}: the prove launched no {missing}")
+        raise AssertionError(f"{tag}: the path launched no {missing}")
+
+    card_s = [(settings_s, trace_s)] + [tuple(card_trace(T, build()[0])[2:4]) for _ in range(2)]
+    bad = pie_mismatches(f, pie, host_pie)
+    same_settings = serde.settings_to_flat_bytes(settings) == serde.settings_to_flat_bytes(host_settings)
+    line = {
+        "phase": "trace", "path": tag, "card": card, "trace_cells": trace_cells(pie),
+        "settings_host_seconds": host_settings_s, "trace_host_seconds": host_trace_s,
+        "settings_card_seconds": [c[0] for c in card_s], "trace_card_seconds": [c[1] for c in card_s],
+        "settings_card_seconds_median": statistics.median(c[0] for c in card_s),
+        "trace_card_seconds_median": statistics.median(c[1] for c in card_s),
+        "pie_equals_host": not bad, "settings_bytes_equal_host": same_settings,
+        "launches": stage_launches,
+        "tables": {k: [t.n_rows, t.log_size, len(t.columns)] for k, t in pie.trace_tables.items()},
+    }
+    if check_output is not None:
+        line.update(check_output(out))
+    emit(line)
+    if bad or not same_settings:
+        raise AssertionError(f"{tag}: the card's PIE or settings differ from the host's: {bad[:8]}")
+    if line.get("model_max_abs_err", 0.0) >= 0.05:
+        raise AssertionError(f"{tag}: output drifts {line['model_max_abs_err']} from its float64 forward pass")
 
     times, phases = [], []
     for _ in range(3):
@@ -449,20 +530,25 @@ def phase_path(T, kernels, serde, tracing, card, tag: str, pie, settings):
     pb = serde.proof_to_flat_bytes(proof)
     if serde.proof_to_flat_bytes(again) != pb:
         raise AssertionError(f"{tag}: repeated proves of one PIE differ")
+    if serde.proof_to_flat_bytes(T.prove(host_pie, host_settings)) != pb:
+        raise AssertionError(f"{tag}: the proof of the host's PIE differs from the proof of the card's")
     verify_s = native_verify(serde, pb, settings, tag)
+    cells = trace_cells(pie)
     emit({
         "phase": "prove", "path": tag, "card": card, "trace_cells": cells, "prove_seconds": times,
         "prove_seconds_median": med, "trace_cells_per_s": cells / med,
         "phases_s": phases[times.index(med)], "proof_bytes": len(pb),
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
-        "self_check": "passed", "native_verify": "accepted", "native_verify_seconds": verify_s,
+        "self_check": "passed", "host_pie_proof_equal": True,
+        "native_verify": "accepted", "native_verify_seconds": verify_s,
     })
-    return launches
+    return launches, pie, settings
 
 
-# The wrappers a prove calls: the kernel each launches, its plain twin on
+# The wrappers a path calls: the kernel each launches, its plain twin on
 # the call's bound arguments, and the arguments whose shapes (or, for a
-# tape, its component) set the work of the call.
+# tape, its component) set the work of the call.  A trace step's twin takes
+# the step itself.
 def path_twins(kernels, tape, f):
     return {
         "circle_ifft": ("circle_fft", lambda a: kernels.circle_ifft_plain(a["values"]), ("values",)),
@@ -482,19 +568,31 @@ def path_twins(kernels, tape, f):
             a["tp"], a["main"], a["pp"], a["inter"], a["is_first"], f.qm31_words(a["claimed"]), a["ew"],
             a["pows"], a["log_trace"], a["stride"], a["acc"]), ("tp", "is_first", "stride", "acc")),
         "oods_eval": ("oods_eval", lambda a: kernels.oods_eval_plain(a["cols"], a["chain"]), ("cols",)),
+        **trace_twins(kernels),
+    }
+
+
+def trace_twins(kernels):
+    return {
+        "trace_binary": ("trace_binary", kernels.trace_binary_plain, ("s",)),
+        "trace_unary": ("trace_unary", kernels.trace_unary_plain, ("s",)),
+        "trace_reduce": ("trace_reduce", kernels.trace_reduce_plain, ("s",)),
+        "lut_minmax": ("lut_minmax", lambda a: kernels.lut_minmax_plain(a["buf"]), ("buf",)),
     }
 
 
 def describe(x):
     """The part of an argument that sets a call's work: a tensor's shape
     (and strides when it is a view), a column list's length and column
-    shape, a tape's component."""
+    shape, a tape's component, a trace step's op, rows and source shapes."""
     if isinstance(x, torch.Tensor):
         return tuple(x.shape) if x.is_contiguous() else (tuple(x.shape), x.stride())
     if isinstance(x, (list, tuple)) and x and isinstance(x[0], torch.Tensor):
         return (len(x),) + tuple(x[0].shape)
     if hasattr(x, "n_relations"):
         return x.name
+    if hasattr(x, "fresh"):
+        return (x.op, x.rows, x.dsize, x.back, tuple((len(b), v.shape) for b, v in x.srcs), bool(x.cols))
     return x
 
 
@@ -503,77 +601,229 @@ def flat(out) -> torch.Tensor:
     return torch.cat([o.reshape(-1) for o in out]) if isinstance(out, tuple) else out
 
 
-def phase_path_kernels(T, kernels, tape, f, tag: str, pie, settings, device=None):
-    """One more prove of the path with every wrapper recording: the first
-    call at each distinct key (wrapper, the shapes of its work) keeps its
-    arguments (an `acc` the kernel adds into is cloned first).  After the
-    prove each kept call runs through the kernel and through its twin; any
-    word that differs fails the run, and so does a kernel the path never
-    called."""
-    twins = path_twins(kernels, tape, f)
-    originals = {name: getattr(kernels, name) for name in twins}
-    kept, calls = {}, {}
+class recording:
+    """While active, every wrapper in `twins` keeps the arguments of its
+    first call at each distinct key (wrapper, the shapes of its work) in
+    `kept` (an `acc` the kernel adds into is cloned first) and counts its
+    calls in `calls`."""
 
-    def recorder(name, fn):
+    def __init__(self, kernels, twins, kept, calls):
+        self.kernels, self.twins, self.kept, self.calls = kernels, twins, kept, calls
+        self.originals = {name: getattr(kernels, name) for name in twins}
+
+    def _recorder(self, name, fn):
         sig = inspect.signature(fn)
-        key_args = twins[name][2]
+        key_args = self.twins[name][2]
 
         def rec(*args, **kw):
             bound = sig.bind(*args, **kw)
             bound.apply_defaults()
             a = dict(bound.arguments)
-            calls[name] = calls.get(name, 0) + 1
+            self.calls[name] = self.calls.get(name, 0) + 1
             key = (name,) + tuple(describe(a[k]) for k in key_args)
-            if key not in kept:
-                kept[key] = {k: v.clone() if k == "acc" and v is not None else v for k, v in a.items()}
+            if key not in self.kept:
+                self.kept[key] = {k: v.clone() if k == "acc" and v is not None else v for k, v in a.items()}
             return fn(*args, **kw)
 
         return rec
 
-    try:
-        for name, fn in originals.items():
-            setattr(kernels, name, recorder(name, fn))
-        T.prove(pie, settings, device=device)
-    finally:
-        for name, fn in originals.items():
-            setattr(kernels, name, fn)
+    def __enter__(self):
+        for name, fn in self.originals.items():
+            setattr(self.kernels, name, self._recorder(name, fn))
+        return self
 
+    def __exit__(self, *exc):
+        for name, fn in self.originals.items():
+            setattr(self.kernels, name, fn)
+        return False
+
+
+def trace_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest |a - b| of two int64 vectors (0 when they are equal)."""
+    if torch.equal(a, b):
+        return 0
+    return max(1.0, float((a.double() - b.double()).abs().max()))
+
+
+def replay(kernels, twins, kept, calls) -> dict:
+    """Every kept call again through its kernel and through its twin; a
+    trace step writes into fresh outputs on both sides."""
     by_kernel = {k.name: {"calls": 0, "shapes": [], "max_abs_err": 0} for k in kernels.KERNELS}
     for name, n in calls.items():
         by_kernel[twins[name][0]]["calls"] += n
     for key, a in kept.items():
         name = key[0]
         kernel_name, plain, _ = twins[name]
-        args = dict(a)
-        if args.get("acc") is not None:
-            args["acc"] = args["acc"].clone()
-        got = flat(getattr(kernels, name)(**args))
-        want = flat(plain(a))
-        err = max_abs_err(got, want)
+        if "s" in a and hasattr(a["s"], "fresh"):
+            k, p = a["s"].fresh(), a["s"].fresh()
+            getattr(kernels, name)(k)
+            plain(p)
+            err = trace_err(k.outputs(), p.outputs())
+        else:
+            args = dict(a)
+            if args.get("acc") is not None:
+                args["acc"] = args["acc"].clone()
+            got = flat(getattr(kernels, name)(**args))
+            want = flat(plain(a))
+            err = trace_err(got.to(torch.int64), want.to(torch.int64)) if got.dtype == torch.int64 else max_abs_err(got, want)
         row = by_kernel[kernel_name]
         row["shapes"].append(repr(key))
         row["max_abs_err"] = max(row["max_abs_err"], err)
-    del kept
+    torch.cuda.synchronize()
+    return by_kernel
+
+
+def phase_path_kernels(T, kernels, tape, f, tag: str, build, expect):
+    """The path once more (settings, trace, prove on the card) with every
+    wrapper recording; then each kept call through kernel and twin.  Any
+    word that differs fails the run, and so does a kernel of the path that
+    never ran.  Returns ({kernel: max_abs_err}, the kept calls)."""
+    twins = path_twins(kernels, tape, f)
+    kept, calls = {}, {}
+    cx, _ = build()
+    with recording(kernels, twins, kept, calls):
+        settings = T.gen_circuit_settings(cx)
+        T.prove(T.gen_trace(cx, settings), settings)
+    by_kernel = replay(kernels, twins, kept, calls)
     for kernel_name, row in by_kernel.items():
         emit({"phase": "path_kernel_check", "path": tag, "kernel": kernel_name, **row})
-    bad = [k for k, r in by_kernel.items() if r["max_abs_err"] != 0 or not r["shapes"]]
+    bad = [k for k in expect if by_kernel[k]["max_abs_err"] != 0 or not by_kernel[k]["shapes"]]
     if bad:
         raise AssertionError(f"{tag}: at the path's shapes, kernels disagree with their twins or never ran: {bad}")
-    return {k: r["max_abs_err"] for k, r in by_kernel.items()}
+    return {k: r["max_abs_err"] for k, r in by_kernel.items()}, kept
 
 
-def phase_profile(T, tag: str, pie, settings):
-    """One prove under torch.profiler: the device's busy time (the sum of
-    kernel times; one stream, so kernels do not overlap), its idle share of
-    the profiled wall time, and the kernels that take the most device time
-    (the profiler's own cost lengthens the wall time, so the idle share is
-    an upper estimate)."""
+# 64-bit integer operations per row of each trace op (adds, compares,
+# products, divisions and the floor-mods of to_m31 counted as one each),
+# plus 3 per view dimension of each operand (a division, a remainder, a
+# product-add).  The card has no 64-bit integer ALU: a 64-bit operation
+# takes at least two 32-bit instructions, so the rate is half the 32-bit
+# one (an upper rate, hence a lower bound on time).
+INT64_OPS_PER_S = INT32_OPS_PER_S / 2
+TRACE_ROW_OPS = {
+    "add": 8, "mul": 12, "rem": 12, "less_than": 16, "inputs": 4, "recip": 10, "square": 10, "sqrt": 14,
+    "lut": 8, "contiguous": 8, "sum_reduce": 10, "max_reduce": 18,
+}
+
+
+def step_bound(s):
+    """Least time for one trace step: its sources read once, its output,
+    columns and histogram written once; the LUT entries its rows read."""
+    rows = s.rows * s.dsize
+    n_bytes = sum(8 * len(b) for b, _ in s.srcs) + 4 * rows * len(s.cols)
+    n_bytes += 8 * len(s.out) if s.out is not None else 0
+    n_bytes += 4 * len(s.mult) if s.mult is not None else 0
+    ops = TRACE_ROW_OPS[s.op] + sum(3 * len(v.shape) for _, v in s.srcs)
+    if s.lut is not None:
+        n_bytes += 8 * rows + 24 * len(s.lut[0])
+        ops += 2 * len(s.lut[0]).bit_length()
+    return bound(n_bytes, rows * ops, INT64_OPS_PER_S)
+
+
+def trace_kernel_rows(kernels, kept) -> dict:
+    """T1-T3 timed at the largest call each made in the path's trace (T4
+    in its settings pre-pass), against the twin on the card; T4 also
+    against torch.aminmax."""
+    largest = {}
+    for key, a in kept.items():
+        name = key[0]
+        if name in ("trace_binary", "trace_unary", "trace_reduce"):
+            # A step of the trace (with columns) before a settings step.
+            size = (bool(a["s"].cols), a["s"].rows * a["s"].dsize)
+        elif name == "lut_minmax":
+            size = (True, len(a["buf"]))
+        else:
+            continue
+        if name not in largest or size > largest[name][0]:
+            largest[name] = (size, a)
+    rows = {}
+    for name, twin in (("trace_binary", kernels.trace_binary_plain), ("trace_unary", kernels.trace_unary_plain),
+                       ("trace_reduce", kernels.trace_reduce_plain)):
+        s = largest[name][1]["s"]
+        k, p = s.fresh(), s.fresh()
+        rows[name] = dict(
+            shape=f"{s.op}, {s.rows * s.dsize} rows, {len(s.cols)} columns, sources "
+                  f"{[tuple(v.shape) for _, v in s.srcs]}",
+            err=0, ms=time_ms(lambda: getattr(kernels, name)(k)), plain_ms=time_ms(lambda: twin(p)),
+            bound=step_bound(s), library=None,
+        )
+    buf = largest["lut_minmax"][1]["buf"]
+    rows["lut_minmax"] = dict(
+        shape=f"{len(buf)} int64", err=0, ms=time_ms(lambda: kernels.lut_minmax(buf)),
+        plain_ms=time_ms(lambda: kernels.lut_minmax_plain(buf)),
+        bound=bound(8 * len(buf) + 16, 2 * len(buf), INT64_OPS_PER_S),
+        library=time_ms(lambda: torch.aminmax(buf)),
+    )
+    for name, r in rows.items():
+        emit({"phase": "kernel_time", "kernel": name, "shape": r["shape"], "ms": r["ms"],
+              "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+              "library_ms": r["library"]})
+    return rows
+
+
+def phase_op_graphs(T, kernels, serde, tape, f, card):
+    """The six op graphs (luminair_tpu_torch/models/op_graphs.py): settings
+    and PIE on the card against the host interpreter; every distinct trace
+    step replayed through kernel and twin (kernel_check); all_ops proved on
+    the card from its card PIE, the same bytes as from its host PIE,
+    accepted by the native verifier."""
+    from luminair_tpu_torch.graph import trace as host
+    from luminair_tpu_torch.models import op_graphs
+
+    twins = trace_twins(kernels)
+    kept, calls = {}, {}
+    for name, build in op_graphs.GRAPHS.items():
+        def graph():
+            cx = T.Graph()
+            build(cx, op_graphs.DATA)
+            cx.compile()
+            return cx
+
+        hcx = graph()
+        hs = host.gen_circuit_settings_host(hcx)
+        hp = host.gen_trace_host(hcx, hs)
+        cx = graph()
+        with recording(kernels, twins, kept, calls):
+            settings = T.gen_circuit_settings(cx)
+            pie = T.gen_trace(cx, settings)
+        bad = pie_mismatches(f, pie, hp)
+        same_settings = serde.settings_to_flat_bytes(settings) == serde.settings_to_flat_bytes(hs)
+        same_out = sorted(cx.output_data) == sorted(hcx.output_data) and all(
+            np.array_equal(cx.output_data[k], v) for k, v in hcx.output_data.items())
+        line = {"phase": "op_graph", "graph": name, "tables": sorted(pie.trace_tables),
+                "pie_equals_host": not bad, "settings_bytes_equal_host": same_settings, "outputs_equal_host": same_out}
+        if name == "all_ops":
+            pb = serde.proof_to_flat_bytes(T.prove(pie, settings))
+            line["host_pie_proof_equal"] = pb == serde.proof_to_flat_bytes(T.prove(hp, hs))
+            line["native_verify_seconds"] = native_verify(serde, pb, settings, "all_ops")
+        emit(line)
+        if bad or not same_settings or not same_out or not line.get("host_pie_proof_equal", True):
+            raise AssertionError(f"op graph {name}: the card's trace differs from the host's: {bad[:8]}")
+    by_kernel = replay(kernels, twins, kept, calls)
+    errs = {}
+    for kernel_name in twins:
+        row = by_kernel[kernel_name]
+        emit({"phase": "kernel_check", "kernel": kernel_name, "graphs": "op_graphs", "calls": row["calls"],
+              "shapes": len(row["shapes"]), "max_abs_err": row["max_abs_err"]})
+        if row["max_abs_err"] != 0 or not row["shapes"]:
+            raise AssertionError(f"{kernel_name}: disagrees with its twin on the op graphs, or never ran")
+        errs[kernel_name] = row["max_abs_err"]
+    return errs
+
+
+def phase_profile(tag: str, what: str, run):
+    """One call of `run` (a prove, or the card's settings and trace) under
+    torch.profiler: the device's busy time (the sum of kernel times; one
+    stream, so kernels do not overlap), its idle share of the profiled wall
+    time, the host-to-device copies, and the kernels that take the most
+    device time (the profiler's own cost lengthens the wall time, so the
+    idle share is an upper estimate)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        T.prove(pie, settings)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -588,11 +838,15 @@ def phase_profile(T, tag: str, pie, settings):
             rows.append((e.key, us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
+    htod = [(ms, c) for k, ms, c in rows if "Memcpy HtoD" in k]
+    dtoh = [(ms, c) for k, ms, c in rows if "Memcpy DtoH" in k]
     emit({
-        "phase": "profile", "path": tag, "wall_ms_profiled": wall_ms,
+        "phase": "profile", "path": tag, "run": what, "wall_ms_profiled": wall_ms,
         "device_busy_ms": busy_ms if rows else "not measured",
         "device_idle_share": 1 - busy_ms / wall_ms if rows else "not measured",
         "device_kernels": len(rows),
+        "memcpy_htod": {"ms": sum(ms for ms, _ in htod), "count": sum(c for _, c in htod)},
+        "memcpy_dtoh": {"ms": sum(ms for ms, _ in dtoh), "count": sum(c for _, c in dtoh)},
         "port_kernels": {
             name: {"ms": sum(ms for k, ms, _ in rows if name in k),
                    "count": sum(c for k, _, c in rows if name in k)}
@@ -603,12 +857,17 @@ def phase_profile(T, tag: str, pie, settings):
 
 
 def phase_parity(T, serde):
-    pie, settings = bench_graph(T, N_PARITY)
-    gpu = serde.proof_to_flat_bytes(T.prove(pie, settings, device="cuda"))
-    cpu = serde.proof_to_flat_bytes(T.prove(pie, settings, device="cpu"))
-    if gpu != cpu:
+    """The N=16 graph traced and proved on the card, and traced and proved
+    on the CPU: the same proof bytes."""
+    proofs = []
+    for device in ("cuda", "cpu"):
+        cx, _ = bench_graph(T, N_PARITY)
+        settings = T.gen_circuit_settings(cx, device=device)
+        proofs.append(serde.proof_to_flat_bytes(T.prove(T.gen_trace(cx, settings, device=device), settings,
+                                                        device=device)))
+    if proofs[0] != proofs[1]:
         raise AssertionError(f"N={N_PARITY}: GPU proof bytes differ from CPU proof bytes")
-    emit({"phase": "gpu_vs_cpu", "n": N_PARITY, "proof_bytes": len(gpu), "equal": True})
+    emit({"phase": "gpu_vs_cpu", "n": N_PARITY, "proof_bytes": len(proofs[0]), "equal": True})
 
 
 def main() -> int:
@@ -626,27 +885,42 @@ def main() -> int:
     torch.cuda.set_device(dev)
     card = phase_card()
     phase_build(kernels)
-    pinn_pie, pinn_settings = phase_pinn_trace(T, BS)
-    pinn_logs = {k: t.log_size for k, t in pinn_pie.trace_tables.items() if t.n_rows}
+    bench_tag, pinn_tag = f"bench_n{N_MAIN}", f"pinn_b{PINN_BATCH}"
+    paths = {
+        bench_tag: (lambda: bench_graph(T, N_MAIN), None),
+        pinn_tag: (lambda: pinn_graph(T, BS), lambda out: {"model_max_abs_err": float(np.max(np.abs(
+            np.asarray(out.data()).reshape(-1) - BS.reference_forward(*pinn_inputs(BS)).reshape(-1))))}),
+    }
+    # The bench graph has no reduction and no LUT: no T3, no T4.
+    expect = {
+        bench_tag: [k.name for k in kernels.KERNELS if k.name not in ("trace_reduce", "lut_minmax")],
+        pinn_tag: [k.name for k in kernels.KERNELS],
+    }
+    pinn_host = host_trace(paths[pinn_tag][0])
+    emit({"phase": "pinn_host_trace", "batch": PINN_BATCH, "trace_cells": trace_cells(pinn_host[0]),
+          "settings_host_seconds": pinn_host[2], "trace_host_seconds": pinn_host[3]})
+    pinn_logs = {k: t.log_size for k, t in pinn_host[0].trace_tables.items() if t.n_rows}
     rows = phase_kernels(kernels, circle, f, dev, pinn_logs)
 
-    t0 = time.perf_counter()
-    pie, settings = bench_graph(T, N_MAIN)
-    emit({"phase": "trace", "path": f"bench_n{N_MAIN}", "trace_cells": trace_cells(pie),
-          "host_seconds": time.perf_counter() - t0,
-          "tables": {k: [t.log_size, len(t.columns)] for k, t in pie.trace_tables.items()}})
-    bench = f"bench_n{N_MAIN}"
-    launches = {bench: phase_path(T, kernels, serde, tracing, card, bench, pie, settings)}
-    path_errs = {bench: phase_path_kernels(T, kernels, tape, f, bench, pie, settings)}
-    phase_profile(T, bench, pie, settings)
-    del pie, settings
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    tag = f"pinn_b{PINN_BATCH}"
-    launches[tag] = phase_path(T, kernels, serde, tracing, card, tag, pinn_pie, pinn_settings)
-    path_errs[tag] = phase_path_kernels(T, kernels, tape, f, tag, pinn_pie, pinn_settings)
-    torch.cuda.empty_cache()
-    phase_profile(T, tag, pinn_pie, pinn_settings)
+    launches, path_errs = {}, {}
+    for tag, (build, check) in paths.items():
+        host = pinn_host if tag == pinn_tag else host_trace(build)
+        launches[tag], pie, settings = phase_path(T, kernels, serde, tracing, f, card, tag, build, host,
+                                                  expect[tag], check)
+        del host
+        path_errs[tag], kept = phase_path_kernels(T, kernels, tape, f, tag, build, expect[tag])
+        if tag == pinn_tag:
+            rows.update(trace_kernel_rows(kernels, kept))
+        del kept
+        torch.cuda.empty_cache()
+        phase_profile(tag, "prove", lambda: T.prove(pie, settings))
+        cx, _ = build()
+        phase_profile(tag, "settings", lambda: T.gen_circuit_settings(cx))
+        phase_profile(tag, "trace", lambda: T.gen_trace(cx, settings))
+        del pie, settings, cx
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    path_errs["op_graphs"] = phase_op_graphs(T, kernels, serde, tape, f, card)
     phase_parity(T, serde)
 
     line = []
@@ -654,11 +928,11 @@ def main() -> int:
         r = rows[k.name]
         line.append({
             "name": k.name, "route": "cuda", "source": f"luminair_tpu_torch/csrc/{k.source}",
-            "replaces": k.replaces, "launches": launches[tag][k.name],
+            "replaces": k.replaces, "launches": launches[pinn_tag][k.name],
             "launches_by_path": {p: c[k.name] for p, c in launches.items()},
-            "max_abs_err": max([r["err"]] + [e[k.name] for e in path_errs.values()]),
+            "max_abs_err": max([r["err"]] + [e.get(k.name, 0) for e in path_errs.values()]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-            "bound_by": r["bound"][1], "library_ms": None,
+            "bound_by": r["bound"][1], "library_ms": r.get("library"),
         })
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,22 @@
 """LuminairPie: the artifact between trace generation and proving.
 
-Trace tables are column-oriented uint32 (M31) numpy arrays on the host,
-padded to a power of two at proving time and uploaded by the prover.
+A trace table is column-oriented M31 words in one of two forms:
+  * uint32 numpy arrays on the host (the host interpreter), padded to a
+    power of two at proving time and uploaded by the prover;
+  * int32 tensors born on a device at their padded size (the device
+    interpreter, graph/device_trace.py): `padded` holds each column's whole
+    storage, padding rows filled when the table was allocated, and
+    `columns` views of its first n_rows.  The prover reads `padded` where
+    it lies.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .preprocessed import calculate_log_size
 
@@ -27,10 +34,15 @@ _PADDING_OVERRIDES = {
 }
 
 
+def padding_value(table: str, column: str) -> int:
+    return _PADDING_OVERRIDES.get(table, {}).get(column, 1 if column in _PADDING_ONES else 0)
+
+
 @dataclass
 class TraceTable:
     name: str
     columns: Dict[str, np.ndarray]
+    padded: Optional[Dict[str, torch.Tensor]] = None
 
     @property
     def n_rows(self) -> int:
@@ -43,13 +55,13 @@ class TraceTable:
         return calculate_log_size(self.n_rows)
 
     def padded_columns(self, col_order: List[str]) -> Dict[str, np.ndarray]:
+        if self.padded is not None:
+            return {name: self.padded[name] for name in col_order}
         n = self.n_rows
         size = 1 << self.log_size
-        overrides = _PADDING_OVERRIDES.get(self.name, {})
         out = {}
         for name in col_order:
-            pad_val = overrides.get(name, 1 if name in _PADDING_ONES else 0)
-            padded = np.full(size, pad_val, dtype=np.uint32)
+            padded = np.full(size, padding_value(self.name, name), dtype=np.uint32)
             padded[:n] = np.asarray(self.columns[name], dtype=np.uint32)
             out[name] = padded
         return out

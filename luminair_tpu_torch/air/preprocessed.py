@@ -25,6 +25,7 @@ from dataclasses import dataclass
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from .. import fixed
 
@@ -75,13 +76,23 @@ class LookupLayout:
     def value_count(self) -> int:
         return sum(r.hi - r.lo + 1 for r in self.ranges)
 
-    def find_index(self, targets):
-        """Position of each raw value in the enumeration of all range
-        values; -1 if out of range (one vectorised searchsorted)."""
-        targets = np.asarray(targets, dtype=np.int64)
+    def packed(self):
+        """(lo, hi, start) int64 arrays, one entry per range in ascending
+        order: start is the range's first position in the enumeration."""
         los = np.array([r.lo for r in self.ranges], dtype=np.int64)
         his = np.array([r.hi for r in self.ranges], dtype=np.int64)
-        starts = np.concatenate([[0], np.cumsum(his - los + 1)])[:-1]
+        starts = np.concatenate([[0], np.cumsum(his - los + 1)])[:-1].astype(np.int64)
+        return los, his, starts
+
+    def find_index(self, targets):
+        """Position of each raw value in the enumeration of all range
+        values; -1 if out of range (one vectorised searchsorted).  An int64
+        tensor gives a tensor on its device."""
+        if isinstance(targets, torch.Tensor):
+            los, his, starts = (torch.from_numpy(a).to(targets.device) for a in self.packed())
+            return find_index_packed(targets, los, his, starts)
+        targets = np.asarray(targets, dtype=np.int64)
+        los, his, starts = self.packed()
         idx = np.searchsorted(los, targets, side="right") - 1
         idx_c = np.clip(idx, 0, len(los) - 1)
         in_range = (idx >= 0) & (targets <= his[idx_c]) & (targets >= los[idx_c])
@@ -119,6 +130,16 @@ class LookupLayout:
         )
 
 
+def find_index_packed(targets: torch.Tensor, los: torch.Tensor, his: torch.Tensor,
+                      starts: torch.Tensor) -> torch.Tensor:
+    """`LookupLayout.find_index` over the packed ranges, on tensors."""
+    idx = torch.searchsorted(los, targets, right=True) - 1
+    idx_c = idx.clamp(0, len(los) - 1)
+    lo, hi = los[idx_c], his[idx_c]
+    in_range = (idx >= 0) & (targets <= hi) & (targets >= lo)
+    return torch.where(in_range, starts[idx_c] + (targets - lo), torch.full_like(targets, -1))
+
+
 def coalesce_ranges(ranges: List[Range]) -> List[Range]:
     """Merge overlapping/adjacent ranges (reference graph.rs:665-691)."""
     if not ranges:
@@ -133,9 +154,10 @@ def coalesce_ranges(ranges: List[Range]) -> List[Range]:
     return out
 
 
-_LUT_FNS = {
-    "sin": lambda x: np.sin(x),
-    "exp2": lambda x: np.exp2(x),
+#: f of each LUT op, in float64 (the host computes every LUT value with it).
+LUT_FNS = {
+    "sin": np.sin,
+    "exp2": np.exp2,
     "log2": lambda x: np.log2(np.maximum(x, 1e-300)),
 }
 
@@ -144,13 +166,13 @@ def lut_reference_outputs(kind: str, values: np.ndarray) -> np.ndarray:
     """The RECOMMENDED generation procedure for the normative output table:
     float64 f over the fixed grid, round-half-even to fixed; this is what
     gen_circuit_settings ships."""
-    return fixed.from_float(_LUT_FNS[kind](fixed.to_float(values)))
+    return fixed.from_float(LUT_FNS[kind](fixed.to_float(values)))
 
 
 def finalize_lookups(lookups) -> None:
     """Fill the normative `outputs` table on every present LUT layout
     (called by gen_circuit_settings after range discovery)."""
-    for kind in _LUT_FNS:
+    for kind in LUT_FNS:
         layout = getattr(lookups, kind, None)
         if layout is not None and layout.outputs is None:
             layout.outputs = lut_reference_outputs(kind, layout.all_values())
@@ -164,7 +186,7 @@ class LutPreProcessed:
     legacy settings objects without shipped tables."""
 
     def __init__(self, kind: str, layout: LookupLayout):
-        assert kind in _LUT_FNS
+        assert kind in LUT_FNS
         self.kind = kind
         self.layout = layout
 

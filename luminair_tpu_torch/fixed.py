@@ -12,11 +12,18 @@ A value is an int64 ``v`` representing ``v / 2^SCALE`` with SCALE = 12.
 trunc rounds toward zero.  The identities hold over the integers, hence
 over M31 after embedding ``to_m31(v) = v mod p``, which is what the
 constraints check.  (The reference package's fixed.py, host path.)
+
+The ``t_*`` functions are the same arithmetic on int64 torch tensors, bit
+for bit: products and sums wrap modulo 2^64 as numpy's do, ``t_to_m31`` is
+a floor-mod, a division by 0 gives 0, and the one division that overflows
+(INT64_MIN / -1) gives the wrapped negation, as numpy's floor-division path
+does.  They are the plain versions of the trace kernels (csrc/trace.cu).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 DEFAULT_FP_SCALE = 12
 SCALE_FACTOR = np.int64(1 << DEFAULT_FP_SCALE)
@@ -107,4 +114,71 @@ def less_than(a, b):
     out = np.where(lt, SCALE_FACTOR, 0).astype(np.int64)
     borrow = np.where(lt, 0, 1).astype(np.int64)
     diff = b - a + np.where(lt, np.int64(0), np.int64((1 << 31) - 1))
+    return out, borrow, diff
+
+
+# ---------------------------------------------------------------------------
+# The same arithmetic on int64 tensors (any device).
+
+_T_SCALE = 1 << DEFAULT_FP_SCALE
+_T_P = (1 << 31) - 1
+
+
+def t_to_m31(v: torch.Tensor) -> torch.Tensor:
+    """v mod p (floor-mod), as int64 values in [0, p)."""
+    return torch.remainder(v, _T_P)
+
+
+def t_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a + b
+
+
+def t_trunc_div(a: torch.Tensor, b) -> torch.Tensor:
+    """Truncated division; b == 0 gives 0, a / -1 the wrapped negation."""
+    b = torch.as_tensor(b, dtype=torch.int64, device=a.device).expand_as(a)
+    safe = torch.where((b == 0) | (b == -1), torch.ones_like(b), b)
+    q = torch.div(a, safe, rounding_mode="trunc")
+    q = torch.where(b == -1, -a, q)
+    return torch.where(b == 0, torch.zeros_like(q), q)
+
+
+def t_mul(a: torch.Tensor, b: torch.Tensor):
+    prod = a * b
+    out = t_trunc_div(prod, _T_SCALE)
+    return out, prod - out * _T_SCALE
+
+
+def t_square(a: torch.Tensor):
+    return t_mul(a, a)
+
+
+def t_recip(a: torch.Tensor):
+    s2 = torch.full_like(a, _T_SCALE * _T_SCALE)
+    out = t_trunc_div(s2, a)
+    return out, s2 - a * out
+
+
+def t_sqrt(a: torch.Tensor):
+    """isqrt(a * 2^S) from the float64 estimate and one clamp each way, as
+    the host computes it (a correctly rounded sqrt on every device gives the
+    same estimate)."""
+    prod = a * _T_SCALE
+    clipped = torch.clamp(prod, min=0)
+    out = torch.sqrt(clipped.to(torch.float64)).to(torch.int64)
+    out = torch.where((out + 1) * (out + 1) <= clipped, out + 1, out)
+    out = torch.where(out * out > clipped, out - 1, out)
+    return out, prod - out * out
+
+
+def t_div_rem(a: torch.Tensor, b: torch.Tensor):
+    q = t_trunc_div(a, b)
+    return q, a - q * b
+
+
+def t_less_than(a: torch.Tensor, b: torch.Tensor):
+    """(out_fixed, borrow, diff) as in `less_than`."""
+    lt = a < b
+    out = torch.where(lt, _T_SCALE, 0).to(torch.int64)
+    borrow = (~lt).to(torch.int64)
+    diff = b - a + torch.where(lt, 0, _T_P).to(torch.int64)
     return out, borrow, diff

@@ -1,9 +1,15 @@
-"""Graph execution + trace capture on the host: gen_circuit_settings /
-gen_trace / execute.
+"""Graph execution and trace capture: gen_circuit_settings / gen_trace /
+execute.
 
-Every op resolves its input views with one gather, computes in vectorized
-int64 fixed point, and appends whole column blocks to the trace tables;
-LUT multiplicities are scatter-adds (np.add.at / bincount).
+gen_circuit_settings and gen_trace run on a torch device, the current CUDA
+device unless the caller passes `device` ("cpu" runs the same device
+interpreter through the kernels' plain twins): graph/device_trace.py.  The
+host numpy interpreter here is the spec the device interpreter is held to,
+reached under its own names (gen_circuit_settings_host, gen_trace_host);
+execute() stays on the host.  It resolves each op's input views with one
+gather, computes in vectorized int64 fixed point, and appends whole column
+blocks to the trace tables; LUT multiplicities are scatter-adds (np.add.at /
+bincount).
 """
 
 from __future__ import annotations
@@ -20,13 +26,32 @@ from ..air.pie import (
     Metadata,
     TraceTable,
 )
-from ..air.preprocessed import LookupLayout, Range, coalesce_ranges, finalize_lookups
+from ..air.preprocessed import LUT_FNS, LookupLayout, Range, coalesce_ranges, finalize_lookups
 from ..air.settings import CircuitSettings, Lookups
 from ..errors import LuminairError
 from .graph import Graph
 
 RANGE_MARGIN = 0.10  # reference crates/graph/src/utils.rs:69-82
 NEG1 = np.uint32((1 << 31) - 2)  # -1 in M31
+
+
+def lut_range(lo_raw, hi_raw) -> Range:
+    """A LUT node's range from its raw source buffer's min and max, with
+    margin (reference utils.rs:45-82)."""
+    lo, hi = fixed.to_float(lo_raw), fixed.to_float(hi_raw)
+    delta = (hi - lo) * RANGE_MARGIN
+    return Range(int(fixed.from_float(lo - delta)), int(fixed.from_float(hi + delta)))
+
+
+def settings_from_ranges(ranges: Dict[str, list], range_check: bool) -> CircuitSettings:
+    lk = Lookups()
+    for kind in ("sin", "exp2", "log2"):
+        if ranges[kind]:
+            setattr(lk, kind, LookupLayout(coalesce_ranges(ranges[kind])))
+    if range_check:
+        lk.range_check_bits = 8
+    finalize_lookups(lk)  # normative LUT output bytes (see preprocessed.py)
+    return CircuitSettings(lookups=lk)
 
 
 class _TableBuilder:
@@ -146,12 +171,7 @@ def _run(graph: Graph, record_trace: bool, settings: Optional[CircuitSettings],
         # with margin (reference utils.rs:45-82).
         if collect_ranges and op in ("sin", "exp2", "log2"):
             buf = srcs[0][0]
-            lo, hi = fixed.to_float(buf.min()), fixed.to_float(buf.max())
-            span = hi - lo
-            delta = span * RANGE_MARGIN
-            ranges[op].append(
-                Range(int(fixed.from_float(lo - delta)), int(fixed.from_float(hi + delta)))
-            )
+            ranges[op].append(lut_range(buf.min(), buf.max()))
         if collect_ranges and op in ("less_than", "max_reduce"):
             # max_reduce range-proves its running-max steps through the
             # 8-bit range-check relation (soundness fix over the reference).
@@ -231,8 +251,7 @@ def _run(graph: Graph, record_trace: bool, settings: Optional[CircuitSettings],
                     # committed preprocessed column on any machine/libm.
                     out = layout.outputs[pos]
                 else:  # settings pre-pass (range discovery) or legacy settings
-                    fn = {"sin": np.sin, "exp2": np.exp2, "log2": lambda x: np.log2(np.maximum(x, 1e-300))}[op]
-                    out = fixed.from_float(fn(fixed.to_float(inp)))
+                    out = fixed.from_float(LUT_FNS[op](fixed.to_float(inp)))
                 extra = {"lookup_mult": np.uint32(1)}
                 if record_trace and op in lut_mults:
                     np.add.at(lut_mults[op], pos, 1)
@@ -384,26 +403,18 @@ def execute(graph: Graph):
     _run(graph, record_trace=False, settings=None, collect_ranges=False)
 
 
-def gen_circuit_settings(graph: Graph) -> CircuitSettings:
-    """Pre-execute the graph to discover LUT value ranges."""
+def gen_circuit_settings_host(graph: Graph) -> CircuitSettings:
+    """Pre-execute the graph on the host to discover LUT value ranges."""
     if not graph.compiled:
         graph.compile()
     _, _, ranges, rc, _, _ = _run(
         graph, record_trace=False, settings=None, collect_ranges=True
     )
-    lk = Lookups()
-    for kind in ("sin", "exp2", "log2"):
-        if ranges[kind]:
-            lk_layout = LookupLayout(coalesce_ranges(ranges[kind]))
-            setattr(lk, kind, lk_layout)
-    if rc:
-        lk.range_check_bits = 8
-    finalize_lookups(lk)  # normative LUT output bytes (see preprocessed.py)
-    return CircuitSettings(lookups=lk)
+    return settings_from_ranges(ranges, rc)
 
 
-def gen_trace(graph: Graph, settings: CircuitSettings) -> LuminairPie:
-    """Execute and capture all trace tables on the host."""
+def gen_trace_host(graph: Graph, settings: CircuitSettings) -> LuminairPie:
+    """Execute and capture all trace tables on the host (numpy columns)."""
     if not graph.compiled:
         graph.compile()
     tables, op_counter, _, _, lut_mults, rc_mults = _run(
@@ -428,3 +439,22 @@ def gen_trace(graph: Graph, settings: CircuitSettings) -> LuminairPie:
         trace_tables=trace_tables,
         metadata=Metadata(ExecutionResources(dict(op_counter), max_log)),
     )
+
+
+def gen_circuit_settings(graph: Graph, device=None) -> CircuitSettings:
+    """Discover the LUT value ranges on `device` (the current CUDA device
+    when None; raises ProverError without one)."""
+    from ..prover import resolve_device
+    from .device_trace import gen_circuit_settings_device
+
+    return gen_circuit_settings_device(graph, resolve_device(device))
+
+
+def gen_trace(graph: Graph, settings: CircuitSettings, device=None) -> LuminairPie:
+    """Execute the graph on `device` (the current CUDA device when None;
+    raises ProverError without one) with every trace column born there,
+    padded; prove() on the same device reads the columns where they lie."""
+    from ..prover import resolve_device
+    from .device_trace import gen_trace_device
+
+    return gen_trace_device(graph, settings, resolve_device(device))

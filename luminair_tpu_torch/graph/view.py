@@ -14,6 +14,10 @@ A View over a physical buffer of `buffer_len` elements:
 Movement ops return new Views: permute / expand / slice / pad / reshape
 (reshape only on contiguous views -- the frontend inserts a Contiguous op
 otherwise, matching luminal's semantics).
+
+`gather` reads numpy arrays on the host and int64 torch tensors on their
+device; `packed` is the description the trace kernels (csrc/trace.cu)
+resolve element by element.
 """
 
 from __future__ import annotations
@@ -22,6 +26,10 @@ from dataclasses import dataclass, replace
 from typing import List, Tuple
 
 import numpy as np
+import torch
+
+from ..errors import LuminairError
+from ..kernels import VIEW_MAX_DIMS
 
 
 def contiguous_strides(sizes) -> List[int]:
@@ -190,17 +198,28 @@ class View:
 
     def gather(self, buffer):
         """Read the full logical index space from a physical buffer: an
-        (n_elements,) array; invalid (padded) positions are 0."""
+        (n_elements,) array, or tensor on the buffer's device; invalid
+        (padded) positions are 0."""
+        if isinstance(buffer, torch.Tensor):
+            phys, valid = self.indices(buffer.device)
+            vals = buffer[phys.clamp(0, len(buffer) - 1)]
+            return torch.where(valid, vals, torch.zeros_like(vals))
         phys, valid = self.indices()
         vals = buffer[np.clip(phys, 0, len(buffer) - 1)]
         return np.where(valid, vals, np.zeros_like(vals))
 
-    def indices(self):
-        """(physical_index, valid) arrays over the logical index space."""
+    def indices(self, device=None):
+        """(physical_index, valid) arrays over the logical index space:
+        numpy, or int64 / bool tensors on `device` when one is given."""
         n = self.n_elements
-        idx = np.arange(n, dtype=np.int64)
-        phys = np.full(n, self.base, dtype=np.int64)
-        valid = np.ones(n, dtype=bool)
+        if device is None:
+            idx = np.arange(n, dtype=np.int64)
+            phys = np.full(n, self.base, dtype=np.int64)
+            valid = np.ones(n, dtype=bool)
+        else:
+            idx = torch.arange(n, dtype=torch.int64, device=device)
+            phys = torch.full((n,), self.base, dtype=torch.int64, device=device)
+            valid = torch.ones(n, dtype=torch.bool, device=device)
         # per-dim coordinates, most-significant first (C order)
         coords = []
         for i, size in enumerate(self.sizes):
@@ -212,3 +231,17 @@ class View:
             phys = phys + c * stride
             valid &= (c >= lo) & (c < hi)
         return phys, valid
+
+    def packed(self):
+        """(ndim, sizes, strides, valid lows, valid highs, base): what a
+        trace kernel needs to resolve any logical element itself."""
+        if len(self.sizes) > VIEW_MAX_DIMS:
+            raise LuminairError(f"a view of {len(self.sizes)} dims; the trace kernels take at most {VIEW_MAX_DIMS}")
+        return (
+            len(self.sizes),
+            tuple(self.sizes),
+            tuple(self.strides),
+            tuple(lo for lo, _ in self.valid),
+            tuple(hi for _, hi in self.valid),
+            self.base,
+        )

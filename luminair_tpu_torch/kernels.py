@@ -1,10 +1,10 @@
 """The port's hand-written Hopper kernels: build, binding, wrappers.
 
-The CUDA C++ sources under csrc/ (sharing csrc/m31.cuh and csrc/tape.cuh)
-are compiled at first use with nvcc for sm_90a, one shared library per
-source, all sources compiled at once, into build/kernels/ at the repository
-root; each library is named by a hash of its source and every header it
-includes, so an edit to either rebuilds it.  The libraries
+The CUDA C++ sources under csrc/ (sharing csrc/m31.cuh, csrc/tape.cuh and
+csrc/trace.cuh) are compiled at first use with nvcc for sm_90a, one shared
+library per source, all sources compiled at once, into build/kernels/ at
+the repository root; each library is named by a hash of its source and
+every header it includes, so an edit to either rebuilds it.  The libraries
 have a plain C interface bound with ctypes: every entry point launches on
 PyTorch's current stream, allocates nothing, and returns
 cudaGetLastError(), which the wrapper turns into a KernelError.
@@ -27,6 +27,7 @@ import re
 import shutil
 import subprocess
 import threading
+from dataclasses import dataclass, field, replace
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
@@ -34,6 +35,8 @@ import torch
 
 from . import circle
 from . import fields as f
+from . import fixed
+from .air.preprocessed import find_index_packed
 from .crypto import blake2s
 from .errors import KernelError
 
@@ -233,7 +236,88 @@ OODS_EVAL = Kernel(
     abi={"lum_oods_args_size": ctypes.sizeof(OodsArgs), "lum_oods_chunk_log": OODS_CHUNK_LOG},
 )
 
-KERNELS = (CIRCLE_FFT, MERKLE, FRI_FOLD, DEEP_QUOTIENT, AIR_WITNESS, AIR_DOMAIN, OODS_EVAL)
+# The trace kernels' ABI (csrc/trace.cuh): ops and column slots in enum
+# order, the views' rank limit.
+TRACE_OPS = (
+    "add", "mul", "rem", "less_than", "inputs", "recip", "square", "sqrt", "lut", "contiguous",
+    "sum_reduce", "max_reduce",
+)
+TRACE_COLS = (
+    "node_id", "idx", "is_last_idx", "next_node_id", "next_idx", "lhs_id", "next_lhs_id", "rhs_id",
+    "next_rhs_id", "input_id", "next_input_id", "lhs", "rhs", "input", "out", "rem", "quotient", "borrow",
+    "diff", "limb0", "limb1", "limb2", "limb3", "scale", "lookup_mult", "lhs_mult", "rhs_mult", "input_mult",
+    "out_mult", "range_check_mult", "val", "multiplicity", "acc", "next_acc", "max_val", "next_max_val",
+    "is_max", "is_last_step", "ge_limb0", "ge_limb1", "ge_limb2", "ge_limb3",
+)
+VIEW_MAX_DIMS = 8
+
+
+class ViewDesc(ctypes.Structure):
+    """Mirror of lum::ViewDesc (csrc/trace.cuh)."""
+
+    _fields_ = [
+        ("sizes", ctypes.c_longlong * VIEW_MAX_DIMS),
+        ("strides", ctypes.c_longlong * VIEW_MAX_DIMS),
+        ("lo", ctypes.c_longlong * VIEW_MAX_DIMS),
+        ("hi", ctypes.c_longlong * VIEW_MAX_DIMS),
+        ("base", ctypes.c_longlong),
+        ("len", ctypes.c_longlong),
+        ("ndim", ctypes.c_int),
+        ("pad_", ctypes.c_int),
+    ]
+
+
+class TraceArgs(ctypes.Structure):
+    """Mirror of lum::TraceArgs (csrc/trace.cuh), passed to T1-T3 by value."""
+
+    _fields_ = [
+        ("src", ctypes.c_uint64 * 2),
+        ("view", ViewDesc * 2),
+        ("out", ctypes.c_uint64),
+        ("cols", ctypes.c_uint64 * len(TRACE_COLS)),
+        ("lut_lo", ctypes.c_uint64),
+        ("lut_hi", ctypes.c_uint64),
+        ("lut_start", ctypes.c_uint64),
+        ("lut_out", ctypes.c_uint64),
+        ("mult", ctypes.c_uint64),
+        ("flag", ctypes.c_uint64),
+        ("n", ctypes.c_longlong),
+        ("n_in", ctypes.c_longlong),
+        ("n_out", ctypes.c_longlong),
+        ("dsize", ctypes.c_longlong),
+        ("back", ctypes.c_longlong),
+        ("lut_n", ctypes.c_longlong),
+        ("op", ctypes.c_int),
+        ("n_ranges", ctypes.c_int),
+        ("node_id", ctypes.c_uint32),
+        ("id0", ctypes.c_uint32),
+        ("id1", ctypes.c_uint32),
+        ("out_mult", ctypes.c_uint32),
+        ("in_mult", ctypes.c_uint32),
+        ("pad_", ctypes.c_uint32),
+    ]
+
+
+_TRACE_ABI = {
+    "lum_trace_args_size": ctypes.sizeof(TraceArgs),
+    "lum_trace_n_cols": len(TRACE_COLS),
+    "lum_trace_n_ops": len(TRACE_OPS),
+    "lum_view_max_dims": VIEW_MAX_DIMS,
+}
+_TRACE_REPLACES = "luminair_tpu/graph/device_trace.py:158 (_Tracer._traced; settings segments _segment_fn :559)"
+
+TRACE_BINARY = Kernel("trace_binary", "trace.cu", _TRACE_REPLACES, {"lum_trace_binary": [_P]}, abi=_TRACE_ABI)
+TRACE_UNARY = Kernel("trace_unary", "trace.cu", _TRACE_REPLACES, {"lum_trace_unary": [_P]}, abi=_TRACE_ABI)
+TRACE_REDUCE = Kernel("trace_reduce", "trace.cu", _TRACE_REPLACES, {"lum_trace_reduce": [_P]}, abi=_TRACE_ABI)
+LUT_MINMAX = Kernel(
+    "lut_minmax", "trace.cu", "luminair_tpu/graph/device_trace.py:556 (jnp.min / jnp.max in _segment_fn)",
+    {"lum_lut_minmax": [_P, _LL, _P]}, abi=_TRACE_ABI,
+)
+
+KERNELS = (
+    CIRCLE_FFT, MERKLE, FRI_FOLD, DEEP_QUOTIENT, AIR_WITNESS, AIR_DOMAIN, OODS_EVAL,
+    TRACE_BINARY, TRACE_UNARY, TRACE_REDUCE, LUT_MINMAX,
+)
 
 
 def reset_counts() -> None:
@@ -695,3 +779,286 @@ def oods_eval_plain(cols: Sequence[torch.Tensor], chain: Sequence[tuple]) -> tor
         prod = (c64[s : s + rows, :, None] * basis[None]) % f.P
         out.append(prod.sum(dim=1) % f.P)
     return torch.cat(out).to(f.I32)
+
+
+# ---------------------------------------------------------------------------
+# T1-T4: trace generation (one launch per graph node).
+
+NEG1 = (1 << 31) - 2  # -1 in M31
+
+
+@dataclass
+class TraceStep:
+    """One node of the trace interpreter as a trace kernel takes it.
+
+    srcs: (int64 buffer, View) per operand; rows: the rows the node writes
+    (outputs for a reduction); out: its int64 output buffer; cols: int32
+    views of its rows of the table's columns, by name (empty: values only,
+    as in the settings pre-pass); mult: the int32 histogram column it
+    counts into (LUT or range check); flag: an int32 word set to 1 when an
+    input is out of range; lut: (lo, hi, start, outputs) int64 tensors of
+    a LUT op's settings."""
+
+    op: str
+    srcs: List[tuple]
+    rows: int
+    out: Optional[torch.Tensor] = None
+    cols: Dict[str, torch.Tensor] = field(default_factory=dict)
+    ids: tuple = (0, 0, 0)  # node, lhs / input, rhs
+    out_mult: int = 0
+    in_mult: int = NEG1
+    dsize: int = 1  # reductions: the reduced axis, and the elements after it
+    back: int = 1
+    lut: Optional[tuple] = None
+    mult: Optional[torch.Tensor] = None
+    flag: Optional[torch.Tensor] = None
+
+    def fresh(self) -> "TraceStep":
+        """The same step writing into new zeroed outputs."""
+        def z(t):
+            return None if t is None else torch.zeros_like(t)
+
+        return replace(self, out=z(self.out), cols={k: z(v) for k, v in self.cols.items()},
+                       mult=z(self.mult), flag=z(self.flag))
+
+    def outputs(self) -> torch.Tensor:
+        """Everything the step writes, as one int64 vector."""
+        parts = [self.out] + [self.cols[k] for k in sorted(self.cols)] + [self.mult, self.flag]
+        return torch.cat([p.reshape(-1).to(torch.int64) for p in parts if p is not None])
+
+
+def _trace_args(s: TraceStep, dev: torch.device) -> TraceArgs:
+    a = TraceArgs()
+    _require(s.op in TRACE_OPS, f"trace: unknown op {s.op}")
+    for k, (buf, view) in enumerate(s.srcs):
+        _require(buf.dtype == torch.int64 and buf.device == dev and buf.is_contiguous() and buf.dim() == 1,
+                 "trace: sources must be contiguous int64 vectors on one device")
+        ndim, sizes, strides, los, his, base = view.packed()
+        v = a.view[k]
+        v.sizes[:ndim], v.strides[:ndim], v.lo[:ndim], v.hi[:ndim] = sizes, strides, los, his
+        v.base, v.len, v.ndim = base, len(buf), ndim
+        a.src[k] = buf.data_ptr()
+    if s.out is not None:
+        _require(s.out.dtype == torch.int64 and s.out.device == dev and s.out.is_contiguous(),
+                 "trace: out must be a contiguous int64 tensor")
+        a.out = s.out.data_ptr()
+    n_rows = s.rows * s.dsize  # dsize is 1 but for reductions
+    for name, col in s.cols.items():
+        _require(name in TRACE_COLS, f"trace: no kernel writes column {name}")
+        _require(col.dtype == f.I32 and col.device == dev and col.is_contiguous() and len(col) == n_rows,
+                 f"trace: column {name} must be {n_rows} contiguous int32 rows on the sources' device")
+        a.cols[TRACE_COLS.index(name)] = col.data_ptr()
+    if s.lut is not None:
+        lo, hi, start, outs = s.lut
+        _require(all(t.dtype == torch.int64 and t.device == dev and t.is_contiguous() for t in s.lut),
+                 "trace: LUT tables must be contiguous int64 on the sources' device")
+        a.lut_lo, a.lut_hi, a.lut_start, a.lut_out = (t.data_ptr() for t in (lo, hi, start, outs))
+        a.n_ranges, a.lut_n = len(lo), len(outs)
+    for name in ("mult", "flag"):
+        t = getattr(s, name)
+        if t is not None:
+            _require(t.dtype == f.I32 and t.device == dev and t.is_contiguous(), f"trace: {name} must be int32")
+            setattr(a, name, t.data_ptr())
+    a.n, a.op, a.dsize, a.back = s.rows, TRACE_OPS.index(s.op), s.dsize, s.back
+    if s.op == "contiguous":
+        a.n_in, a.n_out = len(s.srcs[0][0]), s.srcs[0][1].n_elements
+    a.node_id, a.id0, a.id1 = s.ids
+    a.out_mult, a.in_mult = s.out_mult, s.in_mult
+    return a
+
+
+def _trace_launch(kernel: Kernel, symbol: str, s: TraceStep) -> None:
+    dev = s.srcs[0][0].device
+    a = _trace_args(s, dev)
+    kernel.launch(symbol, dev, ctypes.addressof(a))
+
+
+def trace_binary(s: TraceStep) -> None:
+    """T1: add / mul / rem / less_than rows of one node (see trace.cu)."""
+    _require(s.op in ("add", "mul", "rem", "less_than") and len(s.srcs) == 2, f"trace_binary: op {s.op}")
+    if _on_cpu(s.srcs[0][0]):
+        return trace_binary_plain(s)
+    _trace_launch(TRACE_BINARY, "lum_trace_binary", s)
+
+
+def trace_unary(s: TraceStep) -> None:
+    """T2: inputs / recip / square / sqrt / lut / contiguous rows of one node."""
+    _require(s.op in ("inputs", "recip", "square", "sqrt", "lut", "contiguous") and len(s.srcs) == 1,
+             f"trace_unary: op {s.op}")
+    _require(s.op != "lut" or s.lut is not None, "trace_unary: a LUT op needs its tables")
+    if _on_cpu(s.srcs[0][0]):
+        return trace_unary_plain(s)
+    _trace_launch(TRACE_UNARY, "lum_trace_unary", s)
+
+
+def trace_reduce(s: TraceStep) -> None:
+    """T3: sum_reduce / max_reduce rows of one node, `rows` outputs."""
+    _require(s.op in ("sum_reduce", "max_reduce") and len(s.srcs) == 1, f"trace_reduce: op {s.op}")
+    _require(s.rows * s.dsize == s.srcs[0][1].n_elements, "trace_reduce: outputs x dsize must cover the view")
+    if _on_cpu(s.srcs[0][0]):
+        return trace_reduce_plain(s)
+    _trace_launch(TRACE_REDUCE, "lum_trace_reduce", s)
+
+
+def lut_minmax(buf: torch.Tensor) -> torch.Tensor:
+    """T4: (min, max) int64 of a non-empty int64 vector."""
+    _require(buf.dtype == torch.int64 and buf.dim() == 1 and len(buf) > 0, "lut_minmax: int64 vector")
+    if _on_cpu(buf):
+        return lut_minmax_plain(buf)
+    buf = buf.contiguous()
+    out = torch.empty(2, dtype=torch.int64, device=buf.device)
+    LUT_MINMAX.launch("lum_lut_minmax", buf.device, buf.data_ptr(), len(buf), out.data_ptr())
+    return out
+
+
+def _put(cols: Dict[str, torch.Tensor], name: str, value) -> None:
+    if name in cols:
+        if isinstance(value, torch.Tensor):
+            cols[name].copy_(value)
+        else:
+            cols[name].fill_(value)
+
+
+def _put_common(s: TraceStep, idx: torch.Tensor, last: int) -> None:
+    node, id0, id1 = s.ids
+    for name, v in (("node_id", node), ("next_node_id", node), ("lhs_id", id0), ("next_lhs_id", id0),
+                    ("input_id", id0), ("next_input_id", id0), ("rhs_id", id1), ("next_rhs_id", id1)):
+        _put(s.cols, name, v)
+    _put(s.cols, "idx", idx)
+    _put(s.cols, "next_idx", idx + 1)
+    _put(s.cols, "is_last_idx", (idx == last).to(torch.int64))
+
+
+def _count(s: TraceStep, pos: torch.Tensor) -> None:
+    if s.mult is not None:
+        s.mult += torch.bincount(pos, minlength=len(s.mult)).to(f.I32)
+
+
+def trace_binary_plain(s: TraceStep) -> None:
+    (abuf, av), (bbuf, bv) = s.srcs
+    x, y = av.gather(abuf), bv.gather(bbuf)
+    c = s.cols
+    if s.op == "add":
+        out = fixed.t_add(x, y)
+        _put(c, "out", fixed.t_to_m31(out))
+    elif s.op == "mul":
+        out, rem = fixed.t_mul(x, y)
+        _put(c, "out", fixed.t_to_m31(out))
+        _put(c, "rem", fixed.t_to_m31(rem))
+    elif s.op == "rem":
+        q, out = fixed.t_div_rem(x, y)
+        _put(c, "rem", fixed.t_to_m31(out))
+        _put(c, "quotient", fixed.t_to_m31(q))
+    else:
+        out, borrow, diff = fixed.t_less_than(x, y)
+        d = diff & 0xFFFFFFFF
+        limbs = [(d >> (8 * k)) & 0xFF for k in range(4)]
+        _put(c, "out", fixed.t_to_m31(out))
+        _put(c, "borrow", borrow)
+        _put(c, "diff", fixed.t_to_m31(diff))
+        for k, limb in enumerate(limbs):
+            _put(c, f"limb{k}", limb)
+        _put(c, "range_check_mult", 1)
+        _count(s, torch.cat(limbs))
+    _put_common(s, torch.arange(len(x), device=x.device), s.rows - 1)
+    _put(c, "lhs", fixed.t_to_m31(x))
+    _put(c, "rhs", fixed.t_to_m31(y))
+    _put(c, "lhs_mult", NEG1)
+    _put(c, "rhs_mult", NEG1)
+    _put(c, "out_mult", s.out_mult)
+    if s.out is not None:
+        s.out.copy_(out)
+
+
+def trace_unary_plain(s: TraceStep) -> None:
+    buf, view = s.srcs[0]
+    c = s.cols
+    rows = torch.arange(s.rows, device=buf.device)
+    _put_common(s, rows, s.rows - 1)
+    if s.op == "contiguous":
+        n_in, n_out = len(buf), view.n_elements
+        g = view.gather(buf)
+        raw = torch.zeros(s.rows, dtype=torch.int64, device=buf.device)
+        gathered = torch.zeros_like(raw)
+        raw[:n_in], gathered[:n_out] = buf, g
+        _put(c, "input", fixed.t_to_m31(raw))
+        _put(c, "out", fixed.t_to_m31(gathered))
+        _put(c, "input_mult", torch.where(rows < n_in, s.in_mult, 0))
+        _put(c, "out_mult", torch.where(rows < n_out, s.out_mult, 0))
+        if s.out is not None:
+            s.out.copy_(g)
+        return
+    x = view.gather(buf)
+    if s.op == "inputs":
+        _put(c, "val", fixed.t_to_m31(x))
+        _put(c, "multiplicity", s.out_mult)
+        if s.out is not None:
+            s.out.copy_(x)
+        return
+    if s.op == "recip":
+        out, rem = fixed.t_recip(x)
+    elif s.op == "square":
+        out, rem = fixed.t_square(x)
+    elif s.op == "sqrt":
+        out, rem = fixed.t_sqrt(x)
+    else:
+        lo, hi, start, outs = s.lut
+        pos = find_index_packed(x, lo, hi, start)
+        if s.flag is not None and bool((pos < 0).any()):
+            s.flag.fill_(1)
+        pos = pos.clamp(0, len(outs) - 1)
+        out, rem = outs[pos], None
+        _put(c, "lookup_mult", 1)
+        _count(s, pos)
+    if rem is not None:
+        _put(c, "rem", fixed.t_to_m31(rem))
+    if s.op in ("recip", "sqrt"):
+        _put(c, "scale", int(fixed.SCALE_FACTOR))
+    _put(c, "input", fixed.t_to_m31(x))
+    _put(c, "out", fixed.t_to_m31(out))
+    _put(c, "input_mult", s.in_mult)
+    _put(c, "out_mult", s.out_mult)
+    if s.out is not None:
+        s.out.copy_(out)
+
+
+def trace_reduce_plain(s: TraceStep) -> None:
+    buf, view = s.srcs[0]
+    c = s.cols
+    front = s.rows // s.back
+    flat = view.gather(buf).reshape(front, s.dsize, s.back).transpose(1, 2).reshape(-1, s.dsize)
+    last_step = (torch.arange(s.dsize, device=buf.device) == s.dsize - 1).repeat(s.rows)
+    if s.op == "sum_reduce":
+        run = torch.cumsum(flat, dim=1)
+        before = run - flat
+    else:
+        run = torch.cummax(flat, dim=1).values
+        before = torch.cat([flat[:, :1], run[:, :-1]], dim=1)
+        is_max = flat > before
+        ge = (run - torch.where(is_max, before, flat)).reshape(-1)
+        if s.flag is not None and bool(((ge < 0) | (ge >= 1 << 30)).any()):
+            s.flag.fill_(1)
+        g = ge & 0xFFFFFFFF
+        limbs = [g & 0xFF, (g >> 8) & 0xFF, (g >> 16) & 0xFF, (g >> 24) & 0x3F]
+        _put(c, "is_max", is_max.reshape(-1).to(torch.int64))
+        for k, limb in enumerate(limbs):
+            _put(c, f"ge_limb{k}", limb)
+        _put(c, "range_check_mult", 1)
+        _count(s, torch.cat(limbs[:3] + [limbs[3] * 4]))
+    outv = run[:, -1]
+    _put_common(s, torch.arange(s.rows, device=buf.device).repeat_interleave(s.dsize), s.rows - 1)
+    _put(c, "input", fixed.t_to_m31(flat.reshape(-1)))
+    _put(c, "out", torch.where(last_step, fixed.t_to_m31(outv).repeat_interleave(s.dsize), 0))
+    for name in ("acc", "max_val"):
+        _put(c, name, fixed.t_to_m31(before.reshape(-1)))
+    for name in ("next_acc", "next_max_val"):
+        _put(c, name, fixed.t_to_m31(run.reshape(-1)))
+    _put(c, "is_last_step", last_step.to(torch.int64))
+    _put(c, "input_mult", s.in_mult)
+    _put(c, "out_mult", torch.where(last_step, s.out_mult, 0))
+    if s.out is not None:
+        s.out.copy_(outv)
+
+
+def lut_minmax_plain(buf: torch.Tensor) -> torch.Tensor:
+    return torch.stack([buf.min(), buf.max()])

@@ -7,10 +7,11 @@
     b = cx.tensor((2, 2)).set([...])
     c = (a * b + a).retrieve()
     cx.compile()
-    settings = gen_circuit_settings(cx)
-    pie = gen_trace(cx, settings)
-    proof = prove(pie, settings)          # on the CUDA device
-    proof = prove(pie, settings, device="cpu")
+    settings = gen_circuit_settings(cx)   # on the CUDA device
+    pie = gen_trace(cx, settings)         # columns born on the card
+    proof = prove(pie, settings)          # reads them where they lie
+
+Each entry point takes device="cpu" to run on the CPU instead.
 """
 
 from .graph.graph import Graph, GraphTensor

@@ -48,11 +48,12 @@ class LuminairProof:
 
 
 def resolve_device(device=None) -> torch.device:
-    """The proving device: the current CUDA device when `device` is None."""
+    """The device of an entry point: the current CUDA device when `device`
+    is None."""
     dev = torch.device(device) if device is not None else torch.device("cuda")
     if dev.type == "cuda":
         if not torch.cuda.is_available():
-            raise ProverError("no CUDA device; pass device='cpu' to prove on the CPU")
+            raise ProverError("no CUDA device; pass device='cpu' to run on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     elif dev.type != "cpu":
@@ -99,7 +100,7 @@ def _prove_once(pie: LuminairPie, settings, config: PcsConfig, dev: torch.device
         padded_by_comp: Dict[str, Dict[str, torch.Tensor]] = {}
         for c in layout.components:
             padded = tables[c.name].padded_columns(c.MAIN)
-            padded_by_comp[c.name] = {n: f.u32_to_tensor(v, dev) for n, v in padded.items()}
+            padded_by_comp[c.name] = {n: _main_column(v, dev) for n, v in padded.items()}
             main_cols.extend(padded_by_comp[c.name][n] for n in c.MAIN)
         pcs.commit(main_cols)
         del main_cols
@@ -148,6 +149,16 @@ def _prove_once(pie: LuminairPie, settings, config: PcsConfig, dev: torch.device
         pcs_proof=pcs_proof,
         config=config,
     )
+
+
+def _main_column(col, dev: torch.device) -> torch.Tensor:
+    """A padded trace column on `dev`: a tensor born there (the device
+    trace) as it is, host words uploaded."""
+    if isinstance(col, torch.Tensor):
+        if col.device != dev:
+            raise ProverError(f"the trace lies on {col.device}, the prover runs on {dev}")
+        return col
+    return f.u32_to_tensor(col, dev)
 
 
 def _composition(layout, claim, pcs, B, claimed, alpha, ew, dev) -> torch.Tensor:

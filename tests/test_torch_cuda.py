@@ -158,7 +158,132 @@ def test_prove_path_never_takes_a_plain_twin(dev, monkeypatch):
     b = cx.tensor((8, 8)).set(rng.normal(size=(8, 8)))
     (a * b + a).retrieve()
     cx.compile()
-    settings = T.gen_circuit_settings(cx)
+    from luminair_tpu_torch.graph.trace import gen_circuit_settings_host, gen_trace_host
+
+    settings = gen_circuit_settings_host(cx)
+    pie = gen_trace_host(cx, settings)  # host words: the prover uploads them
     kernels.reset_counts()
-    T.prove(T.gen_trace(cx, settings), settings, device=dev)
+    T.prove(pie, settings, device=dev)
+    prove_kernels = kernels.KERNELS[:7]  # K1-K7; the trace ran on the host
+    assert all(k.launches > 0 for k in prove_kernels), kernels.counts()
+
+
+# ---------------------------------------------------------------------------
+# T1-T4: the trace kernels, on the six op graphs.
+
+from luminair_tpu_torch.models import op_graphs  # noqa: E402
+
+_TRACE_TWINS = {
+    "trace_binary": kernels.trace_binary_plain,
+    "trace_unary": kernels.trace_unary_plain,
+    "trace_reduce": kernels.trace_reduce_plain,
+}
+
+
+def _graph(name):
+    from luminair_tpu_torch import prelude as T
+
+    cx = T.Graph()
+    op_graphs.GRAPHS[name](cx, op_graphs.DATA)
+    cx.compile()
+    return cx
+
+
+@pytest.mark.parametrize("name", list(op_graphs.GRAPHS))
+def test_trace_kernels_match_twins(dev, name, monkeypatch):
+    """Every step the card's settings pass and trace launch, run again
+    through its kernel and through its plain twin on fresh outputs."""
+    from luminair_tpu_torch import prelude as T
+
+    steps = []
+    for wrapper in _TRACE_TWINS:
+        fn = getattr(kernels, wrapper)
+
+        def rec(step, fn=fn, wrapper=wrapper):
+            steps.append((wrapper, step))
+            return fn(step)
+
+        monkeypatch.setattr(kernels, wrapper, rec)
+    cx = _graph(name)
+    T.gen_trace(cx, T.gen_circuit_settings(cx, device=dev), device=dev)
+    monkeypatch.undo()
+    assert steps
+    for wrapper, step in steps:
+        k, p = step.fresh(), step.fresh()
+        getattr(kernels, wrapper)(k)
+        _TRACE_TWINS[wrapper](p)
+        assert torch.equal(k.outputs(), p.outputs()), (wrapper, step.op)
+
+
+@pytest.mark.parametrize("name", list(op_graphs.GRAPHS))
+def test_card_trace_equals_cpu_trace(dev, name):
+    from luminair_tpu_torch import prelude as T
+
+    cx_gpu, cx_cpu = _graph(name), _graph(name)
+    s_gpu, s_cpu = T.gen_circuit_settings(cx_gpu, device=dev), T.gen_circuit_settings(cx_cpu, device="cpu")
+    assert s_gpu.to_dict() == s_cpu.to_dict()
+    p_gpu, p_cpu = T.gen_trace(cx_gpu, s_gpu, device=dev), T.gen_trace(cx_cpu, s_cpu, device="cpu")
+    assert list(p_gpu.trace_tables) == list(p_cpu.trace_tables)
+    for tname, t in p_cpu.trace_tables.items():
+        for col, v in t.padded.items():
+            assert p_gpu.trace_tables[tname].padded[col].is_cuda
+            assert torch.equal(p_gpu.trace_tables[tname].padded[col].cpu(), v), (tname, col)
+    for rid, v in cx_cpu.output_data.items():
+        assert np.array_equal(cx_gpu.output_data[rid], v)
+
+
+@pytest.mark.parametrize("n", [1, 5, 1024, 100_003])
+def test_lut_minmax(dev, n):
+    rng = np.random.default_rng(n)
+    buf = torch.from_numpy(rng.integers(-2**62, 2**62, n)).to(dev)
+    assert torch.equal(kernels.lut_minmax(buf), kernels.lut_minmax_plain(buf))
+
+
+def test_prove_from_card_trace_never_touches_the_host(dev, monkeypatch):
+    """The bench graph's settings, trace and prove on the card with every
+    plain twin guarded against CUDA tensors and the host upload of trace
+    columns guarded: each of the eleven kernels launches, and the proof
+    equals the CPU's."""
+    from luminair_tpu_torch import prelude as T
+    from luminair_tpu_torch import serde
+    from luminair_tpu_torch.crypto import blake2s
+
+    def is_cuda(x):
+        if isinstance(x, kernels.TraceStep):
+            return x.srcs[0][0].is_cuda
+        return isinstance(x, torch.Tensor) and x.is_cuda
+
+    def guard(mod, name):
+        fn = getattr(mod, name)
+
+        def checked(*args, **kwargs):
+            flat = [a for x in list(args) + list(kwargs.values()) for a in (x if isinstance(x, (list, tuple)) else [x])]
+            if any(is_cuda(a) for a in flat):
+                raise AssertionError(f"{name} reached with a CUDA tensor")
+            return fn(*args, **kwargs)
+
+        monkeypatch.setattr(mod, name, checked)
+
+    for mod in (kernels, tape, blake2s):
+        for name in [n for n in dir(mod) if n.endswith("_plain")]:
+            guard(mod, name)
+    upload = f.u32_to_tensor
+
+    def no_trace_upload(a, device="cpu", dtype=f.I32):
+        if isinstance(a, torch.Tensor):
+            raise AssertionError("a trace column went through the host")
+        return upload(a, device, dtype)
+
+    monkeypatch.setattr(f, "u32_to_tensor", no_trace_upload)
+    cx = _graph("all_ops")
+    kernels.reset_counts()
+    settings = T.gen_circuit_settings(cx)
+    pie = T.gen_trace(cx, settings)
+    assert all(c.is_cuda for t in pie.trace_tables.values() for c in t.padded.values())
+    proof = T.prove(pie, settings, device=dev)
     assert all(v > 0 for v in kernels.counts().values()), kernels.counts()
+    monkeypatch.undo()
+    cpu_cx = _graph("all_ops")
+    cpu_settings = T.gen_circuit_settings(cpu_cx, device="cpu")
+    cpu_proof = T.prove(T.gen_trace(cpu_cx, cpu_settings, device="cpu"), cpu_settings, device="cpu")
+    assert serde.proof_to_flat_bytes(proof) == serde.proof_to_flat_bytes(cpu_proof)

@@ -17,6 +17,7 @@ from luminair_tpu.errors import LuminairError as RefLuminairError
 from luminair_tpu.nn import Linear as RefLinear
 from luminair_tpu.parallel import accel
 from luminair_tpu.verifier import verify as ref_verify
+from luminair_tpu_torch import fields as f
 from luminair_tpu_torch import prelude as T
 from luminair_tpu_torch import serde
 from luminair_tpu_torch.models import black_scholes as bs
@@ -69,8 +70,8 @@ def pinn():
     x, out = bs.build(cx, w, batch=XS.shape[0])
     x.set(XS)
     cx.compile()
-    settings = T.gen_circuit_settings(cx)
-    pie = T.gen_trace(cx, settings)
+    settings = T.gen_circuit_settings(cx, device="cpu")
+    pie = T.gen_trace(cx, settings, device="cpu")
     proof = T.prove(pie, settings, device="cpu")
     return ref_pie, ref_settings, ref_bytes, pie, settings, proof, np.asarray(out.data()), w
 
@@ -84,7 +85,7 @@ def test_pie_matches_reference(pinn):
         ref_t = ref_pie.trace_tables[name]
         assert t.log_size == ref_t.log_size and list(t.columns) == list(ref_t.columns)
         for col, v in t.columns.items():
-            assert np.array_equal(v, ref_t.columns[col]), (name, col)
+            assert np.array_equal(f.tensor_to_u32(v), ref_t.columns[col]), (name, col)
 
 
 def test_proof_bytes_match_reference(pinn):

@@ -6,17 +6,20 @@ import copy
 
 import numpy as np
 import pytest
+import torch
 
 from luminair_tpu import prelude as R
 from luminair_tpu import serde as ref_serde
 from luminair_tpu.errors import LuminairError as RefLuminairError
 from luminair_tpu.parallel import accel
 from luminair_tpu.verifier import verify as ref_verify
+from luminair_tpu_torch import fields as f
 from luminair_tpu_torch import prelude as T
 from luminair_tpu_torch import serde
 from luminair_tpu_torch.air.pie import pie_from_arrays
 from luminair_tpu_torch.air.settings import settings_from_dict
 from luminair_tpu_torch.errors import ProverError
+from luminair_tpu_torch.graph.trace import gen_circuit_settings_host, gen_trace_host
 
 CASES = [(8, 1), (16, 1), (8, 2), (8, 3), (8, 4)]
 
@@ -56,26 +59,32 @@ def reference():
 
 @pytest.mark.parametrize("n", [8, 16])
 def test_gen_trace_matches_reference(reference, n):
+    """The host interpreter and the device interpreter (on CPU tensors)."""
     ref_pie, ref_settings = reference[(n, 1)][:2]
-    cx = _graph(T, n)
-    settings = T.gen_circuit_settings(cx)
-    pie = T.gen_trace(cx, settings)
-    assert settings.to_dict() == ref_settings.to_dict()
-    assert sorted(pie.trace_tables) == sorted(ref_pie.trace_tables)
-    for name, t in pie.trace_tables.items():
-        ref_t = ref_pie.trace_tables[name]
-        assert t.log_size == ref_t.log_size
-        assert list(t.columns) == list(ref_t.columns)
-        for col, v in t.columns.items():
-            assert np.array_equal(v, ref_t.columns[col]), (name, col)
+    for settings_fn, trace_fn in (
+        (gen_circuit_settings_host, gen_trace_host),
+        (lambda cx: T.gen_circuit_settings(cx, device="cpu"), lambda cx, s: T.gen_trace(cx, s, device="cpu")),
+    ):
+        cx = _graph(T, n)
+        settings = settings_fn(cx)
+        pie = trace_fn(cx, settings)
+        assert settings.to_dict() == ref_settings.to_dict()
+        assert sorted(pie.trace_tables) == sorted(ref_pie.trace_tables)
+        for name, t in pie.trace_tables.items():
+            ref_t = ref_pie.trace_tables[name]
+            assert t.log_size == ref_t.log_size
+            assert list(t.columns) == list(ref_t.columns)
+            for col, v in t.columns.items():
+                words = f.tensor_to_u32(v) if isinstance(v, torch.Tensor) else v
+                assert np.array_equal(words, ref_t.columns[col]), (name, col)
 
 
 @pytest.mark.parametrize("n,log_blowup", CASES)
 def test_proof_bytes_match_reference(reference, n, log_blowup):
     ref_bytes = reference[(n, log_blowup)][3]
     cx = _graph(T, n)
-    settings = T.gen_circuit_settings(cx)
-    proof = T.prove(T.gen_trace(cx, settings), settings, _config(T, log_blowup), device="cpu")
+    settings = T.gen_circuit_settings(cx, device="cpu")
+    proof = T.prove(T.gen_trace(cx, settings, device="cpu"), settings, _config(T, log_blowup), device="cpu")
     assert serde.proof_to_flat_bytes(proof) == ref_bytes
     assert serde.settings_to_flat_bytes(settings) == ref_serde.settings_to_flat_bytes(reference[(n, 1)][1])
 

@@ -1,0 +1,414 @@
+"""Trace generation on a torch device (luminair_tpu_torch/graph/device_trace.py
+and the trace kernels' plain twins), on the CPU, against the reference
+package's host interpreter: every PIE column, n_rows, op counter, retrieved
+output and settings byte must be equal (tolerance 0: the values are
+integers), and a proof from the device-path PIE must equal the reference's
+host proof byte for byte."""
+
+import numpy as np
+import pytest
+import torch
+
+from luminair_tpu import fixed as ref_fixed
+from luminair_tpu import prelude as R
+from luminair_tpu import serde as ref_serde
+from luminair_tpu.air.preprocessed import LookupLayout as RefLayout
+from luminair_tpu.air.preprocessed import Range as RefRange
+from luminair_tpu.graph.view import View as RefView
+from luminair_tpu.parallel import accel
+from luminair_tpu.verifier import verify as ref_verify
+from luminair_tpu_torch import fields as f
+from luminair_tpu_torch import fixed, kernels, serde
+from luminair_tpu_torch import prelude as T
+from luminair_tpu_torch.air.components import COMPONENTS_BY_NAME
+from luminair_tpu_torch.air.preprocessed import LookupLayout, Range
+from luminair_tpu_torch.errors import LuminairError, ProverError
+from luminair_tpu_torch.graph import trace as port_trace
+from luminair_tpu_torch.graph.view import View
+from luminair_tpu_torch.models import black_scholes as bs
+from luminair_tpu_torch.models import op_graphs
+from tests import test_device_trace as ref_graphs
+from tests.test_torch_pinn import XS, _reference_graph, _small_weights
+from tests.test_torch_prove import _payload
+
+CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """These small tensors prove faster on one CPU thread, and the suite's
+    workers do not then compete for the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _bench(cx, d):
+    rng = np.random.default_rng(0)
+    a = cx.tensor((8, 8)).set(rng.normal(size=(8, 8)))
+    b = cx.tensor((8, 8)).set(rng.normal(size=(8, 8)))
+    (a * b + a).retrieve()
+
+
+def _ref_case(name):
+    if name == "pinn":
+        return _reference_graph(_small_weights())
+    cx = R.Graph()
+    (_bench if name == "bench_n8" else getattr(ref_graphs, "build_" + name))(cx, ref_graphs.DATA)
+    cx.compile()
+    return cx
+
+
+def _port_case(name):
+    cx = T.Graph()
+    if name == "pinn":
+        x, _ = bs.build(cx, _small_weights(), batch=XS.shape[0])
+        x.set(XS)
+    else:
+        (_bench if name == "bench_n8" else op_graphs.GRAPHS[name])(cx, op_graphs.DATA)
+    cx.compile()
+    return cx
+
+
+CASES = list(op_graphs.GRAPHS) + ["bench_n8", "pinn"]
+
+
+@pytest.fixture(scope="module")
+def traced():
+    """{case: (ref graph, ref settings, ref pie, port graph, port settings,
+    port pie)}: the reference on its host interpreter, the port on its
+    device interpreter with CPU tensors."""
+    out = {}
+    for name in CASES:
+        rcx = _ref_case(name)
+        rs = R.gen_circuit_settings(rcx, device=False)
+        rp = R.gen_trace(rcx, rs, device=False)
+        pcx = _port_case(name)
+        ps = T.gen_circuit_settings(pcx, device="cpu")
+        pp = T.gen_trace(pcx, ps, device="cpu")
+        out[name] = (rcx, rs, rp, pcx, ps, pp)
+    return out
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_device_trace_matches_reference_host(traced, name):
+    rcx, rs, rp, pcx, ps, pp = traced[name]
+    assert ps.to_dict() == rs.to_dict()
+    assert serde.settings_to_flat_bytes(ps) == ref_serde.settings_to_flat_bytes(rs)
+    assert list(pp.trace_tables) == list(rp.trace_tables)
+    for tname, rt in rp.trace_tables.items():
+        t = pp.trace_tables[tname]
+        assert t.n_rows == rt.n_rows and t.log_size == rt.log_size, tname
+        assert list(t.columns) == list(rt.columns), tname
+        for col, v in t.columns.items():
+            assert v.device == CPU and v.dtype == torch.int32
+            assert np.array_equal(f.tensor_to_u32(v), np.asarray(rt.columns[col])), (tname, col)
+    assert dict(pp.metadata.execution_resources.op_counter) == dict(rp.metadata.execution_resources.op_counter)
+    assert pp.metadata.execution_resources.max_log_size == rp.metadata.execution_resources.max_log_size
+    assert sorted(pcx.output_data) == sorted(rcx.output_data)
+    for rid, v in rcx.output_data.items():
+        assert np.array_equal(pcx.output_data[rid], v), rid
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_device_padding_matches_host_padding(traced, name):
+    """The device tables are stored padded; their padding rows must be the
+    host's (pie._PADDING_ONES / _PADDING_OVERRIDES)."""
+    pcx, ps, pp = traced[name][3:]
+    host = port_trace.gen_trace_host(pcx, ps)
+    for tname, t in pp.trace_tables.items():
+        names = COMPONENTS_BY_NAME[tname].MAIN
+        want = host.trace_tables[tname].padded_columns(names)
+        got = t.padded_columns(names)
+        for col in names:
+            assert len(got[col]) == 1 << t.log_size
+            assert np.array_equal(f.tensor_to_u32(got[col]), want[col]), (tname, col)
+
+
+def test_all_ops_proof_matches_reference(traced):
+    """A proof from the device-path PIE of all_ops equals the reference's
+    host proof byte for byte, and the reference verifier accepts it."""
+    _, rs, rp, _, ps, pp = traced["all_ops"]
+    assert {"sin", "exp2", "log2", "less_than", "rem", "sqrt", "recip", "max_reduce",
+            "range_check_lookup"} <= set(pp.trace_tables)
+    cfg = dict(pow_bits=1, log_blowup_factor=1, log_last_layer_degree_bound=0, n_queries=6)
+
+    def config(pkg):
+        return pkg.PcsConfig(pow_bits=cfg["pow_bits"], fri=pkg.FriConfig(
+            log_blowup_factor=cfg["log_blowup_factor"],
+            log_last_layer_degree_bound=cfg["log_last_layer_degree_bound"], n_queries=cfg["n_queries"]))
+
+    was = accel.enabled()
+    accel.enable(False)
+    try:
+        ref_bytes = ref_serde.proof_to_flat_bytes(R.prove(rp, rs, config(R)))
+    finally:
+        accel.enable(was)
+    proof = T.prove(pp, ps, config(T), device="cpu")
+    assert serde.proof_to_flat_bytes(proof) == ref_bytes
+    assert ref_verify(ref_serde.proof_from_payload(_payload(proof)), rs)
+
+
+# ---------------------------------------------------------------------------
+# The plain twins' arithmetic against the reference's numpy.
+
+_EXTREMES = np.array(
+    [0, 1, -1, 2, -2, 4095, -4096, 2**31 - 1, -(2**31), 2**62, -(2**62), 2**63 - 1, -(2**63),
+     3037000499, 3037000500, 2**40 + 3, -(2**40) - 7], dtype=np.int64)
+
+
+def _operands():
+    rng = np.random.default_rng(31)
+    aa, bb = np.meshgrid(_EXTREMES, _EXTREMES)
+    a = np.concatenate([aa.ravel(), rng.integers(-2**63, 2**63 - 1, 500, dtype=np.int64),
+                        rng.integers(-2**20, 2**20, 500), rng.integers(-3, 3, 100)])
+    b = np.concatenate([bb.ravel(), rng.integers(-2**63, 2**63 - 1, 500, dtype=np.int64),
+                        rng.integers(-2**20, 2**20, 500), rng.integers(-3, 3, 100)])
+    return a, b
+
+
+@pytest.mark.parametrize("op", ["to_m31", "add", "mul", "square", "recip", "sqrt", "div_rem", "less_than"])
+def test_fixed_twins_match_reference(op):
+    a, b = _operands()
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    with np.errstate(all="ignore"):
+        if op == "to_m31":
+            want, got = (ref_fixed.to_m31(a).astype(np.int64),), (fixed.t_to_m31(ta),)
+        elif op == "add":
+            want, got = (ref_fixed.add(a, b),), (fixed.t_add(ta, tb),)
+        elif op in ("square", "recip", "sqrt"):
+            want, got = getattr(ref_fixed, op)(a), getattr(fixed, "t_" + op)(ta)
+        else:
+            want, got = getattr(ref_fixed, op)(a, b), getattr(fixed, "t_" + op)(ta, tb)
+    for w, g in zip(want, got):
+        assert np.array_equal(np.asarray(w, dtype=np.int64), g.numpy())
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_view_gather_matches_reference(traced, name):
+    """Every edge's view of the graph, read from a random int64 buffer by
+    the torch gather and by the reference's numpy gather."""
+    rcx, pcx = traced[name][0], traced[name][3]
+    rng = np.random.default_rng(5)
+    n_edges = 0
+    for rnode, pnode in zip(rcx.nodes, pcx.nodes):
+        for (_, rv), (_, pv) in zip(rnode.srcs, pnode.srcs):
+            buf = rng.integers(-2**62, 2**62, max(pv.buffer_len, 1))
+            ref = RefView(rv.sizes, rv.strides, rv.base, rv.valid, rv.buffer_len)
+            assert np.array_equal(pv.gather(torch.from_numpy(buf)).numpy(), ref.gather(buf))
+            n_edges += 1
+    assert n_edges > 0
+
+
+def test_view_rank_limit_raises():
+    v = View.contiguous((1,) * (kernels.VIEW_MAX_DIMS + 1))
+    with pytest.raises(LuminairError):
+        v.packed()
+    assert View.contiguous((2,) * kernels.VIEW_MAX_DIMS).packed()[0] == kernels.VIEW_MAX_DIMS
+
+
+def test_find_index_matches_reference():
+    rng = np.random.default_rng(9)
+    los = np.sort(rng.choice(np.arange(-10**6, 10**6, 1000), 12, replace=False))
+    ranges = [(int(lo), int(lo + rng.integers(0, 900))) for lo in los]
+    ref = RefLayout([RefRange(lo, hi) for lo, hi in ranges])
+    port = LookupLayout([Range(lo, hi) for lo, hi in ranges])
+    targets = np.concatenate([rng.integers(-2 * 10**6, 2 * 10**6, 5000), los, los - 1,
+                              [hi for _, hi in ranges], [hi + 1 for _, hi in ranges]]).astype(np.int64)
+    want = ref.find_index(targets)
+    assert (want < 0).any() and (want >= 0).any()
+    assert np.array_equal(port.find_index(torch.from_numpy(targets)).numpy(), want)
+    assert np.array_equal(port.find_index(targets), want)
+
+
+def test_lut_minmax_twin():
+    buf = np.concatenate([_EXTREMES, np.random.default_rng(2).integers(-2**40, 2**40, 1000)])
+    got = kernels.lut_minmax(torch.from_numpy(buf))
+    assert got.tolist() == [buf.min(), buf.max()]
+
+
+# ---------------------------------------------------------------------------
+# Errors and devices.
+
+
+def test_lut_out_of_range_raises():
+    """Settings whose sin table is too narrow: the trace raises, as the
+    reference's host and device interpreters do."""
+    cx = _port_case("all_ops")
+    settings = T.gen_circuit_settings(cx, device="cpu")
+    settings.lookups.sin.ranges[-1].hi -= 2000
+    with pytest.raises(LuminairError, match="sin input outside LUT range"):
+        T.gen_trace(cx, settings, device="cpu")
+
+
+def test_max_reduce_range_raises_like_host():
+    """Values beyond the provable range: a max_reduce step difference of
+    2^30 or more raises in the settings pre-pass, on the host and on the
+    device interpreter alike."""
+    def graph():
+        cx = T.Graph()
+        cx.tensor((2, 3)).set([[0.0, 3e5, -3e5], [1.0, 2.0, 3.0]]).max_reduce(1).retrieve()
+        cx.compile()
+        return cx
+
+    with pytest.raises(LuminairError, match="max_reduce"):
+        port_trace.gen_circuit_settings_host(graph())
+    with pytest.raises(LuminairError, match="max_reduce"):
+        T.gen_circuit_settings(graph(), device="cpu")
+
+
+def test_unknown_op_raises():
+    cx = _port_case("broadcast")
+    next(n for n in cx.nodes if n.op == "square").op = "cube"
+    with pytest.raises(LuminairError, match="cube"):
+        T.gen_circuit_settings(cx, device="cpu")
+
+
+def test_trace_entry_points_default_to_cuda(monkeypatch):
+    cx = _port_case("bench_n8")
+    settings = T.gen_circuit_settings(cx, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ProverError, match="no CUDA device"):
+        T.gen_circuit_settings(cx)
+    with pytest.raises(ProverError, match="no CUDA device"):
+        T.gen_trace(cx, settings)
+
+
+def test_prove_rejects_trace_on_another_device(traced):
+    """A PIE born on one device and a prover on another: prove() raises
+    rather than copying the trace."""
+    _, _, _, _, ps, pp = traced["bench_n8"]
+    moved = {}
+    for name, t in pp.trace_tables.items():
+        padded = {k: v.to("meta") for k, v in t.padded.items()}
+        moved[name] = type(t)(name, {k: v[: t.n_rows] for k, v in padded.items()}, padded=padded)
+    with pytest.raises(ProverError, match="meta"):
+        T.prove(type(pp)(moved, pp.metadata), ps, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# The kernels' own per-row C++ (csrc/trace.cuh), built for the host with the
+# CUDA qualifiers defined away and one loop in place of the grid, against
+# the plain twins.
+
+_SHIM = r"""
+#define __device__
+#define __forceinline__ inline
+static inline unsigned atomicAdd(unsigned* p, unsigned v) { unsigned o = *p; *p += v; return o; }
+#include "trace.cuh"
+extern "C" long long h_args_size() { return sizeof(lum::TraceArgs); }
+extern "C" void h_binary(const lum::TraceArgs* a) { for (long long i = 0; i < a->n; i++) lum::binary_row(*a, i); }
+extern "C" void h_unary(const lum::TraceArgs* a) { for (long long i = 0; i < a->n; i++) lum::unary_row(*a, i); }
+extern "C" void h_reduce(const lum::TraceArgs* a) { for (long long i = 0; i < a->n; i++) lum::reduce_row(*a, i); }
+"""
+
+
+@pytest.fixture(scope="module")
+def host_rows(tmp_path_factory):
+    """{wrapper name: a function running one TraceStep through trace.cuh}."""
+    import ctypes
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no C++ compiler for the host build of csrc/trace.cuh")
+    d = tmp_path_factory.mktemp("trace_rows")
+    (d / "shim.cpp").write_text(_SHIM)
+    csrc = Path(kernels.__file__).resolve().parent / "csrc"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(csrc), "-o", str(d / "rows.so"),
+                    str(d / "shim.cpp")], check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(d / "rows.so"))
+    lib.h_args_size.restype = ctypes.c_longlong
+    assert lib.h_args_size() == ctypes.sizeof(kernels.TraceArgs)
+
+    def runner(fn):
+        fn.argtypes = [ctypes.c_void_p]
+
+        def run(step):
+            args = kernels._trace_args(step, CPU)
+            fn(ctypes.addressof(args))
+
+        return run
+
+    return {"trace_binary": runner(lib.h_binary), "trace_unary": runner(lib.h_unary),
+            "trace_reduce": runner(lib.h_reduce)}
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_kernel_rows_trace_like_twins(traced, host_rows, name, monkeypatch):
+    """The whole device interpreter with trace.cuh's rows in place of the
+    twins gives the twins' PIE, settings and outputs."""
+    _, _, _, pcx, ps, pp = traced[name]
+    for wrapper, run in host_rows.items():
+        monkeypatch.setattr(kernels, wrapper, run)
+    cx = _port_case(name)
+    settings = T.gen_circuit_settings(cx, device="cpu")
+    pie = T.gen_trace(cx, settings, device="cpu")
+    assert settings.to_dict() == ps.to_dict()
+    assert list(pie.trace_tables) == list(pp.trace_tables)
+    for tname, t in pp.trace_tables.items():
+        for col, v in t.padded.items():
+            assert torch.equal(pie.trace_tables[tname].padded[col], v), (tname, col)
+    for rid, v in pcx.output_data.items():
+        assert np.array_equal(cx.output_data[rid], v)
+
+
+TRACE_SEED = 400
+
+
+def _random_step(op, rng):
+    from luminair_tpu_torch.graph.device_trace import TABLE_COLUMNS
+
+    a, b = (torch.from_numpy(x) for x in _operands())
+    if op == "max_reduce":  # step differences inside and outside [0, 2^30)
+        a = torch.from_numpy(rng.integers(-2**31, 2**31, len(a)))
+    n = len(a) - len(a) % 60
+    a, b = a[:n].contiguous(), b[:n].contiguous()
+    table = {"inputs": "inputs", "lut": "sin"}.get(op, op)
+    view = View.contiguous((n,))
+    kw = dict(out_mult=5, mult=torch.zeros(256, dtype=torch.int32), flag=torch.zeros(1, dtype=torch.int32))
+    if op in ("add", "mul", "rem", "less_than"):
+        srcs, rows = [(a, view), (b, View.contiguous((n,)))], n
+    elif op in ("sum_reduce", "max_reduce"):
+        view = View.contiguous((n // 60, 6, 10)).permute((2, 0, 1))  # reduce the middle axis of a permuted view
+        srcs, rows = [(a, view)], view.shape[0] * view.shape[2]
+        kw.update(dsize=view.shape[1], back=view.shape[2])
+    elif op == "contiguous":
+        view = View.contiguous((n // 3, 3)).permute((1, 0)).slice(1, 1, n // 6)
+        srcs, rows = [(a, view)], max(n, view.n_elements)
+        kw["in_mult"] = 77
+    elif op == "lut":
+        layout = LookupLayout([Range(-5000, -100), Range(0, 4000), Range(10**6, 10**6 + 50)])
+        x = torch.from_numpy(rng.integers(-6000, 5000, n))
+        srcs, rows = [(x, view)], n
+        los, his, starts = (torch.from_numpy(v) for v in layout.packed())
+        kw.update(lut=(los, his, starts, torch.from_numpy(rng.integers(-2**40, 2**40, layout.value_count()))),
+                  mult=torch.zeros(1 << layout.log_size, dtype=torch.int32))
+    else:
+        srcs, rows = [(a, view)], n
+    n_rows = rows * kw.get("dsize", 1)
+    n_out = view.n_elements if op == "contiguous" else rows
+    cols = {c: torch.zeros(n_rows, dtype=torch.int32) for c in TABLE_COLUMNS[table]}
+    return kernels.TraceStep(op, srcs, rows, out=torch.zeros(n_out, dtype=torch.int64), cols=cols,
+                             ids=(7, 3, 4), **kw)
+
+
+@pytest.mark.parametrize("op", kernels.TRACE_OPS)
+def test_kernel_rows_match_twins_on_extremes(host_rows, op):
+    """One step of each op on int64 extremes, random values and small
+    values (divisions by 0 and -1, wrapping products, negative remainders,
+    LUT misses, max_reduce steps beyond 2^30), through trace.cuh's rows and
+    through the twin."""
+    step = _random_step(op, np.random.default_rng(TRACE_SEED + kernels.TRACE_OPS.index(op)))
+    wrapper = ("trace_binary" if op in ("add", "mul", "rem", "less_than")
+               else "trace_reduce" if op.endswith("_reduce") else "trace_unary")
+    k, p = step.fresh(), step.fresh()
+    host_rows[wrapper](k)
+    getattr(kernels, wrapper + "_plain")(p)
+    assert torch.equal(k.outputs(), p.outputs())
+    if op in ("lut", "max_reduce"):
+        assert int(p.flag) == 1  # the inputs reach outside the ranges
+
