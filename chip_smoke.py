@@ -5,16 +5,18 @@
 
 Phases, one JSON line each; any failure raises and exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build the eleven kernels from luminair_tpu_torch/csrc (nvcc, sm_90a,
-     one process per source, all at once), with ptxas' register and spill
-     report;
+  2. build the fourteen kernels from luminair_tpu_torch/csrc (nvcc,
+     sm_90a, one process per source, all at once), with ptxas' register
+     and spill report;
   3. the black-scholes PINN's settings and trace on the host interpreter
      (batch 256), timed;
   4. K1-K7 against their plain PyTorch twins on the card, bit for bit:
      K1-K4 at the shapes the N=256 prove gives them, K5/K6 on the tape of
      every PINN component at its batch-256 trace and commit sizes, K7 at
-     the PINN's OODS groups; CUDA-event times of kernel and twin and the
-     least time the card could take for the same work;
+     the PINN's OODS groups, K3's device-challenge fold at the PINN's
+     2^23 composition fold, K8 on random channel states, K9 on digest and
+     column gathers, K10 at 16 bits; CUDA-event times of kernel and twin
+     and the least time the card could take for the same work;
   5. the bench path: the 256x256 a*b + a graph through Graph -> compile ->
      gen_circuit_settings -> gen_trace -> prove, all on the card by
      default; every kernel of the path must launch between the counters'
@@ -35,12 +37,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      model's output within 0.05 of its float64 forward pass, T1-T4 timed
      at the largest call each made, and profiles of the prove, the
      settings pre-pass and the trace;
+  6b. the PINN at the 80-bit profile (path pinn_b256_hs): the same card PIE
+     and settings proved with PcsConfig.high_security() (16 PoW bits, 64
+     queries): launches of one prove with the counters reset just before,
+     the median of 3 proves, the host PIE's proof the same bytes, the
+     native verifier accepting the proof and rejecting it with its nonce
+     plus one, every kernel call of one prove replayed through kernel and
+     twin, K8-K10 timed at the calls this prove made, one profiled prove;
   7. the six op graphs (models/op_graphs.py): the card's settings and PIE
      against the host interpreter's, each trace step through kernel and
      twin, and all_ops proved on the card and accepted by the native
      verifier;
   8. the 16x16 graph traced and proved on the card equals, byte for byte,
-     the same traced and proved on the CPU.
+     the same traced and proved on the CPU, at the default profile and at
+     high_security().
 Then the `kernels` line, and last {"ok": true, "device": {...}}.
 """
 
@@ -86,7 +96,8 @@ OPS_DENOM = 4 * OPS_MUL + 8 * OPS_ADD  # v0 + alpha * v1 - z
 PORT_KERNEL_NAMES = (
     "fft_stage_kernel", "fft_embed_kernel", "merkle_layer_kernel", "fri_fold_kernel",
     "deep_quotient_kernel", "air_witness_kernel", "scan_tile", "air_domain_kernel",
-    "oods_partial_kernel", "oods_combine_kernel", "trace_binary_kernel", "trace_unary_kernel",
+    "oods_partial_kernel", "oods_combine_kernel", "fri_fold_chain_kernel", "channel_draw_kernel",
+    "channel_mix_draw_kernel", "gather_kernel", "grind_pow_kernel", "trace_binary_kernel", "trace_unary_kernel",
     "trace_reduce_kernel", "lut_minmax_kernel",
 )
 
@@ -252,6 +263,16 @@ def phase_kernels(kernels, circle, f, dev, pinn_logs):
     mix = rnd(1 << 17, 4)
     err |= check("fri_fold line+mix 2^18", lambda: kernels.fri_fold(line, tw_l, alpha, mix, beta2),
                  lambda: kernels.fri_fold_plain(line, tw_l, alpha, mix, beta2))
+    # The chain's form: the challenge read from the card, at the PINN's
+    # composition fold 2^23 -> 2^22 and a line fold t = 1 with a mix.
+    alpha_d = rnd(4)
+    circ23 = rnd(1 << 23, 4)
+    tw_c23 = circle.twiddle_stage(23, 0, True, dev)
+    err |= check("fri_fold_chain circle 2^23", lambda: kernels.fri_fold_chain(circ23, tw_c23, alpha_d, 0),
+                 lambda: kernels.fri_fold_chain_plain(circ23, tw_c23, alpha_d, 0))
+    del circ23
+    err |= check("fri_fold_chain line+mix 2^18 t=1", lambda: kernels.fri_fold_chain(line, tw_l, alpha_d, 1, mix),
+                 lambda: kernels.fri_fold_chain_plain(line, tw_l, alpha_d, 1, mix))
     fold_ops = (1 << 18) * (8 * OPS_MUL + 8 * OPS_ADD + OPS_QMUL + 4 * OPS_ADD)
     rows["fri_fold"] = dict(
         shape="circle fold 2^19 -> 2^18", err=err,
@@ -285,12 +306,44 @@ def phase_kernels(kernels, circle, f, dev, pinn_logs):
         plain_ms=time_ms(lambda: kernels.deep_quotient_plain(cols, gam, consts, log)),
         bound=bound(4 * S * (1 << log) + 8 * (1 << log) + 16 * (1 << log), (1 << log) * row_ops),
     )
+    transcript_kernels(kernels, f, dev, rng, rnd, check)
     rows.update(tape_kernels(kernels, f, dev, pinn_logs, rng, rnd, check))
     rows.update(oods_kernel(kernels, circle, f, dev, rng, rnd, check))
     for name, r in rows.items():
         emit({"phase": "kernel_time", "kernel": name, "shape": r["shape"], "ms": r["ms"],
               "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1]})
     return rows
+
+
+def transcript_kernels(kernels, f, dev, rng, rnd, check):
+    """K8 on random channel states (draw, mix and draw; state and record
+    slot), K9 on digest-row and column gathers of a tree's sizes, K10 at 16
+    bits.  Their times come from the 80-bit path's own calls
+    (transcript_kernel_rows)."""
+    for counter in (0, 3):
+        state, root = rnd(kernels.CHANNEL_WORDS), rnd(8)
+        state[8] = counter
+
+        def both(fn, n_out, *args):
+            def run():
+                st, out = state.clone(), torch.zeros(n_out, dtype=torch.int32, device=dev)
+                return torch.cat([fn(st, *args, out), out])
+            return run
+
+        check(f"fri_channel draw counter {counter}", both(kernels.channel_draw_felt, 4),
+              both(kernels.channel_draw_felt_plain, 4))
+        check(f"fri_channel mix+draw counter {counter}", both(kernels.channel_mix_root_draw, 12, root),
+              both(kernels.channel_mix_root_draw_plain, 12, root))
+    layer = rnd(1 << 16, 8)
+    cols = rnd(12, 1 << 22)
+    fri_layer = rnd(1 << 20, 4)
+    specs = [(layer, sorted(rng.choice(1 << 16, 500, replace=False).tolist()), 0),
+             (cols, sorted(rng.choice(1 << 22, 128, replace=False).tolist()), 1),
+             (fri_layer.t(), sorted(rng.choice(1 << 20, 256, replace=False).tolist()), 1)]
+    check("decommit_gather 3 specs", lambda: kernels.gather(specs), lambda: kernels.gather_plain(specs))
+    digest = rnd(8)
+    check("grind_pow 16 bits", lambda: torch.tensor([kernels.grind_pow(digest, 16)]),
+          lambda: torch.tensor([kernels.grind_pow_plain(digest, 16)]))
 
 
 def tape_kernels(kernels, f, dev, pinn_logs, rng, rnd, check):
@@ -457,7 +510,9 @@ def pie_mismatches(f, card_pie, host_pie) -> list:
     return bad
 
 
-def native_verify(serde, proof_bytes: bytes, settings, tag: str) -> float:
+def native_verify(serde, proof_bytes: bytes, settings, tag: str, expect_accept: bool = True) -> float:
+    """Run native/'s verifier on the proof; it must accept it (or, with
+    expect_accept False, reject it).  Returns its seconds."""
     os.makedirs(OUT_DIR, exist_ok=True)
     proof_path = os.path.join(OUT_DIR, f"proof_{tag}.lmv")
     settings_path = os.path.join(OUT_DIR, f"settings_{tag}.lms")
@@ -471,8 +526,9 @@ def native_verify(serde, proof_bytes: bytes, settings, tag: str) -> float:
     res = subprocess.run([os.path.join(ROOT, "native", "build", "luminair-verify"), proof_path,
                           settings_path], capture_output=True, text=True, timeout=600)
     verify_s = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise AssertionError(f"{tag}: native verifier rejected the proof: {res.stdout}{res.stderr}")
+    if (res.returncode == 0) != expect_accept:
+        raise AssertionError(f"{tag}: native verifier {'rejected' if expect_accept else 'accepted'} the proof: "
+                             f"{res.stdout}{res.stderr}")
     return verify_s
 
 
@@ -568,6 +624,13 @@ def path_twins(kernels, tape, f):
             a["tp"], a["main"], a["pp"], a["inter"], a["is_first"], f.qm31_words(a["claimed"]), a["ew"],
             a["pows"], a["log_trace"], a["stride"], a["acc"]), ("tp", "is_first", "stride", "acc")),
         "oods_eval": ("oods_eval", lambda a: kernels.oods_eval_plain(a["cols"], a["chain"]), ("cols",)),
+        "fri_fold_chain": ("fri_fold", lambda a: kernels.fri_fold_chain_plain(
+            a["values"], a["twiddles"], a["alpha"], a["fold"], a["mix"]), ("values", "fold", "mix")),
+        "channel_draw_felt": ("fri_channel", lambda a: kernels.channel_draw_felt_plain(a["state"], a["out"]), ()),
+        "channel_mix_root_draw": ("fri_channel", lambda a: kernels.channel_mix_root_draw_plain(
+            a["state"], a["root"], a["out"]), ()),
+        "gather": ("decommit_gather", lambda a: kernels.gather_plain(a["specs"]), ("specs",)),
+        "grind_pow": ("grind_pow", lambda a: kernels.grind_pow_plain(a["digest"], a["bits"]), ("bits",)),
         **trace_twins(kernels),
     }
 
@@ -589,6 +652,8 @@ def describe(x):
         return tuple(x.shape) if x.is_contiguous() else (tuple(x.shape), x.stride())
     if isinstance(x, (list, tuple)) and x and isinstance(x[0], torch.Tensor):
         return (len(x),) + tuple(x[0].shape)
+    if isinstance(x, list) and x and isinstance(x[0], tuple):  # gather specs
+        return tuple((describe(src), len(idx), axis) for src, idx, axis in x)
     if hasattr(x, "n_relations"):
         return x.name
     if hasattr(x, "fresh"):
@@ -596,16 +661,39 @@ def describe(x):
     return x
 
 
-def flat(out) -> torch.Tensor:
-    """One int32 vector of a wrapper's result (K5 returns columns and sum)."""
-    return torch.cat([o.reshape(-1) for o in out]) if isinstance(out, tuple) else out
+# Arguments a kernel updates in place (cloned when kept and for each replay)
+# and record slots it writes (fresh for each replay).
+UPDATED_ARGS = ("acc", "state")
+WRITTEN_ARGS = ("out",)
+
+
+def flat(out, args=None) -> torch.Tensor:
+    """One int32 vector of a wrapper's result (K5 returns columns and sum,
+    K10 a nonce) and of the record slot it wrote."""
+    if isinstance(out, int):
+        out = torch.tensor([out], dtype=torch.int64)
+    elif isinstance(out, tuple):
+        out = torch.cat([o.reshape(-1) for o in out])
+    written = [args[k].reshape(-1).to(out.device, out.dtype) for k in WRITTEN_ARGS if args and args.get(k) is not None]
+    return torch.cat([out.reshape(-1)] + written) if written else out
+
+
+def replay_args(a: dict) -> dict:
+    args = dict(a)
+    for k in UPDATED_ARGS:
+        if args.get(k) is not None:
+            args[k] = args[k].clone()
+    for k in WRITTEN_ARGS:
+        if args.get(k) is not None:
+            args[k] = torch.zeros_like(args[k])
+    return args
 
 
 class recording:
     """While active, every wrapper in `twins` keeps the arguments of its
     first call at each distinct key (wrapper, the shapes of its work) in
-    `kept` (an `acc` the kernel adds into is cloned first) and counts its
-    calls in `calls`."""
+    `kept` (an argument the kernel updates in place is cloned first) and
+    counts its calls in `calls`."""
 
     def __init__(self, kernels, twins, kept, calls):
         self.kernels, self.twins, self.kept, self.calls = kernels, twins, kept, calls
@@ -622,7 +710,7 @@ class recording:
             self.calls[name] = self.calls.get(name, 0) + 1
             key = (name,) + tuple(describe(a[k]) for k in key_args)
             if key not in self.kept:
-                self.kept[key] = {k: v.clone() if k == "acc" and v is not None else v for k, v in a.items()}
+                self.kept[key] = {k: v.clone() if k in UPDATED_ARGS and v is not None else v for k, v in a.items()}
             return fn(*args, **kw)
 
         return rec
@@ -647,7 +735,8 @@ def trace_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def replay(kernels, twins, kept, calls) -> dict:
     """Every kept call again through its kernel and through its twin; a
-    trace step writes into fresh outputs on both sides."""
+    trace step writes into fresh outputs on both sides, a channel step
+    starts from the kept state with a fresh record slot."""
     by_kernel = {k.name: {"calls": 0, "shapes": [], "max_abs_err": 0} for k in kernels.KERNELS}
     for name, n in calls.items():
         by_kernel[twins[name][0]]["calls"] += n
@@ -660,11 +749,9 @@ def replay(kernels, twins, kept, calls) -> dict:
             plain(p)
             err = trace_err(k.outputs(), p.outputs())
         else:
-            args = dict(a)
-            if args.get("acc") is not None:
-                args["acc"] = args["acc"].clone()
-            got = flat(getattr(kernels, name)(**args))
-            want = flat(plain(a))
+            ka, pa = replay_args(a), replay_args(a)
+            got = flat(getattr(kernels, name)(**ka), ka)
+            want = flat(plain(pa), pa)
             err = trace_err(got.to(torch.int64), want.to(torch.int64)) if got.dtype == torch.int64 else max_abs_err(got, want)
         row = by_kernel[kernel_name]
         row["shapes"].append(repr(key))
@@ -673,17 +760,15 @@ def replay(kernels, twins, kept, calls) -> dict:
     return by_kernel
 
 
-def phase_path_kernels(T, kernels, tape, f, tag: str, build, expect):
-    """The path once more (settings, trace, prove on the card) with every
-    wrapper recording; then each kept call through kernel and twin.  Any
-    word that differs fails the run, and so does a kernel of the path that
-    never ran.  Returns ({kernel: max_abs_err}, the kept calls)."""
+def phase_path_kernels(T, kernels, tape, f, tag: str, run, expect):
+    """The path once more (`run`: settings, trace, prove on the card) with
+    every wrapper recording; then each kept call through kernel and twin.
+    Any word that differs fails the run, and so does a kernel of the path
+    that never ran.  Returns ({kernel: max_abs_err}, the kept calls)."""
     twins = path_twins(kernels, tape, f)
     kept, calls = {}, {}
-    cx, _ = build()
     with recording(kernels, twins, kept, calls):
-        settings = T.gen_circuit_settings(cx)
-        T.prove(T.gen_trace(cx, settings), settings)
+        run()
     by_kernel = replay(kernels, twins, kept, calls)
     for kernel_name, row in by_kernel.items():
         emit({"phase": "path_kernel_check", "path": tag, "kernel": kernel_name, **row})
@@ -753,6 +838,114 @@ def trace_kernel_rows(kernels, kept) -> dict:
         plain_ms=time_ms(lambda: kernels.lut_minmax_plain(buf)),
         bound=bound(8 * len(buf) + 16, 2 * len(buf), INT64_OPS_PER_S),
         library=time_ms(lambda: torch.aminmax(buf)),
+    )
+    for name, r in rows.items():
+        emit({"phase": "kernel_time", "kernel": name, "shape": r["shape"], "ms": r["ms"],
+              "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+              "library_ms": r["library"]})
+    return rows
+
+
+def phase_high_security(T, kernels, serde, tracing, tape, f, card, tag, pie, settings, host, expect):
+    """The PINN's card PIE and settings proved at PcsConfig.high_security():
+    launches of one prove (counters reset just before it), the median of 3,
+    the host PIE's proof the same bytes, native/ accepting the proof and
+    rejecting it with its nonce plus one, and every kernel call of one more
+    prove replayed through kernel and twin.  Returns (launches, {kernel:
+    max_abs_err}, kept calls)."""
+    import copy
+
+    cfg = T.PcsConfig.high_security()
+    host_pie, host_settings = host[:2]
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    proof = T.prove(pie, settings, cfg)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = kernels.counts()
+    emit({"phase": "path", "path": tag, "first_prove_seconds": first_s, "launches": launches})
+    missing = [k for k in expect if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{tag}: the path launched no {missing}")
+    times, phases = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again = T.prove(pie, settings, cfg)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        phases.append(tracing.last_phases("prove"))
+    med = statistics.median(times)
+    pb = serde.proof_to_flat_bytes(proof)
+    if serde.proof_to_flat_bytes(again) != pb:
+        raise AssertionError(f"{tag}: repeated proves of one PIE differ")
+    if serde.proof_to_flat_bytes(T.prove(host_pie, host_settings, cfg)) != pb:
+        raise AssertionError(f"{tag}: the proof of the host's PIE differs from the proof of the card's")
+    verify_s = native_verify(serde, pb, settings, tag)
+    bad = copy.deepcopy(proof)
+    bad.pcs_proof.pow_nonce += 1
+    bad.pcs_proof.fri_proof.pow_nonce = bad.pcs_proof.pow_nonce
+    native_verify(serde, serde.proof_to_flat_bytes(bad), settings, tag + "_bad_nonce", expect_accept=False)
+    pcs = proof.pcs_proof
+    cells = trace_cells(pie)
+    emit({
+        "phase": "prove", "path": tag, "card": card, "config": proof.config.to_dict(),
+        "security_bits": proof.config.security_bits(), "trace_cells": cells, "prove_seconds": times,
+        "prove_seconds_median": med, "trace_cells_per_s": cells / med, "phases_s": phases[times.index(med)],
+        "proof_bytes": len(pb), "pow_nonce": pcs.pow_nonce, "fri_layers": len(pcs.fri_proof.layer_roots),
+        "peak_device_bytes": torch.cuda.max_memory_allocated(), "self_check": "passed",
+        "host_pie_proof_equal": True, "native_verify": "accepted", "native_verify_seconds": verify_s,
+        "native_rejects_nonce_plus_one": True,
+    })
+    errs, kept = phase_path_kernels(T, kernels, tape, f, tag, lambda: T.prove(pie, settings, cfg), expect)
+    return launches, errs, kept
+
+
+def transcript_kernel_rows(kernels, kept) -> dict:
+    """K8, K9 and K10 timed at the first call each made in the 80-bit PINN
+    prove: a layer's mix-and-draw, the trees' opening pass (the larger of
+    the two), the 16-bit search.  K9's library time is the composition it
+    replaced: one index_select per spec (indices already on the card) and
+    one torch.cat."""
+    calls = {}
+    for key, a in kept.items():
+        name = key[0]
+        if name == "gather":
+            size = sum(int(np.prod(kernels.gather_shape(s))) for s in a["specs"])
+            if name not in calls or size > calls[name][0]:
+                calls[name] = (size, a)
+        elif name in ("channel_mix_root_draw", "grind_pow"):
+            calls.setdefault(name, (0, a))
+    rows = {}
+    a = calls["channel_mix_root_draw"][1]
+    after = kernels.channel_mix_root_draw_plain(a["state"].clone(), a["root"])
+    blocks = 1 + int(after[8])  # the mix and this draw's blocks
+    state = a["state"].clone()  # each timed call mixes and draws on from the last
+    rows["fri_channel"] = dict(
+        shape=f"mix a root, draw alpha ({blocks} compressions), one thread", err=0,
+        ms=time_ms(lambda: kernels.channel_mix_root_draw(state, a["root"])),
+        plain_ms=time_ms(lambda: kernels.channel_mix_root_draw_plain(state, a["root"])),
+        bound=bound(4 * (2 * kernels.CHANNEL_WORDS + 8 + 12), blocks * OPS_BLAKE2S_BLOCK), library=None,
+    )
+    specs = calls["gather"][1]["specs"]
+    n_words = calls["gather"][0]
+    table = kernels._gather_table(specs)[0]
+    idx = [torch.as_tensor(np.asarray(i, dtype=np.int64), device=src.device) for src, i, _ in specs]
+
+    def composition():
+        return torch.cat([src.index_select(ax, p).reshape(-1) for (src, _, ax), p in zip(specs, idx)])
+
+    rows["decommit_gather"] = dict(
+        shape=f"trees' opening pass: {len(specs)} specs, {n_words} words", err=0,
+        ms=time_ms(lambda: kernels.gather(specs)), plain_ms=time_ms(lambda: kernels.gather_plain(specs)),
+        bound=bound(8 * len(table) + 8 * n_words, n_words * 16), library=time_ms(composition),
+    )
+    a = calls["grind_pow"][1]
+    nonce = kernels.grind_pow(a["digest"], a["bits"])
+    rows["grind_pow"] = dict(
+        shape=f"{a['bits']} bits, first nonce {nonce}", err=0,
+        ms=time_ms(lambda: kernels.grind_pow(a["digest"], a["bits"])),
+        plain_ms=time_ms(lambda: kernels.grind_pow_plain(a["digest"], a["bits"]), reps=3),
+        bound=bound(40, (nonce + 1) * OPS_BLAKE2S_BLOCK), library=None,
     )
     for name, r in rows.items():
         emit({"phase": "kernel_time", "kernel": name, "shape": r["shape"], "ms": r["ms"],
@@ -858,16 +1051,18 @@ def phase_profile(tag: str, what: str, run):
 
 def phase_parity(T, serde):
     """The N=16 graph traced and proved on the card, and traced and proved
-    on the CPU: the same proof bytes."""
-    proofs = []
-    for device in ("cuda", "cpu"):
-        cx, _ = bench_graph(T, N_PARITY)
-        settings = T.gen_circuit_settings(cx, device=device)
-        proofs.append(serde.proof_to_flat_bytes(T.prove(T.gen_trace(cx, settings, device=device), settings,
-                                                        device=device)))
-    if proofs[0] != proofs[1]:
-        raise AssertionError(f"N={N_PARITY}: GPU proof bytes differ from CPU proof bytes")
-    emit({"phase": "gpu_vs_cpu", "n": N_PARITY, "proof_bytes": len(proofs[0]), "equal": True})
+    on the CPU: the same proof bytes, at the default profile and at
+    high_security()."""
+    for name, cfg in (("default", None), ("high_security", T.PcsConfig.high_security())):
+        proofs = []
+        for device in ("cuda", "cpu"):
+            cx, _ = bench_graph(T, N_PARITY)
+            settings = T.gen_circuit_settings(cx, device=device)
+            proofs.append(serde.proof_to_flat_bytes(T.prove(T.gen_trace(cx, settings, device=device), settings,
+                                                            cfg, device=device)))
+        if proofs[0] != proofs[1]:
+            raise AssertionError(f"N={N_PARITY}, {name}: GPU proof bytes differ from CPU proof bytes")
+        emit({"phase": "gpu_vs_cpu", "n": N_PARITY, "config": name, "proof_bytes": len(proofs[0]), "equal": True})
 
 
 def main() -> int:
@@ -886,6 +1081,7 @@ def main() -> int:
     card = phase_card()
     phase_build(kernels)
     bench_tag, pinn_tag = f"bench_n{N_MAIN}", f"pinn_b{PINN_BATCH}"
+    hs_tag = pinn_tag + "_hs"
     paths = {
         bench_tag: (lambda: bench_graph(T, N_MAIN), None),
         pinn_tag: (lambda: pinn_graph(T, BS), lambda out: {"model_max_abs_err": float(np.max(np.abs(
@@ -896,6 +1092,9 @@ def main() -> int:
         bench_tag: [k.name for k in kernels.KERNELS if k.name not in ("trace_reduce", "lut_minmax")],
         pinn_tag: [k.name for k in kernels.KERNELS],
     }
+    # A prove from a PIE: K1-K10, no trace kernel.
+    expect[hs_tag] = [k.name for k in kernels.KERNELS if k.name not in ("trace_binary", "trace_unary", "trace_reduce",
+                                                                        "lut_minmax")]
     pinn_host = host_trace(paths[pinn_tag][0])
     emit({"phase": "pinn_host_trace", "batch": PINN_BATCH, "trace_cells": trace_cells(pinn_host[0]),
           "settings_host_seconds": pinn_host[2], "trace_host_seconds": pinn_host[3]})
@@ -907,8 +1106,13 @@ def main() -> int:
         host = pinn_host if tag == pinn_tag else host_trace(build)
         launches[tag], pie, settings = phase_path(T, kernels, serde, tracing, f, card, tag, build, host,
                                                   expect[tag], check)
-        del host
-        path_errs[tag], kept = phase_path_kernels(T, kernels, tape, f, tag, build, expect[tag])
+
+        def settings_trace_prove():
+            cx, _ = build()
+            s = T.gen_circuit_settings(cx)
+            T.prove(T.gen_trace(cx, s), s)
+
+        path_errs[tag], kept = phase_path_kernels(T, kernels, tape, f, tag, settings_trace_prove, expect[tag])
         if tag == pinn_tag:
             rows.update(trace_kernel_rows(kernels, kept))
         del kept
@@ -917,7 +1121,17 @@ def main() -> int:
         cx, _ = build()
         phase_profile(tag, "settings", lambda: T.gen_circuit_settings(cx))
         phase_profile(tag, "trace", lambda: T.gen_trace(cx, settings))
-        del pie, settings, cx
+        if tag == pinn_tag:
+            # The same PIE and settings (the trace does not depend on the
+            # PCS profile) at the 80-bit profile.
+            torch.cuda.reset_peak_memory_stats()
+            launches[hs_tag], path_errs[hs_tag], kept = phase_high_security(
+                T, kernels, serde, tracing, tape, f, card, hs_tag, pie, settings, host, expect[hs_tag])
+            rows.update(transcript_kernel_rows(kernels, kept))
+            del kept
+            torch.cuda.empty_cache()
+            phase_profile(hs_tag, "prove", lambda: T.prove(pie, settings, T.PcsConfig.high_security()))
+        del host, pie, settings, cx
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     path_errs["op_graphs"] = phase_op_graphs(T, kernels, serde, tape, f, card)

@@ -85,7 +85,8 @@ class Blake2sChannel:
 
     def grind_pow(self, bits: int) -> int:
         """Smallest nonce whose PoW hash has `bits` low zero bits (expected
-        2^bits hashlib calls; a device nonce search is later work)."""
+        2^bits hashlib calls): the spec of the prover's search on the card,
+        kernels.grind_pow (K10)."""
         nonce = 0
         while not self.check_pow_nonce(bits, nonce):
             nonce += 1

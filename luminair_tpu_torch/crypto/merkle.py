@@ -10,7 +10,8 @@ Each layer is one launch of the Merkle kernel (kernels.merkle_layer), which
 reads the columns of its log through a (k, 2^l) view: the rows of an LDE
 output matrix, or the transposed (2^l, 4) QM31 layer of a FRI fold.  The
 layers stay on the device; the root and the queried openings are the only
-downloads, the openings of a whole proof in one transfer (`gather_many`).
+downloads, the openings of a whole pass in one launch and one transfer
+(`gather_many`, K9).
 
 Decommitment (the reference package's crypto/merkle.py): per layer, the set
 of nodes the verifier recomputes is
@@ -109,19 +110,16 @@ class MerkleTree:
 
 
 def gather_many(specs: List[GatherSpec]) -> List[np.ndarray]:
-    """Run every gather on the device and download them in one transfer.
-    Returns uint32 arrays: (k, len) for axis-1 specs, (len, 8) for axis-0."""
+    """Run every gather on the device in one launch of the gather kernel
+    (kernels.gather, K9: one upload of the spec table and indices) and
+    download them in one transfer.  Returns uint32 arrays: (k, len) for
+    axis-1 specs, (len, 8) for axis-0."""
     if not specs:
         return []
-    parts, shapes = [], []
-    for src, idx, axis in specs:
-        pos = torch.as_tensor(np.asarray(idx, dtype=np.int64), device=src.device)
-        g = src.index_select(axis, pos)
-        parts.append(g.reshape(-1))
-        shapes.append(tuple(g.shape))
-    flat = f.tensor_to_u32(torch.cat(parts))
+    flat = f.tensor_to_u32(kernels.gather(specs))
     out, off = [], 0
-    for shape in shapes:
+    for spec in specs:
+        shape = kernels.gather_shape(spec)
         size = int(np.prod(shape))
         out.append(flat[off : off + size].reshape(shape))
         off += size

@@ -46,6 +46,15 @@ def tensor_to_u32(t: torch.Tensor) -> np.ndarray:
     return np.ascontiguousarray(t.to(I32).numpy()).view(np.uint32)
 
 
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """One host-to-device copy of a numpy array: pinned and asynchronous on
+    the card (stream-ordered before the kernels launched after it)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 def to_i32(x: torch.Tensor) -> torch.Tensor:
     """int64 words in [0, 2^32) -> int32 bit patterns."""
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(I32)

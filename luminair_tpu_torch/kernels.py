@@ -1,7 +1,7 @@
 """The port's hand-written Hopper kernels: build, binding, wrappers.
 
-The CUDA C++ sources under csrc/ (sharing csrc/m31.cuh, csrc/tape.cuh and
-csrc/trace.cuh) are compiled at first use with nvcc for sm_90a, one shared
+The CUDA C++ sources under csrc/ (sharing csrc/m31.cuh, csrc/blake2s.cuh,
+csrc/channel.cuh, csrc/tape.cuh and csrc/trace.cuh) are compiled at first use with nvcc for sm_90a, one shared
 library per source, all sources compiled at once, into build/kernels/ at
 the repository root; each library is named by a hash of its source and
 every header it includes, so an edit to either rebuilds it.  The libraries
@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import itertools
 import os
 import re
 import shutil
@@ -31,6 +32,7 @@ from dataclasses import dataclass, field, replace
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from . import circle
@@ -147,7 +149,7 @@ FRI_FOLD = Kernel(
     "fri_fold",
     "fri.cu",
     "luminair_tpu/parallel/accel.py:1299 (_jit_fold_circle; _jit_fold_line :1314)",
-    {"lum_fri_fold": [_P, _P, _P, _P] + [_U] * 8 + [_LL]},
+    {"lum_fri_fold": [_P, _P, _P, _P] + [_U] * 8 + [_LL], "lum_fri_fold_chain": [_P, _P, _P, _P, _P, _I, _LL]},
 )
 DEEP_QUOTIENT = Kernel(
     "deep_quotient",
@@ -236,6 +238,33 @@ OODS_EVAL = Kernel(
     abi={"lum_oods_args_size": ctypes.sizeof(OodsArgs), "lum_oods_chunk_log": OODS_CHUNK_LOG},
 )
 
+# The channel state on the card (csrc/channel.cuh): {digest[8], counter,
+# alpha[4]} int32 words.
+CHANNEL_WORDS = 13
+CHANNEL = Kernel(
+    "fri_channel",
+    "channel.cu",
+    "luminair_tpu/parallel/accel.py:1409 (_dev_draw_block; _dev_draw_felt :1421, _dev_mix_root :1449, "
+    "_jit_draw_felt :1458; the chain _jit_fri_layer :1487, _jit_fri_chain :1566)",
+    {"lum_channel_draw_felt": [_P, _P], "lum_channel_mix_root_draw": [_P, _P, _P]},
+    abi={"lum_channel_words": CHANNEL_WORDS},
+)
+GATHER_SPEC_WORDS = 8
+GATHER = Kernel(
+    "decommit_gather",
+    "gather.cu",
+    "luminair_tpu/parallel/accel.py:925 (_jit_gather_cols; _jit_gather_many :968)",
+    {"lum_gather": [_P, _I, _LL, _P]},
+    abi={"lum_gather_spec_words": GATHER_SPEC_WORDS},
+)
+GRIND_POW = Kernel(
+    "grind_pow",
+    "channel.cu",
+    "luminair_tpu/crypto/channel.py:104 (grind_pow, batched numpy Blake2s on the host; not a device program)",
+    {"lum_grind_pow": [_P, ctypes.c_ulonglong, _LL, _I, _P]},
+    abi={"lum_channel_words": CHANNEL_WORDS},
+)
+
 # The trace kernels' ABI (csrc/trace.cuh): ops and column slots in enum
 # order, the views' rank limit.
 TRACE_OPS = (
@@ -315,7 +344,7 @@ LUT_MINMAX = Kernel(
 )
 
 KERNELS = (
-    CIRCLE_FFT, MERKLE, FRI_FOLD, DEEP_QUOTIENT, AIR_WITNESS, AIR_DOMAIN, OODS_EVAL,
+    CIRCLE_FFT, MERKLE, FRI_FOLD, DEEP_QUOTIENT, AIR_WITNESS, AIR_DOMAIN, OODS_EVAL, CHANNEL, GATHER, GRIND_POW,
     TRACE_BINARY, TRACE_UNARY, TRACE_REDUCE, LUT_MINMAX,
 )
 
@@ -582,6 +611,40 @@ def fri_fold(values: torch.Tensor, twiddles: torch.Tensor, alpha, mix: Optional[
     return out
 
 
+def fri_fold_chain(values: torch.Tensor, twiddles: torch.Tensor, alpha: torch.Tensor, fold: int,
+                   mix: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """fri_fold with its challenge in device memory: beta = alpha^(2^fold)
+    from `alpha` (4 int32 words beside `values`, as K8 draws it) and, with
+    `mix`, beta^2 * mix added."""
+    _require(values.dtype == f.I32 and values.dim() == 2 and values.shape[1] == 4,
+             "fri_fold_chain: values must be int32 (2n, 4)")
+    n = values.shape[0] // 2
+    _require(tuple(twiddles.shape) == (n,) and twiddles.dtype == f.I32, "fri_fold_chain: twiddles (n,) int32")
+    _require(alpha.dtype == f.I32 and tuple(alpha.shape) == (4,) and alpha.is_contiguous()
+             and alpha.device == values.device, "fri_fold_chain: alpha must be 4 contiguous int32 words beside values")
+    _require(0 <= fold <= 8, "fri_fold_chain: fold index in 0..8")
+    if mix is not None:
+        _require(tuple(mix.shape) == (n, 4) and mix.dtype == f.I32, "fri_fold_chain: mix (n, 4) int32")
+    if _on_cpu(values):
+        return fri_fold_chain_plain(values, twiddles, alpha, fold, mix)
+    values = values.contiguous()
+    twiddles = twiddles.contiguous()
+    mix = mix.contiguous() if mix is not None else None
+    out = torch.empty((n, 4), dtype=f.I32, device=values.device)
+    FRI_FOLD.launch(
+        "lum_fri_fold_chain", values.device, values.data_ptr(), out.data_ptr(), twiddles.data_ptr(),
+        mix.data_ptr() if mix is not None else None, alpha.data_ptr(), fold, n,
+    )
+    return out
+
+
+def fri_fold_chain_plain(values, twiddles, alpha, fold: int, mix=None) -> torch.Tensor:
+    beta = f.to_u32_i64(alpha)
+    for _ in range(fold):
+        beta = f.qm31_mul(beta, beta)
+    return fri_fold_plain(values, twiddles, beta, mix, f.qm31_mul(beta, beta) if mix is not None else None)
+
+
 def fri_fold_plain(values, twiddles, alpha, mix=None, beta2=None) -> torch.Tensor:
     dev = values.device
     v = values.to(f.I64)
@@ -779,6 +842,177 @@ def oods_eval_plain(cols: Sequence[torch.Tensor], chain: Sequence[tuple]) -> tor
         prod = (c64[s : s + rows, :, None] * basis[None]) % f.P
         out.append(prod.sum(dim=1) % f.P)
     return torch.cat(out).to(f.I32)
+
+
+# ---------------------------------------------------------------------------
+# K8: the Blake2s channel on the card; K10: the proof-of-work search.
+
+
+def _check_words(t: Optional[torch.Tensor], n: int, what: str, device: torch.device) -> None:
+    if t is not None:
+        _require(t.dtype == f.I32 and tuple(t.shape) == (n,) and t.is_contiguous() and t.device == device,
+                 f"{what}: {n} contiguous int32 words on the state's device")
+
+
+def channel_draw_felt(state: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Draw one QM31 from the channel `state` (CHANNEL_WORDS int32 words:
+    digest, counter, alpha; see csrc/channel.cuh), updated in place; the
+    alpha is also written to `out` (4 words) when given.  Returns state."""
+    _check_words(state, CHANNEL_WORDS, "channel state", state.device)
+    _check_words(out, 4, "channel_draw_felt out", state.device)
+    if _on_cpu(state):
+        return channel_draw_felt_plain(state, out)
+    CHANNEL.launch("lum_channel_draw_felt", state.device, state.data_ptr(), out.data_ptr() if out is not None else None)
+    return state
+
+
+def channel_mix_root_draw(state: torch.Tensor, root: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mix a Merkle root (8 int32 words on the card: a tree's layer-0
+    digest) into `state`, then draw one QM31; `out` (12 words) receives
+    the root and the alpha when given.  Returns state."""
+    _check_words(state, CHANNEL_WORDS, "channel state", state.device)
+    _check_words(root, 8, "channel_mix_root_draw root", state.device)
+    _check_words(out, 12, "channel_mix_root_draw out", state.device)
+    if _on_cpu(state):
+        return channel_mix_root_draw_plain(state, root, out)
+    CHANNEL.launch("lum_channel_mix_root_draw", state.device, state.data_ptr(), root.data_ptr(),
+                   out.data_ptr() if out is not None else None)
+    return state
+
+
+def _hash_plain(words: torch.Tensor) -> torch.Tensor:
+    """Blake2s of one message of int32 words -> (8,) int64 words."""
+    return f.to_u32_i64(blake2s.hash_words_plain(words[None]))[0]
+
+
+def channel_draw_felt_plain(state, out=None):
+    digest = state[:8]
+    counter = int(state[8]) & 0xFFFFFFFF
+    taken = []
+    while len(taken) < 4:
+        le64 = f.to_i32(torch.tensor([counter, 0], dtype=f.I64, device=state.device))
+        counter += 1
+        for w in _hash_plain(torch.cat([digest, le64])).tolist():
+            if w < 2 * f.P:  # 0xFFFFFFFE and 0xFFFFFFFF are rejected
+                taken.append(w % f.P)
+                if len(taken) == 4:
+                    break
+    state[8:] = f.to_i32(torch.tensor([counter] + taken, dtype=f.I64, device=state.device))
+    if out is not None:
+        out.copy_(state[9:])
+    return state
+
+
+def channel_mix_root_draw_plain(state, root, out=None):
+    state[:8] = f.to_i32(_hash_plain(torch.cat([state[:8], root])))
+    state[8] = 0
+    channel_draw_felt_plain(state)
+    if out is not None:
+        out[:8] = root
+        out[8:] = state[9:]
+    return state
+
+
+def _pow_chunk(bits: int) -> int:
+    """Candidates per K10 launch: 16 times the expected work, so a chunk
+    misses with probability about e^-16; 2^10 to 2^22."""
+    return 1 << min(max(bits + 4, 10), 22)
+
+
+def grind_pow(digest: torch.Tensor, bits: int) -> int:
+    """The smallest nonce whose H(digest || LE64(nonce)) has `bits` low
+    zero bits in its first 8 bytes (LE64): Blake2sChannel.grind_pow's
+    nonce.  digest: 8 int32 words.  On the card one launch per chunk of
+    candidates, then one 8-byte download that says whether to go on."""
+    _check_words(digest, 8, "grind_pow digest", digest.device)
+    _require(0 <= bits <= 64, "grind_pow: bits in 0..64")
+    if _on_cpu(digest):
+        return grind_pow_plain(digest, bits)
+    best = torch.empty(1, dtype=torch.int64, device=digest.device)
+    chunk, start = _pow_chunk(bits), 0
+    while start < 1 << min(bits + 12, 62):  # 4096 times the expected work
+        best.fill_(-1)  # no hit: all ones
+        GRIND_POW.launch("lum_grind_pow", digest.device, digest.data_ptr(), start, chunk, bits, best.data_ptr())
+        hit = int(best.item())
+        if hit != -1:
+            return hit
+        start += chunk
+    raise KernelError(f"grind_pow: no {bits}-bit nonce below {start}")
+
+
+def grind_pow_plain(digest: torch.Tensor, bits: int) -> int:
+    dev = digest.device
+    chunk = min(_pow_chunk(bits), 1 << 13)  # (4, chunk) rows stay under torch's parallel grain
+    lo_mask = (1 << min(bits, 32)) - 1
+    hi_mask = (1 << max(bits - 32, 0)) - 1
+    start = 0
+    while True:
+        nonces = torch.arange(start, start + chunk, dtype=f.I64, device=dev)
+        msgs = torch.cat([f.to_u32_i64(digest).expand(chunk, 8), (nonces & 0xFFFFFFFF)[:, None],
+                          (nonces >> 32)[:, None]], dim=1)
+        h = f.to_u32_i64(blake2s.hash_words_plain(f.to_i32(msgs)))
+        hit = torch.nonzero(((h[:, 0] & lo_mask) == 0) & ((h[:, 1] & hi_mask) == 0))
+        if len(hit):
+            return start + int(hit[0, 0])
+        start += chunk
+
+
+# ---------------------------------------------------------------------------
+# K9: the gathers of one decommitment pass.
+
+
+def gather_shape(spec) -> tuple:
+    """A gather (source (R, C) int32 tensor, positions, axis) gives
+    (len(positions), C) for axis 0 and (R, len(positions)) for axis 1."""
+    src, idx, axis = spec
+    return (len(idx), src.shape[1]) if axis == 0 else (src.shape[0], len(idx))
+
+
+def _gather_table(specs):
+    """(packed int64 table, non-empty spec count, output words): the spec
+    rows of csrc/gather.cu, then the concatenated indices."""
+    rows, idxs = [], []
+    n_idx = n_words = 0
+    for src, idx, axis in specs:
+        _require(src.dtype == f.I32 and src.dim() == 2 and axis in (0, 1), "gather: int32 (R, C) sources, axis 0 or 1")
+        width = src.shape[1 - axis]
+        if len(idx) == 0 or width == 0:
+            continue
+        rows.append((src.data_ptr(), src.stride(0), src.stride(1), axis, width, len(idx), n_idx, n_words, src.shape[axis]))
+        idxs.append(idx)
+        n_idx += len(idx)
+        n_words += len(idx) * width
+    if not rows:
+        return np.zeros(0, np.int64), 0, 0
+    table = np.array(rows, dtype=np.int64)
+    pos = np.fromiter(itertools.chain.from_iterable(idxs), dtype=np.int64, count=n_idx)
+    limit = np.repeat(table[:, 8], table[:, 5])
+    _require(bool(((pos >= 0) & (pos < limit)).all()), "gather: positions out of range")
+    return np.concatenate([table[:, :GATHER_SPEC_WORDS].reshape(-1), pos]), len(rows), n_words
+
+
+def gather(specs: Sequence[tuple]) -> torch.Tensor:
+    """Every spec's gathered words, each result row-major, concatenated in
+    spec order: one flat int32 tensor on the sources' device.  On the card:
+    one pinned upload of the spec table and indices, one launch."""
+    _require(len(specs) > 0, "gather: no specs")
+    dev = specs[0][0].device
+    _require(all(s[0].device == dev for s in specs), "gather: sources on one device")
+    if _on_cpu(specs[0][0]):
+        return gather_plain(specs)
+    table, n_specs, n_words = _gather_table(specs)
+    out = torch.empty(n_words, dtype=f.I32, device=dev)
+    if n_words:
+        packed = f.upload(table, dev)
+        GATHER.launch("lum_gather", dev, packed.data_ptr(), n_specs, n_words, out.data_ptr())
+    return out
+
+
+def gather_plain(specs) -> torch.Tensor:
+    """One index_select per spec, then one concatenation."""
+    parts = [src.index_select(axis, torch.as_tensor(np.asarray(idx, dtype=np.int64), device=src.device)).reshape(-1)
+             for src, idx, axis in specs]
+    return torch.cat(parts)
 
 
 # ---------------------------------------------------------------------------

@@ -15,10 +15,17 @@ reference package's pcs/fri.py):
   4. after PoW and query drawing, decommit every committed layer at the
      positions needed to replay its folds.
 
-Layers stay on the device: each fold is one launch of the FRI-fold kernel
-(kernels.fri_fold, K3) and each layer tree goes through the Merkle kernel.
-The channel stays on the host, so each committed layer costs one root
-download (a sync) before its alpha is drawn.
+The commit chain runs on the card with no host sync (the reference's
+accel.fri_commit_chain): the channel state is uploaded once; K8
+(kernels.channel_*) draws alpha0 and, per committed layer, mixes the root
+of the layer's tree (K2) and draws its alpha into a record on the card;
+every fold (K3, kernels.fri_fold_chain) reads its challenge from that
+record.  One download then brings the record -- final channel state,
+alpha0, every root and alpha -- with the last layer.  The host channel,
+which stays authoritative, replays the roots and must reach the same
+challenges and state, or the prove raises ProverError.  The chain runs
+down to the last layer: the reference's host tail below FUSED_MIN_ROWS is
+a TPU-dispatch heuristic with the same transcript.
 """
 
 from __future__ import annotations
@@ -38,22 +45,20 @@ from ..errors import ProverError
 from .config import FriConfig
 
 
-def _qm31(felt: np.ndarray) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(felt, dtype=np.int64))
-
-
-def fold_circle_to_line(values: torch.Tensor, circle_log: int, alpha) -> torch.Tensor:
+def fold_circle_to_line(values: torch.Tensor, circle_log: int, alpha: torch.Tensor) -> torch.Tensor:
     """(2^circle_log, 4) on D_circle_log -> (N/2, 4) on its line domain:
-    f(P) = E(x) + y*O(x), out = E + alpha*O."""
+    f(P) = E(x) + y*O(x), out = E + alpha*O.  alpha: 4 int32 words beside
+    `values` (the challenge as K8 draws it)."""
     tw = circle.twiddle_stage(circle_log, 0, True, values.device)
-    return kernels.fri_fold(values, tw, alpha)
+    return kernels.fri_fold_chain(values, tw, alpha, 0)
 
 
-def fold_line(values: torch.Tensor, kmax: int, line_log: int, alpha, mix=None, beta2=None):
-    """(2^line_log, 4) -> (2^(line_log-1), 4) with pairing (i, L-1-i) and the
-    1/(2x) twiddles of D_kmax's stage kmax - line_log (+ beta2 * mix)."""
+def fold_line(values: torch.Tensor, kmax: int, line_log: int, alpha: torch.Tensor, fold: int = 0, mix=None):
+    """(2^line_log, 4) -> (2^(line_log-1), 4) with pairing (i, L-1-i), the
+    1/(2x) twiddles of D_kmax's stage kmax - line_log and the challenge
+    beta = alpha^(2^fold) (+ beta^2 * mix)."""
     tw = circle.twiddle_stage(kmax, kmax - line_log, True, values.device)
-    return kernels.fri_fold(values, tw, alpha, mix, beta2)
+    return kernels.fri_fold_chain(values, tw, alpha, fold, mix)
 
 
 @dataclass
@@ -65,45 +70,95 @@ class FriProof:
     pow_nonce: int = 0
 
 
+# The FRI record on the card: the channel state, alpha0, then a root and an
+# alpha per committed layer (int32 words).
+RECORD_HEAD = kernels.CHANNEL_WORDS + 4
+LAYER_WORDS = 12
+
+
+def layer_schedule(kmax: int, last_line_log: int, folds_per_layer: int):
+    """[(line log, folds)] of each committed layer, from kmax - 1 down."""
+    out, log = [], kmax - 1
+    while log > last_line_log:
+        folds = min(folds_per_layer, log - last_line_log)
+        out.append((log, folds))
+        log -= folds
+    return out
+
+
+def commit_chain(inputs: Dict[int, torch.Tensor], last_line_log: int, folds_per_layer: int,
+                 digest: bytes, counter: int):
+    """The commit chain on the inputs' device from a channel state (digest,
+    counter), ended by its one download.  Returns the chain's final
+    (digest, counter), its roots and alphas, alpha0 (uint32 words), the
+    last layer ((2^last_line_log, 4) int64 on the host) and the committed
+    layers [(log, evals, MerkleTree)] (on the device)."""
+    logs = sorted(inputs, reverse=True)
+    kmax = logs[0]
+    schedule = layer_schedule(kmax, last_line_log, folds_per_layer)
+    dev = inputs[kmax].device
+
+    head = np.zeros(RECORD_HEAD + LAYER_WORDS * len(schedule), dtype=np.uint32)
+    head[:8] = np.frombuffer(digest, dtype="<u4")
+    head[8] = counter
+    rec = f.u32_to_tensor(head, dev)  # the one upload
+    state, alpha0 = rec[: kernels.CHANNEL_WORDS], rec[kernels.CHANNEL_WORDS : RECORD_HEAD]
+    kernels.channel_draw_felt(state, alpha0)
+    line_evals = {k - 1: fold_circle_to_line(inputs[k], k, alpha0) for k in logs}
+    cur = line_evals[kmax - 1]
+    layers = []
+    for i, (log, folds) in enumerate(schedule):
+        tree = MerkleTree({log: cur.t()})
+        slot = rec[RECORD_HEAD + LAYER_WORDS * i : RECORD_HEAD + LAYER_WORDS * (i + 1)]
+        kernels.channel_mix_root_draw(state, tree.layers[0][0], slot)
+        layers.append((log, cur, tree))
+        for t in range(folds):
+            cur = fold_line(cur, kmax, log - t, slot[8:], t, line_evals.get(log - t - 1))
+
+    words = f.tensor_to_u32(torch.cat([rec, cur.reshape(-1)]))  # the one download
+    slots = words[RECORD_HEAD : len(rec)].reshape(-1, LAYER_WORDS)
+    return (
+        words[:8].astype("<u4").tobytes(),
+        int(words[8]),
+        [s[:8].copy() for s in slots],
+        [s[8:].copy() for s in slots],
+        words[kernels.CHANNEL_WORDS : RECORD_HEAD].copy(),
+        torch.from_numpy(words[len(rec) :].astype(np.int64)).reshape(-1, 4),
+        layers,
+    )
+
+
+def _same(host: np.ndarray, device: np.ndarray, what: str) -> None:
+    if not np.array_equal(np.asarray(host, dtype=np.uint32), device):
+        raise ProverError(f"the channel on the device diverged from the host channel ({what})")
+
+
 def fri_prove(inputs: Dict[int, torch.Tensor], config: FriConfig, channel):
     """inputs: {circle_log: (2^log, 4) int32 QM31 evaluations}.  Returns
     (FriProof without openings, context for `fri_decommit`)."""
     logs = sorted(inputs, reverse=True)
-    assert logs, "no FRI inputs"
+    if not logs:
+        raise ProverError("no FRI inputs")
     kmax = logs[0]
     B = config.log_blowup_factor
     last_line_log = B + config.log_last_layer_degree_bound
     if min(logs) - 1 < last_line_log:
         raise ProverError("FRI last layer above the smallest input's line domain")
     F = max(1, int(config.folds_per_layer))
-
-    alpha0 = channel.draw_felt()
-    line_evals = {k - 1: fold_circle_to_line(inputs[k], k, alpha0) for k in logs}
-    cur = line_evals[kmax - 1]
-    cur_log = kmax - 1
-    layers = []  # (log, evals, MerkleTree)
-    alphas = []
-    while cur_log > last_line_log:
-        tree = MerkleTree({cur_log: cur.t()})
-        channel.mix_root(tree.root)
-        alpha = channel.draw_felt()
-        alphas.append(alpha)
-        layers.append((cur_log, cur, tree))
-        beta = _qm31(alpha)
-        for _ in range(min(F, cur_log - last_line_log)):
-            mix = cur_log - 1 in line_evals and cur_log - 1 != kmax - 1
-            beta2 = f.qm31_mul(beta, beta)
-            cur = fold_line(
-                cur, kmax, cur_log, beta,
-                mix=line_evals[cur_log - 1] if mix else None,
-                beta2=beta2 if mix else None,
-            )
-            cur_log -= 1
-            beta = beta2
+    digest, counter, roots, alphas, alpha0, last, layers = commit_chain(
+        inputs, last_line_log, F, channel.digest, channel._counter
+    )
+    # The host channel replays the roots.
+    _same(channel.draw_felt(), alpha0, "alpha0")
+    for i, (root, alpha) in enumerate(zip(roots, alphas)):
+        channel.mix_root(root)
+        _same(channel.draw_felt(), alpha, f"the alpha of FRI layer {i}")
+    if channel.digest != digest or channel._counter != counter:
+        raise ProverError("the channel on the device diverged from the host channel (final state)")
 
     # Last layer: tiny -- interpolate on the host, extract strided coeffs.
-    tw_line_inv = circle.ifft_twiddles(kmax)[kmax - cur_log :]
-    coeffs = fft.line_ifft_qm31(cur.cpu().to(f.I64), tw_line_inv)
+    tw_line_inv = circle.ifft_twiddles(kmax)[kmax - last_line_log :]
+    coeffs = fft.line_ifft_qm31(last, tw_line_inv)
     stride = 1 << B
     mask = torch.ones(len(coeffs), dtype=torch.bool)
     mask[::stride] = False
@@ -113,7 +168,7 @@ def fri_prove(inputs: Dict[int, torch.Tensor], config: FriConfig, channel):
     channel.mix_felts(last_coeffs)
 
     proof = FriProof(
-        layer_roots=[t.root for (_, _, t) in layers],
+        layer_roots=roots,
         layer_queried_values=[],
         layer_witnesses=[],
         last_layer_coeffs=last_coeffs,

@@ -5,6 +5,10 @@ opening through DEEP quotients and FRI.
   opening phase:  OODS values -> mix -> draw gamma -> quotients -> FRI ->
                   PoW -> draw queries -> decommit trees and FRI layers
 
+FRI commits on the card with its channel there (pcs/fri.py, K8); the PoW
+nonce is searched on the card (kernels.grind_pow, K10); each opening pass
+(FRI layers, then the trees) is one gather launch and one download (K9).
+
 The transcript choreography is the reference package's pcs/scheme.py.
 """
 
@@ -18,8 +22,10 @@ import torch
 
 from .. import fields as f
 from .. import fft
+from .. import kernels
 from .. import tracing
 from ..crypto.merkle import MerkleTree, run_plans
+from ..errors import ProverError
 from . import fri as fri_mod
 from .config import PcsConfig
 from .quotients import ColumnSample, accumulate_quotients
@@ -136,9 +142,13 @@ class CommitmentSchemeProver:
         with timer.span("3b_fri_commit"):
             fri_proof, fri_ctx = fri_mod.fri_prove(quotients, self.config.fri, ch)
 
-        # 3. PoW + queries.
+        # 3. PoW (K10 on the card) + queries.
         with timer.span("3b_pow"):
-            nonce = ch.grind_pow(self.config.pow_bits)
+            bits = self.config.pow_bits
+            digest = f.u32_to_tensor(np.frombuffer(ch.digest, dtype="<u4").copy(), quotients[max(quotients)].device)
+            nonce = kernels.grind_pow(digest, bits)
+            if not ch.check_pow_nonce(bits, nonce):
+                raise ProverError(f"the proof-of-work nonce {nonce} fails its {bits}-bit check")
         ch.mix_u64(nonce)
         kmax = max(quotients)
         positions = ch.draw_queries(self.config.fri.n_queries, kmax)

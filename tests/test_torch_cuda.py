@@ -68,6 +68,73 @@ def test_deep_quotient(dev, log, S):
     )
 
 
+@pytest.mark.parametrize("fold", [0, 1, 2, 8])
+def test_fri_fold_chain(dev, fold):
+    rng = np.random.default_rng(50 + fold)
+    v, tw, mix = _rnd(rng, dev, 1 << 11, 4), _rnd(rng, dev, 1 << 10), _rnd(rng, dev, 1 << 10, 4)
+    alpha = _rnd(rng, dev, 4)
+    assert torch.equal(kernels.fri_fold_chain(v, tw, alpha, fold), kernels.fri_fold_chain_plain(v, tw, alpha, fold))
+    assert torch.equal(kernels.fri_fold_chain(v, tw, alpha, fold, mix),
+                       kernels.fri_fold_chain_plain(v, tw, alpha, fold, mix))
+
+
+# ---------------------------------------------------------------------------
+# K8: the channel; K9: the decommit gathers; K10: the proof-of-work search.
+
+
+def _channel_state(rng, dev, counter):
+    s = _rnd(rng, dev, kernels.CHANNEL_WORDS)
+    s[8] = counter
+    return s
+
+
+@pytest.mark.parametrize("counter", [0, 1, 7, 1000])
+def test_channel_kernels(dev, counter):
+    rng = np.random.default_rng(counter)
+    for _ in range(8):
+        state, root = _channel_state(rng, dev, counter), _rnd(rng, dev, 8)
+        a, b = state.clone(), state.clone()
+        out_a, out_b = torch.zeros(4, dtype=torch.int32, device=dev), torch.zeros(4, dtype=torch.int32, device=dev)
+        assert torch.equal(kernels.channel_draw_felt(a, out_a), kernels.channel_draw_felt_plain(b, out_b))
+        assert torch.equal(out_a, out_b) and torch.equal(out_a, a[9:])
+        a, b = state.clone(), state.clone()
+        out_a, out_b = torch.zeros(12, dtype=torch.int32, device=dev), torch.zeros(12, dtype=torch.int32, device=dev)
+        assert torch.equal(kernels.channel_mix_root_draw(a, root, out_a),
+                           kernels.channel_mix_root_draw_plain(b, root, out_b))
+        assert torch.equal(out_a, out_b)
+
+
+@pytest.mark.parametrize("bits", [0, 1, 5, 9, 12, 16, 20])
+def test_grind_pow(dev, bits):
+    from luminair_tpu_torch.crypto.channel import Blake2sChannel
+
+    rng = np.random.default_rng(bits)
+    digest = _rnd(rng, dev, 8)
+    nonce = kernels.grind_pow(digest, bits)
+    assert nonce == kernels.grind_pow_plain(digest, bits)
+    ch = Blake2sChannel()
+    ch.digest = f.tensor_to_u32(digest).astype("<u4").tobytes()
+    assert ch.check_pow_nonce(bits, nonce)
+    if bits <= 12:
+        assert nonce == ch.grind_pow(bits)
+
+
+def test_gather(dev):
+    rng = np.random.default_rng(3)
+    digests = _rnd(rng, dev, 1 << 12, 8)
+    cols = _rnd(rng, dev, 7, 1 << 12)
+    layer = _rnd(rng, dev, 1 << 10, 4)
+    specs = [
+        (digests, sorted(rng.choice(1 << 12, 200, replace=False).tolist()), 0),
+        (cols, sorted(rng.choice(1 << 12, 64, replace=False).tolist()), 1),
+        (layer.t(), [0, 5, 1023], 1),
+        (cols[2:5], [4095], 1),
+        (digests, [], 0),
+        (digests[::2], [1, 2, 3], 0),
+    ]
+    assert torch.equal(kernels.gather(specs), kernels.gather_plain(specs))
+
+
 # ---------------------------------------------------------------------------
 # K5 / K6: every component's tape; K7: OODS values.
 
@@ -163,9 +230,19 @@ def test_prove_path_never_takes_a_plain_twin(dev, monkeypatch):
     settings = gen_circuit_settings_host(cx)
     pie = gen_trace_host(cx, settings)  # host words: the prover uploads them
     kernels.reset_counts()
-    T.prove(pie, settings, device=dev)
-    prove_kernels = kernels.KERNELS[:7]  # K1-K7; the trace ran on the host
+    proof = T.prove(pie, settings, device=dev)
+    prove_kernels = kernels.KERNELS[:10]  # K1-K10; the trace ran on the host
     assert all(k.launches > 0 for k in prove_kernels), kernels.counts()
+    _check_fri_launches(proof)
+
+
+def _check_fri_launches(proof):
+    """K8 once for alpha0 and once per committed FRI layer, K9 once per
+    opening pass (FRI layers, trees), K10 at least once."""
+    n_layers = len(proof.pcs_proof.fri_proof.layer_roots)
+    assert kernels.CHANNEL.launches == 1 + n_layers and n_layers > 0
+    assert kernels.GATHER.launches == 2
+    assert kernels.GRIND_POW.launches >= 1
 
 
 # ---------------------------------------------------------------------------
@@ -242,7 +319,7 @@ def test_lut_minmax(dev, n):
 def test_prove_from_card_trace_never_touches_the_host(dev, monkeypatch):
     """The bench graph's settings, trace and prove on the card with every
     plain twin guarded against CUDA tensors and the host upload of trace
-    columns guarded: each of the eleven kernels launches, and the proof
+    columns guarded: each of the fourteen kernels launches, and the proof
     equals the CPU's."""
     from luminair_tpu_torch import prelude as T
     from luminair_tpu_torch import serde
@@ -282,8 +359,61 @@ def test_prove_from_card_trace_never_touches_the_host(dev, monkeypatch):
     assert all(c.is_cuda for t in pie.trace_tables.values() for c in t.padded.values())
     proof = T.prove(pie, settings, device=dev)
     assert all(v > 0 for v in kernels.counts().values()), kernels.counts()
+    _check_fri_launches(proof)
     monkeypatch.undo()
     cpu_cx = _graph("all_ops")
     cpu_settings = T.gen_circuit_settings(cpu_cx, device="cpu")
     cpu_proof = T.prove(T.gen_trace(cpu_cx, cpu_settings, device="cpu"), cpu_settings, device="cpu")
     assert serde.proof_to_flat_bytes(proof) == serde.proof_to_flat_bytes(cpu_proof)
+
+
+@pytest.mark.parametrize("high_security", [False, True])
+def test_fri_commit_downloads_once_and_each_pass_uploads_once(dev, monkeypatch, high_security):
+    """On the card, the FRI commit chain makes one device-to-host download
+    (no root comes down per layer), and each decommit pass one upload of
+    its gather indices."""
+    from luminair_tpu_torch import prelude as T
+    from luminair_tpu_torch.pcs import fri
+
+    events = []
+    for name in ("tensor_to_u32", "upload", "u32_to_tensor"):
+        fn = getattr(f, name)
+
+        def counted(*args, fn=fn, name=name, **kw):
+            if name != "tensor_to_u32" or args[0].is_cuda:
+                events.append(name)
+            return fn(*args, **kw)
+
+        monkeypatch.setattr(f, name, counted)
+    for mod, name in ((fri, "fri_prove"), (kernels, "gather")):
+        fn = getattr(mod, name)
+
+        def marked(*args, fn=fn, name=name, **kw):
+            events.append(("begin", name))
+            out = fn(*args, **kw)
+            events.append(("end", name))
+            return out
+
+        monkeypatch.setattr(mod, name, marked)
+    cx = _graph("all_ops")
+    settings = T.gen_circuit_settings(cx)
+    pie = T.gen_trace(cx, settings)
+    events.clear()
+    T.prove(pie, settings, T.PcsConfig.high_security() if high_security else None, device=dev)
+
+    def inside(name):
+        spans, cur = [], None
+        for e in events:
+            if e == ("begin", name):
+                cur = []
+            elif e == ("end", name):
+                spans.append(cur)
+                cur = None
+            elif cur is not None:
+                cur.append(e)
+        return spans
+
+    (chain,) = inside("fri_prove")
+    assert chain.count("tensor_to_u32") == 1, chain
+    passes = inside("gather")
+    assert len(passes) == 2 and all(p.count("upload") == 1 and "u32_to_tensor" not in p for p in passes), passes

@@ -32,7 +32,8 @@ def _eq(port, ref):
 def test_fold_circle_to_line(log):
     v = _qm31(log, 1 << log)
     alpha = _qm31(50 + log, 1)[0]
-    _eq(fri.fold_circle_to_line(f.u32_to_tensor(v), log, alpha), ref_fri.fold_circle_to_line(v, log, alpha))
+    _eq(fri.fold_circle_to_line(f.u32_to_tensor(v), log, f.u32_to_tensor(alpha)),
+        ref_fri.fold_circle_to_line(v, log, alpha))
 
 
 @pytest.mark.parametrize("kmax,line_log", [(4, 3), (9, 8), (9, 5), (9, 1)])
@@ -42,7 +43,7 @@ def test_fold_line(kmax, line_log, with_mix):
     alpha = _qm31(7, 1)[0]
     t_inv = ref_circle.ifft_twiddles(kmax)[kmax - line_log]
     ref = ref_fri.fold_line(v, t_inv, alpha)
-    mix = beta2 = None
+    mix = None
     if with_mix:
         from luminair_tpu.fields import qm31 as ref_qm31
 
@@ -50,9 +51,7 @@ def test_fold_line(kmax, line_log, with_mix):
         beta2 = ref_qm31.mul(alpha, alpha)
         ref = ref_qm31.add(ref, ref_qm31.mul(np.broadcast_to(beta2, ref.shape), mix))
         mix = f.u32_to_tensor(mix)
-    alpha_t = f.u32_to_tensor(alpha, dtype=f.I64)
-    beta2_t = f.u32_to_tensor(beta2, dtype=f.I64) if with_mix else None
-    _eq(fri.fold_line(f.u32_to_tensor(v), kmax, line_log, alpha_t, mix, beta2_t), ref)
+    _eq(fri.fold_line(f.u32_to_tensor(v), kmax, line_log, f.u32_to_tensor(alpha), mix=mix), ref)
 
 
 def _sample_setup(seed, logs_and_points):

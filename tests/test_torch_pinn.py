@@ -110,6 +110,43 @@ def test_reference_verifier_accepts_and_rejects(pinn):
         ref_verify(ref_serde.proof_from_payload(bad), ref_settings)
 
 
+@pytest.fixture(scope="module")
+def pinn_hs(pinn):
+    """(reference flat bytes, port proof) of the 2-4-1 PINN at
+    PcsConfig.high_security(), the reference on its host path."""
+    ref_pie, ref_settings, _, pie, settings, *_ = pinn
+    was = accel.enabled()
+    accel.enable(False)
+    try:
+        ref_bytes = ref_serde.proof_to_flat_bytes(R.prove(ref_pie, ref_settings, R.PcsConfig.high_security()))
+    finally:
+        accel.enable(was)
+    return ref_bytes, T.prove(pie, settings, T.PcsConfig.high_security(), device="cpu")
+
+
+def test_high_security_proof_bytes_match_reference(pinn_hs):
+    ref_bytes, proof = pinn_hs
+    assert serde.proof_to_flat_bytes(proof) == ref_bytes
+
+
+def test_high_security_verifies_at_80_bits_and_binds_the_nonce(pinn, pinn_hs):
+    """The reference verifier holds the proof to the 80-bit profile -- with
+    the last FRI layer at 2^3, where both packages' prove() clamp it for
+    this network's smallest committed column -- and rejects it with the
+    PoW nonce plus one."""
+    ref_settings = pinn[1]
+    payload = _payload(pinn_hs[1])
+    profile = R.PcsConfig.high_security()
+    profile.fri.log_last_layer_degree_bound = 3
+    assert ref_verify(ref_serde.proof_from_payload(payload), ref_settings,
+                      expected_config=profile, min_security_bits=80)
+    bad = copy.deepcopy(payload)
+    bad["pcs"]["pow_nonce"] += 1
+    bad["pcs"]["fri"]["pow_nonce"] += 1
+    with pytest.raises(RefLuminairError):
+        ref_verify(ref_serde.proof_from_payload(bad), ref_settings)
+
+
 def test_model_output_near_float_reference(pinn):
     out, w = pinn[6], pinn[7]
     assert np.max(np.abs(out - bs.reference_forward(w, XS))) < 0.05

@@ -148,6 +148,45 @@ def test_tampered_port_proof_is_rejected(reference, where):
         ref_verify(ref_serde.proof_from_payload(payload), reference[(8, 1)][1])
 
 
+HS_BLOWUPS = [1, 2]
+
+
+@pytest.fixture(scope="module")
+def reference_hs(reference):
+    """{log_blowup: ref flat bytes} of the N=8 graph at
+    PcsConfig.high_security(log_blowup), on the reference's host path."""
+    was = accel.enabled()
+    accel.enable(False)
+    try:
+        pie, settings = reference[(8, 1)][:2]
+        return {b: ref_serde.proof_to_flat_bytes(R.prove(pie, settings, R.PcsConfig.high_security(b)))
+                for b in HS_BLOWUPS}
+    finally:
+        accel.enable(was)
+
+
+@pytest.mark.parametrize("log_blowup", HS_BLOWUPS)
+def test_high_security_proof_matches_reference_and_verifies(reference, reference_hs, log_blowup):
+    """At the 80-bit profile (16 PoW bits, 64 / 32 queries): the port's
+    proof (device interpreter and prover on CPU tensors) has the reference's
+    bytes; the reference verifier accepts it holding it to the profile and
+    to 80 bits, and rejects it with the PoW nonce plus one."""
+    cx = _graph(T, 8)
+    settings = T.gen_circuit_settings(cx, device="cpu")
+    proof = T.prove(T.gen_trace(cx, settings, device="cpu"), settings, T.PcsConfig.high_security(log_blowup),
+                    device="cpu")
+    assert serde.proof_to_flat_bytes(proof) == reference_hs[log_blowup]
+    ref_settings = reference[(8, 1)][1]
+    payload = _payload(proof)
+    assert ref_verify(ref_serde.proof_from_payload(payload), ref_settings,
+                      expected_config=R.PcsConfig.high_security(log_blowup), min_security_bits=80)
+    bad = copy.deepcopy(payload)
+    bad["pcs"]["pow_nonce"] += 1
+    bad["pcs"]["fri"]["pow_nonce"] += 1
+    with pytest.raises(RefLuminairError):
+        ref_verify(ref_serde.proof_from_payload(bad), ref_settings)
+
+
 def test_prove_rejects_bad_blowup(reference):
     ref_pie, ref_settings = reference[(8, 1)][:2]
     pie = pie_from_arrays({k: (t.log_size, t.columns) for k, t in ref_pie.trace_tables.items()})
