@@ -11,12 +11,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   3. the black-scholes PINN's settings and trace on the host interpreter
      (batch 256), timed;
   4. K1-K7 against their plain PyTorch twins on the card, bit for bit:
-     K1-K4 at the shapes the N=256 prove gives them, K5/K6 on the tape of
-     every PINN component at its batch-256 trace and commit sizes, K7 at
-     the PINN's OODS groups, K3's device-challenge fold at the PINN's
-     2^23 composition fold, K8 on random channel states, K9 on digest and
-     column gathers, K10 at 16 bits; CUDA-event times of kernel and twin
-     and the least time the card could take for the same work;
+     K1 on both sides of its tile and group-pass sizes and at 2^23, K1-K4
+     at the shapes the N=256 prove gives them, K5/K6 on the tape of every
+     PINN component at its batch-256 trace and commit sizes, K7 at the
+     PINN's OODS groups, K3's device-challenge fold at the PINN's 2^23
+     composition fold, K8 on random channel states, K9 on a pass over
+     trees of the PINN's sizes, K10 at 16 bits; CUDA-event times of kernel
+     and twin and the least time the card could take for the same work;
   5. the bench path: the 256x256 a*b + a graph through Graph -> compile ->
      gen_circuit_settings -> gen_trace -> prove, all on the card by
      default; every kernel of the path must launch between the counters'
@@ -93,11 +94,20 @@ OPS_INV = 38 * OPS_MUL
 OPS_BLAKE2S_BLOCK = 80 * 14 + 16  # 10 rounds x 8 G x 14 ops, final xors
 OPS_DENOM = 4 * OPS_MUL + 8 * OPS_ADD  # v0 + alpha * v1 - z
 
+def fft_work(words_in: int, words_out: int, log_n: int, n_stages: int, inverse: bool):
+    """(bytes, operations) of one K1 call: its input read and output written
+    once, the 2^log_n-word twiddle table read once; per stage a butterfly
+    per pair of output words (inverse: two products, a sum and a
+    difference; forward: one product, a sum and a difference)."""
+    per_pair = 2 * OPS_MUL + 2 * OPS_ADD if inverse else OPS_MUL + 2 * OPS_ADD
+    return 4 * (words_in + words_out) + 4 * (1 << log_n), n_stages * (words_out // 2) * per_pair
+
+
 PORT_KERNEL_NAMES = (
-    "fft_stage_kernel", "fft_embed_kernel", "merkle_layer_kernel", "fri_fold_kernel",
+    "fft_pass_kernel", "merkle_layer_kernel", "fri_fold_kernel",
     "deep_quotient_kernel", "air_witness_kernel", "scan_tile", "air_domain_kernel",
     "oods_partial_kernel", "oods_combine_kernel", "fri_fold_chain_kernel", "channel_draw_kernel",
-    "channel_mix_draw_kernel", "gather_kernel", "grind_pow_kernel", "trace_binary_kernel", "trace_unary_kernel",
+    "channel_mix_draw_kernel", "decommit_kernel", "grind_pow_kernel", "trace_binary_kernel", "trace_unary_kernel",
     "trace_reduce_kernel", "lut_minmax_kernel",
 )
 
@@ -202,22 +212,36 @@ def phase_kernels(kernels, circle, f, dev, pinn_logs):
 
     rows = {}
 
-    # K1: the inputs' iFFT 7 x 2^17 and LDE to 2^18 (B=1; B=2 as well), the
-    # composition's forward FFT 4 x 2^18 and its LDE to 2^19.
+    # K1 on both sides of its tile (2^12 rows), of one group pass (2^20)
+    # and of two tiles' logs (2^24), and at 2^23, the composition's size:
+    # ifft, fft and the LDE at blowups 1..4 (one column from 2^20 up, 3
+    # below; from 2^24 up blowup 1, which keeps the largest transform at
+    # 2^27 rows and its host-built twiddle table a few GB).
+    err = 0
+    for log in (12, 13, 20, 21, 23, 24, 25):
+        x = rnd(1 if log >= 20 else 3, 1 << log)
+        err |= check(f"circle_fft ifft {tuple(x.shape)}", lambda: kernels.circle_ifft(x), lambda: kernels.circle_ifft_plain(x))
+        err |= check(f"circle_fft fft {tuple(x.shape)}", lambda: kernels.circle_fft(x), lambda: kernels.circle_fft_plain(x))
+        for b in (1, 2, 3, 4) if log < 24 else (1,):
+            err |= check(f"circle_fft lde B={b} {tuple(x.shape)}", lambda: kernels.circle_lde(x, b),
+                         lambda: kernels.circle_lde_plain(x, b))
+        del x
+    circle.twiddle_table.cache_clear()  # the tables of these sizes stay out of the paths' peak memory
+    torch.cuda.empty_cache()
+    # The N=256 prove's: the inputs' iFFT 7 x 2^17 and LDE to 2^18 (B=1;
+    # B=2 as well), the composition's forward FFT 4 x 2^18 and its LDE.
     v = rnd(7, 1 << 17)
-    err = check("circle_fft ifft 7x2^17", lambda: kernels.circle_ifft(v), lambda: kernels.circle_ifft_plain(v))
+    err |= check("circle_fft ifft 7x2^17", lambda: kernels.circle_ifft(v), lambda: kernels.circle_ifft_plain(v))
     err |= check("circle_fft lde B=2 7x2^17", lambda: kernels.circle_lde(v, 2), lambda: kernels.circle_lde_plain(v, 2))
     c4 = rnd(4, 1 << 18)
     err |= check("circle_fft fft 4x2^18", lambda: kernels.circle_fft(c4), lambda: kernels.circle_fft_plain(c4))
     err |= check("circle_fft lde B=1 4x2^18", lambda: kernels.circle_lde(c4, 1), lambda: kernels.circle_lde_plain(c4, 1))
     err |= check("circle_fft lde B=1 7x2^17", lambda: kernels.circle_lde(v, 1), lambda: kernels.circle_lde_plain(v, 1))
-    n_in, n_out = 7 << 17, 7 << 18
-    stage_ops = 17 * (n_out // 2) * (OPS_MUL + 2 * OPS_ADD)  # stages m = 4 .. 2^18
     rows["circle_fft"] = dict(
         shape="lde B=1, 7 x 2^17 -> 7 x 2^18", err=err,
         ms=time_ms(lambda: kernels.circle_lde(v, 1)),
         plain_ms=time_ms(lambda: kernels.circle_lde_plain(v, 1)),
-        bound=bound(4 * (n_in + n_out) + 4 * (1 << 18), stage_ops),
+        bound=bound(*fft_work(v.numel(), 7 << 18, 18, 17, False)),
     )
 
     # K2: the main tree -- 7 leaf columns at 2^18, 31 columns at 2^17 -- and
@@ -317,7 +341,7 @@ def phase_kernels(kernels, circle, f, dev, pinn_logs):
 
 def transcript_kernels(kernels, f, dev, rng, rnd, check):
     """K8 on random channel states (draw, mix and draw; state and record
-    slot), K9 on digest-row and column gathers of a tree's sizes, K10 at 16
+    slot), K9 on a pass over trees of the PINN's sizes, K10 at 16
     bits.  Their times come from the 80-bit path's own calls
     (transcript_kernel_rows)."""
     for counter in (0, 3):
@@ -334,13 +358,18 @@ def transcript_kernels(kernels, f, dev, rng, rnd, check):
               both(kernels.channel_draw_felt_plain, 4))
         check(f"fri_channel mix+draw counter {counter}", both(kernels.channel_mix_root_draw, 12, root),
               both(kernels.channel_mix_root_draw_plain, 12, root))
-    layer = rnd(1 << 16, 8)
-    cols = rnd(12, 1 << 22)
-    fri_layer = rnd(1 << 20, 4)
-    specs = [(layer, sorted(rng.choice(1 << 16, 500, replace=False).tolist()), 0),
-             (cols, sorted(rng.choice(1 << 22, 128, replace=False).tolist()), 1),
-             (fri_layer.t(), sorted(rng.choice(1 << 20, 256, replace=False).tolist()), 1)]
-    check("decommit_gather 3 specs", lambda: kernels.gather(specs), lambda: kernels.gather_plain(specs))
+    # K9: a pass over a FRI-sized tree and a main-tree-sized tree, 64
+    # queries' worth of positions at several logs.
+    from luminair_tpu_torch.crypto.merkle import MerkleTree
+
+    trees = [MerkleTree({20: rnd(1 << 20, 4).t()}),
+             MerkleTree({22: rnd(12, 1 << 22), 21: rnd(30, 1 << 21), 17: rnd(3, 1 << 17)})]
+    queries = [{20: np.unique(rng.integers(0, 1 << 20, 256))},
+               {22: np.unique(rng.integers(0, 1 << 22, 128)), 21: np.unique(rng.integers(0, 1 << 21, 128)),
+                17: np.unique(rng.integers(0, 1 << 17, 128))}]
+    plan = kernels.DecommitPass([t.desc for t in trees], queries)
+    check("decommit 2 trees", lambda: kernels.decommit(plan), lambda: kernels.decommit_plain(plan))
+    del trees, plan
     digest = rnd(8)
     check("grind_pow 16 bits", lambda: torch.tensor([kernels.grind_pow(digest, 16)]),
           lambda: torch.tensor([kernels.grind_pow_plain(digest, 16)]))
@@ -629,7 +658,7 @@ def path_twins(kernels, tape, f):
         "channel_draw_felt": ("fri_channel", lambda a: kernels.channel_draw_felt_plain(a["state"], a["out"]), ()),
         "channel_mix_root_draw": ("fri_channel", lambda a: kernels.channel_mix_root_draw_plain(
             a["state"], a["root"], a["out"]), ()),
-        "gather": ("decommit_gather", lambda a: kernels.gather_plain(a["specs"]), ("specs",)),
+        "decommit": ("decommit", lambda a: kernels.decommit_plain(a["plan"]), ("plan",)),
         "grind_pow": ("grind_pow", lambda a: kernels.grind_pow_plain(a["digest"], a["bits"]), ("bits",)),
         **trace_twins(kernels),
     }
@@ -647,13 +676,14 @@ def trace_twins(kernels):
 def describe(x):
     """The part of an argument that sets a call's work: a tensor's shape
     (and strides when it is a view), a column list's length and column
-    shape, a tape's component, a trace step's op, rows and source shapes."""
+    shape, a decommitment pass's trees and output size, a tape's
+    component, a trace step's op, rows and source shapes."""
     if isinstance(x, torch.Tensor):
         return tuple(x.shape) if x.is_contiguous() else (tuple(x.shape), x.stride())
     if isinstance(x, (list, tuple)) and x and isinstance(x[0], torch.Tensor):
         return (len(x),) + tuple(x[0].shape)
-    if isinstance(x, list) and x and isinstance(x[0], tuple):  # gather specs
-        return tuple((describe(src), len(idx), axis) for src, idx, axis in x)
+    if hasattr(x, "region"):  # a decommitment pass: its trees and output size
+        return (tuple(t.bottom for t in x.trees), x.n_words)
     if hasattr(x, "n_relations"):
         return x.name
     if hasattr(x, "fresh"):
@@ -692,11 +722,13 @@ def replay_args(a: dict) -> dict:
 class recording:
     """While active, every wrapper in `twins` keeps the arguments of its
     first call at each distinct key (wrapper, the shapes of its work) in
-    `kept` (an argument the kernel updates in place is cloned first) and
-    counts its calls in `calls`."""
+    `kept` (an argument the kernel updates in place is cloned first),
+    counts its calls in `calls` and sums the bound (ms) of every K1 call
+    in `k1_bound_ms`."""
 
     def __init__(self, kernels, twins, kept, calls):
         self.kernels, self.twins, self.kept, self.calls = kernels, twins, kept, calls
+        self.k1_bound_ms = 0.0
         self.originals = {name: getattr(kernels, name) for name in twins}
 
     def _recorder(self, name, fn):
@@ -704,13 +736,15 @@ class recording:
         key_args = self.twins[name][2]
 
         def rec(*args, **kw):
-            bound = sig.bind(*args, **kw)
-            bound.apply_defaults()
-            a = dict(bound.arguments)
+            ba = sig.bind(*args, **kw)
+            ba.apply_defaults()
+            a = dict(ba.arguments)
             self.calls[name] = self.calls.get(name, 0) + 1
             key = (name,) + tuple(describe(a[k]) for k in key_args)
             if key not in self.kept:
                 self.kept[key] = {k: v.clone() if k in UPDATED_ARGS and v is not None else v for k, v in a.items()}
+            if name in ("circle_ifft", "circle_fft", "circle_lde"):
+                self.k1_bound_ms += bound(*k1_work(name, a))[0]
             return fn(*args, **kw)
 
         return rec
@@ -760,15 +794,39 @@ def replay(kernels, twins, kept, calls) -> dict:
     return by_kernel
 
 
+def k1_work(name: str, a: dict):
+    """(bytes, operations) of one K1 wrapper call from its arguments."""
+    if name == "circle_ifft":
+        x = a["values"]
+        log = x.shape[1].bit_length() - 1
+        return fft_work(x.numel(), x.numel(), log, log, True)
+    if name == "circle_fft":
+        x = a["coeffs"]
+        log = x.shape[1].bit_length() - 1
+        return fft_work(x.numel(), x.numel(), log, log - a["m_start"].bit_length() + 2, False)
+    x, b = a["coeffs"], a["log_blowup"]
+    log = x.shape[1].bit_length() - 1 + b
+    return fft_work(x.numel(), x.numel() << b, log, log - (b == 1 and x.shape[1] > 1), False)
+
+
 def phase_path_kernels(T, kernels, tape, f, tag: str, run, expect):
     """The path once more (`run`: settings, trace, prove on the card) with
     every wrapper recording; then each kept call through kernel and twin.
     Any word that differs fails the run, and so does a kernel of the path
-    that never ran.  Returns ({kernel: max_abs_err}, the kept calls)."""
+    that never ran.  Also the bound of the path's K1 calls, summed, and of
+    its K9 passes.  Returns ({kernel: max_abs_err}, the kept calls)."""
     twins = path_twins(kernels, tape, f)
     kept, calls = {}, {}
-    with recording(kernels, twins, kept, calls):
+    with recording(kernels, twins, kept, calls) as rec:
         run()
+    k9 = 0.0
+    for key, a in kept.items():
+        if key[0] == "decommit":
+            words = sum(int(src.index_select(ax, p).numel()) for src, p, ax in decommit_specs(a["plan"]))
+            k9 += bound(8 * len(a["plan"].packed) + 8 * words, 8 * words)[0]
+    emit({"phase": "per_run_bound", "path": tag, "circle_fft_bound_ms": rec.k1_bound_ms,
+          "circle_fft_calls": sum(calls.get(n, 0) for n in ("circle_ifft", "circle_fft", "circle_lde")),
+          "decommit_bound_ms": k9, "decommit_calls": calls.get("decommit", 0)})
     by_kernel = replay(kernels, twins, kept, calls)
     for kernel_name, row in by_kernel.items():
         emit({"phase": "path_kernel_check", "path": tag, "kernel": kernel_name, **row})
@@ -902,17 +960,14 @@ def phase_high_security(T, kernels, serde, tracing, tape, f, card, tag, pie, set
 
 def transcript_kernel_rows(kernels, kept) -> dict:
     """K8, K9 and K10 timed at the first call each made in the 80-bit PINN
-    prove: a layer's mix-and-draw, the trees' opening pass (the larger of
-    the two), the 16-bit search.  K9's library time is the composition it
-    replaced: one index_select per spec (indices already on the card) and
-    one torch.cat."""
+    prove: a layer's mix-and-draw, the opening pass (decommit_row), the
+    16-bit search."""
     calls = {}
     for key, a in kept.items():
         name = key[0]
-        if name == "gather":
-            size = sum(int(np.prod(kernels.gather_shape(s))) for s in a["specs"])
-            if name not in calls or size > calls[name][0]:
-                calls[name] = (size, a)
+        if name == "decommit":
+            if name not in calls or a["plan"].n_words > calls[name][0]:
+                calls[name] = (a["plan"].n_words, a)
         elif name in ("channel_mix_root_draw", "grind_pow"):
             calls.setdefault(name, (0, a))
     rows = {}
@@ -926,19 +981,7 @@ def transcript_kernel_rows(kernels, kept) -> dict:
         plain_ms=time_ms(lambda: kernels.channel_mix_root_draw_plain(state, a["root"])),
         bound=bound(4 * (2 * kernels.CHANNEL_WORDS + 8 + 12), blocks * OPS_BLAKE2S_BLOCK), library=None,
     )
-    specs = calls["gather"][1]["specs"]
-    n_words = calls["gather"][0]
-    table = kernels._gather_table(specs)[0]
-    idx = [torch.as_tensor(np.asarray(i, dtype=np.int64), device=src.device) for src, i, _ in specs]
-
-    def composition():
-        return torch.cat([src.index_select(ax, p).reshape(-1) for (src, _, ax), p in zip(specs, idx)])
-
-    rows["decommit_gather"] = dict(
-        shape=f"trees' opening pass: {len(specs)} specs, {n_words} words", err=0,
-        ms=time_ms(lambda: kernels.gather(specs)), plain_ms=time_ms(lambda: kernels.gather_plain(specs)),
-        bound=bound(8 * len(table) + 8 * n_words, n_words * 16), library=time_ms(composition),
-    )
+    rows["decommit"] = decommit_row(kernels, calls["decommit"][1]["plan"])
     a = calls["grind_pow"][1]
     nonce = kernels.grind_pow(a["digest"], a["bits"])
     rows["grind_pow"] = dict(
@@ -952,6 +995,64 @@ def transcript_kernel_rows(kernels, kept) -> dict:
               "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
               "library_ms": r["library"]})
     return rows
+
+
+def decommit_specs(plan) -> list:
+    """The gathers of a decommitment pass as the one-gather-per-spec design
+    ran them, (source, positions on the card, axis): per tree the columns
+    of each log at its recomputed positions, then per layer the missing
+    children's digests (the sets from the plain twin's arithmetic, outside
+    any timing)."""
+    specs = []
+    for tree, qs in zip(plan.trees, plan.queries):
+        dev = tree.layers[tree.bottom].device
+
+        def q(log):
+            return torch.as_tensor(qs.get(log, np.zeros(0, np.int64)), device=dev)
+
+        comp, values, witness = q(tree.bottom), [], []
+        for log in range(tree.bottom, -1, -1):
+            if log < tree.bottom:
+                new = torch.unique(torch.cat([comp >> 1, q(log)]))
+                kids = torch.stack([2 * new, 2 * new + 1], dim=1).reshape(-1)
+                missing = kids[~torch.isin(kids, comp)]
+                if len(missing):
+                    witness.append((tree.layers[log + 1], missing, 0))
+                comp = new
+            if log in tree.cols and len(comp):
+                values.append((tree.cols[log], comp, 1))
+        specs += values + witness
+    return specs
+
+
+def decommit_row(kernels, plan) -> dict:
+    """K9 at the 80-bit PINN's opening pass.  Timed at the trees' part of
+    it (the input trees, the last four), from query positions to the flat
+    output: the plan (bounds, checks, packing), one upload, the launch.
+    The library time is the composition of one index_select per gather
+    (indices already on the card) and one torch.cat; it does none of the
+    set arithmetic K9 does.  The whole pass (FRI layers and trees) is
+    timed too (kernel_time_extra)."""
+    trees = kernels.DecommitPass(plan.trees[-4:], plan.queries[-4:])
+    specs = decommit_specs(trees)
+    words = sum(int(src.index_select(ax, p).numel()) for src, p, ax in specs)
+
+    def composition():
+        return torch.cat([src.index_select(ax, p).reshape(-1) for src, p, ax in specs])
+
+    def call(p):
+        return lambda: kernels.decommit(kernels.DecommitPass(p.trees, p.queries))
+
+    fused_words = sum(int(src.index_select(ax, p).numel()) for src, p, ax in decommit_specs(plan))
+    fused = bound(8 * len(plan.packed) + 8 * fused_words, 8 * fused_words)
+    emit({"phase": "kernel_time_extra", "kernel": "decommit",
+          "shape": f"the fused pass: {len(plan.trees)} trees, {fused_words} words", "ms": time_ms(call(plan)),
+          "plain_ms": time_ms(lambda: kernels.decommit_plain(plan)), "bound_ms": fused[0], "bound_by": fused[1]})
+    return dict(
+        shape=f"trees' opening pass: {len(specs)} gathers, {words} words", err=0,
+        ms=time_ms(call(trees)), plain_ms=time_ms(lambda: kernels.decommit_plain(trees)),
+        bound=bound(8 * len(trees.packed) + 8 * words, 8 * words), library=time_ms(composition),
+    )
 
 
 def phase_op_graphs(T, kernels, serde, tape, f, card):

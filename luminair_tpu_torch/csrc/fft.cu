@@ -1,88 +1,80 @@
-// K1: circle FFT butterflies over batched M31 columns.
+// K1: circle FFT, iFFT and LDE over batched M31 columns, several butterfly
+// stages per launch in shared memory.
 //
-// Replaces the JAX package's `_jit_lde` (parallel/accel.py), `_jit_ifft_t`
-// and `_jit_fft`, which trace fft.ifft / fft.fft / fft_dup2.
+// Replaces the JAX package's `_jit_lde` (parallel/accel.py:718),
+// `_jit_ifft_t` (:1180) and `_jit_fft` (:1730), which trace fft.ifft,
+// fft.fft and fft_dup2.
 //
-// One launch per butterfly stage, one thread per butterfly pair, reading a
-// (n_cols, 2^log_n) buffer and writing another (stages ping-pong between
-// two buffers: a pair's outputs land where other pairs read).  The stage of
-// block size m = 2^log_m pairs, inside each block,
-//   inverse:  (j, m-1-j) -> (j, m/2+j):  e = (x+y)/2,  o = (x-y) * tw[j]
-//   forward:  (j, m/2+j) -> (j, m-1-j):  x + tw[j]*o,  x - tw[j]*o
-// with tw the stage's row of the cached twiddle table (1/(2y) or 1/(2x) for
-// the inverse, y or x for the forward transform).  `lum_fft_embed` writes
-// the zero-strided embedding of the LDE (or its duplicate form at blowup 1,
-// whose first forward stage is then skipped).
+// A transform is a few passes (kernels.fft_passes), each one launch of
+// fft_pass_kernel; the index math, butterflies and the work of one CTA are
+// in fft.cuh:
+//   - the tile pass: one CTA per (column, 2^12-row tile) loads the tile
+//     with 16-byte loads, runs every stage whose block fits in the tile
+//     in shared memory -- four levels at a time on 16 values per thread in
+//     registers, between two buffers -- and writes the tile once.  It comes first in the
+//     forward transform and the LDE (reading the coefficients through the
+//     zero-strided embedding, or duplicated at blowup 1) and last in the
+//     inverse, in place;
+//   - the group passes: the stages with larger blocks, up to 8 per
+//     launch.  r consecutive stages split the rows into independent groups
+//     of 2^r; a CTA holds 32 groups of consecutive j, so every warp reads
+//     32 consecutive words of each of the group's rows (in reverse order
+//     for the mirrored halves).  These ping-pong between two buffers.
+// A column of up to 2^20 rows takes two launches, up to 2^28 three.
 //
-// Bound on this card: device memory.  A stage reads and writes 8 bytes per
-// element and does one multiply per pair, so the integer units idle; the
-// twiddle row is read once per block and stays in L1/L2.  Keeping several
-// stages in shared memory would cut the traffic; that is later work.
+// Bound on this card: the integer units.  A stage does one M31 product and
+// two additions per pair; a pass reads and writes each word once, so the
+// 8 bytes per word per pass are far below the 2^r butterflies' arithmetic
+// at r >= 2.  Twiddles are read from the flat table of each size (one
+// pointer per launch); their rows stay in L1/L2.
 
 #include <cuda_runtime.h>
 
-#include "m31.cuh"
+#include "fft.cuh"
 
 namespace {
 
-__global__ void fft_stage_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst,
-                                 const uint32_t* __restrict__ tw, long long n_pairs, int log_n,
-                                 int log_m, int inverse) {
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_pairs) return;
-  long long col = t >> (log_n - 1);
-  long long k = t & ((1LL << (log_n - 1)) - 1);
-  long long half = 1LL << (log_m - 1);
-  long long base = (col << log_n) + ((k >> (log_m - 1)) << log_m);
-  long long j = k & (half - 1);
-  uint32_t w = tw[j];
-  if (inverse) {
-    uint32_t x = src[base + j];
-    uint32_t y = src[base + 2 * half - 1 - j];
-    dst[base + j] = lum::mul(lum::add(x, y), lum::INV2);
-    dst[base + half + j] = lum::mul(lum::sub(x, y), w);
-  } else {
-    uint32_t e = src[base + j];
-    uint32_t to = lum::mul(w, src[base + half + j]);
-    dst[base + j] = lum::add(e, to);
-    dst[base + 2 * half - 1 - j] = lum::sub(e, to);
-  }
-}
+constexpr int THREADS = 512;  // at most; one per mini-group of 16 values
+constexpr int TILE_LOG = 12;   // rows of a tile pass
+constexpr int GROUP_LOG = 8;   // stages of a group pass, at most
+constexpr int GROUPS_LOG = 5;  // groups per CTA of a group pass
+constexpr int MAX_WORDS = 1 << (GROUP_LOG + GROUPS_LOG);  // per buffer; two buffers
 
-__global__ void fft_embed_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst,
-                                 long long n_out, int log_n_out, int log_blowup, int duplicate) {
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_out) return;
-  long long col = t >> log_n_out;
-  long long i = t & ((1LL << log_n_out) - 1);
-  long long src_row = (col << (log_n_out - log_blowup)) + (i >> log_blowup);
-  if (duplicate) {
-    dst[t] = src[src_row];
-  } else {
-    dst[t] = (i & ((1LL << log_blowup) - 1)) == 0 ? src[src_row] : 0u;
-  }
-}
+struct DeviceBlock {
+  __device__ __forceinline__ int tid() const { return threadIdx.x; }
+  __device__ __forceinline__ int threads() const { return blockDim.x; }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+};
 
-inline unsigned grid_for(long long n) { return (unsigned)((n + 255) / 256); }
+// At least two CTAs of 512 threads per SM: 64 registers a thread, which
+// hold a thread's 16 values without spilling.
+__global__ void __launch_bounds__(THREADS, 2) fft_pass_kernel(lum::FftPass p) {
+  extern __shared__ uint32_t sm[];
+  lum::fft_cta(DeviceBlock{}, p, blockIdx.x, sm);
+}
 
 }  // namespace
 
-extern "C" int lum_fft_stage(const uint32_t* src, uint32_t* dst, const uint32_t* tw,
-                             long long n_cols, int log_n, int log_m, int inverse, void* stream) {
-  long long n_pairs = n_cols << (log_n - 1);
-  if (n_pairs > 0) {
-    fft_stage_kernel<<<grid_for(n_pairs), 256, 0, (cudaStream_t)stream>>>(src, dst, tw, n_pairs,
-                                                                          log_n, log_m, inverse);
-  }
-  return (int)cudaGetLastError();
-}
+extern "C" long long lum_fft_tile_log() { return TILE_LOG; }
+extern "C" long long lum_fft_group_log() { return GROUP_LOG; }
+extern "C" long long lum_fft_groups_log() { return GROUPS_LOG; }
+extern "C" long long lum_fft_pass_size() { return sizeof(lum::FftPass); }
 
-extern "C" int lum_fft_embed(const uint32_t* src, uint32_t* dst, long long n_cols, int log_n_out,
-                             int log_blowup, int duplicate, void* stream) {
-  long long n_out = n_cols << log_n_out;
-  if (n_out > 0) {
-    fft_embed_kernel<<<grid_for(n_out), 256, 0, (cudaStream_t)stream>>>(src, dst, n_out, log_n_out,
-                                                                       log_blowup, duplicate);
+extern "C" int lum_fft_pass(lum::FftPass p, void* stream) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(fft_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           2 * MAX_WORDS * (int)sizeof(uint32_t));
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  long long ctas = lum::fft_ctas(p);
+  int words = 1 << (p.log_g + p.log_groups);
+  if (words > MAX_WORDS || p.log_groups > p.log_w) return (int)cudaErrorInvalidValue;
+  int threads = words >> lum::FFT_CHUNK;
+  threads = threads < 32 ? 32 : threads > THREADS ? THREADS : threads;
+  if (ctas > 0) {
+    fft_pass_kernel<<<(unsigned)ctas, threads, 2 * words * sizeof(uint32_t), (cudaStream_t)stream>>>(p);
   }
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 """The port's hand-written Hopper kernels: build, binding, wrappers.
 
-The CUDA C++ sources under csrc/ (sharing csrc/m31.cuh, csrc/blake2s.cuh,
-csrc/channel.cuh, csrc/tape.cuh and csrc/trace.cuh) are compiled at first use with nvcc for sm_90a, one shared
+The CUDA C++ sources under csrc/ (with the headers csrc/m31.cuh,
+blake2s.cuh, channel.cuh, decommit.cuh, fft.cuh, tape.cuh and trace.cuh)
+are compiled at first use with nvcc for sm_90a, one shared
 library per source, all sources compiled at once, into build/kernels/ at
 the repository root; each library is named by a hash of its source and
 every header it includes, so an edit to either rebuilds it.  The libraries
@@ -22,7 +23,6 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import itertools
 import os
 import re
 import shutil
@@ -130,14 +130,39 @@ class Kernel:
 
 _LOAD_LOCK = threading.Lock()
 
+FFT_TILE_LOG = 12  # rows of a tile pass (csrc/fft.cu)
+FFT_GROUP_LOG = 8  # stages of a group pass, at most
+FFT_GROUPS_LOG = 5  # groups per CTA of a group pass
+
+
+class FftPass(ctypes.Structure):
+    """Mirror of lum::FftPass (csrc/fft.cuh), passed to K1 by value."""
+
+    _fields_ = [
+        ("src", ctypes.c_uint64),
+        ("dst", ctypes.c_uint64),
+        ("tw", ctypes.c_uint64),
+        ("n_cols", ctypes.c_longlong),
+        ("log_n", ctypes.c_int),
+        ("log_g", ctypes.c_int),
+        ("log_w", ctypes.c_int),
+        ("log_groups", ctypes.c_int),
+        ("l_lo", ctypes.c_int),
+        ("l_hi", ctypes.c_int),
+        ("inverse", ctypes.c_int),
+        ("log_blowup", ctypes.c_int),
+        ("dup", ctypes.c_int),
+    ]
+
+
 CIRCLE_FFT = Kernel(
     "circle_fft",
     "fft.cu",
-    "luminair_tpu/parallel/accel.py:718 (_jit_lde; fft.ifft :248, fft.fft :305)",
-    {
-        "lum_fft_stage": [_P, _P, _P, _LL, _I, _I, _I],
-        "lum_fft_embed": [_P, _P, _LL, _I, _I, _I],
-    },
+    "luminair_tpu/parallel/accel.py:718 (_jit_lde; _jit_ifft_t :1180, _jit_fft :1730; fft.ifft :248, fft.fft :305, "
+    "fft_dup2 :167)",
+    {"lum_fft_pass": [FftPass]},
+    abi={"lum_fft_tile_log": FFT_TILE_LOG, "lum_fft_group_log": FFT_GROUP_LOG, "lum_fft_groups_log": FFT_GROUPS_LOG,
+         "lum_fft_pass_size": ctypes.sizeof(FftPass)},
 )
 MERKLE = Kernel(
     "blake2s_merkle",
@@ -249,13 +274,18 @@ CHANNEL = Kernel(
     {"lum_channel_draw_felt": [_P, _P], "lum_channel_mix_root_draw": [_P, _P, _P]},
     abi={"lum_channel_words": CHANNEL_WORDS},
 )
-GATHER_SPEC_WORDS = 8
-GATHER = Kernel(
-    "decommit_gather",
-    "gather.cu",
-    "luminair_tpu/parallel/accel.py:925 (_jit_gather_cols; _jit_gather_many :968)",
-    {"lum_gather": [_P, _I, _LL, _P]},
-    abi={"lum_gather_spec_words": GATHER_SPEC_WORDS},
+# The decommit pass's ABI (csrc/decommit.cuh): a tree descriptor and a
+# tree's record in a pass, int64 words.
+DC_MAX_LOG = 31
+DC_DESC_WORDS = 1 + 5 * (DC_MAX_LOG + 1)
+DC_TREE_WORDS = 4 + 2 * (DC_MAX_LOG + 1)
+DECOMMIT = Kernel(
+    "decommit",
+    "decommit.cu",
+    "luminair_tpu/parallel/accel.py:925 (_jit_gather_cols; _jit_gather_many :968, gather_many :993; "
+    "crypto/merkle.py computed_positions :41, decommit :169, queried_values :209)",
+    {"lum_decommit": [_P, _I, _I, _I, _P]},
+    abi={"lum_dc_tree_words": DC_TREE_WORDS, "lum_dc_desc_words": DC_DESC_WORDS},
 )
 GRIND_POW = Kernel(
     "grind_pow",
@@ -344,7 +374,7 @@ LUT_MINMAX = Kernel(
 )
 
 KERNELS = (
-    CIRCLE_FFT, MERKLE, FRI_FOLD, DEEP_QUOTIENT, AIR_WITNESS, AIR_DOMAIN, OODS_EVAL, CHANNEL, GATHER, GRIND_POW,
+    CIRCLE_FFT, MERKLE, FRI_FOLD, DEEP_QUOTIENT, AIR_WITNESS, AIR_DOMAIN, OODS_EVAL, CHANNEL, DECOMMIT, GRIND_POW,
     TRACE_BINARY, TRACE_UNARY, TRACE_REDUCE, LUT_MINMAX,
 )
 
@@ -430,21 +460,59 @@ def _check_cols(t: torch.Tensor, name: str) -> None:
 # K1: circle FFT.
 
 
-def _run_stages(src: torch.Tensor, log_ms: List[int], inverse: bool, scratch: Optional[torch.Tensor]):
-    """Launch one stage per block log in `log_ms`, ping-ponging between a
-    new buffer and `scratch` (a second new buffer when None; `src` itself
-    when the caller lets it be overwritten)."""
-    n_cols, n = src.shape
+def fft_passes(log_n: int, log_lo: int, inverse: bool, tile_log: int = FFT_TILE_LOG,
+               group_log: int = FFT_GROUP_LOG) -> List[tuple]:
+    """The launches of one transform of 2^log_n rows that runs the stages
+    with blocks 2^log_lo .. 2^log_n (the inverse: all of them, largest
+    first), in order: (log_g, log_w, l_lo, l_hi) each, its stages' blocks
+    2^(log_w + l) for l in l_lo..l_hi.  A tile pass (log_w = 0) runs every
+    stage whose block fits in a tile of min(2^tile_log, 2^log_n) rows; the
+    larger blocks go into group passes of at most `group_log` stages, split
+    evenly."""
+    if log_lo > log_n:
+        return []
+    t = min(tile_log, log_n)
+    passes = [(t, 0, log_lo, t)] if log_lo <= t else []
+    a = max(log_lo, t + 1)
+    n_outer = log_n - a + 1
+    if n_outer > 0:
+        k = -(-n_outer // group_log)
+        for i in range(k):
+            r = n_outer // k + (1 if i < n_outer % k else 0)
+            passes.append((r, a - 1, 1, r))
+            a += r
+    return passes[::-1] if inverse else passes
+
+
+def _fft_launch(src: torch.Tensor, out_shape, log_lo: int, inverse: bool, log_blowup: int = 0,
+                dup: bool = False, tile_log: int = FFT_TILE_LOG, group_log: int = FFT_GROUP_LOG,
+                run=None) -> torch.Tensor:
+    """Every pass of one transform of `out_shape` (n_cols, 2^log_n), each
+    one launch (or `run(FftPass)`): the first reads `src` (the coefficients
+    of an LDE when log_blowup > 0); a later tile pass runs in place, a
+    group pass into the other buffer."""
+    n_cols, n = out_shape
     log_n = _log2(n)
-    bufs = [torch.empty_like(src), scratch if scratch is not None else torch.empty_like(src)]
+    dev = src.device
+    tw = circle.twiddle_table(log_n, inverse, dev)
+    bufs = [torch.empty(out_shape, dtype=f.I32, device=dev)]
     cur = src
-    for i, log_m in enumerate(log_ms):
-        dst = bufs[i % 2]
-        tw = circle.twiddle_stage(log_n, log_n - log_m, inverse, src.device)
-        CIRCLE_FFT.launch(
-            "lum_fft_stage", src.device, cur.data_ptr(), dst.data_ptr(), tw.data_ptr(),
-            n_cols, log_n, log_m, int(inverse),
-        )
+    for i, (log_g, log_w, l_lo, l_hi) in enumerate(fft_passes(log_n, log_lo, inverse, tile_log, group_log)):
+        if i == 0:
+            dst = bufs[0]
+        elif log_w == 0:
+            dst = cur
+        else:
+            if len(bufs) == 1:
+                bufs.append(torch.empty(out_shape, dtype=f.I32, device=dev))
+            dst = bufs[1] if cur is bufs[0] else bufs[0]
+        p = FftPass(cur.data_ptr(), dst.data_ptr(), tw.data_ptr(), n_cols, log_n, log_g, log_w,
+                    min(FFT_GROUPS_LOG, log_w), l_lo, l_hi, int(inverse), log_blowup if i == 0 else 0,
+                    int(dup and i == 0))
+        if run is None:
+            CIRCLE_FFT.launch("lum_fft_pass", dev, p)
+        else:
+            run(p)
         cur = dst
     return cur
 
@@ -454,10 +522,9 @@ def circle_ifft(values: torch.Tensor) -> torch.Tensor:
     _check_cols(values, "circle_ifft")
     if _on_cpu(values):
         return circle_ifft_plain(values)
-    log_n = _log2(values.shape[1])
-    if log_n == 0:
+    if _log2(values.shape[1]) == 0:
         return values.clone()
-    return _run_stages(values.contiguous(), list(range(log_n, 0, -1)), True, None)
+    return _fft_launch(values.contiguous(), tuple(values.shape), 1, True)
 
 
 def circle_fft(coeffs: torch.Tensor, m_start: int = 2) -> torch.Tensor:
@@ -466,11 +533,10 @@ def circle_fft(coeffs: torch.Tensor, m_start: int = 2) -> torch.Tensor:
     _check_cols(coeffs, "circle_fft")
     if _on_cpu(coeffs):
         return circle_fft_plain(coeffs, m_start)
-    log_n = _log2(coeffs.shape[1])
-    log_ms = list(range(_log2(m_start), log_n + 1))
-    if not log_ms:
+    log_lo = _log2(m_start)
+    if log_lo > _log2(coeffs.shape[1]):
         return coeffs.clone()
-    return _run_stages(coeffs.contiguous(), log_ms, False, None)
+    return _fft_launch(coeffs.contiguous(), tuple(coeffs.shape), log_lo, False)
 
 
 def circle_lde(coeffs: torch.Tensor, log_blowup: int) -> torch.Tensor:
@@ -478,16 +544,11 @@ def circle_lde(coeffs: torch.Tensor, log_blowup: int) -> torch.Tensor:
     _check_cols(coeffs, "circle_lde")
     if _on_cpu(coeffs):
         return circle_lde_plain(coeffs, log_blowup)
+    _require(log_blowup >= 1, "circle_lde: log_blowup >= 1")
     n_cols, n = coeffs.shape
-    log_big = _log2(n) + log_blowup
     duplicate = log_blowup == 1 and n > 1
-    ext = torch.empty((n_cols, 1 << log_big), dtype=f.I32, device=coeffs.device)
-    CIRCLE_FFT.launch(
-        "lum_fft_embed", coeffs.device, coeffs.contiguous().data_ptr(), ext.data_ptr(),
-        n_cols, log_big, log_blowup, int(duplicate),
-    )
-    log_ms = list(range(2 if duplicate else 1, log_big + 1))
-    return _run_stages(ext, log_ms, False, ext)
+    return _fft_launch(coeffs.contiguous(), (n_cols, n << log_blowup), 2 if duplicate else 1, False, log_blowup,
+                       duplicate)
 
 
 def circle_ifft_plain(values: torch.Tensor) -> torch.Tensor:
@@ -958,61 +1019,161 @@ def grind_pow_plain(digest: torch.Tensor, bits: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# K9: the gathers of one decommitment pass.
+# K9: one decommitment pass.
 
 
-def gather_shape(spec) -> tuple:
-    """A gather (source (R, C) int32 tensor, positions, axis) gives
-    (len(positions), C) for axis 0 and (R, len(positions)) for axis 1."""
-    src, idx, axis = spec
-    return (len(idx), src.shape[1]) if axis == 0 else (src.shape[0], len(idx))
+class TreeDesc:
+    """What a decommitment pass needs of one Merkle tree, made once when the
+    tree is built: its digest layers {log: (2^log, 8)}, log 0 .. bottom,
+    its column views {log: (k, 2^log), any strides}, and the descriptor of
+    csrc/decommit.cuh on their device (one upload on the card)."""
+
+    def __init__(self, layers: Dict[int, torch.Tensor], cols_by_log: Dict[int, torch.Tensor]):
+        self.layers = layers
+        self.cols = cols_by_log
+        self.bottom = max(layers)
+        _require(self.bottom <= DC_MAX_LOG, f"decommit: trees of at most 2^{DC_MAX_LOG} leaves")
+        self.k = np.zeros(self.bottom + 1, dtype=np.int64)
+        for log, c in cols_by_log.items():
+            self.k[log] = c.shape[0]
+        d = np.zeros(DC_DESC_WORDS, dtype=np.int64)
+        d[0] = self.bottom
+        rows = d[1 : 1 + 5 * (self.bottom + 1)].reshape(-1, 5)
+        for log, layer in layers.items():
+            _require(layer.dtype == f.I32 and layer.is_contiguous() and tuple(layer.shape) == (1 << log, 8),
+                     "decommit: contiguous int32 (2^log, 8) digest layers")
+            rows[log, 0] = layer.data_ptr()
+        for log, c in cols_by_log.items():
+            _require(c.dtype == f.I32 and c.dim() == 2 and c.shape[1] == 1 << log, "decommit: (k, 2^log) columns")
+            rows[log, 1:] = (c.data_ptr(), c.shape[0], c.stride(0), c.stride(1))
+        self.words = f.upload(d, layers[self.bottom].device)
 
 
-def _gather_table(specs):
-    """(packed int64 table, non-empty spec count, output words): the spec
-    rows of csrc/gather.cu, then the concatenated indices."""
-    rows, idxs = [], []
-    n_idx = n_words = 0
-    for src, idx, axis in specs:
-        _require(src.dtype == f.I32 and src.dim() == 2 and axis in (0, 1), "gather: int32 (R, C) sources, axis 0 or 1")
-        width = src.shape[1 - axis]
-        if len(idx) == 0 or width == 0:
-            continue
-        rows.append((src.data_ptr(), src.stride(0), src.stride(1), axis, width, len(idx), n_idx, n_words, src.shape[axis]))
-        idxs.append(idx)
-        n_idx += len(idx)
-        n_words += len(idx) * width
-    if not rows:
-        return np.zeros(0, np.int64), 0, 0
-    table = np.array(rows, dtype=np.int64)
-    pos = np.fromiter(itertools.chain.from_iterable(idxs), dtype=np.int64, count=n_idx)
-    limit = np.repeat(table[:, 8], table[:, 5])
-    _require(bool(((pos >= 0) & (pos < limit)).all()), "gather: positions out of range")
-    return np.concatenate([table[:, :GATHER_SPEC_WORDS].reshape(-1), pos]), len(rows), n_words
+class DecommitPass:
+    """One opening pass over several trees, planned on the host without a
+    set: `queries[t]` maps a log of tree t to its sorted, distinct query
+    positions (numpy).  Holds the upper bounds that size each tree's part
+    of the output, the one int64 upload of the card (a record per tree, the
+    positions), and `split` for the downloaded words."""
+
+    def __init__(self, trees: Sequence[TreeDesc], queries: Sequence[Dict[int, np.ndarray]]):
+        _require(len(trees) == len(queries) and len(trees) > 0, "decommit: one query map per tree")
+        self.trees = list(trees)
+        self.dev = trees[0].layers[trees[0].bottom].device
+        _require(all(t.layers[t.bottom].device == self.dev for t in trees), "decommit: trees on one device")
+        n = len(trees)
+        counts = np.zeros((n, DC_MAX_LOG + 1), dtype=np.int64)
+        parts, limits = [], []
+        for t, (tree, qs) in enumerate(zip(trees, queries)):
+            for log in sorted(qs):  # the order of the records' offsets
+                pos = qs[log]
+                _require(0 <= log <= tree.bottom, f"decommit: queries at log {log} of a tree of bottom {tree.bottom}")
+                pos = np.asarray(pos, dtype=np.int64).reshape(-1)
+                counts[t, log] = len(pos)
+                parts.append(pos)
+                limits.append(np.full(len(pos), 1 << log, dtype=np.int64))
+        self.positions = np.concatenate(parts) if parts else np.zeros(0, np.int64)
+        q_off = np.cumsum(counts.reshape(-1)) - counts.reshape(-1)
+        # Range and order, checked before launch: each (tree, log) run of
+        # positions in [0, 2^log), strictly increasing.
+        limit = np.concatenate(limits) if limits else np.zeros(0, np.int64)
+        _require(bool(((self.positions >= 0) & (self.positions < limit)).all()), "decommit: positions out of range")
+        starts = np.zeros(len(self.positions), dtype=bool)
+        starts[q_off.reshape(n, -1)[counts > 0]] = True
+        step_ok = np.diff(self.positions, prepend=-1) > 0
+        _require(bool((step_ok | starts).all()), "decommit: positions not sorted and distinct")
+        self.queries = [{log: self.positions[q_off[t * (DC_MAX_LOG + 1) + log]:][: counts[t, log]]
+                         for log in qs} for t, qs in enumerate(queries)]
+
+        # Upper bounds per log, from the counts: |comp[l]| <= min(2^l,
+        # queries at logs >= l); witnesses of layer l <= min(2^l, |comp[l]|
+        # + 2 |q[l-1]|); the merge holds |comp[l]| + |q[l-1]|.
+        self.region = []  # per tree: (header, witness, values offsets, bottom)
+        caps, sizes, off = [1], [], 0
+        for t, tree in enumerate(trees):
+            L = tree.bottom
+            qc = counts[t, : L + 1]
+            size = np.int64(1) << np.arange(L + 1, dtype=np.int64)
+            cb = np.minimum(size, np.cumsum(qc[::-1])[::-1])
+            wb = np.minimum(size[1:], cb[1:] + 2 * qc[:-1])
+            caps += [int(cb[L]), int((cb[1:] + 2 * qc[:-1]).max(initial=0))]
+            hdr = off
+            wit = hdr + 2 * (L + 1)
+            val = wit + 8 * int(wb.sum())
+            off = val + int((tree.k * cb).sum())
+            sizes.append(off - hdr)
+            self.region.append((hdr, wit, val, L))
+        self.n_words = off
+        self.cap = max(caps)
+        _require(3 * self.cap * 4 <= 200 * 1024, f"decommit: {self.cap} positions per layer exceed shared memory")
+        self.slices = min(16, -(-max(sizes) // 16384))  # CTAs per tree: one per 16K words of output
+        rec = np.zeros((n, DC_TREE_WORDS), dtype=np.int64)
+        rec[:, 1:4] = [r[:3] for r in self.region]
+        rec[:, 4::2] = q_off.reshape(n, -1)
+        rec[:, 5::2] = counts
+        rec[:, 0] = [tree.words.data_ptr() for tree in trees]
+        self.packed = np.concatenate([rec.reshape(-1), self.positions])
+
+    def split(self, words: np.ndarray) -> List[tuple]:
+        """The pass's downloaded words -> per tree (opened values: one array
+        per column, logs descending, commitment order; witness: (n, 8)
+        digests), numpy views."""
+        out = []
+        for tree, (hdr, wit, val, L) in zip(self.trees, self.region):
+            h = words[hdr : hdr + 2 * (L + 1)].astype(np.int64).reshape(L + 1, 2)  # logs L .. 0
+            witness = words[wit : wit + 8 * int(h[:, 1].sum())].reshape(-1, 8)
+            values = []
+            for log in sorted(tree.cols, reverse=True):
+                k, c = int(tree.k[log]), int(h[L - log, 0])
+                values.extend(words[val : val + k * c].reshape(k, c))
+                val += k * c
+            out.append((values, witness))
+        return out
 
 
-def gather(specs: Sequence[tuple]) -> torch.Tensor:
-    """Every spec's gathered words, each result row-major, concatenated in
-    spec order: one flat int32 tensor on the sources' device.  On the card:
-    one pinned upload of the spec table and indices, one launch."""
-    _require(len(specs) > 0, "gather: no specs")
-    dev = specs[0][0].device
-    _require(all(s[0].device == dev for s in specs), "gather: sources on one device")
-    if _on_cpu(specs[0][0]):
-        return gather_plain(specs)
-    table, n_specs, n_words = _gather_table(specs)
-    out = torch.empty(n_words, dtype=f.I32, device=dev)
-    if n_words:
-        packed = f.upload(table, dev)
-        GATHER.launch("lum_gather", dev, packed.data_ptr(), n_specs, n_words, out.data_ptr())
+def decommit(plan: DecommitPass) -> torch.Tensor:
+    """The pass's output words (int32, on the trees' device): per tree a
+    header of (recomputed count, witness count) per log, bottom first, then
+    the witness digests and the opened values (csrc/decommit.cuh).  On the
+    card: one pinned upload, one launch."""
+    if plan.dev.type == "cpu":
+        return decommit_plain(plan)
+    _require(plan.dev.type == "cuda", f"unsupported device {plan.dev}")
+    out = torch.zeros(plan.n_words, dtype=f.I32, device=plan.dev)
+    packed = f.upload(plan.packed, plan.dev)
+    DECOMMIT.launch("lum_decommit", plan.dev, packed.data_ptr(), len(plan.trees), plan.slices, plan.cap,
+                    out.data_ptr())
     return out
 
 
-def gather_plain(specs) -> torch.Tensor:
-    """One index_select per spec, then one concatenation."""
-    parts = [src.index_select(axis, torch.as_tensor(np.asarray(idx, dtype=np.int64), device=src.device)).reshape(-1)
-             for src, idx, axis in specs]
-    return torch.cat(parts)
+def decommit_plain(plan: DecommitPass) -> torch.Tensor:
+    """The same pass with torch set operations (torch.unique, torch.isin,
+    index_select), tree by tree, layer by layer."""
+    dev = plan.dev
+    out = torch.zeros(plan.n_words, dtype=f.I32, device=dev)
+    for tree, qs, (hdr, wit, val, L) in zip(plan.trees, plan.queries, plan.region):
+        def q(log):
+            return torch.as_tensor(qs.get(log, np.zeros(0, np.int64)), device=dev)
+
+        comp = q(L)
+        heads = []
+        for log in range(L, -1, -1):
+            if log < L:
+                new = torch.unique(torch.cat([comp >> 1, q(log)]))
+                kids = torch.stack([2 * new, 2 * new + 1], dim=1).reshape(-1)
+                missing = kids[~torch.isin(kids, comp)]
+                digests = tree.layers[log + 1].index_select(0, missing).reshape(-1)
+                out[wit : wit + len(digests)] = digests
+                wit += len(digests)
+                heads[-1][1] = len(missing)
+                comp = new
+            heads.append([len(comp), 0])
+            if log in tree.cols:
+                v = tree.cols[log].index_select(1, comp).reshape(-1)
+                out[val : val + len(v)] = v
+                val += len(v)
+        out[hdr : hdr + 2 * (L + 1)] = torch.tensor(heads, dtype=f.I32, device=dev).reshape(-1)
+    return out
 
 
 # ---------------------------------------------------------------------------

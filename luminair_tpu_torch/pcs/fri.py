@@ -40,7 +40,7 @@ from .. import circle
 from .. import fields as f
 from .. import fft
 from .. import kernels
-from ..crypto.merkle import MerkleTree, run_plans
+from ..crypto.merkle import MerkleTree, open_trees
 from ..errors import ProverError
 from .config import FriConfig
 
@@ -182,51 +182,69 @@ def fri_prove(inputs: Dict[int, torch.Tensor], config: FriConfig, channel):
     return proof, ctx
 
 
+def _mirror(p: np.ndarray, n: int) -> np.ndarray:
+    """The sorted distinct positions of p and their mirrors n - 1 - p."""
+    return np.unique(np.concatenate([p, n - 1 - p]))
+
+
 def fold_position_sets(pending, level_log: int, depth: int):
     """Position sets the verifier materialises when folding `depth` steps
     from carried positions `pending` at line level `level_log`:
-    [S_0, ..., S_depth], S_0 the full coset the committed layer opens."""
-    final = {int(p) for p in pending}
+    [S_0, ..., S_depth] (sorted int64 arrays), S_0 the full coset the
+    committed layer opens."""
+    final = np.unique(np.asarray(pending, dtype=np.int64))
     for t in range(depth):
         n = 1 << (level_log - t)
-        final = {min(p, n - 1 - p) for p in final}
+        final = np.unique(np.minimum(final, n - 1 - final))
     sets = [final]
     for t in range(depth, 0, -1):
-        n = 1 << (level_log - t + 1)
-        sets.append({q for p in sets[-1] for q in (p, n - 1 - p)})
+        sets.append(_mirror(sets[-1], 1 << (level_log - t + 1)))
     sets.reverse()
     return sets
 
 
-def fri_decommit(proof: FriProof, ctx, positions: np.ndarray):
-    """Fill the proof's per-layer openings for the sorted unique bottom
-    positions; every layer's gathers download in one transfer."""
-    kmax = ctx["kmax"]
-    F = ctx["folds_per_layer"]
-    last_line_log = ctx["last_line_log"]
-    n = 1 << kmax
-    pos = {min(int(p), n - 1 - int(p)) for p in positions}  # line kmax-1
-    plans = []
-    for (log, _evals, tree) in ctx["layers"]:
-        sets = fold_position_sets(pos, log, min(F, log - last_line_log))
-        queries = {log: sorted(sets[0])}
-        plans.append((tree.queried_values_plan(queries), tree.decommit_plan(queries)))
+def _line_positions(positions, kmax: int) -> np.ndarray:
+    """Drawn circle positions of D_kmax -> their line positions (kmax - 1)."""
+    p = np.asarray(positions, dtype=np.int64)
+    return np.unique(np.minimum(p, (1 << kmax) - 1 - p))
+
+
+def fri_queries(ctx, positions) -> List[Dict[int, np.ndarray]]:
+    """The query positions of each committed layer's tree, from the drawn
+    positions: {log: the full coset the layer opens}."""
+    pos = _line_positions(positions, ctx["kmax"])
+    queries = []
+    for (log, _evals, _tree) in ctx["layers"]:
+        sets = fold_position_sets(pos, log, min(ctx["folds_per_layer"], log - ctx["last_line_log"]))
+        queries.append({log: sets[0]})
         pos = sets[-1]
-    for values, witness in run_plans(plans):
+    return queries
+
+
+def fill_openings(proof: FriProof, opened) -> FriProof:
+    """Put the layers' (values, witness) of a decommitment pass in the proof."""
+    for values, witness in opened:
         proof.layer_queried_values.append(values)
         proof.layer_witnesses.append(witness)
     return proof
 
 
-def needed_input_positions(drawn_positions, input_logs, fri_config) -> Dict[int, list]:
-    """For each input circle log, the positions at which the verifier needs
-    the FRI input (DEEP quotient) values -- the positions at which the
-    committed columns of that commit log are opened."""
+def fri_decommit(proof: FriProof, ctx, positions: np.ndarray):
+    """Fill the proof's per-layer openings for the drawn positions in one
+    decommitment pass (the prover folds this pass into the trees')."""
+    trees = [tree for _, _, tree in ctx["layers"]]
+    return fill_openings(proof, open_trees(trees, fri_queries(ctx, positions)))
+
+
+def needed_input_positions(drawn_positions, input_logs, fri_config) -> Dict[int, np.ndarray]:
+    """For each input circle log, the positions (sorted int64 arrays) at
+    which the verifier needs the FRI input (DEEP quotient) values -- the
+    positions at which the committed columns of that commit log are
+    opened."""
     logs = sorted({int(l) for l in input_logs}, reverse=True)
     kmax = logs[0]
-    n = 1 << kmax
-    need = {kmax: sorted({q for p in drawn_positions for q in (int(p), n - 1 - int(p))})}
-    pos = {min(int(p), n - 1 - int(p)) for p in drawn_positions}
+    need = {kmax: _mirror(np.asarray(drawn_positions, dtype=np.int64), 1 << kmax)}
+    pos = _line_positions(drawn_positions, kmax)
     F = max(1, int(fri_config.folds_per_layer))
     last_line_log = fri_config.log_blowup_factor + fri_config.log_last_layer_degree_bound
     cur_log = kmax - 1
@@ -236,7 +254,7 @@ def needed_input_positions(drawn_positions, input_logs, fri_config) -> Dict[int,
         for t in range(1, fl + 1):
             k = cur_log - t + 1  # a circle-log-k input mixes at line level k-1
             if k in logs and k != kmax:
-                need[k] = sorted({q for i in sets[t] for q in (i, (1 << k) - 1 - i)})
+                need[k] = _mirror(sets[t], 1 << k)
         pos = sets[-1]
         cur_log -= fl
     return need

@@ -6,8 +6,9 @@ opening through DEEP quotients and FRI.
                   PoW -> draw queries -> decommit trees and FRI layers
 
 FRI commits on the card with its channel there (pcs/fri.py, K8); the PoW
-nonce is searched on the card (kernels.grind_pow, K10); each opening pass
-(FRI layers, then the trees) is one gather launch and one download (K9).
+nonce is searched on the card (kernels.grind_pow, K10); the opening of
+the FRI layers and the trees is one decommitment pass: one upload, one
+launch of K9 and one download.
 
 The transcript choreography is the reference package's pcs/scheme.py.
 """
@@ -24,7 +25,7 @@ from .. import fields as f
 from .. import fft
 from .. import kernels
 from .. import tracing
-from ..crypto.merkle import MerkleTree, run_plans
+from ..crypto.merkle import MerkleTree, open_trees
 from ..errors import ProverError
 from . import fri as fri_mod
 from .config import PcsConfig
@@ -153,18 +154,18 @@ class CommitmentSchemeProver:
         kmax = max(quotients)
         positions = ch.draw_queries(self.config.fri.n_queries, kmax)
 
-        # 4. Decommit FRI layers and trees.
+        # 4. Decommit FRI layers and trees: one pass.
         with timer.span("3b_decommit"):
-            fri_mod.fri_decommit(fri_proof, fri_ctx, positions)
+            with timer.span("3b_decommit.positions"):
+                fri_queries = fri_mod.fri_queries(fri_ctx, positions)
+                need = fri_mod.needed_input_positions(positions, sorted(quotients), self.config.fri)
+                tree_queries = [{log: need[log] for log in set(tree.commit_logs) if log in need}
+                                for tree in self.trees]
+            fri_trees = [tree for _, _, tree in fri_ctx["layers"]]
+            opened = open_trees(fri_trees + [t.merkle for t in self.trees], fri_queries + tree_queries)
+            fri_mod.fill_openings(fri_proof, opened[: len(fri_trees)])
             fri_proof.pow_nonce = nonce
-            need = fri_mod.needed_input_positions(positions, sorted(quotients), self.config.fri)
-            plans = []
-            for tree in self.trees:
-                queries = {log: need[log] for log in set(tree.commit_logs) if log in need}
-                plans.append(
-                    (tree.merkle.queried_values_plan(queries), tree.merkle.decommit_plan(queries))
-                )
-            opened = run_plans(plans)
+            opened = opened[len(fri_trees) :]
 
         return PcsProof(
             sampled_values=sampled_values,

@@ -131,8 +131,7 @@ def proof_to_flat_bytes(proof) -> bytes:
     w.u32(len(p.tree_witnesses))
     for digests in p.tree_witnesses:
         w.u32(len(digests))
-        for d in digests:
-            w.words(d, 8)
+        w.words(digests, 8 * len(digests))
     # FRI
     f = p.fri_proof
     w.u32(len(f.layer_roots))
@@ -146,8 +145,7 @@ def proof_to_flat_bytes(proof) -> bytes:
     w.u32(len(f.layer_witnesses))
     for digests in f.layer_witnesses:
         w.u32(len(digests))
-        for d in digests:
-            w.words(d, 8)
+        w.words(digests, 8 * len(digests))
     coeffs = np.asarray(f.last_layer_coeffs, dtype=np.uint32)
     w.u32(coeffs.shape[0])
     w.words(coeffs, 4 * coeffs.shape[0])

@@ -1,5 +1,5 @@
-"""The channel on the card (K8), the FRI commit chain, the decommit gathers
-(K9) and the proof-of-work search (K10) of luminair_tpu_torch: their plain
+"""The channel on the card (K8), the FRI commit chain and the proof-of-work
+search (K10) of luminair_tpu_torch: their plain
 twins against the reference's device programs (luminair_tpu.parallel.accel
 on JAX's CPU) and host channel, and csrc/channel.cuh + csrc/blake2s.cuh
 built with g++ against hashlib and the twins."""
@@ -22,7 +22,6 @@ from luminair_tpu.parallel import accel
 from luminair_tpu_torch import fields as f
 from luminair_tpu_torch import kernels
 from luminair_tpu_torch.crypto.channel import Blake2sChannel
-from luminair_tpu_torch.crypto.merkle import gather_many
 from luminair_tpu_torch.pcs import fri
 
 P = (1 << 31) - 1
@@ -145,51 +144,6 @@ def test_fri_fold_chain_twin(fold):
     assert torch.equal(kernels.fri_fold_chain(v, tw, a, fold), kernels.fri_fold_plain(v, tw, beta))
     assert torch.equal(kernels.fri_fold_chain(v, tw, a, fold, mix),
                        kernels.fri_fold_plain(v, tw, beta, mix, f.qm31_mul_ints(beta, beta)))
-
-
-def _gather_specs(rng):
-    """Digest layers (axis 0), a (k, n) column matrix and the transposed
-    (4, n) view of a FRI layer (axis 1), and an empty gather."""
-    digests = _u32(rng, 64, 8)
-    cols = _u32(rng, 5, 128)
-    layer = _u32(rng, 32, 4)
-    return [
-        (digests, [3, 4, 9, 60, 63], 0),
-        (cols, [0, 1, 17, 127], 1),
-        (layer.T, [2, 3, 30], 1),
-        (digests[:16], [15, 0, 7], 0),
-        (cols, [], 1),
-    ]
-
-
-def test_gather_twin_matches_reference():
-    specs = _gather_specs(np.random.default_rng(5))
-    ref = accel.gather_many([(a, p, ax) for a, p, ax in specs if len(p)])
-    got = gather_many([(f.u32_to_tensor(np.ascontiguousarray(a)) if ax == 0 else f.u32_to_tensor(a.T).t(), p, ax)
-                       for a, p, ax in specs])
-    assert got[-1].shape == (5, 0)
-    for a, b in zip([g for g, (_, p, _) in zip(got, specs) if len(p)], ref):
-        assert a.shape == b.shape and np.array_equal(a, b)
-
-
-def test_gather_table_walk_matches_twin():
-    """csrc/gather.cu's per-word walk (binary search over the output
-    offsets, then the spec's strided address), run here over the packed
-    table through the sources' addresses: the twin's words."""
-    rng = np.random.default_rng(6)
-    specs = [(f.u32_to_tensor(np.ascontiguousarray(a)) if ax == 0 else f.u32_to_tensor(a.T).t(), p, ax)
-             for a, p, ax in _gather_specs(rng)]
-    table, n_specs, n_words = kernels._gather_table(specs)
-    rows = table[: kernels.GATHER_SPEC_WORDS * n_specs].reshape(n_specs, -1)
-    idx = table[kernels.GATHER_SPEC_WORDS * n_specs :]
-    out = []
-    for i in range(n_words):
-        s = rows[np.searchsorted(rows[:, 7], i, side="right") - 1]
-        ptr, s0, s1, axis, width, n_idx, idx_off, out_off = (int(x) for x in s)
-        a, b = divmod(i - out_off, width if axis == 0 else n_idx)
-        pos = idx[idx_off + a] * s0 + b * s1 if axis == 0 else a * s0 + idx[idx_off + b] * s1
-        out.append(ctypes.c_int32.from_address(ptr + 4 * int(pos)).value)
-    assert torch.equal(torch.tensor(out, dtype=torch.int32), kernels.gather_plain(specs))
 
 
 @pytest.mark.parametrize("bits", [0, 1, 5, 9, 12, 16])

@@ -12,7 +12,7 @@ from luminair_tpu.crypto import channel as ref_channel
 from luminair_tpu.crypto import merkle as ref_merkle
 from luminair_tpu_torch import fields as f
 from luminair_tpu_torch.crypto import blake2s, channel
-from luminair_tpu_torch.crypto.merkle import MerkleTree, gather_many
+from luminair_tpu_torch.crypto.merkle import MerkleTree, open_trees
 
 
 def _words(seed, shape):
@@ -59,11 +59,7 @@ def test_merkle_root_and_openings(logs, queries):
     ref = ref_merkle.MerkleTree(cols)
     port = _port_tree(cols)
     assert np.array_equal(port.root, ref.root)
-    q_specs, q_asm = port.queried_values_plan(queries)
-    d_specs, d_asm = port.decommit_plan(queries)
-    res = gather_many(q_specs + d_specs)
-    values = q_asm(res[: len(q_specs)])
-    witness = d_asm(res[len(q_specs) :])
+    ((values, witness),) = open_trees([port], [{k: np.array(v) for k, v in queries.items()}])
     ref_values = ref.queried_values(queries)
     ref_witness = ref.decommit(queries)
     assert len(values) == len(ref_values) and len(witness) == len(ref_witness)

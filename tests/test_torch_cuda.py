@@ -26,14 +26,22 @@ def _rnd(rng, dev, *shape):
     return torch.from_numpy(rng.integers(0, f.P, size=shape).astype(np.int32)).to(dev)
 
 
-@pytest.mark.parametrize("log", [1, 2, 7, 12])
+# Logs on both sides of a tile (2^12 rows) and of one group pass (2^20).
+@pytest.mark.parametrize("log", [1, 2, 7, 12, 13, 20, 21, 25])
 def test_circle_fft(dev, log):
     rng = np.random.default_rng(log)
-    v = _rnd(rng, dev, 3, 1 << log)
+    big = log > 20
+    v = _rnd(rng, dev, 1 if big else 3, 1 << log)
+    before = kernels.CIRCLE_FFT.launches
     assert torch.equal(kernels.circle_ifft(v), kernels.circle_ifft_plain(v))
+    assert kernels.CIRCLE_FFT.launches - before <= 3
     assert torch.equal(kernels.circle_fft(v), kernels.circle_fft_plain(v))
-    for b in (1, 2, 3, 4):
+    if log >= 2:
+        assert torch.equal(kernels.circle_fft(v, 4), kernels.circle_fft_plain(v, 4))
+    for b in (1,) if big else (1, 2, 3, 4):
+        before = kernels.CIRCLE_FFT.launches
         assert torch.equal(kernels.circle_lde(v, b), kernels.circle_lde_plain(v, b))
+        assert kernels.CIRCLE_FFT.launches - before <= 3
 
 
 @pytest.mark.parametrize("k,log", [(0, 3), (3, 4), (25, 6)])
@@ -79,7 +87,7 @@ def test_fri_fold_chain(dev, fold):
 
 
 # ---------------------------------------------------------------------------
-# K8: the channel; K9: the decommit gathers; K10: the proof-of-work search.
+# K8: the channel; K9: the decommitment pass; K10: the proof-of-work search.
 
 
 def _channel_state(rng, dev, counter):
@@ -119,20 +127,26 @@ def test_grind_pow(dev, bits):
         assert nonce == ch.grind_pow(bits)
 
 
-def test_gather(dev):
+def test_decommit(dev):
+    """Trees of an opening pass at sizes on both sides of a slice (16K
+    output words), a FRI layer's transposed view among them."""
+    from luminair_tpu_torch.crypto.merkle import MerkleTree
+
     rng = np.random.default_rng(3)
-    digests = _rnd(rng, dev, 1 << 12, 8)
-    cols = _rnd(rng, dev, 7, 1 << 12)
-    layer = _rnd(rng, dev, 1 << 10, 4)
-    specs = [
-        (digests, sorted(rng.choice(1 << 12, 200, replace=False).tolist()), 0),
-        (cols, sorted(rng.choice(1 << 12, 64, replace=False).tolist()), 1),
-        (layer.t(), [0, 5, 1023], 1),
-        (cols[2:5], [4095], 1),
-        (digests, [], 0),
-        (digests[::2], [1, 2, 3], 0),
+    trees = [
+        MerkleTree({12: _rnd(rng, dev, 7, 1 << 12), 10: _rnd(rng, dev, 40, 1 << 10), 4: _rnd(rng, dev, 2, 16)}),
+        MerkleTree({10: _rnd(rng, dev, 1 << 10, 4).t()}),
+        MerkleTree({3: _rnd(rng, dev, 1, 8)}),
     ]
-    assert torch.equal(kernels.gather(specs), kernels.gather_plain(specs))
+    queries = [
+        {12: np.unique(rng.integers(0, 1 << 12, 200)), 10: np.unique(rng.integers(0, 1 << 10, 64)),
+         4: np.array([0, 15])},
+        {10: np.array([0, 1, 5, 1023])},
+        {},
+    ]
+    plan = kernels.DecommitPass([t.desc for t in trees], queries)
+    assert plan.slices > 1
+    assert torch.equal(kernels.decommit(plan), kernels.decommit_plain(plan))
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +224,8 @@ def test_prove_path_never_takes_a_plain_twin(dev, monkeypatch):
 
         def checked(*args, **kwargs):
             flat = [a for x in list(args) + list(kwargs.values()) for a in (x if isinstance(x, (list, tuple)) else [x])]
-            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in flat):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda or isinstance(a, kernels.DecommitPass)
+                   and a.dev.type == "cuda" for a in flat):
                 raise AssertionError(f"{name} reached with a CUDA tensor")
             return fn(*args, **kwargs)
 
@@ -237,11 +252,11 @@ def test_prove_path_never_takes_a_plain_twin(dev, monkeypatch):
 
 
 def _check_fri_launches(proof):
-    """K8 once for alpha0 and once per committed FRI layer, K9 once per
-    opening pass (FRI layers, trees), K10 at least once."""
+    """K8 once for alpha0 and once per committed FRI layer, K9 once (one
+    opening pass for the FRI layers and the trees), K10 at least once."""
     n_layers = len(proof.pcs_proof.fri_proof.layer_roots)
     assert kernels.CHANNEL.launches == 1 + n_layers and n_layers > 0
-    assert kernels.GATHER.launches == 2
+    assert kernels.DECOMMIT.launches == 1
     assert kernels.GRIND_POW.launches >= 1
 
 
@@ -328,6 +343,8 @@ def test_prove_from_card_trace_never_touches_the_host(dev, monkeypatch):
     def is_cuda(x):
         if isinstance(x, kernels.TraceStep):
             return x.srcs[0][0].is_cuda
+        if isinstance(x, kernels.DecommitPass):
+            return x.dev.type == "cuda"
         return isinstance(x, torch.Tensor) and x.is_cuda
 
     def guard(mod, name):
@@ -370,8 +387,8 @@ def test_prove_from_card_trace_never_touches_the_host(dev, monkeypatch):
 @pytest.mark.parametrize("high_security", [False, True])
 def test_fri_commit_downloads_once_and_each_pass_uploads_once(dev, monkeypatch, high_security):
     """On the card, the FRI commit chain makes one device-to-host download
-    (no root comes down per layer), and each decommit pass one upload of
-    its gather indices."""
+    (no root comes down per layer), and the prove's one decommitment pass
+    one upload of its records and positions, and no upload per index."""
     from luminair_tpu_torch import prelude as T
     from luminair_tpu_torch.pcs import fri
 
@@ -385,7 +402,7 @@ def test_fri_commit_downloads_once_and_each_pass_uploads_once(dev, monkeypatch, 
             return fn(*args, **kw)
 
         monkeypatch.setattr(f, name, counted)
-    for mod, name in ((fri, "fri_prove"), (kernels, "gather")):
+    for mod, name in ((fri, "fri_prove"), (kernels, "decommit")):
         fn = getattr(mod, name)
 
         def marked(*args, fn=fn, name=name, **kw):
@@ -415,5 +432,5 @@ def test_fri_commit_downloads_once_and_each_pass_uploads_once(dev, monkeypatch, 
 
     (chain,) = inside("fri_prove")
     assert chain.count("tensor_to_u32") == 1, chain
-    passes = inside("gather")
-    assert len(passes) == 2 and all(p.count("upload") == 1 and "u32_to_tensor" not in p for p in passes), passes
+    passes = inside("decommit")
+    assert len(passes) == 1 and all(p.count("upload") == 1 and "u32_to_tensor" not in p for p in passes), passes
