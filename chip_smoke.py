@@ -12,11 +12,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      (batch 256), timed;
   4. K1-K7 against their plain PyTorch twins on the card, bit for bit:
      K1 on both sides of its tile and group-pass sizes and at 2^23, K1-K4
-     at the shapes the N=256 prove gives them, K5/K6 on the tape of every
-     PINN component at its batch-256 trace and commit sizes, K7 at the
-     PINN's OODS groups, K3's device-challenge fold at the PINN's 2^23
-     composition fold, K8 on random channel states, K9 on a pass over
-     trees of the PINN's sizes, K10 at 16 bits; CUDA-event times of kernel
+     at the shapes the N=256 prove gives them, K2 on whole trees at the
+     sides of its tile (2^10 nodes),
+     K5/K6 on the tape of every PINN component at its batch-256 trace and
+     commit sizes, K7 at the PINN's OODS groups, alone and in one call,
+     and at groups below and above a chunk, K3's device-challenge fold at
+     the PINN's 2^23 composition fold, K8 on random channel states, K9 on
+     a pass over trees of the PINN's sizes and on one whose position lists
+     exceed shared memory, K10 at 16 bits; CUDA-event times of kernel
      and twin and the least time the card could take for the same work;
   5. the bench path: the 256x256 a*b + a graph through Graph -> compile ->
      gen_circuit_settings -> gen_trace -> prove, all on the card by
@@ -25,10 +28,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      equal the host interpreter's (downloaded after the timed window);
      card and host seconds of settings and trace; the prover's self-check
      must pass, the host PIE's proof must have the same bytes, and the
-     native C++ verifier must accept the proof; then the path once more
-     keeping the inputs of each kernel call at each distinct shape (the
-     trace kernels' steps too), every kept call run again through the
-     kernel and through its plain twin, bit for bit; then one prove, one
+     native C++ verifier must accept the proof; K2 may take at most
+     ceil((L + 1) / (t + 1)) launches per tree of 2^L leaves (tile 2^t)
+     and K7 one call per prove; then the path once more keeping the
+     inputs of each kernel call at each distinct shape (the trace
+     kernels' steps too), every kept call run again through the kernel
+     and through its plain twin, bit for bit, and the bounds of every K1,
+     K2, K7 and K9 call summed; then one prove, one
      settings pre-pass and one trace under torch.profiler: device busy
      time, idle share, copies, and the kernels that take the device's
      time;
@@ -91,8 +97,14 @@ OPS_ADD = 3
 OPS_QMUL = 16 * OPS_MUL + 14 * OPS_ADD
 OPS_QINV = 58 * OPS_MUL + 17 * OPS_ADD  # tower + norm + 38-multiply Fermat chain
 OPS_INV = 38 * OPS_MUL
-OPS_BLAKE2S_BLOCK = 80 * 14 + 16  # 10 rounds x 8 G x 14 ops, final xors
+OPS_BLAKE2S_BLOCK = 80 * 12 + 8  # 10 rounds x 8 G x 12 ops, one LOP3 per output word
+# (a G: 4 IADD3 that add three words, 4 XOR, 2 PRMT for the 16- and 8-bit
+# rotations, 2 SHF for the 12- and 7-bit ones; tools/blake2s_sass_ops.py
+# counts them in the SASS of csrc/blake2s.cuh's compression)
 OPS_DENOM = 4 * OPS_MUL + 8 * OPS_ADD  # v0 + alpha * v1 - z
+# A product added to a 64-bit sum with one fold (K7): the 32x32->64
+# product, the fold's and, shift and add, the 64-bit add (two).
+OPS_FOLD_MAC = 6
 
 def fft_work(words_in: int, words_out: int, log_n: int, n_stages: int, inverse: bool):
     """(bytes, operations) of one K1 call: its input read and output written
@@ -104,7 +116,7 @@ def fft_work(words_in: int, words_out: int, log_n: int, n_stages: int, inverse: 
 
 
 PORT_KERNEL_NAMES = (
-    "fft_pass_kernel", "merkle_layer_kernel", "fri_fold_kernel",
+    "fft_pass_kernel", "merkle_pass_kernel", "fri_fold_kernel",
     "deep_quotient_kernel", "air_witness_kernel", "scan_tile", "air_domain_kernel",
     "oods_partial_kernel", "oods_combine_kernel", "fri_fold_chain_kernel", "channel_draw_kernel",
     "channel_mix_draw_kernel", "decommit_kernel", "grind_pow_kernel", "trace_binary_kernel", "trace_unary_kernel",
@@ -193,9 +205,20 @@ def phase_build(kernels):
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": regs})
 
 
+def tree_words(kernels, cols_by_log, run) -> torch.Tensor:
+    """Every digest of a new tree over `cols_by_log`, hashed by `run` (K2 or
+    its twin), layers bottom to root."""
+    bottom = max(cols_by_log)
+    desc = kernels.TreeDesc(kernels.tree_layers(bottom, cols_by_log[bottom].device), cols_by_log)
+    run(desc)
+    return torch.cat([desc.layers[log] for log in range(bottom, -1, -1)])
+
+
 def phase_kernels(kernels, circle, f, dev, pinn_logs):
     """Each kernel against its twin: K1-K4 at the N=256 prove's shapes,
     K5-K7 at the PINN's."""
+    from luminair_tpu_torch.crypto.merkle import MerkleTree
+
     rng = np.random.default_rng(2024)
 
     def rnd(*shape):
@@ -244,29 +267,28 @@ def phase_kernels(kernels, circle, f, dev, pinn_logs):
         bound=bound(*fft_work(v.numel(), 7 << 18, 18, 17, False)),
     )
 
-    # K2: the main tree -- 7 leaf columns at 2^18, 31 columns at 2^17 -- and
-    # the parent layers above them.
-    leaf = rnd(7, 1 << 18)
-    mid = rnd(31, 1 << 17)
-    err = check("blake2s_merkle leaf 7x2^18", lambda: kernels.merkle_layer(None, leaf),
-                lambda: kernels.merkle_layer_plain(None, leaf))
-    comp_leaf = rnd(4, 1 << 19)
-    err |= check("blake2s_merkle leaf 4x2^19", lambda: kernels.merkle_layer(None, comp_leaf),
-                 lambda: kernels.merkle_layer_plain(None, comp_leaf))
-    prev = kernels.merkle_layer(None, leaf)
-    err |= check("blake2s_merkle 2^17 + 31 cols", lambda: kernels.merkle_layer(prev, mid),
-                 lambda: kernels.merkle_layer_plain(prev, mid))
-    layer = kernels.merkle_layer(prev, mid)
-    for log in range(16, -1, -1):
-        cur = layer
-        err |= check(f"blake2s_merkle parent 2^{log}", lambda: kernels.merkle_layer(cur, None),
-                     lambda: kernels.merkle_layer_plain(cur, None))
-        layer = kernels.merkle_layer(cur, None)
+    # K2: whole trees against the twin -- the N=256 main tree (7 columns at
+    # 2^18, 31 at 2^17; timed), the composition's 4 x 2^19, bottom logs at
+    # t - 1, t, t + 1 and 2t + 1 of the tile (t = 10), one leaf, and a FRI
+    # layer's transposed view.
+    leaf, mid = rnd(7, 1 << 18), rnd(31, 1 << 17)
+    main_tree = {18: leaf, 17: mid}
+    t = kernels.MERKLE_TILE_LOG
+    err = 0
+    for name, cols in (("main 7x2^18 + 31x2^17", main_tree), ("composition 4x2^19", {19: rnd(4, 1 << 19)}),
+                       (f"2^{t - 1} + 3x2^4", {t - 1: rnd(2, 1 << (t - 1)), 4: rnd(3, 16)}),
+                       (f"2^{t} + 31x2^{t - 1}", {t: rnd(7, 1 << t), t - 1: rnd(31, 1 << (t - 1))}),
+                       (f"2^{t + 1} + 40x2^{t} + 2^0", {t + 1: rnd(2, 1 << (t + 1)), t: rnd(40, 1 << t), 0: rnd(1, 1)}),
+                       (f"2^{2 * t + 1} + 3x2^{t + 6}",
+                        {2 * t + 1: rnd(1, 1 << (2 * t + 1)), t + 6: rnd(3, 1 << (t + 6))}),
+                       ("one leaf", {0: rnd(3, 1)}), ("FRI layer 2^16 x 4", {16: rnd(1 << 16, 4).t()})):
+        err |= check(f"blake2s_merkle tree {name}", lambda: tree_words(kernels, cols, kernels.merkle_tree),
+                     lambda: tree_words(kernels, cols, kernels.merkle_tree_plain))
+    tree_bound = bound(*merkle_tree_work(main_tree))
     rows["blake2s_merkle"] = dict(
-        shape="leaf layer, 7 columns x 2^18", err=err,
-        ms=time_ms(lambda: kernels.merkle_layer(None, leaf)),
-        plain_ms=time_ms(lambda: kernels.merkle_layer_plain(None, leaf)),
-        bound=bound(4 * 7 * (1 << 18) + 32 * (1 << 18), (1 << 18) * (OPS_BLAKE2S_BLOCK + 7)),
+        shape="whole tree, 7 columns x 2^18 + 31 columns x 2^17", err=err,
+        ms=time_ms(lambda: MerkleTree(main_tree)),
+        plain_ms=time_ms(lambda: tree_words(kernels, main_tree, kernels.merkle_tree_plain)), bound=tree_bound,
     )
 
     # K3: the composition's circle fold 2^19 -> 2^18, the trace inputs'
@@ -369,6 +391,15 @@ def transcript_kernels(kernels, f, dev, rng, rnd, check):
                 17: np.unique(rng.integers(0, 1 << 17, 128))}]
     plan = kernels.DecommitPass([t.desc for t in trees], queries)
     check("decommit 2 trees", lambda: kernels.decommit(plan), lambda: kernels.decommit_plain(plan))
+    # Above shared memory: 8,000 queries at logs 22 and 21 merge up to
+    # 24,000 positions at log 21, so the position lists go to device memory.
+    big = [{22: np.unique(rng.integers(0, 1 << 22, 8000)), 21: np.unique(rng.integers(0, 1 << 21, 8000)),
+            17: np.unique(rng.integers(0, 1 << 17, 2000))}]
+    plan = kernels.DecommitPass([trees[1].desc], big)
+    if plan.in_shared:
+        raise AssertionError("the large decommit pass fits in shared memory: it does not test the scratch path")
+    check(f"decommit above shared memory (cap {plan.cap})", lambda: kernels.decommit(plan),
+          lambda: kernels.decommit_plain(plan))
     del trees, plan
     digest = rnd(8)
     check("grind_pow 16 bits", lambda: torch.tensor([kernels.grind_pow(digest, 16)]),
@@ -427,28 +458,41 @@ def tape_kernels(kernels, f, dev, pinn_logs, rng, rnd, check):
 
 
 def oods_kernel(kernels, circle, f, dev, rng, rnd, check):
-    """K7 at the PINN's OODS groups: the composition's 4 columns at 2^22
-    (timed), and a 64-column group at 2^21 (the main and interaction
-    columns of mul and sum_reduce)."""
+    """K7 against its twin: the composition's 4 columns at 2^22 (timed, one
+    group), a 64-column group at 2^21 (the main and interaction columns of
+    mul and sum_reduce), the two in one call, and a call of groups below,
+    at and above a chunk (2^11 rows) with one of more than 256 columns."""
     from luminair_tpu_torch import fft
 
-    point = circle.point_from_t_qm31(torch.from_numpy(rng.integers(0, f.P, 4)))
+    def group(log, C):
+        point = circle.point_from_t_qm31(torch.from_numpy(rng.integers(0, f.P, 4)))
+        return [rnd(1 << log) for _ in range(C)], fft.twiddle_chain(log, point)
+
+    comp, wide = group(22, 4), group(21, 64)
     err, rows = 0, {}
-    for log, C in ((22, 4), (21, 64)):
-        cols = [rnd(1 << log) for _ in range(C)]
-        chain = fft.twiddle_chain(log, point)
-        err |= check(f"oods_eval {C} x 2^{log}", lambda: kernels.oods_eval(cols, chain),
-                     lambda: kernels.oods_eval_plain(cols, chain))
-        ms = time_ms(lambda: kernels.oods_eval(cols, chain))
-        n = 1 << log
-        b = bound(4 * C * n + 16 * C, C * n * (4 * OPS_MUL + 4 * OPS_ADD) + n * OPS_QMUL)
-        if log == 22:
-            rows["oods_eval"] = dict(shape=f"{C} columns x 2^{log}", err=0, ms=ms,
-                                     plain_ms=time_ms(lambda: kernels.oods_eval_plain(cols, chain)), bound=b)
-        else:
-            emit({"phase": "kernel_time_extra", "kernel": "oods_eval", "shape": f"{C} columns x 2^{log}",
-                  "ms": ms, "bound_ms": b[0], "bound_by": b[1]})
-        del cols
+    for name, groups in (("4 x 2^22", [comp]), ("64 x 2^21", [wide]), ("4 x 2^22 and 64 x 2^21", [comp, wide]),
+                         ("2^0, 2^5, 2^11, 2^12, 300 x 2^6", [group(0, 3), group(5, 7), group(11, 3), group(12, 20),
+                                                               group(6, 300)])):
+        err |= check(f"oods_eval {name}", lambda: kernels.oods_eval_many(groups),
+                     lambda: kernels.oods_eval_many_plain(groups))
+        ms = time_ms(lambda: kernels.oods_eval_many(groups))
+        work = [oods_work(len(cols), len(chain)) for cols, chain in groups]
+        b = bound(sum(w[0] for w in work), sum(w[1] for w in work))
+        line = {"phase": "kernel_time_extra", "kernel": "oods_eval", "shape": name, "ms": ms, "bound_ms": b[0],
+                "bound_by": b[1]}
+        if len(groups) == 1:
+            # Earlier yardsticks: reduced products and sums (4 OPS_MUL + 4
+            # OPS_ADD a coefficient), with the factored basis and with a
+            # basis product per row, as the previous K7 design computed.
+            C, log = len(groups[0][0]), len(groups[0][1])
+            n = 1 << log
+            line["mul_add_bound_ms"] = bound(*oods_work(C, log, 4 * OPS_MUL + 4 * OPS_ADD))[0]
+            line["per_row_basis_bound_ms"] = bound(4 * C * n + 16 * C,
+                                                   C * n * (4 * OPS_MUL + 4 * OPS_ADD) + n * OPS_QMUL)[0]
+        emit(line)
+        if name == "4 x 2^22":
+            rows["oods_eval"] = dict(shape="4 columns x 2^22", err=0, ms=ms,
+                                     plain_ms=time_ms(lambda: kernels.oods_eval_many_plain(groups)), bound=b)
     rows["oods_eval"]["err"] = err
     return rows
 
@@ -561,6 +605,41 @@ def native_verify(serde, proof_bytes: bytes, settings, tag: str, expect_accept: 
     return verify_s
 
 
+class tree_bottoms:
+    """While active, the bottom log of every tree K2 hashes, in a list."""
+
+    def __init__(self, kernels):
+        self.kernels, self.fn, self.bottoms = kernels, kernels.merkle_tree, []
+
+    def _counted(self, desc):
+        self.bottoms.append(desc.bottom)
+        return self.fn(desc)
+
+    def __enter__(self):
+        self.kernels.merkle_tree = self._counted
+        return self.bottoms
+
+    def __exit__(self, *exc):
+        self.kernels.merkle_tree = self.fn
+        return False
+
+
+def path_launches(kernels, tag, first_s, launches, bottoms, expect):
+    """The path line: launches of one run with the counters reset just
+    before it, and K2's trees with the launches they may take (ceil((L +
+    1) / (t + 1)) each).  Fails if a kernel of the path never launched, K2
+    took more, or K7 more than one call (two launches) per prove."""
+    limit = sum(-(-(b + 1) // (kernels.MERKLE_TILE_LOG + 1)) for b in bottoms)
+    emit({"phase": "path", "path": tag, "first_prove_seconds": first_s, "launches": launches,
+          "merkle_trees": len(bottoms), "merkle_tree_bottoms": bottoms, "merkle_launch_limit": limit})
+    missing = [k for k in expect if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{tag}: the path launched no {missing}")
+    if launches["blake2s_merkle"] > limit or launches["oods_eval"] > 1:
+        raise AssertionError(f"{tag}: K2 took {launches['blake2s_merkle']} launches (at most {limit}), "
+                             f"K7 {launches['oods_eval']} calls (at most 1)")
+
+
 def phase_path(T, kernels, serde, tracing, f, card, tag, build, host, expect, check_output=None):
     """One path.  `host` is the host interpreter's (PIE, settings, seconds,
     seconds).  With every launch counter set to 0 just before it and read
@@ -571,17 +650,15 @@ def phase_path(T, kernels, serde, tracing, f, card, tag, build, host, expect, ch
     prove of the host's PIE (the same bytes), and the native verifier."""
     host_pie, host_settings, host_settings_s, host_trace_s = host
     cx, out = build()
-    kernels.reset_counts()
-    pie, settings, settings_s, trace_s, stage_launches = card_trace(T, cx, kernels.counts)
-    t0 = time.perf_counter()
-    proof = T.prove(pie, settings)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = kernels.counts()
-    emit({"phase": "path", "path": tag, "first_prove_seconds": first_s, "launches": launches})
-    missing = [k for k in expect if launches[k] == 0]
-    if missing:
-        raise AssertionError(f"{tag}: the path launched no {missing}")
+    with tree_bottoms(kernels) as bottoms:
+        kernels.reset_counts()
+        pie, settings, settings_s, trace_s, stage_launches = card_trace(T, cx, kernels.counts)
+        t0 = time.perf_counter()
+        proof = T.prove(pie, settings)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = kernels.counts()
+    path_launches(kernels, tag, first_s, launches, bottoms, expect)
 
     card_s = [(settings_s, trace_s)] + [tuple(card_trace(T, build()[0])[2:4]) for _ in range(2)]
     bad = pie_mismatches(f, pie, host_pie)
@@ -641,8 +718,7 @@ def path_twins(kernels, tape, f):
                        ("coeffs", "m_start")),
         "circle_lde": ("circle_fft", lambda a: kernels.circle_lde_plain(a["coeffs"], a["log_blowup"]),
                        ("coeffs", "log_blowup")),
-        "merkle_layer": ("blake2s_merkle", lambda a: kernels.merkle_layer_plain(a["prev"], a["cols"]),
-                         ("prev", "cols")),
+        "merkle_tree": ("blake2s_merkle", lambda a: kernels.merkle_tree_plain(a["desc"]), ("desc",)),
         "fri_fold": ("fri_fold", lambda a: kernels.fri_fold_plain(a["values"], a["twiddles"], a["alpha"],
                                                                   a["mix"], a["beta2"]), ("values", "mix")),
         "deep_quotient": ("deep_quotient", lambda a: kernels.deep_quotient_plain(
@@ -652,7 +728,7 @@ def path_twins(kernels, tape, f):
         "air_domain": ("air_domain", lambda a: tape.domain_plain(
             a["tp"], a["main"], a["pp"], a["inter"], a["is_first"], f.qm31_words(a["claimed"]), a["ew"],
             a["pows"], a["log_trace"], a["stride"], a["acc"]), ("tp", "is_first", "stride", "acc")),
-        "oods_eval": ("oods_eval", lambda a: kernels.oods_eval_plain(a["cols"], a["chain"]), ("cols",)),
+        "oods_eval_many": ("oods_eval", lambda a: kernels.oods_eval_many_plain(a["groups"]), ("groups",)),
         "fri_fold_chain": ("fri_fold", lambda a: kernels.fri_fold_chain_plain(
             a["values"], a["twiddles"], a["alpha"], a["fold"], a["mix"]), ("values", "fold", "mix")),
         "channel_draw_felt": ("fri_channel", lambda a: kernels.channel_draw_felt_plain(a["state"], a["out"]), ()),
@@ -684,6 +760,10 @@ def describe(x):
         return (len(x),) + tuple(x[0].shape)
     if hasattr(x, "region"):  # a decommitment pass: its trees and output size
         return (tuple(t.bottom for t in x.trees), x.n_words)
+    if hasattr(x, "bottom"):  # a tree: its columns' shapes and strides
+        return tuple((log, describe(c)) for log, c in sorted(x.cols.items()))
+    if isinstance(x, list) and x and isinstance(x[0], tuple):  # OODS groups
+        return tuple(describe(cols) for cols, _ in x)
     if hasattr(x, "n_relations"):
         return x.name
     if hasattr(x, "fresh"):
@@ -723,12 +803,12 @@ class recording:
     """While active, every wrapper in `twins` keeps the arguments of its
     first call at each distinct key (wrapper, the shapes of its work) in
     `kept` (an argument the kernel updates in place is cloned first),
-    counts its calls in `calls` and sums the bound (ms) of every K1 call
-    in `k1_bound_ms`."""
+    counts its calls in `calls` and sums the bound (ms) of every call of
+    a wrapper in WORK in `bound_ms`, by kernel."""
 
     def __init__(self, kernels, twins, kept, calls):
         self.kernels, self.twins, self.kept, self.calls = kernels, twins, kept, calls
-        self.k1_bound_ms = 0.0
+        self.bound_ms = {}
         self.originals = {name: getattr(kernels, name) for name in twins}
 
     def _recorder(self, name, fn):
@@ -743,8 +823,9 @@ class recording:
             key = (name,) + tuple(describe(a[k]) for k in key_args)
             if key not in self.kept:
                 self.kept[key] = {k: v.clone() if k in UPDATED_ARGS and v is not None else v for k, v in a.items()}
-            if name in ("circle_ifft", "circle_fft", "circle_lde"):
-                self.k1_bound_ms += bound(*k1_work(name, a))[0]
+            if name in WORK:
+                kernel = self.twins[name][0]
+                self.bound_ms[kernel] = self.bound_ms.get(kernel, 0.0) + bound(*WORK[name](a))[0]
             return fn(*args, **kw)
 
         return rec
@@ -782,6 +863,10 @@ def replay(kernels, twins, kept, calls) -> dict:
             getattr(kernels, name)(k)
             plain(p)
             err = trace_err(k.outputs(), p.outputs())
+        elif name == "merkle_tree":  # each side hashes new layers over the kept columns
+            cols = a["desc"].cols
+            err = max_abs_err(tree_words(kernels, cols, getattr(kernels, name)),
+                              tree_words(kernels, cols, kernels.merkle_tree_plain))
         else:
             ka, pa = replay_args(a), replay_args(a)
             got = flat(getattr(kernels, name)(**ka), ka)
@@ -809,6 +894,40 @@ def k1_work(name: str, a: dict):
     return fft_work(x.numel(), x.numel() << b, log, log - (b == 1 and x.shape[1] > 1), False)
 
 
+def merkle_tree_work(cols_by_log: dict):
+    """(bytes, operations) of a whole tree: its columns read once, its
+    digests written once; per node ceil((16 + k) / 16) compressions, k
+    the column words of its log (k / 16 on the leaf layer)."""
+    bottom = max(cols_by_log)
+    n_bytes = sum(4 * c.numel() for c in cols_by_log.values()) + 32 * ((2 << bottom) - 1)
+    blocks = 0
+    for log in range(bottom + 1):
+        words = (16 if log < bottom else 0) + (cols_by_log[log].shape[0] if log in cols_by_log else 0)
+        blocks += (1 << log) * -(-words // 16)
+    return n_bytes, blocks * OPS_BLAKE2S_BLOCK
+
+
+def oods_work(n_cols: int, log_n: int, per_coeff: int = 4 * OPS_FOLD_MAC):
+    """(bytes, operations) of one OODS group: the coefficients read once and
+    the values written once; per coefficient 4 products into unreduced sums
+    (`per_coeff` operations); the basis factored at c = ceil(L / 2): 2^c +
+    2^(L - c) QM31 products, the fewest a split of the index into two
+    tables needs."""
+    n, c = 1 << log_n, (log_n + 1) // 2
+    return 4 * n_cols * n + 16 * n_cols, n_cols * n * per_coeff + ((1 << c) + (n >> c)) * OPS_QMUL
+
+
+# The work of one call of each wrapper whose per-run bound is summed.
+WORK = {
+    "circle_ifft": lambda a: k1_work("circle_ifft", a),
+    "circle_fft": lambda a: k1_work("circle_fft", a),
+    "circle_lde": lambda a: k1_work("circle_lde", a),
+    "merkle_tree": lambda a: merkle_tree_work(a["desc"].cols),
+    "oods_eval_many": lambda a: tuple(map(sum, zip(*(oods_work(len(cols), len(chain))
+                                                     for cols, chain in a["groups"])))),
+}
+
+
 def phase_path_kernels(T, kernels, tape, f, tag: str, run, expect):
     """The path once more (`run`: settings, trace, prove on the card) with
     every wrapper recording; then each kept call through kernel and twin.
@@ -824,9 +943,11 @@ def phase_path_kernels(T, kernels, tape, f, tag: str, run, expect):
         if key[0] == "decommit":
             words = sum(int(src.index_select(ax, p).numel()) for src, p, ax in decommit_specs(a["plan"]))
             k9 += bound(8 * len(a["plan"].packed) + 8 * words, 8 * words)[0]
-    emit({"phase": "per_run_bound", "path": tag, "circle_fft_bound_ms": rec.k1_bound_ms,
-          "circle_fft_calls": sum(calls.get(n, 0) for n in ("circle_ifft", "circle_fft", "circle_lde")),
-          "decommit_bound_ms": k9, "decommit_calls": calls.get("decommit", 0)})
+    line = {"phase": "per_run_bound", "path": tag, "decommit_bound_ms": k9, "decommit_calls": calls.get("decommit", 0)}
+    for kernel in sorted(rec.bound_ms):
+        line[f"{kernel}_bound_ms"] = rec.bound_ms[kernel]
+        line[f"{kernel}_calls"] = sum(n for name, n in calls.items() if name in WORK and twins[name][0] == kernel)
+    emit(line)
     by_kernel = replay(kernels, twins, kept, calls)
     for kernel_name, row in by_kernel.items():
         emit({"phase": "path_kernel_check", "path": tag, "kernel": kernel_name, **row})
@@ -915,16 +1036,14 @@ def phase_high_security(T, kernels, serde, tracing, tape, f, card, tag, pie, set
 
     cfg = T.PcsConfig.high_security()
     host_pie, host_settings = host[:2]
-    kernels.reset_counts()
-    t0 = time.perf_counter()
-    proof = T.prove(pie, settings, cfg)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = kernels.counts()
-    emit({"phase": "path", "path": tag, "first_prove_seconds": first_s, "launches": launches})
-    missing = [k for k in expect if launches[k] == 0]
-    if missing:
-        raise AssertionError(f"{tag}: the path launched no {missing}")
+    with tree_bottoms(kernels) as bottoms:
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        proof = T.prove(pie, settings, cfg)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = kernels.counts()
+    path_launches(kernels, tag, first_s, launches, bottoms, expect)
     times, phases = [], []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1203,6 +1322,10 @@ def main() -> int:
     rows = phase_kernels(kernels, circle, f, dev, pinn_logs)
 
     launches, path_errs = {}, {}
+    # The kernel checks' buffers (2^27-word LDEs) stay out of the first
+    # path's peak.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     for tag, (build, check) in paths.items():
         host = pinn_host if tag == pinn_tag else host_trace(build)
         launches[tag], pie, settings = phase_path(T, kernels, serde, tracing, f, card, tag, build, host,

@@ -1,11 +1,11 @@
 """Blake2s-256 of uint32 word messages, bit-identical to hashlib.blake2s.
 
-`hash_words` hashes a batch of equal-length messages (the little-endian
-bytes of their words).  CUDA tensors go through the Merkle-layer kernel
-(kernels.merkle_layer, K2); CPU tensors through `hash_words_plain`, an int64
-torch compression that keeps the 4x4 state as four (4, batch) rows, applies
-G to whole rows (column step, then the diagonal step through row rolls) and
-masks with 0xFFFFFFFF after every add and rotate.
+`hash_words_plain` hashes a batch of equal-length messages (the
+little-endian bytes of their words) in int64 torch: it keeps the 4x4 state
+as four (4, batch) rows, applies G to whole rows (column step, then the
+diagonal step through row rolls) and masks with 0xFFFFFFFF after every add
+and rotate.  It is the plain twin of the kernels that hash on the card:
+the Merkle tree (K2), the channel (K8) and the proof-of-work search (K10).
 """
 
 from __future__ import annotations
@@ -87,11 +87,3 @@ def hash_words_plain(words: torch.Tensor) -> torch.Tensor:
         h = _compress(h, block, 4 * L if last else (blk + 1) * 64, last)
     return f.to_i32(h.t()).contiguous().reshape(batch + (8,))
 
-
-def hash_words(words: torch.Tensor) -> torch.Tensor:
-    """Blake2s-256 of each (..., L) int32 word message; (..., 8) int32."""
-    from .. import kernels
-
-    L = words.shape[-1]
-    flat = words.reshape(-1, L)
-    return kernels.merkle_layer(None, flat.t()).reshape(words.shape[:-1] + (8,))

@@ -6,12 +6,14 @@ One tree commits columns of several power-of-two lengths:
   layer l < L:  node[i] = H(child0 || child1 || cols_at_l[.., i])
   root = layer 0, one digest (8 words).
 
-Each layer is one launch of the Merkle kernel (kernels.merkle_layer), which
-reads the columns of its log through a (k, 2^l) view: the rows of an LDE
-output matrix, or the transposed (2^l, 4) QM31 layer of a FRI fold.  The
-layers stay on the device; the root and the queried openings are the only
-downloads.  A tree records, once, what the decommitment kernel needs of it
-(kernels.TreeDesc: its layers' and columns' addresses and strides).
+The layers are views of one allocation.  A tree first records its
+descriptor (kernels.TreeDesc: its layers' and columns' addresses and
+strides, one upload), which the Merkle kernel (kernels.merkle_tree, K2)
+and the decommitment kernel both read; K2 then hashes the whole tree in a
+few launches, reading the columns of each log through their (k, 2^l)
+view: the rows of an LDE output matrix, or the transposed (2^l, 4) QM31
+layer of a FRI fold.  The layers stay on the device; the root and the
+queried openings are the only downloads.
 
 Decommitment (the reference package's crypto/merkle.py): per layer, the set
 of nodes the verifier recomputes is
@@ -47,12 +49,9 @@ class MerkleTree:
         for log, cols in self.cols_by_log.items():
             assert cols.dim() == 2 and cols.shape[1] == 1 << log
         self.max_log = max(self.cols_by_log)
-        self.layers: Dict[int, torch.Tensor] = {}
-        prev = None
-        for log in range(self.max_log, -1, -1):
-            prev = kernels.merkle_layer(prev, self.cols_by_log.get(log))
-            self.layers[log] = prev
+        self.layers = kernels.tree_layers(self.max_log, self.cols_by_log[self.max_log].device)
         self.desc = kernels.TreeDesc(self.layers, self.cols_by_log)
+        kernels.merkle_tree(self.desc)
         self._root = None
 
     @property

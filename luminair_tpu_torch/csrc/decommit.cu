@@ -18,6 +18,11 @@
 // output, behind a header of counts per layer.  The output comes down in
 // one transfer.
 //
+// The position lists of a CTA sit in shared memory while three lists of
+// the plan's bound fit in SHARED_BYTES; a larger pass (many queries on a
+// tree with columns at several logs) keeps them in a device-memory scratch
+// area of the same size per CTA, which the wrapper allocates.
+//
 // Bound on this card: latency.  A pass moves well under a megabyte; each
 // gathered word is a scattered 4-byte read.  The set work is a few hundred
 // positions per layer, a handful of block scans each; slices spread the
@@ -32,6 +37,7 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int SCAN_WORDS = THREADS / 32;
+constexpr long long SHARED_BYTES = 200 * 1024;  // position lists in shared memory up to this size
 
 struct DeviceBlock {
   int* scratch;  // SCAN_WORDS ints of shared memory
@@ -64,28 +70,35 @@ struct DeviceBlock {
   }
 };
 
+// The three position lists of a CTA are in shared memory, or, when
+// `scratch` is given (a pass whose merge exceeds SHARED_BYTES), in its
+// 3 * cap words of device memory; the block syncs order both alike.
 __global__ void __launch_bounds__(THREADS) decommit_kernel(const long long* pass, int n_trees, int n_slices, int cap,
-                                                           int32_t* out) {
+                                                           int32_t* scratch, int32_t* out) {
   extern __shared__ int32_t sm[];
   const long long* rec = pass + (long long)blockIdx.x * lum::DC_TREE_WORDS;
   const long long* positions = pass + (long long)n_trees * lum::DC_TREE_WORDS;
-  lum::dc_tree(DeviceBlock{sm + 3 * cap}, rec, positions, out, blockIdx.y, n_slices, cap, sm);
+  int32_t* sets = scratch ? scratch + ((long long)blockIdx.x * n_slices + blockIdx.y) * 3 * cap : sm + SCAN_WORDS;
+  lum::dc_tree(DeviceBlock{sm}, rec, positions, out, blockIdx.y, n_slices, cap, sets);
 }
 
 }  // namespace
 
 extern "C" long long lum_dc_tree_words() { return lum::DC_TREE_WORDS; }
 extern "C" long long lum_dc_desc_words() { return lum::DC_DESC_WORDS; }
+extern "C" long long lum_dc_shared_bytes() { return SHARED_BYTES; }
 
-extern "C" int lum_decommit(const long long* pass, int n_trees, int n_slices, int cap, int32_t* out, void* stream) {
-  size_t smem = (3 * (size_t)cap + SCAN_WORDS) * sizeof(int32_t);
+extern "C" int lum_decommit(const long long* pass, int n_trees, int n_slices, int cap, int32_t* scratch, int32_t* out,
+                            void* stream) {
+  if (!scratch && 3LL * cap * (long long)sizeof(int32_t) > SHARED_BYTES) return (int)cudaErrorInvalidValue;
+  size_t smem = ((scratch ? 0 : 3 * (size_t)cap) + SCAN_WORDS) * sizeof(int32_t);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(decommit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   if (n_trees > 0) {
     decommit_kernel<<<dim3(n_trees, n_slices), THREADS, smem, (cudaStream_t)stream>>>(pass, n_trees, n_slices, cap,
-                                                                                       out);
+                                                                                       scratch, out);
   }
   return (int)cudaGetLastError();
 }

@@ -1,69 +1,65 @@
-// K2: one layer of a mixed-size Blake2s-256 Merkle tree.
+// K2: a whole mixed-size Blake2s-256 Merkle tree in a few launches.
 //
-// Replaces the JAX package's `_jit_merkle_tree`, `_scan_tree_top` and
-// `_dev_tree_layers` (parallel/accel.py), which trace
-// crypto/blake2s.hash_words over the concatenated message matrix.
+// Replaces the JAX package's `_jit_merkle_tree` (parallel/accel.py:853),
+// `_scan_tree_top` (:1361) and `_dev_tree_layers` (:1464), which trace
+// crypto/blake2s.hash_words over the concatenated message matrix and hash
+// a whole tree as one program.
 //
-// One thread per node i of a layer of 2^log_n nodes.  Its message is
-//   [child 2i digest, child 2i+1 digest] (16 words, absent on the leaf
-//   layer) followed by word i of each of the n_cols columns of this log,
-// read straight from the column buffer through its strides
-// (cols[c * col_stride + i * row_stride]), so the (nodes, L) message matrix
-// is never written to device memory.  ceil(L/16) compressions with the
-// Blake2s byte counter and last-block flag of crypto/blake2s.hash_words;
-// the digest is the 8 little-endian state words, as hashlib gives them.
+// The tree's layers are views of one buffer; its descriptor (the one the
+// decommitment pass reads) is uploaded once, before the hashing.  A pass
+// is one launch of merkle_pass_kernel: each CTA hashes 2^t nodes of the
+// pass's first layer -- the leaves on the first pass, reading the columns
+// straight from their buffers through the descriptor's strides, so no
+// message matrix is written -- and then the t layers above them, children
+// read from shared memory (merkle.cuh).  Passes repeat until the root: a
+// tree of 2^L leaves takes ceil((L + 1) / (t + 1)) launches, one for a
+// tree of up to 2^t leaves.
 //
-// Bound on this card: the integer ALU -- 10 rounds of 8 G functions (about
-// 14 ops each) per 64-byte block, against 4 bytes read per message word.
-// The compression is csrc/blake2s.cuh's, shared with the channel (K8/K10).
+// Bound on this card: the integer ALU -- 10 rounds of 8 G functions (12
+// instructions each: IADD3 adds three words, PRMT rotates by 16 and 8, one
+// SHF by 12 and 7) and 8 LOP3s per 64-byte block, against 4 bytes read per
+// column word and 32 bytes written per node.  The compression is csrc/blake2s.cuh's,
+// shared with the channel (K8/K10).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "blake2s.cuh"
+#include "merkle.cuh"
 
 namespace {
 
-__global__ void merkle_layer_kernel(const uint32_t* __restrict__ prev,
-                                    const uint32_t* __restrict__ cols, int n_cols,
-                                    long long col_stride, long long row_stride,
-                                    uint32_t* __restrict__ out, long long n_nodes) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_nodes) return;
-  const int n_prev = prev ? 16 : 0;
-  const int len = n_prev + n_cols;
-  const int n_blocks = len > 0 ? (len + 15) / 16 : 1;
-  uint32_t h[8];
-  lum::blake2s_init(h);
-  for (int blk = 0; blk < n_blocks; blk++) {
-    uint32_t m[16];
-#pragma unroll
-    for (int w = 0; w < 16; w++) {
-      int g = blk * 16 + w;
-      uint32_t word = 0;
-      if (g < n_prev) {
-        word = prev[16 * i + g];
-      } else if (g < len) {
-        word = cols[(long long)(g - n_prev) * col_stride + i * row_stride];
-      }
-      m[w] = word;
-    }
-    bool last = blk == n_blocks - 1;
-    uint32_t t = last ? (uint32_t)(4 * len) : (uint32_t)(64 * (blk + 1));
-    lum::blake2s_compress(h, m, t, last);
-  }
-#pragma unroll
-  for (int w = 0; w < 8; w++) out[8 * i + w] = h[w];
+constexpr int TILE_LOG = 10;  // a CTA owns 2^10 nodes of its pass's first layer: 52 KB of digests
+constexpr int THREADS = 256;  // at most; one node of the tile's first layer per thread and turn
+
+struct DeviceBlock {
+  __device__ __forceinline__ int tid() const { return threadIdx.x; }
+  __device__ __forceinline__ int threads() const { return blockDim.x; }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+};
+
+__global__ void __launch_bounds__(THREADS) merkle_pass_kernel(lum::MerklePass p) {
+  extern __shared__ uint32_t sm[];
+  lum::merkle_cta(DeviceBlock{}, p, blockIdx.x, sm);
 }
 
 }  // namespace
 
-extern "C" int lum_merkle_layer(const uint32_t* prev, const uint32_t* cols, int n_cols,
-                                long long col_stride, long long row_stride, uint32_t* out,
-                                long long n_nodes, void* stream) {
-  if (n_nodes > 0) {
-    merkle_layer_kernel<<<(unsigned)((n_nodes + 127) / 128), 128, 0, (cudaStream_t)stream>>>(
-        prev, cols, n_cols, col_stride, row_stride, out, n_nodes);
+extern "C" long long lum_merkle_tile_log() { return TILE_LOG; }
+
+extern "C" int lum_merkle_pass(unsigned long long desc, int bottom, void* stream) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(merkle_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)(lum::merkle_smem_words(TILE_LOG) * sizeof(uint32_t)));
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
   }
+  if (bottom < 0) return (int)cudaErrorInvalidValue;
+  const lum::MerklePass p{desc, bottom, TILE_LOG};
+  const int t = lum::merkle_tile(p);
+  int threads = 1 << t;
+  threads = threads < 32 ? 32 : threads > THREADS ? THREADS : threads;
+  merkle_pass_kernel<<<(unsigned)lum::merkle_ctas(p), threads, lum::merkle_smem_words(t) * sizeof(uint32_t),
+                       (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

@@ -1,133 +1,104 @@
-// K7: many M31 coefficient columns of length N = 2^L at one QM31 point --
-// the OODS values, (C, N) -> (C, 4).
+// K7: the OODS values of every (point, size) group of a prove in one call:
+// M31 coefficient columns of length N = 2^L at a QM31 point, (C, N) ->
+// (C, 4) per group, all groups into one (sum C, 4) output.
 //
-// Replaces the JAX package's `_jit_eval_at_point` (parallel/accel.py).
+// Replaces the JAX package's `_jit_eval_at_point` (parallel/accel.py:1792).
 //
-// The value of column c is sum_j c_j * b_j with basis entry
-//   b_j = prod over the set bits i of j of chain[L - 1 - i],
-// chain = [y, x, pi(x), ..., pi^(L-2)(x)] of the point (fft.twiddle_chain),
-// passed by value.  Pass 1 runs one block per (chunk of 2^11 rows, group of
-// columns): the block builds its chunk's basis entries in shared memory by
-// doubling from the chunk's high-bit factor (one QM31 product per entry),
-// then for each of its columns every thread keeps four uint64 sums of
-// reduced products (each below 2^31) over its rows, reduced by warp
-// shuffles and shared memory into one partial (4 words, mod P) per
-// (column, chunk).  Pass 2 adds each column's chunk partials in chunk order,
-// so the result is the same on every run.
+// One packed descriptor (groups, their chains and column addresses; one
+// upload, kernels.oods_eval_many) and two launches: oods_partial_kernel
+// runs a grid of a few CTAs per SM, each over a contiguous run of units
+// (one column x one chunk of 2^11 rows), building the group's factored
+// basis in shared memory once per group it meets; its 16 lane groups of
+// 16 threads take the units in turn, each writing one QM31 partial
+// (oods.cuh); oods_combine_kernel adds each output row's partials.
 //
-// Bound on this card: device memory for wide groups (4 bytes per
-// coefficient, 4 M31 products per coefficient), the integer ALU for the
-// basis (one QM31 product per row and chunk, shared by the block's
-// columns).
+// Bound on this card: the integer ALU -- 4 M31 products and sums per
+// coefficient, against 4 bytes read per coefficient (3.35 TB/s moves a
+// word in the time of about 5 integer operations of the 16.75 T/s rate).
+// The basis costs 2^11 + 2^(L-11) QM31 products per CTA and group instead
+// of one per row.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-#include "m31.cuh"
-
-constexpr int OODS_MAX_LOG = 32;
-constexpr int OODS_MAX_COLS = 256;
-
-// Passed by value (the kernel parameter space holds it); mirrored by
-// kernels.OodsArgs.  Outside the anonymous namespace: the C entry point
-// takes it, and must keep external linkage.
-struct OodsArgs {
-  unsigned long long cols[OODS_MAX_COLS];  // column pointers (uint32 rows)
-  uint32_t chain[OODS_MAX_LOG][4];
-  int n_cols;
-  int log_n;
-};
+#include "oods.cuh"
 
 namespace {
 
-constexpr int CHUNK_LOG = 11;
 constexpr int THREADS = 256;
-constexpr int COLS_PER_BLOCK = 16;
+constexpr int COMBINE_THREADS = 128;
 
-__global__ void oods_partial_kernel(const __grid_constant__ OodsArgs a, uint32_t* __restrict__ partial) {
-  __shared__ uint32_t basis[(1 << CHUNK_LOG) * 4];
-  __shared__ unsigned long long red[THREADS / 32][4];
-  const int chunk_log = min(a.log_n, CHUNK_LOG);
-  const int chunk = 1 << chunk_log;
-  const int n_chunks = 1 << (a.log_n - chunk_log);
-  const long long base = (long long)blockIdx.x << chunk_log;
-  if (threadIdx.x == 0) {
-    lum::qm31 h = {1, 0, 0, 0};
-    for (int i = chunk_log; i < a.log_n; i++) {
-      if ((base >> i) & 1) h = lum::qmul(h, lum::qload(a.chain[a.log_n - 1 - i]));
+constexpr int LANES = 16;  // lanes of a lane group: one unit of the partial pass each
+
+template <int N>
+struct DeviceBlock {
+  unsigned long long* red;  // (N / 32) x 4 words of shared memory
+  __device__ __forceinline__ int tid() const { return threadIdx.x; }
+  __device__ __forceinline__ int threads() const { return N; }
+  __device__ __forceinline__ int group() const { return LANES; }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+  // The sums of s[0..3] over the thread's lane group, in all its lanes
+  // (the half-warp's lanes only: the two halves run apart).
+  __device__ __forceinline__ void group_sum4(unsigned long long s[4]) const {
+    const unsigned mask = 0xffffu << (threadIdx.x & 16);
+#pragma unroll
+    for (int k = 0; k < 4; k++) {
+      for (int o = LANES / 2; o > 0; o >>= 1) s[k] += __shfl_xor_sync(mask, s[k], o, LANES);
     }
-    lum::qstore(basis, h);
   }
-  __syncthreads();
-  for (int i = 0; i < chunk_log; i++) {
-    const int half = 1 << i;
-    const lum::qm31 t = lum::qload(a.chain[a.log_n - 1 - i]);
-    for (int k = threadIdx.x; k < half; k += blockDim.x) {
-      lum::qstore(basis + 4 * (half + k), lum::qmul(lum::qload(basis + 4 * k), t));
+  // The block's sums of s[0..3], in thread 0's s.
+  __device__ __forceinline__ void sum4(unsigned long long s[4]) const {
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+#pragma unroll
+    for (int k = 0; k < 4; k++) {
+      for (int o = 16; o > 0; o >>= 1) s[k] += __shfl_down_sync(0xffffffffu, s[k], o);
+      if (lane == 0) red[4 * w + k] = s[k];
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int k = 0; k < 4; k++) {
+        unsigned long long t = 0;
+        for (int j = 0; j < N / 32; j++) t += red[4 * j + k];
+        s[k] = t;
+      }
     }
     __syncthreads();
   }
-  const int c0 = blockIdx.y * COLS_PER_BLOCK;
-  const int c1 = min(a.n_cols, c0 + COLS_PER_BLOCK);
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  for (int c = c0; c < c1; c++) {
-    const uint32_t* col = (const uint32_t*)a.cols[c] + base;
-    unsigned long long s0 = 0, s1 = 0, s2 = 0, s3 = 0;  // 2^11 products below 2^31 each
-    for (int k = threadIdx.x; k < chunk; k += blockDim.x) {
-      const uint32_t x = col[k];
-      const uint32_t* bk = basis + 4 * k;
-      s0 += lum::mul(x, bk[0]);
-      s1 += lum::mul(x, bk[1]);
-      s2 += lum::mul(x, bk[2]);
-      s3 += lum::mul(x, bk[3]);
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      s0 += __shfl_down_sync(0xffffffffu, s0, o);
-      s1 += __shfl_down_sync(0xffffffffu, s1, o);
-      s2 += __shfl_down_sync(0xffffffffu, s2, o);
-      s3 += __shfl_down_sync(0xffffffffu, s3, o);
-    }
-    if (lane == 0) {
-      red[w][0] = s0;
-      red[w][1] = s1;
-      red[w][2] = s2;
-      red[w][3] = s3;
-    }
-    __syncthreads();
-    if (threadIdx.x < 4) {
-      unsigned long long t = 0;
-      for (int j = 0; j < THREADS / 32; j++) t += red[j][threadIdx.x];
-      partial[((long long)c * n_chunks + blockIdx.x) * 4 + threadIdx.x] = (uint32_t)(t % lum::P);
-    }
-    __syncthreads();
-  }
+};
+
+__global__ void __launch_bounds__(THREADS) oods_partial_kernel(const long long* desc, uint32_t* partial) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  __shared__ unsigned long long red[THREADS / 32 * 4];
+  lum::oods_cta(DeviceBlock<THREADS>{red}, desc, blockIdx.x, gridDim.x, partial, sm);
 }
 
-// out[c][k] = sum over chunks of partial[c][chunk][k], in chunk order.
-__global__ void oods_combine_kernel(const uint32_t* __restrict__ partial, int n_cols, int n_chunks,
-                                    uint32_t* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= 4 * n_cols) return;
-  const int c = i >> 2, k = i & 3;
-  unsigned long long t = 0;  // at most 2^21 partials below 2^31
-  for (int j = 0; j < n_chunks; j++) t += partial[((long long)c * n_chunks + j) * 4 + k];
-  out[i] = (uint32_t)(t % lum::P);
+__global__ void __launch_bounds__(COMBINE_THREADS) oods_combine_kernel(const long long* desc,
+                                                                       const uint32_t* partial, uint32_t* out) {
+  __shared__ unsigned long long red[COMBINE_THREADS / 32 * 4];
+  lum::oods_combine_row(DeviceBlock<COMBINE_THREADS>{red}, desc, blockIdx.x, partial, out);
 }
 
 }  // namespace
 
-// Checked against kernels.py when the library loads.
-extern "C" long long lum_oods_args_size() { return (long long)sizeof(OodsArgs); }
-extern "C" long long lum_oods_chunk_log() { return CHUNK_LOG; }
+extern "C" long long lum_oods_lane_groups() { return THREADS / LANES; }
+extern "C" long long lum_oods_group_words() { return lum::OODS_GROUP_WORDS; }
 
-// `partial` is scratch of n_cols * max(1, 2^(log_n - 11)) * 4 words.
-extern "C" int lum_oods_eval(const OodsArgs* args, uint32_t* partial, uint32_t* out, void* stream) {
-  if (args->n_cols > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-    const int chunk_log = args->log_n < CHUNK_LOG ? args->log_n : CHUNK_LOG;
-    const int n_chunks = 1 << (args->log_n - chunk_log);
-    dim3 grid(n_chunks, (args->n_cols + COLS_PER_BLOCK - 1) / COLS_PER_BLOCK);
-    oods_partial_kernel<<<grid, THREADS, 0, s>>>(*args, partial);
-    oods_combine_kernel<<<(4 * args->n_cols + 127) / 128, 128, 0, s>>>(partial, args->n_cols, n_chunks, out);
+// desc: the descriptor on the card; `partial`: scratch of 4 words per
+// (column, chunk); `out`: (rows, 4).  n_ctas CTAs share the items; smem:
+// bytes of the largest group's tables.
+extern "C" int lum_oods_eval(const long long* desc, int n_ctas, long long n_rows, long long smem, uint32_t* partial,
+                             uint32_t* out, void* stream) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(oods_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           200 * 1024);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
   }
+  if (smem > 200 * 1024 || n_ctas <= 0 || n_rows <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  oods_partial_kernel<<<n_ctas, THREADS, (size_t)smem, s>>>(desc, partial);
+  oods_combine_kernel<<<(unsigned)n_rows, COMBINE_THREADS, 0, s>>>(desc, partial, out);
   return (int)cudaGetLastError();
 }

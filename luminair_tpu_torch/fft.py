@@ -10,8 +10,9 @@ twiddles.  Coefficient basis, index bits MSB..LSB = [y, x, pi(x), ...]:
 The low-degree extension embeds a 2^n coefficient vector into 2^(n+B) by
 striding (zeros in the low bits) and evaluates on the larger domain.  The
 transforms run in the circle-FFT kernel (kernels.circle_*, K1) and the
-evaluation of many columns at a point in the OODS kernel (kernels.oods_eval,
-K7) for CUDA tensors, in their plain twins for CPU tensors.
+evaluation of groups of columns, each at its point, in the OODS kernel
+(kernels.oods_eval_many, K7) for CUDA tensors, in their plain twins for
+CPU tensors.
 
 Columns are int32 (..., N) tensors; QM31 values are int64 (4,) tensors.
 """
@@ -63,12 +64,15 @@ def twiddle_chain(log_n: int, point) -> list:
     return ts[:log_n]
 
 
-def eval_at_point_many(coeffs, point) -> torch.Tensor:
-    """Many same-size M31 coefficient columns ((C, N) tensor or C columns of
-    length N) at one QM31 point, through the OODS kernel (K7); (C, 4) int32."""
-    cols = list(coeffs)
-    log_n = cols[0].shape[0].bit_length() - 1
-    return kernels.oods_eval(cols, twiddle_chain(log_n, point))
+def eval_at_point_many(groups) -> torch.Tensor:
+    """Groups (coeffs, point) of same-size M31 coefficient columns ((C, N)
+    tensor or C columns of length N), each at its QM31 point, in one call
+    of the OODS kernel (K7); (sum C, 4) int32, groups in order."""
+    out = []
+    for coeffs, point in groups:
+        cols = list(coeffs)
+        out.append((cols, twiddle_chain(cols[0].shape[0].bit_length() - 1, point)))
+    return kernels.oods_eval_many(out)
 
 
 def line_ifft_qm31(values: torch.Tensor, twiddles_inv) -> torch.Tensor:

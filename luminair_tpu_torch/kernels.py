@@ -1,7 +1,8 @@
 """The port's hand-written Hopper kernels: build, binding, wrappers.
 
 The CUDA C++ sources under csrc/ (with the headers csrc/m31.cuh,
-blake2s.cuh, channel.cuh, decommit.cuh, fft.cuh, tape.cuh and trace.cuh)
+blake2s.cuh, channel.cuh, decommit.cuh, fft.cuh, merkle.cuh, oods.cuh,
+tape.cuh and trace.cuh)
 are compiled at first use with nvcc for sm_90a, one shared
 library per source, all sources compiled at once, into build/kernels/ at
 the repository root; each library is named by a hash of its source and
@@ -22,6 +23,7 @@ read the same buffers as uint32.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -164,11 +166,22 @@ CIRCLE_FFT = Kernel(
     abi={"lum_fft_tile_log": FFT_TILE_LOG, "lum_fft_group_log": FFT_GROUP_LOG, "lum_fft_groups_log": FFT_GROUPS_LOG,
          "lum_fft_pass_size": ctypes.sizeof(FftPass)},
 )
+MERKLE_TILE_LOG = 10  # a K2 CTA owns 2^10 nodes of its pass's first layer (csrc/merkle.cu)
+
+
+class MerklePass(ctypes.Structure):
+    """Mirror of lum::MerklePass (csrc/merkle.cuh): one pass of the header's
+    host build, at any tile; the card's tile is MERKLE_TILE_LOG."""
+
+    _fields_ = [("desc", ctypes.c_uint64), ("bottom", ctypes.c_int), ("tile_log", ctypes.c_int)]
+
+
 MERKLE = Kernel(
     "blake2s_merkle",
     "merkle.cu",
-    "luminair_tpu/parallel/accel.py:853 (_jit_merkle_tree; blake2s.hash_words :134)",
-    {"lum_merkle_layer": [_P, _P, _I, _LL, _LL, _P, _LL]},
+    "luminair_tpu/parallel/accel.py:853 (_jit_merkle_tree; _scan_tree_top :1361, _dev_tree_layers :1464)",
+    {"lum_merkle_pass": [ctypes.c_uint64, _I]},
+    abi={"lum_merkle_tile_log": MERKLE_TILE_LOG},
 )
 FRI_FOLD = Kernel(
     "fri_fold",
@@ -219,20 +232,13 @@ class AirArgs(ctypes.Structure):
     ]
 
 
-OODS_MAX_COLS = 256
+# K7's descriptor (csrc/oods.cuh): a head, a record per group, then the
+# column addresses; one unit of work per (column, chunk of 2^c rows).
+OODS_CHUNK_LOG = 11  # c = min(L, 11) on the card
+OODS_LANE_GROUPS = 16  # per CTA; a lane group takes one unit at a time
 OODS_MAX_LOG = 32
-OODS_CHUNK_LOG = 11
-
-
-class OodsArgs(ctypes.Structure):
-    """Mirror of OodsArgs (csrc/oods.cu), passed to K7 by value."""
-
-    _fields_ = [
-        ("cols", ctypes.c_uint64 * OODS_MAX_COLS),
-        ("chain", ctypes.c_uint32 * (4 * OODS_MAX_LOG)),
-        ("n_cols", ctypes.c_int),
-        ("log_n", ctypes.c_int),
-    ]
+OODS_HEAD = 3
+OODS_GROUP_WORDS = 6 + 4 * OODS_MAX_LOG
 
 
 _AIR_ABI = {
@@ -258,9 +264,9 @@ AIR_DOMAIN = Kernel(
 OODS_EVAL = Kernel(
     "oods_eval",
     "oods.cu",
-    "luminair_tpu/parallel/accel.py:1792 (_jit_eval_at_point; fft.eval_at_point_many)",
-    {"lum_oods_eval": [_P, _P, _P]},
-    abi={"lum_oods_args_size": ctypes.sizeof(OodsArgs), "lum_oods_chunk_log": OODS_CHUNK_LOG},
+    "luminair_tpu/parallel/accel.py:1792 (_jit_eval_at_point; fft.eval_at_point_many :492)",
+    {"lum_oods_eval": [_P, _I, _LL, _LL, _P, _P]},
+    abi={"lum_oods_lane_groups": OODS_LANE_GROUPS, "lum_oods_group_words": OODS_GROUP_WORDS},
 )
 
 # The channel state on the card (csrc/channel.cuh): {digest[8], counter,
@@ -279,13 +285,15 @@ CHANNEL = Kernel(
 DC_MAX_LOG = 31
 DC_DESC_WORDS = 1 + 5 * (DC_MAX_LOG + 1)
 DC_TREE_WORDS = 4 + 2 * (DC_MAX_LOG + 1)
+DC_SHARED_BYTES = 200 * 1024  # the most shared memory a CTA's position lists take
 DECOMMIT = Kernel(
     "decommit",
     "decommit.cu",
     "luminair_tpu/parallel/accel.py:925 (_jit_gather_cols; _jit_gather_many :968, gather_many :993; "
     "crypto/merkle.py computed_positions :41, decommit :169, queried_values :209)",
-    {"lum_decommit": [_P, _I, _I, _I, _P]},
-    abi={"lum_dc_tree_words": DC_TREE_WORDS, "lum_dc_desc_words": DC_DESC_WORDS},
+    {"lum_decommit": [_P, _I, _I, _I, _P, _P]},
+    abi={"lum_dc_tree_words": DC_TREE_WORDS, "lum_dc_desc_words": DC_DESC_WORDS,
+         "lum_dc_shared_bytes": DC_SHARED_BYTES},
 )
 GRIND_POW = Kernel(
     "grind_pow",
@@ -594,40 +602,58 @@ def circle_lde_plain(coeffs: torch.Tensor, log_blowup: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# K2: Blake2s Merkle layer.
+# K2: a whole Blake2s Merkle tree.
 
 
-def merkle_layer(prev: Optional[torch.Tensor], cols: Optional[torch.Tensor]) -> torch.Tensor:
-    """Digests (n, 8) of node i = H(prev[2i] || prev[2i+1] || cols[:, i]).
+def tree_layers(bottom: int, device) -> Dict[int, torch.Tensor]:
+    """The digest layers {log: (2^log, 8) int32} of a tree of 2^bottom
+    leaves, log 0 .. bottom: contiguous views of one allocation."""
+    buf = torch.empty(((2 << bottom) - 1, 8), dtype=f.I32, device=device)
+    return {log: buf[(1 << log) - 1 : (2 << log) - 1] for log in range(bottom + 1)}
 
-    prev: (2n, 8) int32 child digests or None (leaf layer); cols: a (k, n)
-    int32 view, any strides, or None."""
-    ref = prev if prev is not None else cols
-    _require(ref is not None, "merkle_layer: no input")
-    if cols is not None:
-        _check_cols(cols, "merkle_layer cols")
-        n = cols.shape[1]
-    else:
-        n = prev.shape[0] // 2
-    if prev is not None:
-        _require(
-            prev.dtype == f.I32 and tuple(prev.shape) == (2 * n, 8) and prev.is_contiguous(),
-            f"merkle_layer: prev must be contiguous int32 ({2 * n}, 8)",
-        )
-    if _on_cpu(ref):
-        return merkle_layer_plain(prev, cols)
-    out = torch.empty((n, 8), dtype=f.I32, device=ref.device)
-    k, sk, sn = (cols.shape[0], cols.stride(0), cols.stride(1)) if cols is not None else (0, 0, 0)
-    MERKLE.launch(
-        "lum_merkle_layer", ref.device,
-        prev.data_ptr() if prev is not None else None,
-        cols.data_ptr() if cols is not None else None,
-        k, sk, sn, out.data_ptr(), n,
-    )
-    return out
+
+def merkle_passes(bottom: int, tile_log: int = MERKLE_TILE_LOG) -> List[int]:
+    """The first layer of each pass of a tree of 2^bottom leaves: a pass
+    hashes its first layer and the min(tile_log, first) layers above it."""
+    passes, b = [], bottom
+    while b >= 0:
+        passes.append(b)
+        b -= min(b, tile_log) + 1
+    return passes
+
+
+def _merkle_launch(desc: "TreeDesc", tile_log: int = MERKLE_TILE_LOG, run=None) -> None:
+    """Every pass of one tree: one launch each on the card, whose tile is
+    2^MERKLE_TILE_LOG, or `run(MerklePass)` at any tile (the host build)."""
+    _require(tile_log >= 0 and (run is not None or tile_log == MERKLE_TILE_LOG),
+             f"merkle_tree: the card's tile log is {MERKLE_TILE_LOG}")
+    for b in merkle_passes(desc.bottom, tile_log):
+        if run is None:
+            MERKLE.launch("lum_merkle_pass", desc.words.device, desc.words.data_ptr(), b)
+        else:
+            run(MerklePass(desc.words.data_ptr(), b, tile_log))
+
+
+def merkle_tree(desc: "TreeDesc") -> None:
+    """Hash every layer of the tree that `desc` describes into its digest
+    layers, from the columns up: node i of layer log is H(layer[log+1][2i]
+    || layer[log+1][2i+1] || cols[log][:, i]) (no children on the bottom
+    layer).  On the card: one launch per pass (`merkle_passes`)."""
+    if _on_cpu(desc.layers[desc.bottom]):
+        return merkle_tree_plain(desc)
+    _merkle_launch(desc)
+
+
+def merkle_tree_plain(desc: "TreeDesc") -> None:
+    prev = None
+    for log in range(desc.bottom, -1, -1):
+        prev = desc.layers[log].copy_(merkle_layer_plain(prev, desc.cols.get(log)))
 
 
 def merkle_layer_plain(prev: Optional[torch.Tensor], cols: Optional[torch.Tensor]) -> torch.Tensor:
+    """Digests (n, 8) of node i = H(prev[2i] || prev[2i+1] || cols[:, i]);
+    prev: (2n, 8) child digests or None (the bottom layer); cols: a (k, n)
+    view or None."""
     parts = []
     if prev is not None:
         parts.append(prev.reshape(-1, 16))
@@ -864,33 +890,77 @@ def air_domain(tp, main, pp, inter, is_first: torch.Tensor, claimed, ew, pows, l
 # K7: OODS values.
 
 
-def oods_eval(cols: Sequence[torch.Tensor], chain: Sequence[tuple]) -> torch.Tensor:
-    """(C, 4) int32: C M31 coefficient columns of length N = 2^L at the QM31
-    point whose twiddle chain (L QM31 words, `fft.twiddle_chain`) is given."""
-    cols = list(cols)
-    _require(len(cols) > 0, "oods_eval: no columns")
-    n = cols[0].shape[0]
-    log = _log2(n)
-    _require(len(chain) == log and log <= OODS_MAX_LOG, f"oods_eval: chain of {log} points expected")
-    _check_rows(cols, n, "oods_eval")
-    if _on_cpu(cols[0]):
-        return oods_eval_plain(cols, chain)
-    dev = cols[0].device
-    out = torch.empty((len(cols), 4), dtype=f.I32, device=dev)
-    n_chunks = 1 << (log - min(log, OODS_CHUNK_LOG))
-    for s in range(0, len(cols), OODS_MAX_COLS):
-        batch = cols[s : s + OODS_MAX_COLS]
-        a = OodsArgs()
-        a.cols[: len(batch)] = _ptrs(batch, dev)
-        a.chain[: 4 * log] = [w for q in chain for w in f.qm31_words(q)]
-        a.n_cols, a.log_n = len(batch), log
-        partial = torch.empty(len(batch) * n_chunks * 4, dtype=f.I32, device=dev)
-        OODS_EVAL.launch("lum_oods_eval", dev, ctypes.addressof(a), partial.data_ptr(), out[s].data_ptr())
+@dataclass
+class OodsPlan:
+    """The host's plan of one K7 call: the descriptor of csrc/oods.cuh
+    (int64 words; column addresses included), and the sizes that follow
+    from it."""
+
+    desc: np.ndarray
+    n_units: int  # one QM31 partial each: (column, chunk)
+    n_rows: int
+    smem_words: int  # the largest group's basis tables
+
+
+def _oods_plan(groups, chunk_log: int = OODS_CHUNK_LOG) -> OodsPlan:
+    _require(0 <= chunk_log <= 16, "oods_eval_many: chunk log in 0..16")
+    recs, ptrs, units, rows, smem = [], [], 0, 0, 0
+    for cols, chain in groups:
+        log = _log2(cols[0].shape[0])
+        c = min(log, chunk_log)
+        a = (log - c + 1) // 2
+        rec = np.zeros(OODS_GROUP_WORDS, dtype=np.int64)
+        rec[:6] = (log, c, a, len(cols), rows, units)
+        rec[6 : 6 + 4 * log] = [w for q in chain for w in f.qm31_words(q)]
+        recs.append(rec)
+        ptrs += [col.data_ptr() for col in cols]
+        units += len(cols) << (log - c)
+        rows += len(cols)
+        smem = max(smem, (4 << c) + (4 << a) + (4 << (log - c - a)))
+    desc = np.concatenate([np.array([len(groups), units, rows], dtype=np.int64)] + recs
+                          + [np.array(ptrs, dtype=np.int64)])
+    return OodsPlan(desc, units, rows, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def oods_eval_many(groups: Sequence[tuple]) -> torch.Tensor:
+    """(sum C, 4) int32: for each group (C M31 coefficient columns of length
+    N = 2^L, the L QM31 words of its point's `fft.twiddle_chain`) its C
+    values at the point, groups in order.  On the card: one upload of the
+    plan's descriptor, two launches for the whole call."""
+    groups = [(list(cols), chain) for cols, chain in groups]
+    _require(len(groups) > 0 and all(len(cols) > 0 for cols, _ in groups), "oods_eval_many: empty group")
+    for cols, chain in groups:
+        n = cols[0].shape[0]
+        log = _log2(n)
+        _require(len(chain) == log and log <= OODS_MAX_LOG, f"oods_eval_many: chain of {log} points expected")
+        _check_rows(cols, n, "oods_eval_many")
+    ref = groups[0][0][0]
+    if _on_cpu(ref):
+        return oods_eval_many_plain(groups)
+    dev = ref.device
+    for cols, _ in groups:
+        _ptrs(cols, dev)
+    plan = _oods_plan(groups)
+    words = f.upload(plan.desc, dev)
+    partial = torch.empty(4 * plan.n_units, dtype=f.I32, device=dev)
+    out = torch.empty((plan.n_rows, 4), dtype=f.I32, device=dev)
+    ctas = min(-(-plan.n_units // OODS_LANE_GROUPS), 4 * _sm_count(dev))  # four CTAs per SM measured fastest
+    OODS_EVAL.launch("lum_oods_eval", dev, words.data_ptr(), ctas, plan.n_rows, 4 * plan.smem_words,
+                     partial.data_ptr(), out.data_ptr())
     return out
 
 
+def oods_eval_many_plain(groups: Sequence[tuple]) -> torch.Tensor:
+    return torch.cat([oods_eval_plain(cols, chain) for cols, chain in groups])
+
+
 def oods_eval_plain(cols: Sequence[torch.Tensor], chain: Sequence[tuple]) -> torch.Tensor:
-    """The basis by doubling (entry j: the product of chain[L-1-i] over the
+    """One group's (C, 4) values.  The basis by doubling (entry j: the product of chain[L-1-i] over the
     set bits i of j), then an exact modular dot product."""
     dev = cols[0].device
     basis = f.qm31_one((1,), dev)
@@ -1105,7 +1175,9 @@ class DecommitPass:
             self.region.append((hdr, wit, val, L))
         self.n_words = off
         self.cap = max(caps)
-        _require(3 * self.cap * 4 <= 200 * 1024, f"decommit: {self.cap} positions per layer exceed shared memory")
+        # A CTA's three position lists live in shared memory when they fit,
+        # else in a device-memory scratch area of the same size per CTA.
+        self.in_shared = 3 * self.cap * 4 <= DC_SHARED_BYTES
         self.slices = min(16, -(-max(sizes) // 16384))  # CTAs per tree: one per 16K words of output
         rec = np.zeros((n, DC_TREE_WORDS), dtype=np.int64)
         rec[:, 1:4] = [r[:3] for r in self.region]
@@ -1141,8 +1213,10 @@ def decommit(plan: DecommitPass) -> torch.Tensor:
     _require(plan.dev.type == "cuda", f"unsupported device {plan.dev}")
     out = torch.zeros(plan.n_words, dtype=f.I32, device=plan.dev)
     packed = f.upload(plan.packed, plan.dev)
+    scratch = None if plan.in_shared else torch.empty(len(plan.trees) * plan.slices * 3 * plan.cap, dtype=f.I32,
+                                                      device=plan.dev)
     DECOMMIT.launch("lum_decommit", plan.dev, packed.data_ptr(), len(plan.trees), plan.slices, plan.cap,
-                    out.data_ptr())
+                    scratch.data_ptr() if scratch is not None else None, out.data_ptr())
     return out
 
 

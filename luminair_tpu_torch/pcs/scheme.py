@@ -92,8 +92,8 @@ class CommitmentSchemeProver:
         opening proof; mixes everything into the channel."""
         timer = tracing.current("prove")
         ch = self.channel
-        # 1. OODS values from the coefficients, one batch per (point, size)
-        #    group across trees, all downloaded in one transfer.
+        # 1. OODS values from the coefficients, one group per (point, size)
+        #    across trees, all groups in one call, downloaded in one transfer.
         groups: Dict[tuple, tuple] = {}
         for t, tree in enumerate(self.trees):
             for c, pts in enumerate(sample_points[t]):
@@ -101,17 +101,11 @@ class CommitmentSchemeProver:
                     key = (tuple(pt[0].tolist()), tuple(pt[1].tolist()), len(tree.coeffs[c]))
                     groups.setdefault(key, (pt, []))[1].append((t, c, pi))
         with timer.span("3b_oods_eval"):
-            pending = []
-            for pt, members in groups.values():
-                cols = [self.trees[t].coeffs[c] for t, c, _ in members]
-                pending.append((members, fft.eval_at_point_many(cols, pt)))
-            flat = f.tensor_to_u32(torch.cat([e.reshape(-1) for _, e in pending]))
-            values = {}
-            off = 0
-            for members, _ in pending:
-                for key in members:
-                    values[key] = flat[off : off + 4].copy()
-                    off += 4
+            evals = fft.eval_at_point_many(
+                [([self.trees[t].coeffs[c] for t, c, _ in members], pt) for pt, members in groups.values()])
+            flat = f.tensor_to_u32(evals).reshape(-1, 4)
+            keys = [key for _, members in groups.values() for key in members]
+            values = {key: flat[i].copy() for i, key in enumerate(keys)}
         # Coefficients only serve the OODS values; free them.
         for tree in self.trees:
             tree.coeffs = None

@@ -23,14 +23,14 @@ def _words(seed, shape):
 @pytest.mark.parametrize("L", [8, 16, 23, 31, 40])
 def test_hash_words(L):
     w = _words(L, (37, L))
-    out = f.tensor_to_u32(blake2s.hash_words(f.u32_to_tensor(w)))
+    out = f.tensor_to_u32(blake2s.hash_words_plain(f.u32_to_tensor(w)))
     for i in range(len(w)):
         expect = np.frombuffer(hashlib.blake2s(w[i].astype("<u4").tobytes()).digest(), dtype="<u4")
         assert np.array_equal(out[i], expect)
     # the reference's vectorised path (above its hashlib cut-off)
     big = _words(L + 1, (1100, L))
     assert np.array_equal(
-        f.tensor_to_u32(blake2s.hash_words(f.u32_to_tensor(big))), ref_blake2s.hash_words(big)
+        f.tensor_to_u32(blake2s.hash_words_plain(f.u32_to_tensor(big))), ref_blake2s.hash_words(big)
     )
 
 
@@ -94,9 +94,13 @@ def test_channel_transcript():
 
 
 def test_merkle_layer_plain_on_cpu_is_the_wrapper_path():
+    """A tree of CPU tensors is hashed by the twin, layer by layer with
+    merkle_layer_plain, and launches nothing."""
     cols = torch.arange(24, dtype=torch.int32).reshape(3, 8)
     from luminair_tpu_torch import kernels
 
     before = kernels.MERKLE.launches
-    assert torch.equal(kernels.merkle_layer(None, cols), kernels.merkle_layer_plain(None, cols))
+    tree = MerkleTree({3: cols})
+    assert torch.equal(tree.layers[3], kernels.merkle_layer_plain(None, cols))
+    assert torch.equal(tree.layers[2], kernels.merkle_layer_plain(tree.layers[3], None))
     assert kernels.MERKLE.launches == before  # CPU tensors launch nothing

@@ -44,14 +44,29 @@ def test_circle_fft(dev, log):
         assert kernels.CIRCLE_FFT.launches - before <= 3
 
 
-@pytest.mark.parametrize("k,log", [(0, 3), (3, 4), (25, 6)])
-def test_merkle_layer(dev, k, log):
-    rng = np.random.default_rng(k)
-    prev = _rnd(rng, dev, 2 << log, 8)
-    cols = _rnd(rng, dev, k, 1 << log) if k else None
-    assert torch.equal(kernels.merkle_layer(prev, cols), kernels.merkle_layer_plain(prev, cols))
-    if cols is not None:
-        assert torch.equal(kernels.merkle_layer(None, cols), kernels.merkle_layer_plain(None, cols))
+# Bottom logs at t - 1, t, t + 1 and 2t + 1 of the card's tile (t = 10),
+# a one-leaf tree, columns at logs inside a tile, and a FRI layer's
+# transposed view.
+@pytest.mark.parametrize("sig", [
+    ((0, 1),), ((9, 3), (4, 2)), ((10, 7), (9, 31), (3, 1)), ((11, 2), (10, 40), (0, 1)),
+    ((21, 1), (17, 3), (11, 2)), ("fri", 12),
+])
+def test_merkle_tree(dev, sig):
+    from luminair_tpu_torch.crypto.merkle import MerkleTree
+
+    rng = np.random.default_rng(len(sig) + sum(sig[0]) if sig[0] != "fri" else 99)
+    if sig[0] == "fri":
+        cols = {sig[1]: _rnd(rng, dev, 1 << sig[1], 4).t()}
+    else:
+        cols = {log: _rnd(rng, dev, k, 1 << log) for log, k in sig}
+    before = kernels.MERKLE.launches
+    tree = MerkleTree(cols)
+    bottom = max(cols)
+    assert kernels.MERKLE.launches - before == -(-(bottom + 1) // (kernels.MERKLE_TILE_LOG + 1))
+    plain = kernels.TreeDesc(kernels.tree_layers(bottom, dev), cols)
+    kernels.merkle_tree_plain(plain)
+    for log in range(bottom + 1):
+        assert torch.equal(tree.layers[log], plain.layers[log]), log
 
 
 @pytest.mark.parametrize("log", [1, 6, 12])
@@ -147,6 +162,13 @@ def test_decommit(dev):
     plan = kernels.DecommitPass([t.desc for t in trees], queries)
     assert plan.slices > 1
     assert torch.equal(kernels.decommit(plan), kernels.decommit_plain(plan))
+    # Above shared memory: every position of a tree with columns at 2^14
+    # and 2^13 merges 32,768 positions, held in device memory.
+    big = MerkleTree({14: _rnd(rng, dev, 3, 1 << 14), 13: _rnd(rng, dev, 2, 1 << 13)})
+    plan = kernels.DecommitPass([big.desc, trees[0].desc], [{14: np.arange(1 << 14), 13: np.arange(1 << 13)},
+                                                            queries[0]])
+    assert not plan.in_shared
+    assert torch.equal(kernels.decommit(plan), kernels.decommit_plain(plan))
 
 
 # ---------------------------------------------------------------------------
@@ -202,15 +224,21 @@ def test_air_domain(dev, name, log_blowup):
     assert torch.equal(kernels.air_domain(*args, acc=acc.clone()), tape.domain_plain(*args, acc=acc))
 
 
-@pytest.mark.parametrize("log,C", [(0, 3), (1, 2), (5, 7), (11, 3), (13, 20), (6, 300)])
-def test_oods_eval(dev, log, C):
+# Groups below, at and above a chunk (2^11 rows), more than 256 columns,
+# one row; all of a call in one launch of the wrapper.
+@pytest.mark.parametrize("groups", [((0, 3), (1, 2), (5, 7)), ((11, 3), (13, 20), (6, 300)), ((22, 4), (21, 64))])
+def test_oods_eval_many(dev, groups):
     from luminair_tpu_torch import circle, fft
 
-    rng = np.random.default_rng(log * 1000 + C)
-    cols = [_rnd(rng, dev, 1 << log) for _ in range(C)]
-    t = torch.from_numpy(rng.integers(0, f.P, 4))
-    chain = fft.twiddle_chain(log, circle.point_from_t_qm31(t))
-    assert torch.equal(kernels.oods_eval(cols, chain), kernels.oods_eval_plain(cols, chain))
+    rng = np.random.default_rng(sum(log * 1000 + C for log, C in groups))
+    args = []
+    for log, C in groups:
+        t = torch.from_numpy(rng.integers(0, f.P, 4))
+        args.append(([_rnd(rng, dev, 1 << log) for _ in range(C)], fft.twiddle_chain(log, circle.point_from_t_qm31(t))))
+    before = kernels.OODS_EVAL.launches
+    got = kernels.oods_eval_many(args)
+    assert kernels.OODS_EVAL.launches - before == 1
+    assert torch.equal(got, kernels.oods_eval_many_plain(args))
 
 
 def test_prove_path_never_takes_a_plain_twin(dev, monkeypatch):
@@ -244,11 +272,23 @@ def test_prove_path_never_takes_a_plain_twin(dev, monkeypatch):
 
     settings = gen_circuit_settings_host(cx)
     pie = gen_trace_host(cx, settings)  # host words: the prover uploads them
+    bottoms = []
+    tree = kernels.merkle_tree
+
+    def counted_tree(desc):
+        bottoms.append(desc.bottom)
+        return tree(desc)
+
+    monkeypatch.setattr(kernels, "merkle_tree", counted_tree)
     kernels.reset_counts()
     proof = T.prove(pie, settings, device=dev)
     prove_kernels = kernels.KERNELS[:10]  # K1-K10; the trace ran on the host
     assert all(k.launches > 0 for k in prove_kernels), kernels.counts()
     _check_fri_launches(proof)
+    # K2: ceil((L + 1) / (t + 1)) launches per tree; K7: one call per prove.
+    assert kernels.MERKLE.launches == sum(-(-(b + 1) // (kernels.MERKLE_TILE_LOG + 1)) for b in bottoms)
+    assert len(bottoms) == 4 + len(proof.pcs_proof.fri_proof.layer_roots)
+    assert kernels.OODS_EVAL.launches == 1
 
 
 def _check_fri_launches(proof):

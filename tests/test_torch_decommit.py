@@ -188,3 +188,39 @@ def test_header_walk_on_random_passes(host_decommit):
         host_decommit.h_decommit(packed.ctypes.data_as(ctypes.c_void_p), len(ports), 2, plan.cap,
                                  out.ctypes.data_as(ctypes.c_void_p))
         assert np.array_equal(out, kernels.decommit_plain(plan).numpy())
+
+
+def _above_old_cap():
+    """A tree of 3 columns at 2^14 and 2 at 2^13, every position queried at
+    both logs: the merge at log 13 holds 2^14 + 2 * 2^13 = 32,768 positions,
+    above the 17,066 that fit in a CTA's shared memory."""
+    rng = np.random.default_rng(14)
+    ref, port = _trees(rng, [14, 14, 14, 13, 13])
+    return ref, port, {14: np.arange(1 << 14), 13: np.arange(1 << 13)}
+
+
+def test_pass_above_shared_memory_equals_reference():
+    ref, port, queries = _above_old_cap()
+    plan = kernels.DecommitPass([port.desc], [queries])
+    assert 3 * plan.cap * 4 > 200 * 1024
+    ((values, witness),) = open_trees([port], [queries])
+    q = {log: pos.tolist() for log, pos in queries.items()}
+    ref_values, ref_witness = ref.queried_values(q), ref.decommit(q)
+    assert len(values) == len(ref_values)
+    for a, b in zip(values, ref_values):
+        assert np.array_equal(a, np.asarray(b, dtype=np.uint32))
+    assert witness.shape == (len(ref_witness), 8)
+    assert np.array_equal(witness, np.asarray(ref_witness, dtype=np.uint32).reshape(-1, 8))
+
+
+def test_header_walk_above_shared_memory(host_decommit):
+    """The walk over a pass whose position lists exceed shared memory (the
+    card keeps them in device memory): the twin's words."""
+    _, port, queries = _above_old_cap()
+    plan = kernels.DecommitPass([port.desc], [queries])
+    assert not plan.in_shared
+    packed = np.ascontiguousarray(plan.packed)
+    out = np.zeros(plan.n_words, dtype=np.int32)
+    host_decommit.h_decommit(packed.ctypes.data_as(ctypes.c_void_p), 1, plan.slices, plan.cap,
+                             out.ctypes.data_as(ctypes.c_void_p))
+    assert np.array_equal(out, kernels.decommit_plain(plan).numpy())

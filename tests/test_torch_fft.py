@@ -53,9 +53,9 @@ def test_eval_at_point(log):
     _eq(pt[0], ref_pt[0])
     _eq(pt[1], ref_pt[1])
     c = _cols(200 + log, 5, log)
-    _eq(fft.eval_at_point_many(f.u32_to_tensor(c), pt), ref_fft.eval_at_point_many(c, ref_pt))
+    _eq(fft.eval_at_point_many([(f.u32_to_tensor(c), pt)]), ref_fft.eval_at_point_many(c, ref_pt))
     # One column against the reference's single-column evaluator.
-    _eq(fft.eval_at_point_many(f.u32_to_tensor(c[:1]), pt), ref_fft.eval_at_point(c[:1], ref_pt))
+    _eq(fft.eval_at_point_many([(f.u32_to_tensor(c[:1]), pt)]), ref_fft.eval_at_point(c[:1], ref_pt))
 
 
 @pytest.mark.parametrize("log", [1, 3, 6])

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "luminair_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "luminair_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "tools").glob("*.py")))
 
 
 def _imported_modules(path: Path):
@@ -69,4 +70,4 @@ def test_kernel_wrappers_reject_unsupported_tensors():
     with pytest.raises(KernelError):
         kernels.circle_ifft(torch.zeros((2, 6), dtype=torch.int32))
     with pytest.raises(KernelError):
-        kernels.merkle_layer(torch.zeros((4, 8), dtype=torch.int32), torch.zeros((1, 3), dtype=torch.int32))
+        kernels.TreeDesc(kernels.tree_layers(2, "cpu"), {2: torch.zeros((1, 4), dtype=torch.int64)})
