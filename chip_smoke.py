@@ -11,9 +11,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   3. the black-scholes PINN's settings and trace on the host interpreter
      (batch 256), timed;
   4. K1-K7 against their plain PyTorch twins on the card, bit for bit:
-     K1 on both sides of its tile and group-pass sizes and at 2^23, K1-K4
-     at the shapes the N=256 prove gives them, K2 on whole trees at the
-     sides of its tile (2^10 nodes),
+     K1 on both sides of its tile and group-pass sizes and at 2^23, K1-K3
+     at the shapes the N=256 prove gives them, K4 on groups whose
+     constants come from sample points (the N=256 prove's five groups in
+     one call, three points at one log, a line through a domain row, logs
+     below a CTA), K2 on whole trees at the sides of its tile (2^10 nodes),
      K5/K6 on the tape of every PINN component at its batch-256 trace and
      commit sizes, K7 at the PINN's OODS groups, alone and in one call,
      and at groups below and above a chunk, K3's device-challenge fold at
@@ -29,12 +31,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      card and host seconds of settings and trace; the prover's self-check
      must pass, the host PIE's proof must have the same bytes, and the
      native C++ verifier must accept the proof; K2 may take at most
-     ceil((L + 1) / (t + 1)) launches per tree of 2^L leaves (tile 2^t)
-     and K7 one call per prove; then the path once more keeping the
+     ceil((L + 1) / (t + 1)) launches per tree of 2^L leaves (tile 2^t),
+     K4 and K7 one call per prove; then the path once more keeping the
      inputs of each kernel call at each distinct shape (the trace
      kernels' steps too), every kept call run again through the kernel
-     and through its plain twin, bit for bit, and the bounds of every K1,
-     K2, K7 and K9 call summed; then one prove, one
+     and through its plain twin, bit for bit, and the bounds of every
+     kernel's calls summed (per_run_bound; trace steps apart from the
+     settings pass's); then one prove, one
      settings pre-pass and one trace under torch.profiler: device busy
      time, idle share, copies, and the kernels that take the device's
      time;
@@ -105,6 +108,11 @@ OPS_DENOM = 4 * OPS_MUL + 8 * OPS_ADD  # v0 + alpha * v1 - z
 # A product added to a 64-bit sum with one fold (K7): the 32x32->64
 # product, the fold's and, shift and add, the 64-bit add (two).
 OPS_FOLD_MAC = 6
+# A product added to a 64-bit sum that is folded only once per four products
+# (four products of words below 2^31 fit it): one 32x32+64 multiply-add,
+# counted as two operations; the fold (and, shift, add) apart (K4's bound).
+OPS_MAC64 = 2
+OPS_FOLD = 3
 
 def fft_work(words_in: int, words_out: int, log_n: int, n_stages: int, inverse: bool):
     """(bytes, operations) of one K1 call: its input read and output written
@@ -327,31 +335,7 @@ def phase_kernels(kernels, circle, f, dev, pinn_logs):
         bound=bound(16 * (1 << 19) + 4 * (1 << 18) + 16 * (1 << 18), fold_ops),
     )
 
-    # K4: the five (commit log, point) groups of the N=256 prove, in its
-    # order: (18, z) 12 columns, (17, z) 56, (17, z - G_16) 8, (18, z - G_17)
-    # 4, (19, z) 4; the last three add into an earlier group's output.
-    err = 0
-    groups = {}
-    for log, S, acc in ((18, 12, False), (17, 56, False), (17, 8, True), (18, 4, True), (19, 4, False)):
-        cols = [rnd(1 << log) for _ in range(S)]
-        gam = torch.from_numpy(rng.integers(0, f.P, (S, 4)))
-        consts = torch.from_numpy(rng.integers(0, f.P, (5, 4)))
-        base = rnd(1 << log, 4) if acc else None
-        err |= check(
-            f"deep_quotient log {log} S={S}" + (" accumulate" if acc else ""),
-            lambda: kernels.deep_quotient(cols, gam, consts, log, base.clone() if acc else None),
-            lambda: kernels.deep_quotient_plain(cols, gam, consts, log, base),
-        )
-        groups[(log, S)] = (cols, gam, consts)
-    S, log = 56, 17
-    cols, gam, consts = groups[(log, S)]
-    row_ops = (8 + 4 * S + 4) * OPS_MUL + (8 + 4 * S + 8) * OPS_ADD + OPS_QINV + OPS_QMUL
-    rows["deep_quotient"] = dict(
-        shape="log 17, S = 56", err=err,
-        ms=time_ms(lambda: kernels.deep_quotient(cols, gam, consts, log)),
-        plain_ms=time_ms(lambda: kernels.deep_quotient_plain(cols, gam, consts, log)),
-        bound=bound(4 * S * (1 << log) + 8 * (1 << log) + 16 * (1 << log), (1 << log) * row_ops),
-    )
+    rows["deep_quotient"] = quotient_kernel(kernels, circle, dev, rng, rnd, check)
     transcript_kernels(kernels, f, dev, rng, rnd, check)
     rows.update(tape_kernels(kernels, f, dev, pinn_logs, rng, rnd, check))
     rows.update(oods_kernel(kernels, circle, f, dev, rng, rnd, check))
@@ -359,6 +343,67 @@ def phase_kernels(kernels, circle, f, dev, pinn_logs):
         emit({"phase": "kernel_time", "kernel": name, "shape": r["shape"], "ms": r["ms"],
               "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1]})
     return rows
+
+
+def quotient_groups(circle, rng, rnd, spec):
+    """K4's groups of one call, the constants derived from sample points as
+    a prove derives them (pcs/quotients.quotient_groups): `spec` lists
+    (log, columns, point) per group, a point one of "z" (drawn on the
+    circle), "z-" and "z+" (z minus and plus the log's generator), or
+    "zero" (its line meets row 5 of the log's domain)."""
+    from luminair_tpu_torch.pcs import quotients
+
+    P = (1 << 31) - 1
+    z = circle.point_from_t_qm31(torch.from_numpy(rng.integers(0, P, 4)))
+    samples, evals, points = [], {}, {}
+    for log, n_cols, kind in spec:
+        key = (kind, log)
+        if key not in points:
+            if kind == "zero":
+                x, y = (t.to(torch.int64)[5].item() for t in circle.domain_table(log, torch.device("cpu")))
+                points[key] = tuple(torch.tensor([c, 0] + list(rng.integers(1, P, 2))) for c in (x, y))
+            elif kind == "z":
+                points[key] = z
+            else:
+                g = circle.point_to_qm31(circle.group_gen(log))
+                points[key] = (circle.point_sub_qm31 if kind == "z-" else circle.point_add_qm31)(z, g)
+        for _ in range(n_cols):
+            col = (0, len(evals))
+            evals[col] = rnd(1 << log)
+            samples.append(quotients.ColumnSample(log, *col, points[key], rng.integers(0, P, 4).astype(np.uint32)))
+    return quotients.quotient_groups(samples, evals, torch.from_numpy(rng.integers(0, P, 4)))
+
+
+# The (commit log, point) groups of the N=256 prove, in its order.
+N256_QUOTIENT_GROUPS = [(18, 12, "z"), (17, 56, "z"), (17, 8, "z-"), (18, 4, "z-"), (19, 4, "z")]
+
+
+def quotient_kernel(kernels, circle, dev, rng, rnd, check):
+    """K4 against its twin on groups from real sample points: the N=256
+    prove's five groups in one call, its log-17 group of 56 columns alone
+    (timed with its plan, as the one-group design was, and as the launch of
+    a built plan), three points at one log, a line that meets a domain row,
+    and logs below a CTA's rows."""
+    def many(plan):
+        return torch.cat([v.reshape(-1) for v in kernels.deep_quotient_many(plan).values()])
+
+    def many_plain(plan):
+        return torch.cat([v.reshape(-1) for v in kernels.deep_quotient_many_plain(plan).values()])
+
+    err, plans = 0, {}
+    for name, spec in (("N=256 groups", N256_QUOTIENT_GROUPS), ("log 17, S = 56", [(17, 56, "z")]),
+                       ("three points at 2^12", [(12, 30, "z"), (12, 7, "z-"), (12, 5, "z+")]),
+                       ("a line through a row", [(10, 9, "zero"), (10, 4, "z")]),
+                       ("logs 0-8", [(0, 3, "z"), (1, 2, "z-"), (5, 7, "z"), (8, 300, "z"), (8, 2, "z+")])):
+        plan = kernels.QuotientPlan(quotient_groups(circle, rng, rnd, spec))
+        err |= check(f"deep_quotient {name}", lambda: many(plan), lambda: many_plain(plan))
+        plans[name] = plan
+    plan = plans["log 17, S = 56"]
+    emit({"phase": "kernel_time_extra", "kernel": "deep_quotient", "shape": "log 17, S = 56, a built plan (launch)",
+          "ms": time_ms(lambda: kernels.deep_quotient_many(plan))})
+    return dict(shape="log 17, S = 56, from its sample point (plan, upload, launch)", err=err,
+                ms=time_ms(lambda: kernels.deep_quotient_many(kernels.QuotientPlan(plan.groups))),
+                plain_ms=time_ms(lambda: kernels.deep_quotient_many_plain(plan)), bound=bound(*quotient_work(plan)))
 
 
 def transcript_kernels(kernels, f, dev, rng, rnd, check):
@@ -635,9 +680,9 @@ def path_launches(kernels, tag, first_s, launches, bottoms, expect):
     missing = [k for k in expect if launches[k] == 0]
     if missing:
         raise AssertionError(f"{tag}: the path launched no {missing}")
-    if launches["blake2s_merkle"] > limit or launches["oods_eval"] > 1:
+    if launches["blake2s_merkle"] > limit or launches["oods_eval"] > 1 or launches["deep_quotient"] > 1:
         raise AssertionError(f"{tag}: K2 took {launches['blake2s_merkle']} launches (at most {limit}), "
-                             f"K7 {launches['oods_eval']} calls (at most 1)")
+                             f"K7 {launches['oods_eval']} calls, K4 {launches['deep_quotient']} (at most 1 each)")
 
 
 def phase_path(T, kernels, serde, tracing, f, card, tag, build, host, expect, check_output=None):
@@ -721,8 +766,7 @@ def path_twins(kernels, tape, f):
         "merkle_tree": ("blake2s_merkle", lambda a: kernels.merkle_tree_plain(a["desc"]), ("desc",)),
         "fri_fold": ("fri_fold", lambda a: kernels.fri_fold_plain(a["values"], a["twiddles"], a["alpha"],
                                                                   a["mix"], a["beta2"]), ("values", "mix")),
-        "deep_quotient": ("deep_quotient", lambda a: kernels.deep_quotient_plain(
-            a["cols"], a["gammas"], a["consts"], a["log"], a["acc"]), ("cols", "log", "acc")),
+        "deep_quotient_many": ("deep_quotient", lambda a: kernels.deep_quotient_many_plain(a["plan"]), ("plan",)),
         "air_witness": ("air_witness", lambda a: tape.witness_plain(a["tp"], a["main"], a["pp"], a["ew"]),
                         ("tp", "main")),
         "air_domain": ("air_domain", lambda a: tape.domain_plain(
@@ -758,6 +802,8 @@ def describe(x):
         return tuple(x.shape) if x.is_contiguous() else (tuple(x.shape), x.stride())
     if isinstance(x, (list, tuple)) and x and isinstance(x[0], torch.Tensor):
         return (len(x),) + tuple(x[0].shape)
+    if hasattr(x, "n_ctas"):  # a DEEP-quotient plan: its groups' logs and widths
+        return tuple((log, len(cols)) for log, cols, _, _ in x.groups)
     if hasattr(x, "region"):  # a decommitment pass: its trees and output size
         return (tuple(t.bottom for t in x.trees), x.n_words)
     if hasattr(x, "bottom"):  # a tree: its columns' shapes and strides
@@ -782,6 +828,8 @@ def flat(out, args=None) -> torch.Tensor:
     K10 a nonce) and of the record slot it wrote."""
     if isinstance(out, int):
         out = torch.tensor([out], dtype=torch.int64)
+    elif isinstance(out, dict):  # K4: per log
+        out = torch.cat([v.reshape(-1) for v in out.values()])
     elif isinstance(out, tuple):
         out = torch.cat([o.reshape(-1) for o in out])
     written = [args[k].reshape(-1).to(out.device, out.dtype) for k in WRITTEN_ARGS if args and args.get(k) is not None]
@@ -804,11 +852,12 @@ class recording:
     first call at each distinct key (wrapper, the shapes of its work) in
     `kept` (an argument the kernel updates in place is cloned first),
     counts its calls in `calls` and sums the bound (ms) of every call of
-    a wrapper in WORK in `bound_ms`, by kernel."""
+    a wrapper in WORK or WORK_AFTER in `bound_ms`, by kernel (a settings
+    pass's trace steps under the kernel's name + "_settings")."""
 
     def __init__(self, kernels, twins, kept, calls):
         self.kernels, self.twins, self.kept, self.calls = kernels, twins, kept, calls
-        self.bound_ms = {}
+        self.bound_ms, self.bound_calls = {}, {}
         self.originals = {name: getattr(kernels, name) for name in twins}
 
     def _recorder(self, name, fn):
@@ -823,10 +872,16 @@ class recording:
             key = (name,) + tuple(describe(a[k]) for k in key_args)
             if key not in self.kept:
                 self.kept[key] = {k: v.clone() if k in UPDATED_ARGS and v is not None else v for k, v in a.items()}
-            if name in WORK:
+            before = WORK_AFTER[name][0](a) if name in WORK_AFTER else None
+            out = fn(*args, **kw)
+            work = WORK[name](a) if name in WORK else WORK_AFTER[name][1](a, out, before) if name in WORK_AFTER else None
+            if work is not None:
                 kernel = self.twins[name][0]
-                self.bound_ms[kernel] = self.bound_ms.get(kernel, 0.0) + bound(*WORK[name](a))[0]
-            return fn(*args, **kw)
+                if hasattr(a.get("s"), "fresh") and not a["s"].cols:
+                    kernel += "_settings"  # a step of the settings pre-pass, apart from the trace's
+                self.bound_ms[kernel] = self.bound_ms.get(kernel, 0.0) + bound(*work)[0]
+                self.bound_calls[kernel] = self.bound_calls.get(kernel, 0) + 1
+            return out
 
         return rec
 
@@ -917,14 +972,88 @@ def oods_work(n_cols: int, log_n: int, per_coeff: int = 4 * OPS_FOLD_MAC):
     return 4 * n_cols * n + 16 * n_cols, n_cols * n * per_coeff + ((1 << c) + (n >> c)) * OPS_QMUL
 
 
-# The work of one call of each wrapper whose per-run bound is summed.
+def fold_work(a: dict):
+    """(bytes, operations) of one K3 call: the 2n input values, n twiddles,
+    the mix (if any) read once, n values written; per output row the fold
+    (8 products, 12 sums, a QM31 product), plus a QM31 product and 4 sums
+    for the mix."""
+    n, mix = a["values"].shape[0] // 2, a["mix"] is not None
+    n_bytes = 16 * 2 * n + 4 * n + 16 * n + (16 * n if mix else 0)
+    per_row = 8 * OPS_MUL + 8 * OPS_ADD + OPS_QMUL + 4 * OPS_ADD + ((OPS_QMUL + 4 * OPS_ADD) if mix else 0)
+    return n_bytes, n * per_row
+
+
+def quotient_work(plan):
+    """(bytes, operations) that the function of one K4 call needs: per log
+    the S columns of its groups, xs and ys read once and its (n, 4) output
+    written once; per column and row 4 products, each a 64-bit multiply-add
+    into an unfolded sum, and one fold per four; per row and group one share
+    of a batched inversion, about 3 products."""
+    n_bytes = ops = 0
+    for log in plan.rows:
+        n = 1 << log
+        widths = [len(cols) for lg, cols, _, _ in plan.groups if lg == log]
+        S, G = sum(widths), len(widths)
+        n_bytes += 4 * S * n + 8 * n + 16 * n
+        ops += n * (S * (4 * OPS_MAC64 + OPS_FOLD) + G * 3 * OPS_MUL)
+    return n_bytes, ops
+
+
+def witness_work(a: dict):
+    """(bytes, operations) of one K5 call: its columns read once, 4E
+    coordinates written; the tape and the LogUp arithmetic per row."""
+    tp, n = a["tp"], a["main"][0].shape[0] if a["main"] else a["pp"][0].shape[0]
+    return 4 * (len(a["main"]) + len(a["pp"])) * n + 16 * tp.n_relations * n, n * witness_row_ops(tp)
+
+
+def domain_work(a: dict):
+    """(bytes, operations) of one K6 call: its columns, the interaction,
+    is_first and xs read once, the (m, 4) quotients written (and read
+    when it accumulates); the tape and the constraint sum per row."""
+    tp, m = a["tp"], a["is_first"].shape[0]
+    n_cols = len(a["main"]) + len(a["pp"]) + len(a["inter"]) + 2
+    n_bytes = (4 * n_cols + 16) * m + (16 * m if a["acc"] is not None else 0)
+    return n_bytes, m * domain_row_ops(tp, a["log_trace"])
+
+
+def channel_bytes() -> int:
+    return 4 * (2 * 13 + 8 + 12)  # the state read and written, a root, a record slot
+
+
+# The work of one call of each wrapper whose per-run bound is summed, from
+# its arguments (bytes, operations[, operations per second]).
 WORK = {
     "circle_ifft": lambda a: k1_work("circle_ifft", a),
     "circle_fft": lambda a: k1_work("circle_fft", a),
     "circle_lde": lambda a: k1_work("circle_lde", a),
     "merkle_tree": lambda a: merkle_tree_work(a["desc"].cols),
+    "fri_fold": fold_work,
+    "fri_fold_chain": fold_work,
+    "deep_quotient_many": lambda a: quotient_work(a["plan"]),
+    "air_witness": witness_work,
+    "air_domain": domain_work,
     "oods_eval_many": lambda a: tuple(map(sum, zip(*(oods_work(len(cols), len(chain))
                                                      for cols, chain in a["groups"])))),
+    "trace_binary": lambda a: step_work(a["s"]),
+    "trace_unary": lambda a: step_work(a["s"]),
+    "trace_reduce": lambda a: step_work(a["s"]),
+    "lut_minmax": lambda a: (8 * len(a["buf"]) + 16, 2 * len(a["buf"]), INT64_OPS_PER_S),
+}
+
+
+def _counter(state) -> int:
+    return int(state[8]) & 0xFFFFFFFF
+
+
+# Work that depends on the data: (before(args), after(args, result, before)).
+# K8 hashes one block per draw counter step (and one to mix a root); K10
+# hashes every nonce up to the one it returns.
+WORK_AFTER = {
+    "channel_draw_felt": (lambda a: _counter(a["state"]),
+                          lambda a, out, c0: (channel_bytes(), (_counter(a["state"]) - c0) * OPS_BLAKE2S_BLOCK)),
+    "channel_mix_root_draw": (lambda a: None,
+                              lambda a, out, _: (channel_bytes(), (1 + _counter(a["state"])) * OPS_BLAKE2S_BLOCK)),
+    "grind_pow": (lambda a: None, lambda a, nonce, _: (40, (nonce + 1) * OPS_BLAKE2S_BLOCK)),
 }
 
 
@@ -932,8 +1061,8 @@ def phase_path_kernels(T, kernels, tape, f, tag: str, run, expect):
     """The path once more (`run`: settings, trace, prove on the card) with
     every wrapper recording; then each kept call through kernel and twin.
     Any word that differs fails the run, and so does a kernel of the path
-    that never ran.  Also the bound of the path's K1 calls, summed, and of
-    its K9 passes.  Returns ({kernel: max_abs_err}, the kept calls)."""
+    that never ran.  Also the bounds of the path's calls, summed by kernel
+    (per_run_bound).  Returns ({kernel: max_abs_err}, the kept calls)."""
     twins = path_twins(kernels, tape, f)
     kept, calls = {}, {}
     with recording(kernels, twins, kept, calls) as rec:
@@ -946,7 +1075,7 @@ def phase_path_kernels(T, kernels, tape, f, tag: str, run, expect):
     line = {"phase": "per_run_bound", "path": tag, "decommit_bound_ms": k9, "decommit_calls": calls.get("decommit", 0)}
     for kernel in sorted(rec.bound_ms):
         line[f"{kernel}_bound_ms"] = rec.bound_ms[kernel]
-        line[f"{kernel}_calls"] = sum(n for name, n in calls.items() if name in WORK and twins[name][0] == kernel)
+        line[f"{kernel}_calls"] = rec.bound_calls[kernel]
     emit(line)
     by_kernel = replay(kernels, twins, kept, calls)
     for kernel_name, row in by_kernel.items():
@@ -970,9 +1099,10 @@ TRACE_ROW_OPS = {
 }
 
 
-def step_bound(s):
-    """Least time for one trace step: its sources read once, its output,
-    columns and histogram written once; the LUT entries its rows read."""
+def step_work(s):
+    """(bytes, operations, rate) of one trace step: its sources read once,
+    its output, columns and histogram written once; the LUT entries its
+    rows read."""
     rows = s.rows * s.dsize
     n_bytes = sum(8 * len(b) for b, _ in s.srcs) + 4 * rows * len(s.cols)
     n_bytes += 8 * len(s.out) if s.out is not None else 0
@@ -981,7 +1111,12 @@ def step_bound(s):
     if s.lut is not None:
         n_bytes += 8 * rows + 24 * len(s.lut[0])
         ops += 2 * len(s.lut[0]).bit_length()
-    return bound(n_bytes, rows * ops, INT64_OPS_PER_S)
+    return n_bytes, rows * ops, INT64_OPS_PER_S
+
+
+def step_bound(s):
+    """Least time for one trace step (step_work)."""
+    return bound(*step_work(s))
 
 
 def trace_kernel_rows(kernels, kept) -> dict:

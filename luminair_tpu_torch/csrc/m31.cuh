@@ -47,6 +47,25 @@ __host__ __device__ __forceinline__ uint32_t inv(uint32_t a) {
   return mul(sqn(t6, 2), a);
 }
 
+// Four words of a 16-byte aligned address, moved as one access.
+struct alignas(16) u32x4 {
+  uint32_t v[4];
+};
+
+// s += a * b with the product folded once: (p & P) + (p >> 31) < 2^32, so
+// a 64-bit sum takes 2^32 such terms before it can wrap.
+__host__ __device__ __forceinline__ void fold_mac(unsigned long long& s, uint32_t a, uint32_t b) {
+  const uint64_t p = (uint64_t)a * b;
+  s += (uint32_t)(p & P) + (uint32_t)(p >> 31);
+}
+
+// x mod P of any 64-bit sum: two Mersenne folds and a conditional subtract.
+__host__ __device__ __forceinline__ uint32_t reduce64(unsigned long long x) {
+  x = (x & P) + (x >> 31);  // < 2^34
+  x = (x & P) + (x >> 31);  // < 2^31 + 8
+  return (uint32_t)(x >= P ? x - P : x);
+}
+
 // QM31 = CM31[u]/(u^2 - (2+i)); (a + b i) + (c + d i) u is {a, b, c, d}.
 struct qm31 {
   uint32_t a, b, c, d;

@@ -91,24 +91,6 @@ __device__ __forceinline__ void oods_table(const Block& b, const OodsGroup& g, i
   }
 }
 
-// Four words of a 16-byte aligned address, read as one load.
-struct alignas(16) u32x4 {
-  uint32_t v[4];
-};
-
-// s += x * b, the product folded once: (p & P) + (p >> 31) < 2^32.
-__host__ __device__ __forceinline__ void oods_fold_add(unsigned long long& s, uint32_t x, uint32_t b) {
-  const uint64_t p = (uint64_t)x * b;
-  s += (uint32_t)(p & P) + (uint32_t)(p >> 31);
-}
-
-// x mod P of a 64-bit sum: two Mersenne folds and a conditional subtract.
-__host__ __device__ __forceinline__ uint32_t oods_reduce(unsigned long long x) {
-  x = (x & P) + (x >> 31);  // < 2^34
-  x = (x & P) + (x >> 31);  // < 2^31 + 8
-  return (uint32_t)(x >= P ? x - P : x);
-}
-
 // The partials of CTA `cta` of `n_ctas`: units [cta M / n_ctas, (cta + 1)
 // M / n_ctas) of the call's M, in group order.  A unit is one (column,
 // chunk) of a group: unit first + column * 2^(L-c) + chunk, whose partial
@@ -149,19 +131,19 @@ __device__ __forceinline__ void oods_cta(const Block& b, const long long* desc, 
           for (int w = 0; w < 4; w++) {
             const u32x4 bv = *reinterpret_cast<const u32x4*>(blo + w * n + k);
 #pragma unroll
-            for (int e = 0; e < 4; e++) oods_fold_add(s[w], xv.v[e], bv.v[e]);
+            for (int e = 0; e < 4; e++) fold_mac(s[w], xv.v[e], bv.v[e]);
           }
         }
       } else {
         for (long long k = lane; k < n; k += width) {
 #pragma unroll
-          for (int w = 0; w < 4; w++) oods_fold_add(s[w], x[k], blo[w * n + k]);
+          for (int w = 0; w < 4; w++) fold_mac(s[w], x[k], blo[w * n + k]);
         }
       }
       b.group_sum4(s);
       if (lane == 0) {
         const qm31 bhi = qmul(qload(t1 + 4 * (chunk & ((1LL << g.a) - 1))), qload(t2 + 4 * (chunk >> g.a)));
-        const qm31 v = {oods_reduce(s[0]), oods_reduce(s[1]), oods_reduce(s[2]), oods_reduce(s[3])};
+        const qm31 v = {reduce64(s[0]), reduce64(s[1]), reduce64(s[2]), reduce64(s[3])};
         qstore(partial + 4 * u, qmul(v, bhi));
       }
     }
@@ -186,7 +168,7 @@ __device__ __forceinline__ void oods_combine_row(const Block& b, const long long
   b.sum4(s);
   if (b.tid() == 0) {
 #pragma unroll
-    for (int w = 0; w < 4; w++) out[4 * row + w] = oods_reduce(s[w]);
+    for (int w = 0; w < 4; w++) out[4 * row + w] = reduce64(s[w]);
   }
 }
 

@@ -11,8 +11,8 @@
 //   T1 trace_binary   add / mul / rem / less_than, one thread per row;
 //   T2 trace_unary    inputs / recip / square / sqrt / sin, exp2, log2 /
 //                     contiguous, one thread per row;
-//   T3 trace_reduce   sum_reduce / max_reduce, one thread per output, a
-//                     loop over the reduced axis;
+//   T3 trace_reduce   sum_reduce / max_reduce, one thread per trace row,
+//                     a segmented scan along the reduced axis per CTA;
 //   T4 lut_minmax     min and max of a LUT op's raw source buffer (the
 //                     settings pre-pass), one block.
 // Each thread resolves its own elements from the packed view (trace.cuh),
@@ -23,9 +23,10 @@
 //
 // Bound on this card: device memory.  Per row a node reads one or two int64
 // elements and writes one int64 output and 11-22 int32 columns (60-100
-// bytes) for a few tens of integer operations; T3's threads walk their
-// reduced axis in sequence, which leaves the card idle for small outputs
-// counts (speed is later work).
+// bytes) for a few tens of integer operations.  T3 scans each CTA's rows
+// in shared memory (log2 of 256 steps) so that its column stores, 14 int32
+// words a row, go out coalesced; a reduced axis longer than a CTA is walked
+// in chunks by one CTA.
 
 #include <cuda_runtime.h>
 
@@ -47,9 +48,18 @@ __global__ void trace_unary_kernel(const __grid_constant__ TraceArgs a) {
   if (r < a.n) lum::unary_row(a, r);
 }
 
-__global__ void trace_reduce_kernel(const __grid_constant__ TraceArgs a) {
-  const long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (o < a.n) lum::reduce_row(a, o);
+// T3's CTA: THREADS trace rows at a time (trace.cuh, reduce_cta).
+struct ReduceBlock {
+  __device__ __forceinline__ int threads() const { return THREADS; }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+  template <class F>
+  __device__ __forceinline__ void each(F f) const { f((int)threadIdx.x); }
+};
+
+__global__ void __launch_bounds__(THREADS) trace_reduce_kernel(const __grid_constant__ TraceArgs a) {
+  __shared__ long long raw[THREADS], scan[2 * THREADS];
+  __shared__ int pos[THREADS];
+  lum::reduce_cta(ReduceBlock{}, a, blockIdx.x, raw, scan, pos);
 }
 
 // One block of MINMAX_THREADS: out[0] = min, out[1] = max of buf[0 .. n).
@@ -101,7 +111,10 @@ extern "C" int lum_trace_unary(const TraceArgs* a, void* stream) {
 }
 
 extern "C" int lum_trace_reduce(const TraceArgs* a, void* stream) {
-  if (a->n > 0) trace_reduce_kernel<<<blocks_for(a->n), THREADS, 0, (cudaStream_t)stream>>>(*a);
+  if (a->n > 0 && a->dsize > 0) {
+    const long long per = lum::reduce_outputs_per_cta(a->dsize, THREADS);
+    trace_reduce_kernel<<<(unsigned)((a->n + per - 1) / per), THREADS, 0, (cudaStream_t)stream>>>(*a);
+  }
   return (int)cudaGetLastError();
 }
 

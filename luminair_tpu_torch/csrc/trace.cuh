@@ -328,51 +328,111 @@ __device__ __forceinline__ void unary_row(const TraceArgs& a, long long r) {
   if (a.out) ((long long*)a.out)[r] = out;
 }
 
-// T3: sum_reduce / max_reduce of output o = (i, j) over the reduced axis;
-// rows o * dsize + k, k = 0 .. dsize - 1 (graph/trace.py's row order).
-__device__ __forceinline__ void reduce_row(const TraceArgs& a, long long o) {
-  const long long i = o / a.back, j = o % a.back;
-  long long run = 0;
-  for (long long k = 0; k < a.dsize; k++) {
-    const long long v = gather(a.view[0], (const long long*)a.src[0], (i * a.dsize + k) * a.back + j);
-    const Row row{a, o * a.dsize + k};
-    const bool last = k == a.dsize - 1;
-    long long before;
-    if (a.op == T_SUM_REDUCE) {
-      before = run;
-      run = wadd(run, v);
-    } else {  // T_MAX_REDUCE, with the >= witness limbs (8/8/8/6 bits)
-      before = k == 0 ? v : run;
-      run = k == 0 ? v : (v > run ? v : run);
-      const bool is_max = v > before;
-      const long long ge = wsub(run, is_max ? before : v);
-      if (ge < 0 || ge >= (1LL << 30)) raise_flag(a);
-      const uint32_t g = (uint32_t)(unsigned long long)ge;
-      const uint32_t limbs[4] = {g & 0xffu, (g >> 8) & 0xffu, (g >> 16) & 0xffu, (g >> 24) & 0x3fu};
-      row.put(C_IS_MAX, is_max ? 1u : 0u);
-      row.put(C_GE_LIMB0, limbs[0]);
-      row.put(C_GE_LIMB1, limbs[1]);
-      row.put(C_GE_LIMB2, limbs[2]);
-      row.put(C_GE_LIMB3, limbs[3]);
-      row.put(C_RANGE_CHECK_MULT, 1u);
-      count(a, limbs[0]);
-      count(a, limbs[1]);
-      count(a, limbs[2]);
-      count(a, limbs[3] * 4);
+// T3: sum_reduce / max_reduce, one thread per trace row.  Output o = (i,
+// j) reduces its axis of dsize elements into rows o * dsize + k, k = 0 ..
+// dsize - 1 (graph/trace.py's row order); row (o, k) records the running
+// value before and after element k: an inclusive scan of the segment,
+// restarting at k == 0, with wrapping int64 + (sum, associative modulo
+// 2^64) or max.  A CTA of T = b.threads() threads holds floor(T / dsize)
+// whole segments, or, when dsize > T, one segment walked in chunks of T
+// rows that carry the running value.  Consecutive threads own consecutive
+// rows, so every column store is coalesced.
+//
+// The Block runs the CTA's phases: `each(f)` calls f(t) for every thread t
+// (on the card, each thread its own t; on the host, every t in turn), and
+// `sync()` orders the phases.  A phase reads only what earlier phases wrote
+// to the CTA's arrays: raw[T] (the elements), scan[2][T] (the scan, in
+// ping-pong) and pos[T] (a row's place in its segment, capped at T).
+
+__host__ __device__ __forceinline__ long long reduce_outputs_per_cta(long long dsize, int T) {
+  return dsize <= T ? T / dsize : 1;
+}
+
+template <class Block>
+__device__ __forceinline__ void reduce_cta(const Block& b, const TraceArgs& a, long long cta, long long* raw,
+                                           long long* scan, int* pos) {
+  const int T = b.threads();
+  const long long ds = a.dsize;
+  const bool whole = ds <= T;  // whole segments in the CTA, in one chunk
+  const long long per = reduce_outputs_per_cta(ds, T), o0 = cta * per;
+  const long long n_out = o0 + per <= a.n ? per : a.n - o0;
+  const bool is_sum = a.op == T_SUM_REDUCE;
+  long long carry = 0;  // the running value at the row before the chunk
+  for (long long c0 = 0; c0 < n_out * ds; c0 += T) {
+    const int m = (int)(n_out * ds - c0 < T ? n_out * ds - c0 : T);
+    b.sync();  // the last chunk's arrays are no longer read
+    b.each([&](int t) {
+      if (t >= m) return;
+      const long long o = o0 + (whole ? t / ds : 0), k = whole ? t % ds : c0 + t;
+      const long long i = o / a.back, j = o % a.back;
+      raw[t] = scan[t] = gather(a.view[0], (const long long*)a.src[0], (i * ds + k) * a.back + j);
+      pos[t] = (int)(k < T ? k : T);
+    });
+    long long* src = scan;
+    long long* dst = scan + T;
+    for (int off = 1; off < m; off <<= 1) {
+      b.sync();
+      b.each([&](int t) {
+        if (t >= m) return;
+        const long long x = src[t];
+        if (t >= off && pos[t] >= off) {  // row t - off is in the same segment
+          const long long y = src[t - off];
+          dst[t] = is_sum ? wadd(y, x) : (y > x ? y : x);
+        } else {
+          dst[t] = x;
+        }
+      });
+      long long* swap = src;
+      src = dst;
+      dst = swap;
     }
-    row.common(o, a.n - 1);
-    row.put(C_INPUT, to_m31(v));
-    row.put(C_OUT, last ? to_m31(run) : 0u);
-    // A table has either acc / next_acc (sum) or max_val / next_max_val.
-    row.put(C_ACC, to_m31(before));
-    row.put(C_NEXT_ACC, to_m31(run));
-    row.put(C_MAX_VAL, to_m31(before));
-    row.put(C_NEXT_MAX_VAL, to_m31(run));
-    row.put(C_IS_LAST_STEP, last ? 1u : 0u);
-    row.put(C_INPUT_MULT, a.in_mult);
-    row.put(C_OUT_MULT, last ? a.out_mult : 0u);
+    if (!whole && c0 > 0) {  // the segment began in an earlier chunk
+      b.sync();
+      b.each([&](int t) {
+        if (t < m) src[t] = is_sum ? wadd(carry, src[t]) : (carry > src[t] ? carry : src[t]);
+      });
+    }
+    b.sync();
+    b.each([&](int t) {
+      if (t >= m) return;
+      const long long o = o0 + (whole ? t / ds : 0), k = whole ? t % ds : c0 + t;
+      const long long v = raw[t], run = src[t];
+      const bool last = k == ds - 1;
+      const long long before = k == 0 ? (is_sum ? 0 : v) : (t > 0 ? src[t - 1] : carry);
+      const Row row{a, o * ds + k};
+      if (!is_sum) {  // T_MAX_REDUCE, with the >= witness limbs (8/8/8/6 bits)
+        const bool is_max = v > before;
+        const long long ge = wsub(run, is_max ? before : v);
+        if (ge < 0 || ge >= (1LL << 30)) raise_flag(a);
+        const uint32_t g = (uint32_t)(unsigned long long)ge;
+        const uint32_t limbs[4] = {g & 0xffu, (g >> 8) & 0xffu, (g >> 16) & 0xffu, (g >> 24) & 0x3fu};
+        row.put(C_IS_MAX, is_max ? 1u : 0u);
+        row.put(C_GE_LIMB0, limbs[0]);
+        row.put(C_GE_LIMB1, limbs[1]);
+        row.put(C_GE_LIMB2, limbs[2]);
+        row.put(C_GE_LIMB3, limbs[3]);
+        row.put(C_RANGE_CHECK_MULT, 1u);
+        count(a, limbs[0]);
+        count(a, limbs[1]);
+        count(a, limbs[2]);
+        count(a, limbs[3] * 4);
+      }
+      row.common(o, a.n - 1);
+      row.put(C_INPUT, to_m31(v));
+      row.put(C_OUT, last ? to_m31(run) : 0u);
+      // A table has either acc / next_acc (sum) or max_val / next_max_val.
+      row.put(C_ACC, to_m31(before));
+      row.put(C_NEXT_ACC, to_m31(run));
+      row.put(C_MAX_VAL, to_m31(before));
+      row.put(C_NEXT_MAX_VAL, to_m31(run));
+      row.put(C_IS_LAST_STEP, last ? 1u : 0u);
+      row.put(C_INPUT_MULT, a.in_mult);
+      row.put(C_OUT_MULT, last ? a.out_mult : 0u);
+      if (last && a.out) ((long long*)a.out)[o] = run;  // only a segment's last row writes the output
+    });
+    b.sync();
+    carry = src[m - 1];
   }
-  if (a.out) ((long long*)a.out)[o] = run;
 }
 
 }  // namespace lum

@@ -2,7 +2,7 @@
 
 The CUDA C++ sources under csrc/ (with the headers csrc/m31.cuh,
 blake2s.cuh, channel.cuh, decommit.cuh, fft.cuh, merkle.cuh, oods.cuh,
-tape.cuh and trace.cuh)
+quotient.cuh, tape.cuh and trace.cuh)
 are compiled at first use with nvcc for sm_90a, one shared
 library per source, all sources compiled at once, into build/kernels/ at
 the repository root; each library is named by a hash of its source and
@@ -189,11 +189,20 @@ FRI_FOLD = Kernel(
     "luminair_tpu/parallel/accel.py:1299 (_jit_fold_circle; _jit_fold_line :1314)",
     {"lum_fri_fold": [_P, _P, _P, _P] + [_U] * 8 + [_LL], "lum_fri_fold_chain": [_P, _P, _P, _P, _P, _I, _LL]},
 )
+# K4's descriptor (csrc/quotient.cuh): a head, a record per log and per
+# group, then the column addresses and the gammas; a CTA of the card takes
+# QUOTIENT_CTA_ROWS rows of one log.
+DQ_HEAD = 3
+DQ_LOG_WORDS = 8
+DQ_GROUP_WORDS = 16
+QUOTIENT_CTA_ROWS = 128 * 4  # threads x rows per thread (csrc/quotient.cu)
 DEEP_QUOTIENT = Kernel(
     "deep_quotient",
     "quotient.cu",
-    "luminair_tpu/parallel/accel.py:1248 (_jit_quotient_group)",
-    {"lum_deep_quotient": [_P, _P, _I, _P, _P, _P, _P, _LL, _I]},
+    "luminair_tpu/parallel/accel.py:1248 (_jit_quotient_group, called per group from pcs/quotients.py:144)",
+    {"lum_deep_quotient": [_P, _LL, _P]},
+    abi={"lum_dq_log_words": DQ_LOG_WORDS, "lum_dq_group_words": DQ_GROUP_WORDS,
+         "lum_dq_cta_rows": QUOTIENT_CTA_ROWS},
 )
 
 # The tape's kernel ABI (csrc/tape.cuh): lookup-element kinds in the order
@@ -747,45 +756,96 @@ def fri_fold_plain(values, twiddles, alpha, mix=None, beta2=None) -> torch.Tenso
 
 
 # ---------------------------------------------------------------------------
-# K4: DEEP quotient group.
+# K4: the DEEP quotients of every (log, point) group of a prove.
+
+# u^-1 = u (2 + i)^-1 = u (2 - i) / 5 in QM31 = CM31[u] / (u^2 - (2 + i)).
+_INV5 = pow(5, f.P - 2, f.P)
+U_INV = (0, 0, 2 * _INV5 % f.P, (f.P - _INV5) % f.P)
 
 
-def deep_quotient(cols: Sequence[torch.Tensor], gammas: torch.Tensor, consts: torch.Tensor,
-                  log: int, acc: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Quotient (2^log, 4) of one sample group on D_log (see quotient.cu).
+class QuotientPlan:
+    """The host's plan of one K4 call: every (commit log, sample point)
+    group of a prove, `groups` = [(log, S int32 (2^log,) columns, (S, 4)
+    gammas, (5, 4) consts = A, B, C, acc_a, acc_c0)], QM31 as int64 numpy
+    arrays or tensors (pcs/quotients.quotient_groups); logs in
+    first-appearance order.  A, B and C must come from a sample point: they
+    lie in u * CM31.  Holds the descriptor of csrc/quotient.cuh (int64
+    words, CTAs of `cta_rows` rows, built on the host) and, on the card,
+    its one upload."""
 
-    cols: S int32 (2^log,) columns; gammas (S, 4) and consts (5, 4) = A, B,
-    C, acc_a, acc_c0 as int64 QM31.  With `acc`, returns acc + quotient (the
-    kernel adds into `acc` in place)."""
-    n = 1 << log
-    _require(len(cols) == gammas.shape[0] and len(cols) > 0, "deep_quotient: one gamma per column")
-    for c in cols:
-        _require(c.dtype == f.I32 and tuple(c.shape) == (n,), f"deep_quotient: columns must be int32 ({n},)")
-    _require(tuple(consts.shape) == (5, 4), "deep_quotient: consts (5, 4)")
-    if acc is not None:
-        _require(acc.dtype == f.I32 and tuple(acc.shape) == (n, 4) and acc.is_contiguous(),
-                 "deep_quotient: acc (n, 4) contiguous int32")
-    dev = cols[0].device
-    if _on_cpu(cols[0]):
-        return deep_quotient_plain(cols, gammas, consts, log, acc)
-    cols = [c.contiguous() for c in cols]
-    ptrs = torch.tensor([c.data_ptr() for c in cols], dtype=f.I64).to(dev)
-    g = gammas.to(f.I32).contiguous().to(dev)
-    k = consts.to(f.I32).contiguous().to(dev)
-    xs, ys = circle.domain_table(log, dev)
-    out = acc if acc is not None else torch.empty((n, 4), dtype=f.I32, device=dev)
-    DEEP_QUOTIENT.launch(
-        "lum_deep_quotient", dev, ptrs.data_ptr(), g.data_ptr(), len(cols), xs.data_ptr(),
-        ys.data_ptr(), k.data_ptr(), out.data_ptr(), n, int(acc is not None),
-    )
-    return out
+    def __init__(self, groups: Sequence[tuple], cta_rows: int = QUOTIENT_CTA_ROWS):
+        self.groups = [(log, list(cols), np.asarray(g, dtype=np.int64), np.asarray(c, dtype=np.int64))
+                       for log, cols, g, c in groups]
+        _require(len(self.groups) > 0, "deep_quotient_many: no group")
+        self.dev = dev = self.groups[0][1][0].device
+        rank: Dict[int, int] = {}  # logs in first-appearance order
+        for log, cols, gammas, consts in self.groups:
+            rank.setdefault(log, len(rank))
+            _require(len(cols) > 0 and gammas.shape == (len(cols), 4), "deep_quotient_many: one gamma per column")
+            _require(consts.shape == (5, 4), "deep_quotient_many: consts (5, 4)")
+        logs = np.array(list(rank))
+        n = np.left_shift(1, logs)
+        r0, ctas = np.cumsum(n) - n, -(-n // cta_rows)
+        self.rows = dict(zip(logs.tolist(), r0.tolist()))  # the first output row of each log
+        self.n_rows, self.n_ctas = int(n.sum()), int(ctas.sum())
+        # Group records in log order: a log's groups are consecutive.
+        lid = np.array([rank[g[0]] for g in self.groups])
+        order = np.argsort(lid, kind="stable").tolist()
+        per_log = np.bincount(lid, minlength=len(logs))
+        consts = np.stack([self.groups[i][3] for i in order]) % f.P  # (G, 5, 4)
+        _require(not consts[:, :3, :2].any(), "deep_quotient_many: A, B, C of a group do not lie in u * CM31")
+        G = len(order)
+        recs = np.zeros((G, DQ_GROUP_WORDS), dtype=np.int64)
+        d = consts[:, :3, 2:]  # A, B, C over u: dx = A, dy = -B, d0 = C
+        recs[:, 2:4], recs[:, 4:6], recs[:, 6:8] = d[:, 0], (f.P - d[:, 1]) % f.P, d[:, 2]
+        # Times u^-1, in one product: the gammas, then -acc_a and -acc_c0 of every group.
+        folded = np.concatenate([np.concatenate([self.groups[i][2] for i in order]),
+                                 (f.P - consts[:, 3:]).reshape(-1, 4) % f.P])
+        folded = f.qm31_mul(torch.from_numpy(folded), f.constant(U_INV)).numpy()
+        recs[:, 8:16] = folded[len(folded) - 2 * G :].reshape(G, 8)
+        recs[:, 0] = [len(self.groups[i][1]) for i in order]
+        recs[:, 1] = np.cumsum(recs[:, 0]) - recs[:, 0]
+        self._domains = [circle.domain_table(log, dev) for log in rank]  # kept alive: the descriptor points at them
+        table = np.stack([logs, np.cumsum(per_log) - per_log, per_log, np.cumsum(ctas) - ctas, ctas, r0,
+                          [xs.data_ptr() for xs, _ in self._domains], [ys.data_ptr() for _, ys in self._domains]], 1)
+        ptrs = []
+        for i in order:
+            log, cols = self.groups[i][:2]
+            _require(all(c.dtype == f.I32 and c.shape == (1 << log,) and c.device == dev and c.is_contiguous()
+                         for c in cols), f"deep_quotient_many: columns must be contiguous int32 (2^{log},) on one device")
+            ptrs += [c.data_ptr() for c in cols]
+        gw = folded[: len(ptrs)].astype(np.uint32).reshape(-1).view(np.int64)
+        head = np.array([len(logs), G, len(ptrs)], dtype=np.int64)
+        self.desc = np.concatenate([head, table.reshape(-1), recs.reshape(-1), np.array(ptrs, dtype=np.int64), gw])
+        self.words = f.upload(self.desc, dev) if dev.type == "cuda" else None
+
+
+def deep_quotient_many(plan: QuotientPlan) -> Dict[int, torch.Tensor]:
+    """{log: (2^log, 4) int32}: per log of the plan (first appearance
+    first), the sum of its groups' DEEP quotients on D_log (see
+    quotient.cu).  On the card: one launch over the plan's uploaded
+    descriptor, every log's output written once."""
+    if _on_cpu(plan.groups[0][1][0]):
+        return deep_quotient_many_plain(plan)
+    out = torch.empty((plan.n_rows, 4), dtype=f.I32, device=plan.dev)
+    DEEP_QUOTIENT.launch("lum_deep_quotient", plan.dev, plan.words.data_ptr(), plan.n_ctas, out.data_ptr())
+    return {log: out[r0 : r0 + (1 << log)] for log, r0 in plan.rows.items()}
+
+
+def deep_quotient_many_plain(plan: QuotientPlan) -> Dict[int, torch.Tensor]:
+    """The same sums, group by group through deep_quotient_plain, whose
+    denominator is the general QM31 line A x - B y + C."""
+    out: Dict[int, torch.Tensor] = {}
+    for log, cols, gammas, consts in plan.groups:
+        out[log] = deep_quotient_plain(cols, gammas, consts, log, out.get(log))
+    return {log: out[log] for log in plan.rows}
 
 
 def deep_quotient_plain(cols, gammas, consts, log: int, acc=None) -> torch.Tensor:
     dev = cols[0].device
     xs, ys = (t.to(f.I64) for t in circle.domain_table(log, dev))
-    g = gammas.to(f.I64).to(dev)
-    A, B, C, acc_a, acc_c0 = consts.to(f.I64).to(dev).unbind(0)
+    g = torch.as_tensor(gammas, dtype=f.I64, device=dev)
+    A, B, C, acc_a, acc_c0 = torch.as_tensor(consts, dtype=f.I64, device=dev).unbind(0)
     den = f.add(f.sub(f.qm31_mul_m31(A, xs), f.qm31_mul_m31(B, ys)), C)
     num = f.qm31_zero((1 << log,), dev)
     for j, c in enumerate(cols):

@@ -8,10 +8,12 @@ involution) after subtracting the linear interpolant through (z, v),
 every (column, point) sample gets its own power of the batching challenge
 gamma, in the enumeration order the verifier shares.
 
-The per-sample constants are host work on (S, 4) tensors; each
-(commit log, point) group runs on its domain through the DEEP-quotient
-kernel (kernels.deep_quotient, K4).
-"""
+The per-group constants are host work on CPU (S, 4) tensors; every
+(commit log, point) group of a prove then runs on its domain in one call
+of the DEEP-quotient kernel (kernels.deep_quotient_many, K4).  Because a
+sample point lies off the base field, A, B and C below lie in u * CM31: the
+line is L = u * d with d a CM31 value affine in the row's (x, y), which K4
+inverts in the base field's tower (csrc/quotient.cuh)."""
 
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import numpy as np
 import torch
 
 from .. import fields as f
-from .. import kernels
+from .. import kernels, tracing
 from ..errors import ProverError
 
 
@@ -35,32 +37,59 @@ class ColumnSample:
     value: np.ndarray  # (4,) uint32 QM31
 
 
-def _batch_constants(samples: List[ColumnSample]):
-    """(A, B, C, a_coef, c0), each (S, 4), with
-      denominator L(P) = A*x_P - B*y_P + C
-      numerator_i(P)  = c_i(P) - a_coef*x_P - c0."""
-    zx = torch.stack([s.point[0].cpu() for s in samples])
-    zy = torch.stack([s.point[1].cpu() for s in samples])
-    v = torch.as_tensor(np.stack([np.asarray(s.value, dtype=np.int64) for s in samples]))
-    zbx, zby = f.qm31_conj(zx), f.qm31_conj(zy)
-    A = f.sub(zby, zy)
-    B = f.sub(zbx, zx)
-    C = f.sub(f.qm31_mul(B, zy), f.qm31_mul(A, zx))
-    dv = f.sub(f.qm31_conj(v), v)
-    denom = f.sub(zbx, zx)
-    if bool(torch.any(torch.all(denom == 0, dim=-1))):
+def _gamma_powers(gamma: tuple, n: int, k: int = 16) -> torch.Tensor:
+    """(n, 4) int64 gamma^0 .. gamma^(n-1) as gamma^(k a + b) = (gamma^k)^a *
+    gamma^b: two short tables of Python ints, one batched product."""
+    lo, hi = f.qm31_powers_ints((1, 0, 0, 0), gamma, k)
+    hi_pows, _ = f.qm31_powers_ints((1, 0, 0, 0), hi, -(-n // k))
+    return f.qm31_mul(torch.tensor(hi_pows)[:, None], torch.tensor(lo)[None]).reshape(-1, 4)[:n]
+
+
+def quotient_groups(
+    samples: List[ColumnSample],
+    column_evals: Dict[Tuple[int, int], torch.Tensor],
+    gamma: torch.Tensor,
+) -> List[tuple]:
+    """Every (commit log, point) group of the samples, in first-appearance
+    order: (log, columns, (S, 4) gamma powers, (5, 4) consts = A, B, C,
+    acc_a, acc_c0), int64 numpy QM31, with
+      denominator L(P) = A*x_P - B*y_P + C       (the group's point z)
+      numerator(P)   = sum_i g_i c_i(P) - acc_a*x_P - acc_c0,
+    acc_a = sum_i g_i a_i, acc_c0 = sum_i g_i (v_i - a_i zx) and a_i =
+    (conj v_i - v_i) / (conj zx - zx) for the sample values v_i.  The sums
+    over a group's samples are taken for every group at once, on CPU
+    tensors."""
+    keys: Dict[tuple, int] = {}
+    points, gid, words = [], [], {}
+    for s in samples:
+        pw = words.get(id(s.point))
+        if pw is None:
+            pw = words[id(s.point)] = (tuple(s.point[0].tolist()), tuple(s.point[1].tolist()))
+        g = keys.setdefault((s.commit_log, pw), len(keys))
+        if g == len(points):
+            points.append(pw)
+        gid.append(g)
+    zx = torch.tensor([p[0] for p in points]) % f.P
+    zy = torch.tensor([p[1] for p in points]) % f.P
+    A = f.sub(f.qm31_conj(zy), zy)
+    B = f.sub(f.qm31_conj(zx), zx)  # conj zx - zx, also a_i's denominator
+    C = f.sub(*f.qm31_mul(torch.stack([B, A]), torch.stack([zy, zx])))  # B zy - A zx
+    if bool((B == 0).all(dim=-1).any()):
         raise ProverError("sample point x lies in CM31")
-    a_coef = f.qm31_mul(dv, f.qm31_inv(denom))
-    c0 = f.sub(v, f.qm31_mul(a_coef, zx))
-    return A, B, C, a_coef, c0
-
-
-def _gamma_powers(gamma: torch.Tensor, n: int) -> torch.Tensor:
-    """(n, 4) gamma^0..gamma^(n-1) by repeated doubling."""
-    out = f.qm31_one((1,))
-    while out.shape[0] < n:
-        out = torch.cat([out, f.qm31_mul(out, f.qm31_mul(out[-1], gamma))])
-    return out[:n]
+    gid = torch.tensor(gid)
+    order = torch.argsort(gid, stable=True)  # the samples group by group
+    gp = _gamma_powers(f.qm31_words(gamma), len(samples))[order]
+    v = torch.from_numpy(np.array([samples[i].value for i in order.tolist()], dtype=np.int64))
+    sums = torch.zeros((2, len(points), 4), dtype=f.I64)  # sum g_i v_i, sum g_i conj v_i per group
+    sums.index_add_(1, gid[order], f.qm31_mul(gp, torch.stack([v, f.qm31_conj(v)])))
+    sv, scv = sums % f.P
+    acc_a = f.qm31_mul(f.sub(scv, sv), f.qm31_inv(B))
+    acc_c0 = f.sub(sv, f.qm31_mul(acc_a, zx))
+    consts = torch.stack([A, B, C, acc_a, acc_c0], dim=1).numpy()
+    gp, order = gp.numpy(), order.tolist()
+    ends = np.cumsum(np.bincount(gid.numpy())).tolist()
+    return [(samples[order[a]].commit_log, [column_evals[(samples[i].tree, samples[i].col)] for i in order[a:b]],
+             gp[a:b], c) for a, b, c in zip([0] + ends[:-1], ends, consts)]
 
 
 def accumulate_quotients(
@@ -71,23 +100,12 @@ def accumulate_quotients(
     """Quotient evaluations per commit log on the full commitment domains.
 
     column_evals: {(tree, col): (2^commit_log,) int32 evaluations}; gamma a
-    (4,) int64 QM31.  Returns {commit_log: (2^log, 4) int32}."""
-    groups: Dict[tuple, list] = {}
-    for idx, s in enumerate(samples):
-        key = (s.commit_log, tuple(s.point[0].tolist()), tuple(s.point[1].tolist()))
-        groups.setdefault(key, []).append((idx, s))
-
-    allA, allB, allC, all_a, all_c0 = _batch_constants(samples)
-    gpows = _gamma_powers(gamma.cpu(), len(samples))
-    out: Dict[int, torch.Tensor] = {}
-    for batch in groups.values():  # insertion order: first appearance
-        log = batch[0][1].commit_log
-        idxs = torch.tensor([idx for idx, _ in batch])
-        gs = gpows[idxs]
-        first = int(idxs[0])
-        acc_a = f.qm31_mul(gs, all_a[idxs]).sum(dim=0) % f.P
-        acc_c0 = f.qm31_mul(gs, all_c0[idxs]).sum(dim=0) % f.P
-        consts = torch.stack([allA[first], allB[first], allC[first], acc_a, acc_c0])
-        cols = [column_evals[(s.tree, s.col)] for _, s in batch]
-        out[log] = kernels.deep_quotient(cols, gs, consts, log, out.get(log))
-    return out
+    (4,) int64 QM31.  Returns {commit_log: (2^log, 4) int32}, logs in
+    first-appearance order: every group in one call of K4."""
+    timer = tracing.current("prove")
+    with timer.span("3b_quotients.constants"):
+        groups = quotient_groups(samples, column_evals, gamma)
+    with timer.span("3b_quotients.plan"):
+        plan = kernels.QuotientPlan(groups)
+    with timer.span("3b_quotients.launch"):
+        return kernels.deep_quotient_many(plan)

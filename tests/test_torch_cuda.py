@@ -78,17 +78,46 @@ def test_fri_fold(dev, log):
     assert torch.equal(kernels.fri_fold(v, tw, a, mix, b2), kernels.fri_fold_plain(v, tw, a, mix, b2))
 
 
-@pytest.mark.parametrize("log,S", [(3, 1), (10, 7)])
-def test_deep_quotient(dev, log, S):
-    rng = np.random.default_rng(S)
-    cols = [_rnd(rng, dev, 1 << log) for _ in range(S)]
-    g = torch.from_numpy(rng.integers(0, f.P, (S, 4)))
-    c = torch.from_numpy(rng.integers(0, f.P, (5, 4)))
-    acc = _rnd(rng, dev, 1 << log, 4)
-    assert torch.equal(kernels.deep_quotient(cols, g, c, log), kernels.deep_quotient_plain(cols, g, c, log))
-    assert torch.equal(
-        kernels.deep_quotient(cols, g, c, log, acc.clone()), kernels.deep_quotient_plain(cols, g, c, log, acc)
-    )
+def _quotient_groups(rng, dev, spec):
+    """K4's groups from sample points on the circle (z, z - G, z + G of each
+    log) or through a domain row ("zero"), as a prove derives them."""
+    from luminair_tpu_torch import circle
+    from luminair_tpu_torch.pcs import quotients
+
+    z = circle.point_from_t_qm31(torch.from_numpy(rng.integers(0, f.P, 4)))
+    samples, evals, points = [], {}, {}
+    for log, n_cols, kind in spec:
+        if (kind, log) not in points:
+            if kind == "zero":
+                x, y = (t.to(torch.int64)[5].item() for t in circle.domain_table(log, torch.device("cpu")))
+                points[(kind, log)] = tuple(torch.tensor([c, 0] + list(rng.integers(1, f.P, 2))) for c in (x, y))
+            else:
+                g = circle.point_to_qm31(circle.group_gen(log))
+                points[(kind, log)] = {"z": z, "z-": circle.point_sub_qm31(z, g), "z+": circle.point_add_qm31(z, g)}[kind]
+        for _ in range(n_cols):
+            key = (0, len(evals))
+            evals[key] = _rnd(rng, dev, 1 << log)
+            samples.append(quotients.ColumnSample(log, *key, points[(kind, log)], rng.integers(0, f.P, 4).astype(np.uint32)))
+    return quotients.quotient_groups(samples, evals, torch.from_numpy(rng.integers(0, f.P, 4)))
+
+
+# Several logs in one call, S of 1 to 300, three points at one log, a line
+# through a domain row, logs below a CTA's 512 rows.
+@pytest.mark.parametrize("spec", [
+    [(3, 1, "z"), (10, 7, "z"), (10, 2, "z-"), (12, 56, "z"), (9, 300, "z")],
+    [(11, 5, "z"), (11, 2, "z-"), (11, 3, "z+"), (0, 2, "z"), (1, 1, "z-")],
+    [(10, 6, "zero"), (10, 3, "z"), (13, 4, "z")],
+])
+def test_deep_quotient(dev, spec):
+    rng = np.random.default_rng(len(spec) + spec[0][0])
+    plan = kernels.QuotientPlan(_quotient_groups(rng, dev, spec))
+    before = kernels.DEEP_QUOTIENT.launches
+    got = kernels.deep_quotient_many(plan)
+    assert kernels.DEEP_QUOTIENT.launches - before == 1
+    want = kernels.deep_quotient_many_plain(plan)
+    assert list(got) == list(want)
+    for log in want:
+        assert torch.equal(got[log], want[log]), log
 
 
 @pytest.mark.parametrize("fold", [0, 1, 2, 8])
@@ -252,7 +281,7 @@ def test_prove_path_never_takes_a_plain_twin(dev, monkeypatch):
 
         def checked(*args, **kwargs):
             flat = [a for x in list(args) + list(kwargs.values()) for a in (x if isinstance(x, (list, tuple)) else [x])]
-            if any(isinstance(a, torch.Tensor) and a.is_cuda or isinstance(a, kernels.DecommitPass)
+            if any(isinstance(a, torch.Tensor) and a.is_cuda or isinstance(a, (kernels.DecommitPass, kernels.QuotientPlan))
                    and a.dev.type == "cuda" for a in flat):
                 raise AssertionError(f"{name} reached with a CUDA tensor")
             return fn(*args, **kwargs)
@@ -289,6 +318,7 @@ def test_prove_path_never_takes_a_plain_twin(dev, monkeypatch):
     assert kernels.MERKLE.launches == sum(-(-(b + 1) // (kernels.MERKLE_TILE_LOG + 1)) for b in bottoms)
     assert len(bottoms) == 4 + len(proof.pcs_proof.fri_proof.layer_roots)
     assert kernels.OODS_EVAL.launches == 1
+    assert kernels.DEEP_QUOTIENT.launches == 1
 
 
 def _check_fri_launches(proof):
@@ -364,6 +394,31 @@ def test_card_trace_equals_cpu_trace(dev, name):
         assert np.array_equal(cx_gpu.output_data[rid], v)
 
 
+# T3's scan at segments below, at and above a CTA's 256 rows (walked in
+# chunks), inputs a stride of `back` apart.
+@pytest.mark.parametrize("back", [1, 5, 64])
+@pytest.mark.parametrize("dsize", [1, 2, 3, 64, 300, 1025])
+@pytest.mark.parametrize("op", ["sum_reduce", "max_reduce"])
+def test_trace_reduce_scan(dev, op, dsize, back):
+    from luminair_tpu_torch.graph.device_trace import TABLE_COLUMNS
+    from luminair_tpu_torch.graph.view import View
+
+    rng = np.random.default_rng(dsize * 100 + back)
+    hi = 2**31 if op == "max_reduce" else 2**62
+    buf = torch.from_numpy(rng.integers(-hi, hi, 2 * dsize * back)).to(dev)
+    rows = 2 * back
+    step = kernels.TraceStep(
+        op, [(buf, View.contiguous((2, back, dsize)).permute((0, 2, 1)))], rows,
+        out=torch.zeros(rows, dtype=torch.int64, device=dev),
+        cols={c: torch.zeros(rows * dsize, dtype=torch.int32, device=dev) for c in TABLE_COLUMNS[op]},
+        ids=(9, 2, 0), out_mult=3, dsize=dsize, back=back, mult=torch.zeros(256, dtype=torch.int32, device=dev),
+        flag=torch.zeros(1, dtype=torch.int32, device=dev))
+    k, p = step.fresh(), step.fresh()
+    kernels.trace_reduce(k)
+    kernels.trace_reduce_plain(p)
+    assert torch.equal(k.outputs(), p.outputs())
+
+
 @pytest.mark.parametrize("n", [1, 5, 1024, 100_003])
 def test_lut_minmax(dev, n):
     rng = np.random.default_rng(n)
@@ -383,7 +438,7 @@ def test_prove_from_card_trace_never_touches_the_host(dev, monkeypatch):
     def is_cuda(x):
         if isinstance(x, kernels.TraceStep):
             return x.srcs[0][0].is_cuda
-        if isinstance(x, kernels.DecommitPass):
+        if isinstance(x, (kernels.DecommitPass, kernels.QuotientPlan)):
             return x.dev.type == "cuda"
         return isinstance(x, torch.Tensor) and x.is_cuda
 

@@ -103,13 +103,16 @@ def _header():
     return (Path(kernels.__file__).resolve().parent / "csrc" / "oods.cuh").read_text()
 
 
-def _build(d: Path, header: str):
+def _m31():
+    return (Path(kernels.__file__).resolve().parent / "csrc" / "m31.cuh").read_text()
+
+
+def _build(d: Path, header: str, m31: str = None):
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no C++ compiler for the host build of csrc/oods.cuh")
-    csrc = Path(kernels.__file__).resolve().parent / "csrc"
     (d / "oods.cuh").write_text(header)
-    (d / "m31.cuh").write_text((csrc / "m31.cuh").read_text())
+    (d / "m31.cuh").write_text(m31 if m31 is not None else _m31())
     (d / "shim.cpp").write_text(_SHIM)
     subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(d), "-o", str(d / "oods.so"),
                     str(d / "shim.cpp")], check=True, capture_output=True, timeout=300)
@@ -153,8 +156,9 @@ def test_header_folds_the_largest_products(host_oods):
 
 
 # Mutations the twin must catch: a chunk's B_hi factor from the wrong
-# table entry, the folded product's high part dropped, a table built from
-# its factors in the wrong order.
+# table entry, the folded product's high part dropped and a reduction's
+# fold (both in m31.cuh, shared with K4), a table built from its factors
+# in the wrong order.
 @pytest.mark.parametrize("mutation", [
     ("qload(t2 + 4 * (chunk >> g.a))", "qload(t2 + 4 * (chunk >> g.a >> 1))"),
     ("s += (uint32_t)(p & P) + (uint32_t)(p >> 31);", "s += (uint32_t)(p & P);"),
@@ -163,9 +167,9 @@ def test_header_folds_the_largest_products(host_oods):
 ])
 def test_mutated_header_fails(tmp_path, mutation):
     old, new = mutation
-    header = _header()
-    assert header.count(old) == 1
-    lib = _build(tmp_path, header.replace(old, new))
+    header, m31 = _header(), _m31()
+    assert header.count(old) + m31.count(old) == 1
+    lib = _build(tmp_path, header.replace(old, new), m31.replace(old, new))
     groups = _port(_groups("a prove's mix"))
     want = f.tensor_to_u32(kernels.oods_eval_many_plain(groups))
     assert not np.array_equal(_host_eval(lib, groups, 2, 3), want)

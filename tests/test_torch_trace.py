@@ -5,6 +5,8 @@ output and settings byte must be equal (tolerance 0: the values are
 integers), and a proof from the device-path PIE must equal the reference's
 host proof byte for byte."""
 
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
@@ -293,20 +295,36 @@ def test_prove_rejects_trace_on_another_device(traced):
 # the plain twins.
 
 _SHIM = r"""
+#include <vector>
+#define __host__
 #define __device__
 #define __forceinline__ inline
 static inline unsigned atomicAdd(unsigned* p, unsigned v) { unsigned o = *p; *p += v; return o; }
 #include "trace.cuh"
+// A CTA of T threads whose phases run thread after thread.
+struct HostBlock {
+  int T;
+  int threads() const { return T; }
+  void sync() const {}
+  template <class F>
+  void each(F f) const { for (int t = 0; t < T; t++) f(t); }
+};
 extern "C" long long h_args_size() { return sizeof(lum::TraceArgs); }
 extern "C" void h_binary(const lum::TraceArgs* a) { for (long long i = 0; i < a->n; i++) lum::binary_row(*a, i); }
 extern "C" void h_unary(const lum::TraceArgs* a) { for (long long i = 0; i < a->n; i++) lum::unary_row(*a, i); }
-extern "C" void h_reduce(const lum::TraceArgs* a) { for (long long i = 0; i < a->n; i++) lum::reduce_row(*a, i); }
+extern "C" void h_reduce_ctas(const lum::TraceArgs* a, int T) {
+  std::vector<long long> raw(T), scan(2 * T);
+  std::vector<int> pos(T);
+  const long long per = lum::reduce_outputs_per_cta(a->dsize, T);
+  for (long long c = 0; c < (a->n + per - 1) / per; c++) lum::reduce_cta(HostBlock{T}, *a, c, raw.data(), scan.data(), pos.data());
+}
+extern "C" void h_reduce(const lum::TraceArgs* a) { h_reduce_ctas(a, 256); }  // the card's CTA
 """
 
 
-@pytest.fixture(scope="module")
-def host_rows(tmp_path_factory):
-    """{wrapper name: a function running one TraceStep through trace.cuh}."""
+def _build_rows(d, header=None):
+    """{wrapper name: a function running one TraceStep through trace.cuh
+    (or through `header` in its place)}, built with g++ in `d`."""
     import ctypes
     import shutil
     import subprocess
@@ -315,10 +333,12 @@ def host_rows(tmp_path_factory):
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no C++ compiler for the host build of csrc/trace.cuh")
-    d = tmp_path_factory.mktemp("trace_rows")
     (d / "shim.cpp").write_text(_SHIM)
-    csrc = Path(kernels.__file__).resolve().parent / "csrc"
-    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(csrc), "-o", str(d / "rows.so"),
+    inc = Path(kernels.__file__).resolve().parent / "csrc"
+    if header is not None:
+        (d / "trace.cuh").write_text(header)
+        inc = d
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(inc), "-o", str(d / "rows.so"),
                     str(d / "shim.cpp")], check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(d / "rows.so"))
     lib.h_args_size.restype = ctypes.c_longlong
@@ -333,8 +353,20 @@ def host_rows(tmp_path_factory):
 
         return run
 
+    lib.h_reduce_ctas.argtypes = [ctypes.c_void_p, ctypes.c_int]
+
+    def reduce_ctas(step, threads):
+        args = kernels._trace_args(step, CPU)
+        lib.h_reduce_ctas(ctypes.addressof(args), threads)
+
     return {"trace_binary": runner(lib.h_binary), "trace_unary": runner(lib.h_unary),
-            "trace_reduce": runner(lib.h_reduce)}
+            "trace_reduce": runner(lib.h_reduce), "reduce_ctas": reduce_ctas}
+
+
+@pytest.fixture(scope="module")
+def host_rows(tmp_path_factory):
+    """{wrapper name: a function running one TraceStep through trace.cuh}."""
+    return _build_rows(tmp_path_factory.mktemp("trace_rows"))
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -342,8 +374,8 @@ def test_kernel_rows_trace_like_twins(traced, host_rows, name, monkeypatch):
     """The whole device interpreter with trace.cuh's rows in place of the
     twins gives the twins' PIE, settings and outputs."""
     _, _, _, pcx, ps, pp = traced[name]
-    for wrapper, run in host_rows.items():
-        monkeypatch.setattr(kernels, wrapper, run)
+    for wrapper in ("trace_binary", "trace_unary", "trace_reduce"):
+        monkeypatch.setattr(kernels, wrapper, host_rows[wrapper])
     cx = _port_case(name)
     settings = T.gen_circuit_settings(cx, device="cpu")
     pie = T.gen_trace(cx, settings, device="cpu")
@@ -412,3 +444,69 @@ def test_kernel_rows_match_twins_on_extremes(host_rows, op):
     if op in ("lut", "max_reduce"):
         assert int(p.flag) == 1  # the inputs reach outside the ranges
 
+
+
+def _scan_step(op, dsize, back, rng):
+    """A reduction of the middle axis of a permuted (2, dsize, back) view
+    (the input of row (o, k) a stride of `back` from its neighbour), on
+    values whose max steps land inside and outside [0, 2^30)."""
+    from luminair_tpu_torch.graph.device_trace import TABLE_COLUMNS
+
+    n = 2 * dsize * back
+    hi = 2**31 if op == "max_reduce" else 2**62
+    buf = torch.from_numpy(rng.integers(-hi, hi, n))
+    view = View.contiguous((2, back, dsize)).permute((0, 2, 1))
+    rows = 2 * back
+    cols = {c: torch.zeros(rows * dsize, dtype=torch.int32) for c in TABLE_COLUMNS[op]}
+    return kernels.TraceStep(op, [(buf, view)], rows, out=torch.zeros(rows, dtype=torch.int64), cols=cols,
+                             ids=(9, 2, 0), out_mult=3, dsize=dsize, back=back,
+                             mult=torch.zeros(256, dtype=torch.int32), flag=torch.zeros(1, dtype=torch.int32))
+
+
+# Segments shorter than a CTA, a CTA's width, and longer (walked in chunks);
+# CTAs of 7 threads (segments of 2 and 3 leave threads idle, longer ones
+# split) and of the card's 256.
+@pytest.mark.parametrize("back", [1, 5, 64])
+@pytest.mark.parametrize("dsize", [1, 2, 3, 64, 300, 1025])
+@pytest.mark.parametrize("op", ["sum_reduce", "max_reduce"])
+def test_reduce_scan_matches_twin(host_rows, op, dsize, back):
+    """T3's segmented scan through trace.cuh against the twin's cumulative
+    sum / max: every column, the output, the histogram and the flag; and
+    the settings pre-pass (no columns) writes the same output."""
+    step = _scan_step(op, dsize, back, np.random.default_rng(dsize * 100 + back))
+    p = step.fresh()
+    kernels.trace_reduce_plain(p)
+    for threads in (7, 256):
+        k = step.fresh()
+        host_rows["reduce_ctas"](k, threads)
+        assert torch.equal(k.outputs(), p.outputs()), threads
+        values_only = replace(step.fresh(), cols={}, mult=None)
+        host_rows["reduce_ctas"](values_only, threads)
+        assert torch.equal(values_only.out, p.out)
+    if op == "max_reduce" and dsize > 1:
+        assert int(p.flag) == 1 and int(p.mult.sum()) == 4 * 2 * back * dsize
+
+
+# Mutations the scan must catch: the carry between chunks dropped, rows of
+# the previous segment combined, the element before a row taken as its
+# running value.
+@pytest.mark.parametrize("mutation", [
+    ("if (!whole && c0 > 0) {", "if (false) {"),
+    ("if (t >= off && pos[t] >= off) {", "if (t >= off) {"),
+    ("(t > 0 ? src[t - 1] : carry)", "(t > 0 ? raw[t - 1] : carry)"),
+])
+def test_mutated_scan_fails(tmp_path, mutation):
+    from pathlib import Path
+
+    old, new = mutation
+    header = (Path(kernels.__file__).resolve().parent / "csrc" / "trace.cuh").read_text()
+    assert header.count(old) == 1
+    rows = _build_rows(tmp_path, header.replace(old, new))
+    bad = 0
+    for dsize, back in ((3, 5), (300, 1)):
+        step = _scan_step("sum_reduce", dsize, back, np.random.default_rng(dsize))
+        k, p = step.fresh(), step.fresh()
+        rows["reduce_ctas"](k, 7)
+        kernels.trace_reduce_plain(p)
+        bad += not torch.equal(k.outputs(), p.outputs())
+    assert bad
