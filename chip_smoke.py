@@ -5,7 +5,7 @@
 
 Phases, one JSON line each; any failure raises and exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build the fourteen kernels from luminair_tpu_torch/csrc (nvcc,
+  2. build the thirteen kernels from luminair_tpu_torch/csrc (nvcc,
      sm_90a, one process per source, all at once), with ptxas' register
      and spill report;
   3. the black-scholes PINN's settings and trace on the host interpreter
@@ -28,24 +28,30 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      default; every kernel of the path must launch between the counters'
      reset and the first prove's end; the card's settings and PIE must
      equal the host interpreter's (downloaded after the timed window);
-     card and host seconds of settings and trace; the prover's self-check
+     card and host seconds of settings and trace, with the sub-spans of
+     the two passes (graph/device_trace.py); trace_segment launched once
+     per segment (at most one more than the pass's T3 launches, and in
+     the settings pass its T4 launches); the prover's self-check
      must pass, the host PIE's proof must have the same bytes, and the
      native C++ verifier must accept the proof; K2 may take at most
      ceil((L + 1) / (t + 1)) launches per tree of 2^L leaves (tile 2^t),
      K4 and K7 one call per prove; then the path once more keeping the
      inputs of each kernel call at each distinct shape (the trace
-     kernels' steps too), every kept call run again through the kernel
-     and through its plain twin, bit for bit, and the bounds of every
-     kernel's calls summed (per_run_bound; trace steps apart from the
-     settings pass's); then one prove, one
+     segments and T3 steps too), every kept call run again through the
+     kernel and through its plain twin, bit for bit (a segment three
+     times, from fresh outputs each time, and each of its nodes alone as
+     a one-node segment), and the bounds of every kernel's calls summed
+     (per_run_bound; the settings pass's apart, and trace_segment's also
+     over its nodes alone); then one prove, one
      settings pre-pass and one trace under torch.profiler: device busy
      time, idle share, copies, and the kernels that take the device's
      time;
   6. the PINN path: the 2-64-64-1 network (Linear + tanh, random weights
      from a seed) at batch 256 through Graph -> nn.Linear -> compile ->
      gen_circuit_settings -> gen_trace -> prove, the same checks, the
-     model's output within 0.05 of its float64 forward pass, T1-T4 timed
-     at the largest call each made, and profiles of the prove, the
+     model's output within 0.05 of its float64 forward pass,
+     trace_segment, T3 and T4 timed at the largest call each made (and
+     every segment of the path alone), and profiles of the prove, the
      settings pre-pass and the trace;
   6b. the PINN at the 80-bit profile (path pinn_b256_hs): the same card PIE
      and settings proved with PcsConfig.high_security() (16 PoW bits, 64
@@ -55,8 +61,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      plus one, every kernel call of one prove replayed through kernel and
      twin, K8-K10 timed at the calls this prove made, one profiled prove;
   7. the six op graphs (models/op_graphs.py): the card's settings and PIE
-     against the host interpreter's, each trace step through kernel and
-     twin, and all_ops proved on the card and accepted by the native
+     against the host interpreter's, each trace segment and step through
+     kernel and twin, and all_ops proved on the card and accepted by the native
      verifier;
   8. the 16x16 graph traced and proved on the card equals, byte for byte,
      the same traced and proved on the CPU, at the default profile and at
@@ -127,8 +133,8 @@ PORT_KERNEL_NAMES = (
     "fft_pass_kernel", "merkle_pass_kernel", "fri_fold_kernel",
     "deep_quotient_kernel", "air_witness_kernel", "scan_tile", "air_domain_kernel",
     "oods_partial_kernel", "oods_combine_kernel", "fri_fold_chain_kernel", "channel_draw_kernel",
-    "channel_mix_draw_kernel", "decommit_kernel", "grind_pow_kernel", "trace_binary_kernel", "trace_unary_kernel",
-    "trace_reduce_kernel", "lut_minmax_kernel",
+    "channel_mix_draw_kernel", "decommit_kernel", "grind_pow_kernel", "trace_segment_kernel", "trace_reduce_kernel",
+    "lut_minmax_kernel",
 )
 
 
@@ -592,23 +598,28 @@ def host_trace(build):
 def card_trace(T, cx, counts=None):
     """Settings and PIE from the user's entry points (on the card by
     default), each timed to a synchronise; with `counts`, also the
-    launches each of the two made."""
+    launches each of the two made.  Also the sub-spans of the two passes
+    (graph/device_trace.py, each ended by a synchronise)."""
+    from luminair_tpu_torch import tracing
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     settings = T.gen_circuit_settings(cx)
     torch.cuda.synchronize()
     settings_s = time.perf_counter() - t0
+    spans = {"settings": tracing.last_phases("settings")}
     after_settings = counts() if counts else None
     t0 = time.perf_counter()
     pie = T.gen_trace(cx, settings)
     torch.cuda.synchronize()
     trace_s = time.perf_counter() - t0
+    spans["trace"] = tracing.last_phases("trace")
     stages = None
     if counts:
         after = counts()
         stages = {"settings": {k: v for k, v in after_settings.items() if v},
                   "trace": {k: after[k] - after_settings[k] for k in after if after[k] > after_settings[k]}}
-    return pie, settings, settings_s, trace_s, stages
+    return pie, settings, settings_s, trace_s, stages, spans
 
 
 def pie_mismatches(f, card_pie, host_pie) -> list:
@@ -685,6 +696,17 @@ def path_launches(kernels, tag, first_s, launches, bottoms, expect):
                              f"K7 {launches['oods_eval']} calls, K4 {launches['deep_quotient']} (at most 1 each)")
 
 
+def segment_launch_gate(tag, stages) -> None:
+    """trace_segment launches once per segment: a trace's segments are cut at
+    its reductions (T3), a settings pass's at its LUT nodes (one T4 each)
+    too."""
+    for stage, cuts in (("trace", ("trace_reduce",)), ("settings", ("trace_reduce", "lut_minmax"))):
+        got = stages[stage].get("trace_segment", 0)
+        most = 1 + sum(stages[stage].get(k, 0) for k in cuts)
+        if not 1 <= got <= most:
+            raise AssertionError(f"{tag}: the {stage} pass made {got} trace_segment launches (1 to {most})")
+
+
 def phase_path(T, kernels, serde, tracing, f, card, tag, build, host, expect, check_output=None):
     """One path.  `host` is the host interpreter's (PIE, settings, seconds,
     seconds).  With every launch counter set to 0 just before it and read
@@ -697,15 +719,17 @@ def phase_path(T, kernels, serde, tracing, f, card, tag, build, host, expect, ch
     cx, out = build()
     with tree_bottoms(kernels) as bottoms:
         kernels.reset_counts()
-        pie, settings, settings_s, trace_s, stage_launches = card_trace(T, cx, kernels.counts)
+        pie, settings, settings_s, trace_s, stage_launches, spans = card_trace(T, cx, kernels.counts)
         t0 = time.perf_counter()
         proof = T.prove(pie, settings)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         launches = kernels.counts()
     path_launches(kernels, tag, first_s, launches, bottoms, expect)
+    segment_launch_gate(tag, stage_launches)
 
-    card_s = [(settings_s, trace_s)] + [tuple(card_trace(T, build()[0])[2:4]) for _ in range(2)]
+    card_s = [(settings_s, trace_s, spans)] + [card_trace(T, build()[0])[2:] for _ in range(2)]
+    card_s = [(c[0], c[1], c[-1]) for c in card_s]
     bad = pie_mismatches(f, pie, host_pie)
     same_settings = serde.settings_to_flat_bytes(settings) == serde.settings_to_flat_bytes(host_settings)
     line = {
@@ -716,6 +740,7 @@ def phase_path(T, kernels, serde, tracing, f, card, tag, build, host, expect, ch
         "trace_card_seconds_median": statistics.median(c[1] for c in card_s),
         "pie_equals_host": not bad, "settings_bytes_equal_host": same_settings,
         "launches": stage_launches,
+        "settings_spans_s": [c[2]["settings"] for c in card_s], "trace_spans_s": [c[2]["trace"] for c in card_s],
         "tables": {k: [t.n_rows, t.log_size, len(t.columns)] for k, t in pie.trace_tables.items()},
     }
     if check_output is not None:
@@ -786,8 +811,7 @@ def path_twins(kernels, tape, f):
 
 def trace_twins(kernels):
     return {
-        "trace_binary": ("trace_binary", kernels.trace_binary_plain, ("s",)),
-        "trace_unary": ("trace_unary", kernels.trace_unary_plain, ("s",)),
+        "trace_segment": ("trace_segment", kernels.trace_segment_plain, ("seg",)),
         "trace_reduce": ("trace_reduce", kernels.trace_reduce_plain, ("s",)),
         "lut_minmax": ("lut_minmax", lambda a: kernels.lut_minmax_plain(a["buf"]), ("buf",)),
     }
@@ -797,7 +821,8 @@ def describe(x):
     """The part of an argument that sets a call's work: a tensor's shape
     (and strides when it is a view), a column list's length and column
     shape, a decommitment pass's trees and output size, a tape's
-    component, a trace step's op, rows and source shapes."""
+    component, a trace step's op, rows and source shapes, a trace
+    segment's items (op and rows each) and whether it writes columns."""
     if isinstance(x, torch.Tensor):
         return tuple(x.shape) if x.is_contiguous() else (tuple(x.shape), x.stride())
     if isinstance(x, (list, tuple)) and x and isinstance(x[0], torch.Tensor):
@@ -812,6 +837,8 @@ def describe(x):
         return tuple(describe(cols) for cols, _ in x)
     if hasattr(x, "n_relations"):
         return x.name
+    if hasattr(x, "has_columns"):  # a trace segment
+        return (tuple((it.op, it.rows) for it in x.items()), x.has_columns)
     if hasattr(x, "fresh"):
         return (x.op, x.rows, x.dsize, x.back, tuple((len(b), v.shape) for b, v in x.srcs), bool(x.cols))
     return x
@@ -877,10 +904,14 @@ class recording:
             work = WORK[name](a) if name in WORK else WORK_AFTER[name][1](a, out, before) if name in WORK_AFTER else None
             if work is not None:
                 kernel = self.twins[name][0]
-                if hasattr(a.get("s"), "fresh") and not a["s"].cols:
+                if is_settings_step(a):
                     kernel += "_settings"  # a step of the settings pre-pass, apart from the trace's
                 self.bound_ms[kernel] = self.bound_ms.get(kernel, 0.0) + bound(*work)[0]
                 self.bound_calls[kernel] = self.bound_calls.get(kernel, 0) + 1
+                if name == "trace_segment":  # the nodes alone, as T1 and T2 were bounded
+                    nodes = kernel.replace("trace_segment", "trace_segment_nodes")
+                    self.bound_ms[nodes] = self.bound_ms.get(nodes, 0.0) + bound(*segment_work(a["seg"], True))[0]
+                    self.bound_calls[nodes] = self.bound_calls.get(nodes, 0) + 1
             return out
 
         return rec
@@ -894,6 +925,39 @@ class recording:
         for name, fn in self.originals.items():
             setattr(self.kernels, name, fn)
         return False
+
+
+def is_settings_step(a: dict) -> bool:
+    """A trace step or segment of the settings pre-pass (no columns)."""
+    if "seg" in a:
+        return not a["seg"].has_columns
+    return hasattr(a.get("s"), "fresh") and not a["s"].cols
+
+
+SEGMENT_RUNS = 3  # each kept segment through the kernel, from fresh outputs each time
+
+
+def segment_err(kernels, seg) -> float:
+    """A segment through its kernel SEGMENT_RUNS times and through its twin,
+    each from fresh outputs (a missing barrier shows as words that differ
+    only sometimes); then each of its node items alone, as a one-node
+    segment (trace_binary / trace_unary) against the op's twin."""
+    want = seg.fresh()
+    kernels.trace_segment_plain(want)
+    err = 0
+    for _ in range(SEGMENT_RUNS):
+        got = seg.fresh()
+        kernels.trace_segment(got)
+        err = max(err, trace_err(got.outputs(), want.outputs()))
+    for step in seg.fresh().steps():
+        if step.op == "pad":
+            continue
+        binary = step.op in ("add", "mul", "rem", "less_than")
+        k, p = step.fresh(), step.fresh()
+        (kernels.trace_binary if binary else kernels.trace_unary)(k)
+        (kernels.trace_binary_plain if binary else kernels.trace_unary_plain)(p)
+        err = max(err, trace_err(k.outputs(), p.outputs()))
+    return err
 
 
 def trace_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -913,7 +977,9 @@ def replay(kernels, twins, kept, calls) -> dict:
     for key, a in kept.items():
         name = key[0]
         kernel_name, plain, _ = twins[name]
-        if "s" in a and hasattr(a["s"], "fresh"):
+        if "seg" in a:
+            err = segment_err(kernels, a["seg"])
+        elif "s" in a and hasattr(a["s"], "fresh"):
             k, p = a["s"].fresh(), a["s"].fresh()
             getattr(kernels, name)(k)
             plain(p)
@@ -1034,8 +1100,7 @@ WORK = {
     "air_domain": domain_work,
     "oods_eval_many": lambda a: tuple(map(sum, zip(*(oods_work(len(cols), len(chain))
                                                      for cols, chain in a["groups"])))),
-    "trace_binary": lambda a: step_work(a["s"]),
-    "trace_unary": lambda a: step_work(a["s"]),
+    "trace_segment": lambda a: segment_work(a["seg"]),
     "trace_reduce": lambda a: step_work(a["s"]),
     "lut_minmax": lambda a: (8 * len(a["buf"]) + 16, 2 * len(a["buf"]), INT64_OPS_PER_S),
 }
@@ -1095,7 +1160,7 @@ def phase_path_kernels(T, kernels, tape, f, tag: str, run, expect):
 INT64_OPS_PER_S = INT32_OPS_PER_S / 2
 TRACE_ROW_OPS = {
     "add": 8, "mul": 12, "rem": 12, "less_than": 16, "inputs": 4, "recip": 10, "square": 10, "sqrt": 14,
-    "lut": 8, "contiguous": 8, "sum_reduce": 10, "max_reduce": 18,
+    "lut": 8, "contiguous": 8, "sum_reduce": 10, "max_reduce": 18, "pad": 0,
 }
 
 
@@ -1119,15 +1184,25 @@ def step_bound(s):
     return bound(*step_work(s))
 
 
+def segment_work(seg, nodes_only: bool = False):
+    """(bytes, operations, rate) of a trace segment: step_work summed over
+    its items (with nodes_only, over its nodes alone: the padding rows were
+    torch fills before the segment kernel wrote them)."""
+    works = [step_work(s) for s in seg.steps() if not (nodes_only and s.op == "pad")]
+    return sum(w[0] for w in works), sum(w[1] for w in works), INT64_OPS_PER_S
+
+
 def trace_kernel_rows(kernels, kept) -> dict:
-    """T1-T3 timed at the largest call each made in the path's trace (T4
-    in its settings pre-pass), against the twin on the card; T4 also
-    against torch.aminmax."""
+    """trace_segment and T3 timed at the largest call each made in the
+    path's trace (T4 in its settings pre-pass), against the twin on the
+    card; T4 also against torch.aminmax."""
     largest = {}
     for key, a in kept.items():
         name = key[0]
-        if name in ("trace_binary", "trace_unary", "trace_reduce"):
-            # A step of the trace (with columns) before a settings step.
+        if name == "trace_segment":
+            # A segment of the trace (with columns) before a settings segment.
+            size = (a["seg"].has_columns, sum(it.rows for it in a["seg"].items()))
+        elif name == "trace_reduce":
             size = (bool(a["s"].cols), a["s"].rows * a["s"].dsize)
         elif name == "lut_minmax":
             size = (True, len(a["buf"]))
@@ -1135,17 +1210,32 @@ def trace_kernel_rows(kernels, kept) -> dict:
             continue
         if name not in largest or size > largest[name][0]:
             largest[name] = (size, a)
+    for key, a in kept.items():  # every segment of the path, alone
+        if key[0] == "trace_segment":
+            seg = a["seg"].fresh()
+            items = seg.items()
+            emit({"phase": "kernel_time_extra", "kernel": "trace_segment",
+                  "shape": f"{'trace' if seg.has_columns else 'settings'}: {len(items)} items, "
+                           f"{len(seg.table.chains)} chains in the pass, {seg.p1 - seg.p0} phases, "
+                           f"{sum(it.rows for it in items)} rows",
+                  "ms": time_ms(lambda: kernels.trace_segment(seg)), "bound_ms": bound(*segment_work(seg))[0]})
     rows = {}
-    for name, twin in (("trace_binary", kernels.trace_binary_plain), ("trace_unary", kernels.trace_unary_plain),
-                       ("trace_reduce", kernels.trace_reduce_plain)):
-        s = largest[name][1]["s"]
-        k, p = s.fresh(), s.fresh()
-        rows[name] = dict(
-            shape=f"{s.op}, {s.rows * s.dsize} rows, {len(s.cols)} columns, sources "
-                  f"{[tuple(v.shape) for _, v in s.srcs]}",
-            err=0, ms=time_ms(lambda: getattr(kernels, name)(k)), plain_ms=time_ms(lambda: twin(p)),
-            bound=step_bound(s), library=None,
-        )
+    seg = largest["trace_segment"][1]["seg"]
+    k, p = seg.fresh(), seg.fresh()
+    items = seg.items()
+    rows["trace_segment"] = dict(
+        shape=f"{len(items)} items in {seg.p1 - seg.p0} phases, {sum(it.rows for it in items)} rows "
+              f"({', '.join(f'{it.op} {it.rows}' for it in items[:6])}{', ...' if len(items) > 6 else ''})",
+        err=0, ms=time_ms(lambda: kernels.trace_segment(k)), plain_ms=time_ms(lambda: kernels.trace_segment_plain(p)),
+        bound=bound(*segment_work(seg)), library=None,
+    )
+    s = largest["trace_reduce"][1]["s"]
+    k, p = s.fresh(), s.fresh()
+    rows["trace_reduce"] = dict(
+        shape=f"{s.op}, {s.rows * s.dsize} rows, {len(s.cols)} columns, sources {[tuple(v.shape) for _, v in s.srcs]}",
+        err=0, ms=time_ms(lambda: kernels.trace_reduce(k)), plain_ms=time_ms(lambda: kernels.trace_reduce_plain(p)),
+        bound=step_bound(s), library=None,
+    )
     buf = largest["lut_minmax"][1]["buf"]
     rows["lut_minmax"] = dict(
         shape=f"{len(buf)} int64", err=0, ms=time_ms(lambda: kernels.lut_minmax(buf)),
@@ -1448,8 +1538,7 @@ def main() -> int:
         pinn_tag: [k.name for k in kernels.KERNELS],
     }
     # A prove from a PIE: K1-K10, no trace kernel.
-    expect[hs_tag] = [k.name for k in kernels.KERNELS if k.name not in ("trace_binary", "trace_unary", "trace_reduce",
-                                                                        "lut_minmax")]
+    expect[hs_tag] = [k.name for k in kernels.KERNELS if k.name not in ("trace_segment", "trace_reduce", "lut_minmax")]
     pinn_host = host_trace(paths[pinn_tag][0])
     emit({"phase": "pinn_host_trace", "batch": PINN_BATCH, "trace_cells": trace_cells(pinn_host[0]),
           "settings_host_seconds": pinn_host[2], "trace_host_seconds": pinn_host[3]})

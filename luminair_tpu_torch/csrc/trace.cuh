@@ -1,6 +1,7 @@
 // The trace interpreter's per-row work (csrc/trace.cu): fixed-point int64
-// arithmetic with numpy's semantics, strided-view resolution, and the
-// column writes of one row of a trace table.
+// arithmetic with numpy's semantics, strided-view resolution, the column
+// writes of one row of a trace table, and the tiles and phases of the
+// segment interpreter.
 //
 // numpy is the spec (luminair_tpu_torch/fixed.py, graph/view.py):
 //   * int64 sums and products wrap modulo 2^64: computed on uint64 and
@@ -13,12 +14,14 @@
 //   * sqrt takes the float64 estimate of the clamped product (IEEE sqrt is
 //     correctly rounded here and on the host, so the estimate is the same)
 //     and the host's single clamp in each direction, with wrapping squares.
-// The struct and the enums below are mirrored by luminair_tpu_torch/kernels.py
-// (TraceArgs, TRACE_OPS, TRACE_COLS), which checks sizeof and the counts
-// when the library loads.
+// The structs and the enums below are mirrored by luminair_tpu_torch/kernels.py
+// (ViewDesc, TraceArgs, SegPhase, SegArgs, TRACE_OPS, TRACE_COLS), which
+// checks their sizes, their field offsets and the counts when the library
+// loads.
 #pragma once
 
 #include <math.h>
+#include <stddef.h>
 #include <stdint.h>
 
 namespace lum {
@@ -41,6 +44,7 @@ enum TraceOp : int {
   T_CONTIGUOUS,
   T_SUM_REDUCE,
   T_MAX_REDUCE,
+  T_PAD,  // a table's padding rows: every column given gets out_mult
   T_N_OPS
 };
 
@@ -92,20 +96,34 @@ enum TraceCol : int {
   C_N_COLS
 };
 
-// A strided view over a physical int64 buffer of `len` elements: logical
-// coordinate c_d outside [lo_d, hi_d) reads 0 (graph/view.py).
+// A strided view over a physical int64 buffer of `len` elements, packed
+// by graph/view.py (View.packed): dimensions that resolve as one are merged,
+// and logical coordinate c_d outside [lo_d, hi_d) reads 0.  Each size has a
+// fast-divmod pair: floor(n / sizes[d]) = (n * magic[d]) >> shift[d] for
+// every n < 2^31 (magic = ceil(2^shift / size), shift = 31 + ceil(log2
+// size)), so a row resolves its coordinates with 32-bit products and no
+// division.  A view has fewer than 2^31 elements.  `fresh` marks a buffer
+// written earlier in the same launch (an earlier phase or item of the
+// chain of a segment): it is read through L2 only; any other buffer is
+// read-only while the kernel runs, and is read through the read-only cache.
 struct ViewDesc {
-  long long sizes[VIEW_MAX_DIMS];
   long long strides[VIEW_MAX_DIMS];
-  long long lo[VIEW_MAX_DIMS];
-  long long hi[VIEW_MAX_DIMS];
   long long base;
   long long len;
+  uint32_t sizes[VIEW_MAX_DIMS];
+  uint32_t magic[VIEW_MAX_DIMS];
+  uint32_t shift[VIEW_MAX_DIMS];
+  int32_t lo[VIEW_MAX_DIMS];  // clamped into [0, size]
+  int32_t hi[VIEW_MAX_DIMS];
   int ndim;
-  int pad_;
+  int fresh;
 };
 
-// Everything one launch reads besides the buffers, passed by value.
+// One row range of a launch: a node's rows (T1, T2, T3), or a table's
+// padding rows (T_PAD: n = the padding rows x the columns cols[0 .. m),
+// row r the word r % pad of column r / pad, view[0].sizes[1] = pad with its
+// fast-divmod pair).  A trace segment reads a table of them from device
+// memory; T3 takes one by value.
 struct TraceArgs {
   unsigned long long src[2];  // int64 source buffers
   ViewDesc view[2];
@@ -114,16 +132,95 @@ struct TraceArgs {
   unsigned long long lut_lo, lut_hi, lut_start, lut_out;  // int64: ranges and the outputs table
   unsigned long long mult;    // uint32 histogram (LUT or range-check multiplicities), or 0
   unsigned long long flag;    // int32 word set to 1 on an input out of range, or 0
-  long long n;                // rows (T1, T2) or outputs (T3) of the launch
+  long long n;                // rows (T1, T2, T_PAD) or outputs (T3)
   long long n_in, n_out;      // contiguous: raw buffer length, gathered length
   long long dsize, back;      // reductions: the reduced axis and the elements after it
   long long lut_n;            // entries of the LUT outputs table
   int op;
   int n_ranges;
   uint32_t node_id, id0, id1;  // node, lhs / input, rhs ids
-  uint32_t out_mult, in_mult;
+  uint32_t out_mult, in_mult;  // T_PAD: the padding value in out_mult
   uint32_t pad_;
 };
+
+// A chain of a segment: items [first, first + count) of the pass's table,
+// all of the same rows, run tile by tile in order -- each thread runs its
+// rows of the first item, then the same rows of the next, so an item may
+// read what an earlier item of its chain wrote at its own row (a view that
+// maps row r to element r) with no barrier.  Its rows are cut into tiles of
+// SEG_TILE << shift rows (1 << shift a thread); tile0 is its first tile in
+// its phase.
+struct SegChain {
+  int first;
+  int count;
+  long long tile0;
+  int shift;
+  int pad_;
+};
+
+// A phase of a segment: chains [first, first + count) of the pass, `tiles`
+// tiles in all.  No chain of a phase reads what another chain of it writes.
+struct SegPhase {
+  int first;
+  int count;
+  long long tiles;
+};
+
+// One launch of the segment interpreter: phases [p0, p1) of a pass.
+struct SegArgs {
+  unsigned long long nodes;    // TraceArgs[] of the pass
+  unsigned long long chains;   // SegChain[] of the pass
+  unsigned long long phases;   // SegPhase[] of the pass
+  unsigned long long barrier;  // uint32[2]: arrivals, generation (zero when the pass starts)
+  long long max_tiles;         // the most tiles of a phase in [p0, p1)
+  int p0, p1;
+};
+
+constexpr int SEG_THREADS = 256;
+constexpr long long SEG_TILE = SEG_THREADS;  // rows of a tile: one a thread
+constexpr int SEG_CHAIN = 8;                 // descriptors a CTA holds at once
+
+// Checked against kernels.py: the offsets of the fields, folded in order.
+constexpr unsigned long long fold_offset(unsigned long long h, size_t off) {
+  return (h * 1000003ull + off) & 0x1fffffffffffffffull;
+}
+
+constexpr unsigned long long trace_layout() {
+  unsigned long long h = 0;
+  h = fold_offset(h, offsetof(ViewDesc, strides));
+  h = fold_offset(h, offsetof(ViewDesc, base));
+  h = fold_offset(h, offsetof(ViewDesc, len));
+  h = fold_offset(h, offsetof(ViewDesc, sizes));
+  h = fold_offset(h, offsetof(ViewDesc, magic));
+  h = fold_offset(h, offsetof(ViewDesc, shift));
+  h = fold_offset(h, offsetof(ViewDesc, lo));
+  h = fold_offset(h, offsetof(ViewDesc, hi));
+  h = fold_offset(h, offsetof(ViewDesc, ndim));
+  h = fold_offset(h, offsetof(ViewDesc, fresh));
+  h = fold_offset(h, offsetof(TraceArgs, src));
+  h = fold_offset(h, offsetof(TraceArgs, view));
+  h = fold_offset(h, offsetof(TraceArgs, out));
+  h = fold_offset(h, offsetof(TraceArgs, cols));
+  h = fold_offset(h, offsetof(TraceArgs, lut_lo));
+  h = fold_offset(h, offsetof(TraceArgs, mult));
+  h = fold_offset(h, offsetof(TraceArgs, flag));
+  h = fold_offset(h, offsetof(TraceArgs, n));
+  h = fold_offset(h, offsetof(TraceArgs, n_in));
+  h = fold_offset(h, offsetof(TraceArgs, dsize));
+  h = fold_offset(h, offsetof(TraceArgs, lut_n));
+  h = fold_offset(h, offsetof(TraceArgs, op));
+  h = fold_offset(h, offsetof(TraceArgs, n_ranges));
+  h = fold_offset(h, offsetof(TraceArgs, node_id));
+  h = fold_offset(h, offsetof(TraceArgs, out_mult));
+  h = fold_offset(h, offsetof(TraceArgs, in_mult));
+  h = fold_offset(h, offsetof(SegChain, tile0));
+  h = fold_offset(h, offsetof(SegChain, shift));
+  h = fold_offset(h, offsetof(SegPhase, tiles));
+  h = fold_offset(h, offsetof(SegArgs, chains));
+  h = fold_offset(h, offsetof(SegArgs, max_tiles));
+  h = fold_offset(h, offsetof(SegArgs, p0));
+  return h;
+}
 
 __device__ __forceinline__ long long wadd(long long a, long long b) {
   return (long long)((unsigned long long)a + (unsigned long long)b);
@@ -141,33 +238,71 @@ __device__ __forceinline__ long long trunc_div(long long a, long long b) {
   return a / b;
 }
 
+// The floor-mod of v by P = 2^31 - 1 with no 64-bit division: u = v + 2^63
+// (the bits of v with the top one flipped) is v + 2 modulo P, since 2^31 is
+// 1 modulo P; two folds of 31 bits leave it below 2^31 + 5.
 __device__ __forceinline__ uint32_t to_m31(long long v) {
-  long long r = v % M31_P;
+  const unsigned long long u = (unsigned long long)v ^ (1ull << 63);
+  unsigned long long f = (u & (unsigned long long)M31_P) + (u >> 31);
+  f = (f & (unsigned long long)M31_P) + (f >> 31);
+  long long r = (long long)f - 2;
+  r = r >= M31_P ? r - M31_P : r;
   return (uint32_t)(r < 0 ? r + M31_P : r);
 }
 
-// Logical element i of the view over `buf` (0 outside the valid box; the
-// physical index is clamped into the buffer as the host's gather does).
-__device__ __forceinline__ long long gather(const ViewDesc& v, const long long* buf, long long i) {
+// A source element: through L2 only when the launch wrote it (so a row of
+// a later phase never sees a stale L1 line of what an earlier phase wrote),
+// else through the read-only cache (a small buffer read by a broadcast or a
+// stride stays near the SM).
+__host__ __device__ __forceinline__ long long load_src(const long long* p, int fresh) {
+#ifdef __CUDA_ARCH__
+  return fresh ? __ldcg(p) : __ldg(p);
+#else
+  return *p;
+#endif
+}
+
+// A column word, stored streaming (evict first): the trace never reads its
+// columns back (tools/trace_segment_variants.py measures the choice).
+__host__ __device__ __forceinline__ void store_col(uint32_t* p, uint32_t v) {
+#ifdef __CUDA_ARCH__
+  __stcs((unsigned int*)p, v);
+#else
+  *p = v;
+#endif
+}
+
+__host__ __device__ __forceinline__ uint32_t fast_div(uint32_t n, uint32_t magic, uint32_t shift) {
+  return (uint32_t)(((unsigned long long)n * magic) >> shift);
+}
+
+// Logical element i of the view over `buf`, i below the view's element
+// count (so the outermost coordinate is what is left of i once the inner
+// ones are taken off): 0 outside the valid box; the physical index is
+// clamped into the buffer as the host's gather does.
+__device__ __forceinline__ long long gather(const ViewDesc& v, const long long* buf, uint32_t i) {
   long long phys = v.base;
   bool ok = true;
   for (int d = v.ndim - 1; d >= 0; d--) {
-    const long long size = v.sizes[d] > 0 ? v.sizes[d] : 1;
-    const long long c = i % size;
-    i /= size;
-    phys += c * v.strides[d];
-    ok = ok && c >= v.lo[d] && c < v.hi[d];
+    uint32_t c = i;
+    if (d > 0) {
+      const uint32_t q = fast_div(i, v.magic[d], v.shift[d]);
+      c = i - q * v.sizes[d];
+      i = q;
+    }
+    phys = wadd(phys, wmul((long long)c, v.strides[d]));
+    ok = ok && (int32_t)c >= v.lo[d] && (int32_t)c < v.hi[d];
   }
   if (!ok) return 0;
   phys = phys < 0 ? 0 : (phys >= v.len ? v.len - 1 : phys);
-  return buf[phys];
+  return load_src(buf + phys, v.fresh);
 }
 
 struct Row {
   const TraceArgs& a;
   long long r;  // row within the node's block
   __device__ __forceinline__ void put(int slot, uint32_t v) const {
-    if (a.cols[slot]) ((uint32_t*)a.cols[slot])[r] = v;
+    if (a.cols[slot]) store_col((uint32_t*)a.cols[slot] + r, v);
   }
   // node_id, idx, is_last_idx, next_*, and the source ids: `idx` is the
   // row (the output index for reductions), `last` its largest value.
@@ -186,18 +321,18 @@ struct Row {
   }
 };
 
-__device__ __forceinline__ void count(const TraceArgs& a, long long pos) {
+__device__ __forceinline__ void count(const TraceArgs& __restrict__ a, long long pos) {
   if (a.mult) atomicAdd((unsigned int*)a.mult + pos, 1u);
 }
 
-__device__ __forceinline__ void raise_flag(const TraceArgs& a) {
+__device__ __forceinline__ void raise_flag(const TraceArgs& __restrict__ a) {
   if (a.flag) *(volatile int*)a.flag = 1;
 }
 
 // T1: add / mul / rem / less_than at row i.
-__device__ __forceinline__ void binary_row(const TraceArgs& a, long long i) {
-  const long long x = gather(a.view[0], (const long long*)a.src[0], i);
-  const long long y = gather(a.view[1], (const long long*)a.src[1], i);
+__device__ __forceinline__ void binary_row(const TraceArgs& __restrict__ a, long long i) {
+  const long long x = gather(a.view[0], (const long long*)a.src[0], (uint32_t)i);
+  const long long y = gather(a.view[1], (const long long*)a.src[1], (uint32_t)i);
   const Row row{a, i};
   long long out;
   switch (a.op) {
@@ -248,7 +383,7 @@ __device__ __forceinline__ void binary_row(const TraceArgs& a, long long i) {
 
 // Position of x in the LUT's enumeration, -1 outside every range: the last
 // range whose lo is <= x, by binary search over the ascending lows.
-__device__ __forceinline__ long long find_index(const TraceArgs& a, long long x) {
+__device__ __forceinline__ long long find_index(const TraceArgs& __restrict__ a, long long x) {
   const long long* lo = (const long long*)a.lut_lo;
   int left = 0, right = a.n_ranges;  // first range with lo > x
   while (left < right) {
@@ -263,7 +398,7 @@ __device__ __forceinline__ long long find_index(const TraceArgs& a, long long x)
 
 // T2: inputs (copy_to / constant) / recip / square / sqrt / sin, exp2,
 // log2 (T_LUT) / contiguous at row r.
-__device__ __forceinline__ void unary_row(const TraceArgs& a, long long r) {
+__device__ __forceinline__ void unary_row(const TraceArgs& __restrict__ a, long long r) {
   const Row row{a, r};
   const long long* src = (const long long*)a.src[0];
   row.common(r, a.n - 1);
@@ -271,15 +406,15 @@ __device__ __forceinline__ void unary_row(const TraceArgs& a, long long r) {
     // max(n_in, n_out) rows: the raw buffer is consumed element by element
     // beside the gathered output (graph/trace.py, contiguous).
     const bool in = r < a.n_in, has_out = r < a.n_out;
-    const long long g = has_out ? gather(a.view[0], src, r) : 0;
-    row.put(C_INPUT, to_m31(in ? src[r] : 0));
+    const long long g = has_out ? gather(a.view[0], src, (uint32_t)r) : 0;
+    row.put(C_INPUT, to_m31(in ? load_src(src + r, a.view[0].fresh) : 0));
     row.put(C_OUT, to_m31(g));
     row.put(C_INPUT_MULT, in ? a.in_mult : 0u);
     row.put(C_OUT_MULT, has_out ? a.out_mult : 0u);
     if (a.out && has_out) ((long long*)a.out)[r] = g;
     return;
   }
-  const long long x = gather(a.view[0], src, r);
+  const long long x = gather(a.view[0], src, (uint32_t)r);
   long long out = x;
   switch (a.op) {
     case T_INPUTS:
@@ -365,7 +500,7 @@ __device__ __forceinline__ void reduce_cta(const Block& b, const TraceArgs& a, l
       if (t >= m) return;
       const long long o = o0 + (whole ? t / ds : 0), k = whole ? t % ds : c0 + t;
       const long long i = o / a.back, j = o % a.back;
-      raw[t] = scan[t] = gather(a.view[0], (const long long*)a.src[0], (i * ds + k) * a.back + j);
+      raw[t] = scan[t] = gather(a.view[0], (const long long*)a.src[0], (uint32_t)((i * ds + k) * a.back + j));
       pos[t] = (int)(k < T ? k : T);
     });
     long long* src = scan;
@@ -433,6 +568,75 @@ __device__ __forceinline__ void reduce_cta(const Block& b, const TraceArgs& a, l
     b.sync();
     carry = src[m - 1];
   }
+}
+
+// T_PAD: word r of a table's padding rows, column after column (`rows`
+// padding rows a column, with their fast-divmod pair).
+__device__ __forceinline__ void pad_word(const unsigned long long* cols, uint32_t magic, uint32_t shift, uint32_t rows,
+                                         uint32_t value, long long r) {
+  const uint32_t k = fast_div((uint32_t)r, magic, shift);
+  store_col((uint32_t*)cols[k] + ((uint32_t)r - k * rows), value);
+}
+
+__device__ __forceinline__ void pad_row(const TraceArgs& __restrict__ a, long long r) {
+  pad_word(a.cols, a.view[0].magic[1], a.view[0].shift[1], a.view[0].sizes[1], a.out_mult, r);
+}
+
+// Row r of a segment's item.
+__device__ __forceinline__ void segment_row(const TraceArgs& __restrict__ a, long long r) {
+  switch (a.op) {
+    case T_ADD:
+    case T_MUL:
+    case T_REM:
+    case T_LESS_THAN:
+      binary_row(a, r);
+      break;
+    case T_PAD:
+      pad_row(a, r);
+      break;
+    default:
+      unary_row(a, r);
+      break;
+  }
+}
+
+// The segment interpreter (trace.cu): the phases [p0, p1) of a segment run
+// in order; every CTA takes tiles of the current phase's chains, and the
+// whole grid meets at a barrier before each phase but the first, since each
+// later phase reads what the phase before it wrote.
+__host__ __device__ __forceinline__ bool barrier_before(int p, int p0) { return p > p0; }
+
+// The chain that tile t of a phase belongs to: the last of the phase's
+// chains whose first tile is at most t (a chain of no rows has no tile).
+__host__ __device__ __forceinline__ int tile_chain(const SegChain* chains, const SegPhase& ph, long long t) {
+  int lo = ph.first, hi = ph.first + ph.count;  // the answer is in [lo, hi)
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) / 2;
+    if (chains[mid].tile0 <= t) lo = mid;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// The rows of tile t of item `a` (t counted from its chain's first tile,
+// SEG_TILE << shift rows a tile): thread k of the block takes rows k, k +
+// T, ..., so each column store of a warp is coalesced, and a thread takes
+// the same rows of every item of the chain.
+template <class Block>
+__device__ __forceinline__ void tile_rows(const Block& b, const TraceArgs& __restrict__ a, long long t, int shift) {
+  const long long r0 = (t * SEG_TILE) << shift;
+  const long long end = r0 + (SEG_TILE << shift) < a.n ? r0 + (SEG_TILE << shift) : a.n;
+  const int T = b.threads();
+  if (a.op == T_PAD) {  // the split and the value once a tile, not once a word
+    const uint32_t magic = a.view[0].magic[1], sh = a.view[0].shift[1], rows = a.view[0].sizes[1], v = a.out_mult;
+    b.each([&](int k) {
+      for (long long r = r0 + k; r < end; r += T) pad_word(a.cols, magic, sh, rows, v, r);
+    });
+    return;
+  }
+  b.each([&](int k) {
+    for (long long r = r0 + k; r < end; r += T) segment_row(a, r);
+  });
 }
 
 }  // namespace lum

@@ -2,23 +2,31 @@
 trace column born on the device, already padded.
 
 The host interpreter (trace.py ``_run``) is the spec; this module replays
-the same per-op logic through the trace kernels (kernels.trace_binary /
-trace_unary / trace_reduce / lut_minmax, csrc/trace.cu), one launch per
-node.  The host walks the graph once: it fixes each table's row offsets
-(blocks in toposort order, as the host appends them), the op counter and
-each node's yield multiplicity, allocates each table's columns at their
-padded size with the padding rows filled, and uploads the fixed-encoded
-inputs, constants and LUT tables in one copy.  Each kernel then writes its
-node's rows in place.  The only downloads are the range flags and the
-retrieved outputs, together, at the end; the PIE's columns stay where they
-were written and prove() reads them there.  On CPU tensors the kernels'
-plain twins do the same work.
+the same per-op logic through the trace kernels (csrc/trace.cu).  The host
+walks the graph once per pass (`_Layout`): it fixes each table's row
+offsets (blocks in toposort order, as the host appends them), the op
+counter and each node's yield multiplicity; gives every node's int64
+output a place in one arena; and lists the pass's T1 and T2 nodes (and, in
+a trace, each table's padding rows) as the items of one node table
+(kernels.NodeTable), cut into segments at the reductions (and, in the
+settings pass, at the LUT nodes) and, inside a segment, into phases: an
+item's phase is one more than the latest phase of an item of its segment
+whose output it reads.  The fixed-encoded inputs, constants, LUT tables
+and the node table go to the device in one copy; then each segment is one
+launch of kernels.trace_segment and each reduction one of trace_reduce,
+writing their rows in place.  The only downloads are the range flags and
+the retrieved outputs, together, at the end; the PIE's columns stay where
+they were written and prove() reads them there.  On CPU tensors the
+kernels' plain twins do the same work.
 
 The settings pre-pass cannot read LUT outputs (the LUTs do not exist yet),
-so at each sin/exp2/log2 node it downloads the node's gathered input and
-the min / max of the raw source buffer (T4), applies f on the host in
-float64 exactly as the host pre-pass does (the device's sin and exp2 are
-not numpy's), and uploads the result as the node's output.
+so a LUT node's gathered input ends its segment; the host then downloads
+it with the min / max of the raw source buffer (T4), applies f in float64
+exactly as the host pre-pass does (the device's sin and exp2 are not
+numpy's), and uploads the result as the node's output.
+
+Each pass records its sub-spans (tracing, kinds "trace" and "settings"),
+each ended by a device synchronise on the card.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import torch
 from .. import fields as f
 from .. import fixed
 from .. import kernels
+from .. import tracing
 from ..air.pie import ExecutionResources, LuminairPie, Metadata, TraceTable, padding_value
 from ..air.preprocessed import LUT_FNS, calculate_log_size, lut_reference_outputs
 from ..air.settings import CircuitSettings
@@ -77,6 +86,7 @@ TABLE_COLUMNS = {
     "max_reduce": _RED + "max_val next_max_val is_max ge_limb0 ge_limb1 ge_limb2 ge_limb3 range_check_mult "
                          "is_last_step input_mult out_mult".split(),
 }
+_RANGE_CHECK = "range_check"  # the range-check histogram's name in TraceBuffers.hists
 
 
 @dataclass
@@ -88,26 +98,25 @@ class _Block:
 
 
 class _Plan:
-    """The host's one walk of the graph."""
+    """The host's one walk of the graph: tables, blocks, multiplicities."""
 
     def __init__(self, graph: Graph):
         self.graph = graph
         self.order = graph.toposort()
-        self.blocks: List[_Block] = []
+        self.blocks: Dict[int, _Block] = {}
         self.table_rows: Dict[str, int] = {}  # tables in the order of their first block
         self.op_counter: Dict[str, int] = defaultdict(int)
-        self.last_use: Dict[int, int] = {}
-        for pos, nid in enumerate(self.order):
+        for nid in self.order:
             node = graph.nodes[nid]
             if node.op not in DEVICE_OPS:
                 raise LuminairError(f"op {node.op} has no trace kernel")
-            for s, _ in node.srcs:
-                self.last_use[s] = pos
             if node.op in ("function", "copy_from"):
                 continue
             table = "inputs" if node.op in ("copy_to", "constant") else node.op
             rows = self.rows(node)
-            self.blocks.append(_Block(nid, table, self.table_rows.get(table, 0), rows))
+            if rows >= 1 << 31:
+                raise LuminairError(f"node {nid} ({node.op}) writes {rows} rows; the trace takes fewer than 2^31")
+            self.blocks[nid] = _Block(nid, table, self.table_rows.get(table, 0), rows)
             self.table_rows[table] = self.table_rows.get(table, 0) + rows
             self.op_counter[table] += 1
         # Yield multiplicities: expansion-weighted in-proof consumer edges
@@ -120,7 +129,6 @@ class _Plan:
         self.out_mult = {nid: adj[nid] % _P for nid in self.order}
         consumed = graph.consumers()
         self.input_ids = [n.id for n in graph.nodes if n.op == "function" and consumed[n.id] > 0]
-        self.keep = set(graph.to_retrieve)
 
     def rows(self, node) -> int:
         """The rows a node writes in its table."""
@@ -128,38 +136,22 @@ class _Plan:
             return self.graph.nodes[node.srcs[0][0]].out_len
         if node.op == "constant":
             return 1
+        if node.op in _REDUCE:
+            front, dsize, back = _reduce_dims(node)
+            return front * dsize * back
         src, view = node.srcs[0]
         if node.op == "contiguous":
             return max(self.graph.nodes[src].out_len, view.n_elements)
         return view.n_elements
 
-    def upload(self, dev: torch.device, luts: Dict[str, np.ndarray]):
-        """One host-to-device copy of the fixed-encoded inputs and
-        constants, and of each LUT's packed (lo, hi, start, outputs).
-        Returns ({node id: int64 buffer}, {kind: (lo, hi, start, outputs)})."""
-        g = self.graph
-        parts, keys = [], []
-        for nid in self.input_ids:
-            parts.append(fixed.from_float(g.input_data.get(nid, np.zeros(g.nodes[nid].out_len, dtype=np.float64))))
-            keys.append(("node", nid))
-        for nid in self.order:
-            if g.nodes[nid].op == "constant":
-                parts.append(fixed.from_float(np.array([g.nodes[nid].params["value"]])))
-                keys.append(("node", nid))
-        for kind, arrays in luts.items():
-            for k, a in enumerate(arrays):
-                parts.append(np.asarray(a, dtype=np.int64))
-                keys.append((kind, k))
-        flat = torch.from_numpy(np.concatenate(parts) if parts else np.zeros(0, np.int64)).to(dev)
-        nodes, tables, at = {}, defaultdict(list), 0
-        for (what, k), a in zip(keys, parts):
-            piece = flat[at : at + len(a)]
-            at += len(a)
-            if what == "node":
-                nodes[k] = piece
-            else:
-                tables[what].append(piece)
-        return nodes, {k: tuple(v) for k, v in tables.items()}
+    def out_len(self, node) -> int:
+        """The length of a computed node's int64 output."""
+        if node.op in _REDUCE:
+            front, _, back = _reduce_dims(node)
+            return front * back
+        if node.op == "contiguous":
+            return node.srcs[0][1].n_elements
+        return self.rows(node)
 
 
 def _reduce_dims(node):
@@ -168,44 +160,226 @@ def _reduce_dims(node):
     return int(np.prod(sh[:dim])) if dim > 0 else 1, sh[dim], int(np.prod(sh[dim + 1 :])) if dim + 1 < len(sh) else 1
 
 
-def _step(plan: _Plan, node, buffers) -> kernels.TraceStep:
-    """The node's step, values only (no columns, multiplicities or flags)."""
-    op = node.op
-    rows = plan.rows(node)
-    srcs = [(buffers[s], v) for s, v in node.srcs]
-    ids = (node.id, node.srcs[0][0], node.srcs[1][0] if op in _BINARY else 0)
-    dev = srcs[0][0].device
-    in_mult = kernels.NEG1
-    dsize = back = 1
-    if op in _REDUCE:
+class _Chain:
+    """Items of one phase and one row count, each reading the phase's
+    outputs only at its own row (`_row_aligned`) from earlier items of the
+    chain."""
+
+    def __init__(self, rows: int, phase: int):
+        self.rows, self.phase, self.items = rows, phase, []
+
+
+def _row_aligned(view: View, length: int, rows: int) -> bool:
+    """Whether row r of a node of `rows` rows reads element r of the
+    `length` elements through `view` (and nothing else of them)."""
+    ndim, sizes, strides, los, his, base, _, _ = view.packed()
+    return length == rows and ndim == 1 and sizes[0] == rows and strides[0] == 1 and base == 0 and \
+        los[0] == 0 and his[0] == rows
+
+
+class _Layout:
+    """One pass on the device, planned on the host: every node's output as a
+    region (offset, length) of one int64 arena -- the computed outputs
+    first, then the uploaded inputs, constants and LUT tables (`parts`,
+    from `at_data`), then the node table (at `at_table`); the node table's
+    items, chains, phases and segments; and `program`, the pass's launches
+    in order: ("segment", k), ("reduce", node id) and, in the settings
+    pass, ("lut", node id) after the segment that gathers the LUT's input
+    into `gathered[node id]`.
+
+    An item's phase is the least that is later than the phase of every
+    output of its segment it reads, but the ones it reads at its own row
+    from a chain of its row count: it joins that chain (merging the chains
+    of its phase it so reads)."""
+
+    def __init__(self, plan: _Plan, luts: Dict[str, tuple], trace: bool, range_check: bool = False):
+        g = plan.graph
+        self.plan, self.trace = plan, trace
+        self.region: Dict[int, tuple] = {}
+        self.gathered: Dict[int, tuple] = {}
+        at = 0
+        for nid in plan.order:
+            node = g.nodes[nid]
+            if node.op in ("function", "constant", "copy_to", "copy_from"):
+                continue
+            n = plan.out_len(node)
+            self.region[nid] = (at, n)
+            at += n
+            if not trace and node.op in _LUT_OPS:
+                self.gathered[nid] = (at, n)
+                at += n
+        self.at_data = at
+        self.parts = []
+
+        def put(a):
+            nonlocal at
+            self.parts.append(a)
+            at += len(a)
+            return (at - len(a), len(a))
+
+        for nid in plan.input_ids:
+            self.region[nid] = put(fixed.from_float(g.input_data.get(nid, np.zeros(g.nodes[nid].out_len))))
+        for nid in plan.order:
+            if g.nodes[nid].op == "constant":
+                self.region[nid] = put(fixed.from_float(np.array([g.nodes[nid].params["value"]])))
+        self.luts = {kind: tuple(put(np.asarray(a, dtype=np.int64)) for a in arrays) for kind, arrays in luts.items()}
+        self.at_table = at
+        self._walk(luts, range_check)
+        self.n_words = at + kernels.NodeTable.n_words(len(self.items), len(self.chains), len(self.phases))
+
+    def _walk(self, luts, range_check: bool) -> None:
+        plan, g, region = self.plan, self.plan.graph, self.region
+        self.items: List[kernels.TraceItem] = []
+        self.chains: List[tuple] = []
+        self.phases: List[tuple] = []
+        self.segments: List[tuple] = []
+        self.program: List[tuple] = []
+        phases: List[List[_Chain]] = []  # of the open segment
+        written: Dict[int, _Chain] = {}  # arena offset: the chain of the open segment that writes it
+
+        def close():
+            if not phases:
+                return
+            p0 = len(self.phases)
+            for chains in phases:
+                c0 = len(self.chains)
+                for ch in chains:
+                    self.chains.append((len(self.items), len(ch.items)))
+                    self.items += ch.items
+                self.phases.append((c0, len(chains)))
+            self.segments.append((p0, len(self.phases)))
+            self.program.append(("segment", len(self.segments) - 1))
+            phases.clear()
+            written.clear()
+
+        def add(it):
+            it.fresh = tuple(k for k, (off, _, _) in enumerate(it.srcs) if off in written)
+            deps = [(written[off], n, v) for off, n, v in it.srcs if off in written]
+            aligned = [ch.rows == it.rows and _row_aligned(v, n, it.rows) for ch, n, v in deps]
+            phase = max((ch.phase + (not ok) for (ch, _, _), ok in zip(deps, aligned)), default=0)
+            join = []
+            for ch, _, _ in deps:
+                if ch.phase == phase and ch not in join:
+                    join.append(ch)
+            if join:
+                chain = join[0]
+                for other in join[1:]:  # independent chains of one phase and row count: one after the other
+                    chain.items += other.items
+                    phases[phase].remove(other)
+                    for off, ch in written.items():
+                        if ch is other:
+                            written[off] = chain
+            else:
+                chain = _Chain(it.rows, phase)
+                if phase == len(phases):
+                    phases.append([])
+                phases[phase].append(chain)
+            chain.items.append(it)
+            if it.out:
+                written[it.out[0]] = chain
+
+        if self.trace:
+            for it in self._padding():
+                add(it)
+        for nid in plan.order:
+            node = g.nodes[nid]
+            op = node.op
+            if op == "function" or (op == "constant" and not self.trace):
+                continue
+            if op in ("copy_from", "copy_to"):
+                region[nid] = region[node.srcs[0][0]]
+                if op == "copy_from" or not self.trace:
+                    continue
+            if op in _REDUCE:
+                close()
+                self.program.append(("reduce", nid))
+            elif op in ("copy_to", "constant"):
+                b = plan.blocks[nid]
+                off, n = region[nid]
+                add(kernels.TraceItem("inputs", b.rows, ((off, n, View.contiguous((n,))),), table="inputs",
+                                      row0=b.offset, ids=(nid, 0, 0), out_mult=plan.out_mult[nid]))
+            elif op in _LUT_OPS and not self.trace:
+                src, view = node.srcs[0]
+                add(kernels.TraceItem("contiguous", max(region[src][1], view.n_elements), ((*region[src], view),),
+                                      out=self.gathered[nid]))
+                close()
+                self.program.append(("lut", nid))
+            else:
+                add(self._item(node, luts, range_check))
+        close()
+
+    def _item(self, node, luts, range_check: bool) -> kernels.TraceItem:
+        """A T1 or T2 node's item (in the settings pass, values only)."""
+        plan, op = self.plan, node.op
+        in_mult = (_P - node.srcs[0][1].expansion_factor()) % _P if op == "contiguous" else kernels.NEG1
+        it = kernels.TraceItem(
+            "lut" if op in _LUT_OPS else op, plan.rows(node), tuple((*self.region[s], v) for s, v in node.srcs),
+            out=self.region[node.id], ids=(node.id, node.srcs[0][0], node.srcs[1][0] if op in _BINARY else 0),
+            out_mult=plan.out_mult[node.id], in_mult=in_mult,
+        )
+        if self.trace:
+            b = plan.blocks[node.id]
+            it.table, it.row0 = b.table, b.offset
+            if op in _LUT_OPS:
+                if op not in luts:
+                    raise LuminairError(f"{op} has no lookup table in the settings")
+                it.lut, it.hist, it.flag = op, op, _FLAGS.index(op)
+            elif op == "less_than" and range_check:
+                it.hist = _RANGE_CHECK
+        return it
+
+    def _padding(self) -> List[kernels.TraceItem]:
+        """Each table's padding rows, one item per padding value."""
+        items = []
+        for name, rows in self.plan.table_rows.items():
+            pad = (1 << calculate_log_size(rows)) - rows
+            if pad == 0:
+                continue
+            by_value = defaultdict(list)
+            for col in TABLE_COLUMNS[name]:
+                by_value[padding_value(name, col)].append(col)
+            for value, cols in by_value.items():
+                items.append(kernels.TraceItem("pad", pad, table=name, row0=rows, columns=tuple(cols),
+                                               out_mult=value))
+        return items
+
+    def reduce_step(self, buffers: kernels.TraceBuffers, nid: int) -> kernels.TraceStep:
+        """T3's step for a reduction node: slices of the buffers."""
+        plan, node = self.plan, self.plan.graph.nodes[nid]
         front, dsize, back = _reduce_dims(node)
-        rows, n_out = front * back, front * back
-    elif op == "contiguous":
-        n_out = srcs[0][1].n_elements
-        in_mult = (_P - srcs[0][1].expansion_factor()) % _P
-    else:
-        n_out = rows
-    return kernels.TraceStep(
-        op="lut" if op in _LUT_OPS else op, srcs=srcs, rows=rows,
-        out=torch.empty(n_out, dtype=torch.int64, device=dev), ids=ids,
-        out_mult=plan.out_mult[node.id], in_mult=in_mult, dsize=dsize, back=back,
-    )
+        src, view = node.srcs[0]
+        (so, sn), (oo, on) = self.region[src], self.region[nid]
+        arena = buffers.arena
+        step = kernels.TraceStep(op=node.op, srcs=[(arena[so : so + sn], view)], rows=front * back,
+                                 out=arena[oo : oo + on], ids=(nid, src, 0), out_mult=plan.out_mult[nid],
+                                 dsize=dsize, back=back)
+        if node.op == "max_reduce":
+            k = _FLAGS.index("max_reduce")
+            step.flag = buffers.flags[k : k + 1]
+        if self.trace:
+            b = plan.blocks[nid]
+            names, st = buffers.storage[b.table]
+            step.cols = {c: st[i, b.offset : b.offset + b.rows] for i, c in enumerate(names)}
+            if node.op == "max_reduce":
+                step.mult = buffers.hists.get(_RANGE_CHECK)
+        return step
 
+    def table(self, buffers: kernels.TraceBuffers) -> kernels.NodeTable:
+        """The pass's node table over `buffers`."""
+        return kernels.NodeTable(buffers, self.items, self.chains, self.phases, self.segments, self.at_table)
 
-def _launch(step: kernels.TraceStep) -> None:
-    if step.op in _BINARY:
-        kernels.trace_binary(step)
-    elif step.op in _REDUCE:
-        kernels.trace_reduce(step)
-    else:
-        kernels.trace_unary(step)
-
-
-def _release(plan: _Plan, node, pos: int, buffers) -> None:
-    """Drop the buffers whose last consumer has run."""
-    for s, _ in node.srcs:
-        if plan.last_use.get(s) == pos and s not in plan.keep:
-            buffers.pop(s, None)
+    def upload(self, table: kernels.NodeTable, words: np.ndarray) -> None:
+        """The pass's one host-to-device copy: the inputs, constants and LUT
+        tables, then the node table's `words`, staged once (in pinned memory
+        for a card) into the arena's tail."""
+        arena = table.buffers.arena
+        n = arena.numel() - self.at_data
+        stage = torch.empty(n, dtype=torch.int64, pin_memory=arena.is_cuda)
+        host, at = stage.numpy(), 0
+        for a in self.parts + [words]:
+            host[at : at + len(a)] = a
+            at += len(a)
+        arena[self.at_data :].copy_(stage, non_blocking=arena.is_cuda)
 
 
 def _raise_flags(flags: np.ndarray) -> None:
@@ -233,89 +407,77 @@ def _store_outputs(graph: Graph, values: Dict[int, np.ndarray]) -> None:
                 graph.output_data[graph.nodes[src].srcs[0][0]] = data
 
 
-def _allocate(name: str, rows: int, dev: torch.device):
-    """A table's int32 columns at their padded size, padding rows filled."""
-    names = TABLE_COLUMNS[name]
-    size = 1 << calculate_log_size(rows)
-    storage = torch.empty((len(names), size), dtype=f.I32, device=dev)
-    storage[:, rows:].fill_(0)
-    for i, col in enumerate(names):
-        pad = padding_value(name, col)
-        if pad and rows < size:
-            storage[i, rows:].fill_(pad)
-    return names, storage
+def _timer(kind: str, dev: torch.device) -> tracing.PhaseTimer:
+    """The pass's sub-spans, each ended by a device synchronise on the card."""
+    return tracing.start(kind, (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else None)
 
 
 def gen_trace_device(graph: Graph, settings: CircuitSettings, dev: torch.device) -> LuminairPie:
     """Every PIE column written on `dev` by the trace kernels."""
     if not graph.compiled:
         graph.compile()
-    plan = _Plan(graph)
-    lk = settings.lookups
-    layouts = {k: getattr(lk, k) for k in _LUT_OPS if getattr(lk, k) is not None}
-    luts = {}
-    for kind, layout in layouts.items():
-        outs = layout.outputs if layout.outputs is not None else lut_reference_outputs(kind, layout.all_values())
-        luts[kind] = (*layout.packed(), outs)
-    buffers, lut_dev = plan.upload(dev, luts)
-
-    storage = {name: _allocate(name, rows, dev) for name, rows in plan.table_rows.items()}
-    mults = {k: torch.zeros(1 << layout.log_size, dtype=f.I32, device=dev) for k, layout in layouts.items()}
-    rc = torch.zeros(1 << lk.range_check_bits, dtype=f.I32, device=dev) if lk.range_check_bits else None
-    flags = torch.zeros(len(_FLAGS), dtype=f.I32, device=dev)
-
-    blocks = {b.nid: b for b in plan.blocks}
-    for pos, nid in enumerate(plan.order):
-        node = graph.nodes[nid]
-        op = node.op
-        if op == "copy_from":
-            buffers[nid] = buffers[node.srcs[0][0]]
-        elif op != "function":
-            b = blocks[nid]
-            names, cols = storage[b.table]
-            if op in ("copy_to", "constant"):
-                src = buffers[node.srcs[0][0]] if op == "copy_to" else buffers[nid]
-                step = kernels.TraceStep(op="inputs", srcs=[(src, View.contiguous((len(src),)))], rows=b.rows,
-                                         ids=(nid, 0, 0), out_mult=plan.out_mult[nid])
-                buffers[nid] = src
+    timer = _timer("trace", dev)
+    with timer.span("plan"):
+        plan = _Plan(graph)
+        lk = settings.lookups
+        layouts = {k: getattr(lk, k) for k in _LUT_OPS if getattr(lk, k) is not None}
+        luts = {}
+        for kind, layout in layouts.items():
+            outs = layout.outputs if layout.outputs is not None else lut_reference_outputs(kind, layout.all_values())
+            luts[kind] = (*layout.packed(), outs)
+    with timer.span("walk"):
+        layout = _Layout(plan, luts, trace=True, range_check=bool(lk.range_check_bits))
+    with timer.span("allocate"):
+        storage = {}
+        for name, rows in plan.table_rows.items():
+            names = TABLE_COLUMNS[name]
+            storage[name] = (names, torch.empty((len(names), 1 << calculate_log_size(rows)), dtype=f.I32, device=dev))
+        hists = {k: torch.zeros(1 << lay.log_size, dtype=f.I32, device=dev) for k, lay in layouts.items()}
+        if lk.range_check_bits:
+            hists[_RANGE_CHECK] = torch.zeros(1 << lk.range_check_bits, dtype=f.I32, device=dev)
+        flags = torch.zeros(len(_FLAGS), dtype=f.I32, device=dev)
+        buffers = kernels.TraceBuffers(torch.empty(layout.n_words, dtype=torch.int64, device=dev), storage, hists,
+                                       flags, layout.luts)
+    with timer.span("pack"):
+        table = layout.table(buffers)
+        words = table.pack()
+    with timer.span("upload"):
+        layout.upload(table, words)
+    with timer.span("launches"):
+        for what, k in layout.program:
+            if what == "segment":
+                kernels.trace_segment(table.segment(k))
             else:
-                step = _step(plan, node, buffers)
-                if op in _LUT_OPS:
-                    if op not in layouts:
-                        raise LuminairError(f"{op} has no lookup table in the settings")
-                    step.lut, step.mult = lut_dev[op], mults[op]
-                elif op in ("less_than", "max_reduce"):
-                    step.mult = rc
-                if op in _LUT_OPS or op == "max_reduce":
-                    k = _FLAGS.index(op)
-                    step.flag = flags[k : k + 1]
-                buffers[nid] = step.out
-            step.cols = {c: cols[i, b.offset : b.offset + b.rows] for i, c in enumerate(names)}
-            _launch(step)
-        _release(plan, node, pos, buffers)
+                kernels.trace_reduce(layout.reduce_step(buffers, k))
 
-    # The one download: flags, then the retrieved outputs.
-    rids = sorted(graph.to_retrieve)
-    flat = torch.cat([flags.to(torch.int64)] + [buffers[r] for r in rids]).cpu().numpy()
-    _raise_flags(flat[: len(_FLAGS)])
-    values, at = {}, len(_FLAGS)
-    for r in rids:
-        values[r] = flat[at : at + len(buffers[r])]
-        at += len(buffers[r])
-    _store_outputs(graph, values)
+    with timer.span("download"):  # the one download: flags, then the retrieved outputs
+        rids = sorted(graph.to_retrieve)
+        arena = buffers.arena
+        outs = [arena[o : o + n] for o, n in (layout.region[r] for r in rids)]
+        flat = torch.cat([flags.to(torch.int64)] + outs).cpu().numpy()
+        _raise_flags(flat[: len(_FLAGS)])
+        values, at = {}, len(_FLAGS)
+        for r, o in zip(rids, outs):
+            values[r] = flat[at : at + len(o)]
+            at += len(o)
+        _store_outputs(graph, values)
 
-    tables = {}
-    for name, (names, st) in storage.items():
-        rows = plan.table_rows[name]
-        tables[name] = TraceTable(name, {c: st[i, :rows] for i, c in enumerate(names)},
-                                  padded={c: st[i] for i, c in enumerate(names)})
-    for kind, m in mults.items():
-        tables[f"{kind}_lookup"] = TraceTable(f"{kind}_lookup", {"multiplicity": m}, padded={"multiplicity": m})
-    if rc is not None:
-        tables["range_check_lookup"] = TraceTable("range_check_lookup", {"multiplicity": rc},
-                                                  padded={"multiplicity": rc})
-    max_log = max(t.log_size for t in tables.values())
-    return LuminairPie(tables, Metadata(ExecutionResources(dict(plan.op_counter), max_log)))
+    with timer.span("assembly"):
+        tables = {}
+        for name, (names, st) in storage.items():
+            rows = plan.table_rows[name]
+            tables[name] = TraceTable(name, {c: st[i, :rows] for i, c in enumerate(names)},
+                                      padded={c: st[i] for i, c in enumerate(names)})
+        for kind in layouts:
+            m = hists[kind]
+            tables[f"{kind}_lookup"] = TraceTable(f"{kind}_lookup", {"multiplicity": m}, padded={"multiplicity": m})
+        if _RANGE_CHECK in hists:
+            rc = hists[_RANGE_CHECK]
+            tables["range_check_lookup"] = TraceTable("range_check_lookup", {"multiplicity": rc},
+                                                      padded={"multiplicity": rc})
+        max_log = max(t.log_size for t in tables.values())
+        pie = LuminairPie(tables, Metadata(ExecutionResources(dict(plan.op_counter), max_log)))
+    return pie
 
 
 def gen_circuit_settings_device(graph: Graph, dev: torch.device) -> CircuitSettings:
@@ -325,31 +487,37 @@ def gen_circuit_settings_device(graph: Graph, dev: torch.device) -> CircuitSetti
     upload."""
     if not graph.compiled:
         graph.compile()
-    plan = _Plan(graph)
-    buffers, _ = plan.upload(dev, {})
-    flags = torch.zeros(len(_FLAGS), dtype=f.I32, device=dev)
+    timer = _timer("settings", dev)
+    with timer.span("plan"):
+        plan = _Plan(graph)
+    with timer.span("walk"):
+        layout = _Layout(plan, {}, trace=False)
+    with timer.span("allocate"):
+        flags = torch.zeros(len(_FLAGS), dtype=f.I32, device=dev)
+        buffers = kernels.TraceBuffers(torch.empty(layout.n_words, dtype=torch.int64, device=dev), flags=flags)
+    with timer.span("pack"):
+        table = layout.table(buffers)
+        words = table.pack()
+    with timer.span("upload"):
+        layout.upload(table, words)
     ranges = {k: [] for k in _LUT_OPS}
-    for pos, nid in enumerate(plan.order):
-        node = graph.nodes[nid]
-        op = node.op
-        if op in ("copy_to", "copy_from"):
-            buffers[nid] = buffers[node.srcs[0][0]]
-        elif op in _LUT_OPS:
-            src, view = buffers[node.srcs[0][0]], node.srcs[0][1]
-            gathered = kernels.TraceStep(op="contiguous", srcs=[(src, view)], rows=max(len(src), view.n_elements),
-                                         out=torch.empty(view.n_elements, dtype=torch.int64, device=dev))
-            kernels.trace_unary(gathered)
-            host = torch.cat([kernels.lut_minmax(src), gathered.out]).cpu().numpy()
-            ranges[op].append(lut_range(host[0], host[1]))
-            out = fixed.from_float(LUT_FNS[op](fixed.to_float(host[2:])))
-            buffers[nid] = torch.from_numpy(out).to(dev)
-        elif op not in ("function", "constant"):
-            step = _step(plan, node, buffers)
-            if op == "max_reduce":
-                k = _FLAGS.index(op)
-                step.flag = flags[k : k + 1]
-            _launch(step)
-            buffers[nid] = step.out
-        _release(plan, node, pos, buffers)
-    _raise_flags(flags.cpu().numpy())
-    return settings_from_ranges(ranges, any(n.op in ("less_than", "max_reduce") for n in graph.nodes))
+    arena = buffers.arena
+    with timer.span("launches"):  # each LUT's round trip inside it
+        for what, k in layout.program:
+            if what == "segment":
+                kernels.trace_segment(table.segment(k))
+            elif what == "reduce":
+                kernels.trace_reduce(layout.reduce_step(buffers, k))
+            else:
+                node = graph.nodes[k]
+                so, sn = layout.region[node.srcs[0][0]]
+                go, gn = layout.gathered[k]
+                host = torch.cat([kernels.lut_minmax(arena[so : so + sn]), arena[go : go + gn]]).cpu().numpy()
+                ranges[node.op].append(lut_range(host[0], host[1]))
+                out = fixed.from_float(LUT_FNS[node.op](fixed.to_float(host[2:])))
+                oo, on = layout.region[k]
+                arena[oo : oo + on].copy_(torch.from_numpy(out))
+    with timer.span("flags"):
+        _raise_flags(flags.cpu().numpy())
+        settings = settings_from_ranges(ranges, any(n.op in ("less_than", "max_reduce") for n in graph.nodes))
+    return settings

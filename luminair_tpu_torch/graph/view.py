@@ -17,11 +17,12 @@ otherwise, matching luminal's semantics).
 
 `gather` reads numpy arrays on the host and int64 torch tensors on their
 device; `packed` is the description the trace kernels (csrc/trace.cu)
-resolve element by element.
+resolve element by element, in 32-bit arithmetic.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, replace
 from typing import List, Tuple
 
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 
 from ..errors import LuminairError
-from ..kernels import VIEW_MAX_DIMS
+from ..kernels import VIEW_MAX_DIMS, fast_divmod
 
 
 def contiguous_strides(sizes) -> List[int]:
@@ -233,15 +234,34 @@ class View:
         return phys, valid
 
     def packed(self):
-        """(ndim, sizes, strides, valid lows, valid highs, base): what a
-        trace kernel needs to resolve any logical element itself."""
+        """(ndim, sizes, strides, valid lows, valid highs, base, magic,
+        shift): the form in which a trace kernel resolves any logical
+        element itself (csrc/trace.cuh, ViewDesc).  Dimensions of size 1
+        with a full box are dropped, and a dimension whose stride is the
+        next one's stride times its size is merged with it when both boxes
+        are full; each box is clamped into [0, size]; each size gets its
+        fast-divmod pair (fast_divmod).  Raises for more than VIEW_MAX_DIMS
+        dimensions or 2^31 elements."""
         if len(self.sizes) > VIEW_MAX_DIMS:
             raise LuminairError(f"a view of {len(self.sizes)} dims; the trace kernels take at most {VIEW_MAX_DIMS}")
-        return (
-            len(self.sizes),
-            tuple(self.sizes),
-            tuple(self.strides),
-            tuple(lo for lo, _ in self.valid),
-            tuple(hi for _, hi in self.valid),
-            self.base,
-        )
+        if self.n_elements >= 1 << 31:
+            raise LuminairError(f"a view of {self.n_elements} elements; the trace kernels take fewer than 2^31")
+        return _pack(self.sizes, self.strides, self.valid, self.base)
+
+
+@functools.lru_cache(maxsize=4096)
+def _pack(sizes, strides, valid, base):
+    dims = []  # [size, stride, lo, hi], outermost first
+    if int(np.prod(sizes)) > 0:
+        for size, stride, (lo, hi) in zip(sizes, strides, valid):
+            lo, hi = min(max(lo, 0), size), min(max(hi, 0), size)
+            full = lo == 0 and hi == size
+            if full and size == 1:
+                continue
+            if full and dims and dims[-1][2:] == [0, dims[-1][0]] and dims[-1][1] == stride * size:
+                dims[-1] = [dims[-1][0] * size, stride, 0, dims[-1][0] * size]
+            else:
+                dims.append([size, stride, lo, hi])
+    magic, shift = zip(*(fast_divmod(d[0]) for d in dims)) if dims else ((), ())
+    return (len(dims), tuple(d[0] for d in dims), tuple(d[1] for d in dims), tuple(d[2] for d in dims),
+            tuple(d[3] for d in dims), base, magic, shift)

@@ -313,10 +313,10 @@ GRIND_POW = Kernel(
 )
 
 # The trace kernels' ABI (csrc/trace.cuh): ops and column slots in enum
-# order, the views' rank limit.
+# order, the views' rank limit, a segment's tile.
 TRACE_OPS = (
     "add", "mul", "rem", "less_than", "inputs", "recip", "square", "sqrt", "lut", "contiguous",
-    "sum_reduce", "max_reduce",
+    "sum_reduce", "max_reduce", "pad",
 )
 TRACE_COLS = (
     "node_id", "idx", "is_last_idx", "next_node_id", "next_idx", "lhs_id", "next_lhs_id", "rhs_id",
@@ -326,25 +326,47 @@ TRACE_COLS = (
     "is_max", "is_last_step", "ge_limb0", "ge_limb1", "ge_limb2", "ge_limb3",
 )
 VIEW_MAX_DIMS = 8
+SEG_TILE = 256  # rows of a tile of the segment interpreter
+SEG_CHAIN = 8  # descriptors a CTA of the segment interpreter holds at once
+SEG_MAX_TILES = 256  # a chain of more rows takes tiles of more rows a thread (tools/trace_segment_variants.py)
+
+
+def fast_divmod(size: int) -> tuple:
+    """(magic, shift) with n // size == (n * magic) >> shift for every
+    0 <= n < 2^31: shift = 31 + ceil(log2 size), magic = ceil(2^shift /
+    size), below 2^32 (csrc/trace.cuh, fast_div)."""
+    shift = 31 + (size - 1).bit_length()
+    return -(-(1 << shift) // size), shift
+
+
+def _chain_tiles(rows: int) -> tuple:
+    """(tiles, shift) of a chain of `rows` kernel rows: tiles of SEG_TILE <<
+    shift rows, the least shift that keeps them to SEG_MAX_TILES."""
+    tiles = -(-rows // SEG_TILE)
+    shift = max(0, (tiles - 1).bit_length() - SEG_MAX_TILES.bit_length() + 1)
+    return -(-rows // (SEG_TILE << shift)), shift
 
 
 class ViewDesc(ctypes.Structure):
-    """Mirror of lum::ViewDesc (csrc/trace.cuh)."""
+    """Mirror of lum::ViewDesc (csrc/trace.cuh): graph/view.py View.packed()."""
 
     _fields_ = [
-        ("sizes", ctypes.c_longlong * VIEW_MAX_DIMS),
         ("strides", ctypes.c_longlong * VIEW_MAX_DIMS),
-        ("lo", ctypes.c_longlong * VIEW_MAX_DIMS),
-        ("hi", ctypes.c_longlong * VIEW_MAX_DIMS),
         ("base", ctypes.c_longlong),
         ("len", ctypes.c_longlong),
+        ("sizes", ctypes.c_uint32 * VIEW_MAX_DIMS),
+        ("magic", ctypes.c_uint32 * VIEW_MAX_DIMS),
+        ("shift", ctypes.c_uint32 * VIEW_MAX_DIMS),
+        ("lo", ctypes.c_int32 * VIEW_MAX_DIMS),
+        ("hi", ctypes.c_int32 * VIEW_MAX_DIMS),
         ("ndim", ctypes.c_int),
-        ("pad_", ctypes.c_int),
+        ("fresh", ctypes.c_int),
     ]
 
 
 class TraceArgs(ctypes.Structure):
-    """Mirror of lum::TraceArgs (csrc/trace.cuh), passed to T1-T3 by value."""
+    """Mirror of lum::TraceArgs (csrc/trace.cuh): one row range of a launch,
+    a row of a pass's node table (trace_segment) or T3's argument."""
 
     _fields_ = [
         ("src", ctypes.c_uint64 * 2),
@@ -374,16 +396,66 @@ class TraceArgs(ctypes.Structure):
     ]
 
 
+class SegChain(ctypes.Structure):
+    """Mirror of lum::SegChain (csrc/trace.cuh)."""
+
+    _fields_ = [("first", ctypes.c_int), ("count", ctypes.c_int), ("tile0", ctypes.c_longlong),
+                ("shift", ctypes.c_int), ("pad_", ctypes.c_int)]
+
+
+class SegPhase(ctypes.Structure):
+    """Mirror of lum::SegPhase (csrc/trace.cuh)."""
+
+    _fields_ = [("first", ctypes.c_int), ("count", ctypes.c_int), ("tiles", ctypes.c_longlong)]
+
+
+class SegArgs(ctypes.Structure):
+    """Mirror of lum::SegArgs (csrc/trace.cuh), passed to trace_segment."""
+
+    _fields_ = [
+        ("nodes", ctypes.c_uint64),
+        ("chains", ctypes.c_uint64),
+        ("phases", ctypes.c_uint64),
+        ("barrier", ctypes.c_uint64),
+        ("max_tiles", ctypes.c_longlong),
+        ("p0", ctypes.c_int),
+        ("p1", ctypes.c_int),
+    ]
+
+
+def _trace_layout() -> int:
+    """lum::trace_layout() from the mirrors: the fields' offsets, folded."""
+    fields = [
+        (ViewDesc, "strides"), (ViewDesc, "base"), (ViewDesc, "len"), (ViewDesc, "sizes"), (ViewDesc, "magic"),
+        (ViewDesc, "shift"), (ViewDesc, "lo"), (ViewDesc, "hi"), (ViewDesc, "ndim"), (ViewDesc, "fresh"),
+        (TraceArgs, "src"),
+        (TraceArgs, "view"), (TraceArgs, "out"), (TraceArgs, "cols"), (TraceArgs, "lut_lo"), (TraceArgs, "mult"),
+        (TraceArgs, "flag"), (TraceArgs, "n"), (TraceArgs, "n_in"), (TraceArgs, "dsize"), (TraceArgs, "lut_n"),
+        (TraceArgs, "op"), (TraceArgs, "n_ranges"), (TraceArgs, "node_id"), (TraceArgs, "out_mult"),
+        (TraceArgs, "in_mult"), (SegChain, "tile0"), (SegChain, "shift"), (SegPhase, "tiles"), (SegArgs, "chains"), (SegArgs, "max_tiles"),
+        (SegArgs, "p0"),
+    ]
+    h = 0
+    for struct, name in fields:
+        h = (h * 1000003 + getattr(struct, name).offset) & ((1 << 61) - 1)
+    return h
+
+
 _TRACE_ABI = {
     "lum_trace_args_size": ctypes.sizeof(TraceArgs),
+    "lum_seg_args_size": ctypes.sizeof(SegArgs),
+    "lum_seg_phase_size": ctypes.sizeof(SegPhase),
+    "lum_seg_chain_size": ctypes.sizeof(SegChain),
+    "lum_trace_layout": _trace_layout(),
     "lum_trace_n_cols": len(TRACE_COLS),
     "lum_trace_n_ops": len(TRACE_OPS),
     "lum_view_max_dims": VIEW_MAX_DIMS,
+    "lum_seg_tile": SEG_TILE,
+    "lum_seg_chain": SEG_CHAIN,
 }
 _TRACE_REPLACES = "luminair_tpu/graph/device_trace.py:158 (_Tracer._traced; settings segments _segment_fn :559)"
 
-TRACE_BINARY = Kernel("trace_binary", "trace.cu", _TRACE_REPLACES, {"lum_trace_binary": [_P]}, abi=_TRACE_ABI)
-TRACE_UNARY = Kernel("trace_unary", "trace.cu", _TRACE_REPLACES, {"lum_trace_unary": [_P]}, abi=_TRACE_ABI)
+TRACE_SEGMENT = Kernel("trace_segment", "trace.cu", _TRACE_REPLACES, {"lum_trace_segment": [_P]}, abi=_TRACE_ABI)
 TRACE_REDUCE = Kernel("trace_reduce", "trace.cu", _TRACE_REPLACES, {"lum_trace_reduce": [_P]}, abi=_TRACE_ABI)
 LUT_MINMAX = Kernel(
     "lut_minmax", "trace.cu", "luminair_tpu/graph/device_trace.py:556 (jnp.min / jnp.max in _segment_fn)",
@@ -392,7 +464,7 @@ LUT_MINMAX = Kernel(
 
 KERNELS = (
     CIRCLE_FFT, MERKLE, FRI_FOLD, DEEP_QUOTIENT, AIR_WITNESS, AIR_DOMAIN, OODS_EVAL, CHANNEL, DECOMMIT, GRIND_POW,
-    TRACE_BINARY, TRACE_UNARY, TRACE_REDUCE, LUT_MINMAX,
+    TRACE_SEGMENT, TRACE_REDUCE, LUT_MINMAX,
 )
 
 
@@ -1311,9 +1383,11 @@ def decommit_plain(plan: DecommitPass) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# T1-T4: trace generation (one launch per graph node).
+# T1+T2 (trace_segment), T3, T4: trace generation.
 
 NEG1 = (1 << 31) - 2  # -1 in M31
+_BINARY_OPS = ("add", "mul", "rem", "less_than")
+_UNARY_OPS = ("inputs", "recip", "square", "sqrt", "lut", "contiguous")
 
 
 @dataclass
@@ -1356,27 +1430,35 @@ class TraceStep:
         return torch.cat([p.reshape(-1).to(torch.int64) for p in parts if p is not None])
 
 
+@functools.lru_cache(maxsize=4096)
+def _view_bytes(view, length: int) -> bytes:
+    """The ViewDesc of `view` over a buffer of `length` elements."""
+    ndim, sizes, strides, los, his, base, magic, shift = view.packed()
+    v = ViewDesc()
+    v.strides[:ndim], v.sizes[:ndim], v.magic[:ndim], v.shift[:ndim] = strides, sizes, magic, shift
+    v.lo[:ndim], v.hi[:ndim] = los, his
+    v.base, v.len, v.ndim = base, length, ndim
+    return bytes(v)
+
+
 def _trace_args(s: TraceStep, dev: torch.device) -> TraceArgs:
     a = TraceArgs()
     _require(s.op in TRACE_OPS, f"trace: unknown op {s.op}")
     for k, (buf, view) in enumerate(s.srcs):
         _require(buf.dtype == torch.int64 and buf.device == dev and buf.is_contiguous() and buf.dim() == 1,
                  "trace: sources must be contiguous int64 vectors on one device")
-        ndim, sizes, strides, los, his, base = view.packed()
-        v = a.view[k]
-        v.sizes[:ndim], v.strides[:ndim], v.lo[:ndim], v.hi[:ndim] = sizes, strides, los, his
-        v.base, v.len, v.ndim = base, len(buf), ndim
+        a.view[k] = ViewDesc.from_buffer_copy(_view_bytes(view, len(buf)))
         a.src[k] = buf.data_ptr()
     if s.out is not None:
         _require(s.out.dtype == torch.int64 and s.out.device == dev and s.out.is_contiguous(),
                  "trace: out must be a contiguous int64 tensor")
         a.out = s.out.data_ptr()
     n_rows = s.rows * s.dsize  # dsize is 1 but for reductions
-    for name, col in s.cols.items():
+    for k, (name, col) in enumerate(s.cols.items()):
         _require(name in TRACE_COLS, f"trace: no kernel writes column {name}")
         _require(col.dtype == f.I32 and col.device == dev and col.is_contiguous() and len(col) == n_rows,
                  f"trace: column {name} must be {n_rows} contiguous int32 rows on the sources' device")
-        a.cols[TRACE_COLS.index(name)] = col.data_ptr()
+        a.cols[k if s.op == "pad" else TRACE_COLS.index(name)] = col.data_ptr()
     if s.lut is not None:
         lo, hi, start, outs = s.lut
         _require(all(t.dtype == torch.int64 and t.device == dev and t.is_contiguous() for t in s.lut),
@@ -1389,6 +1471,11 @@ def _trace_args(s: TraceStep, dev: torch.device) -> TraceArgs:
             _require(t.dtype == f.I32 and t.device == dev and t.is_contiguous(), f"trace: {name} must be int32")
             setattr(a, name, t.data_ptr())
     a.n, a.op, a.dsize, a.back = s.rows, TRACE_OPS.index(s.op), s.dsize, s.back
+    if s.op == "pad":  # column after column: word r is row r % rows of column r / rows
+        a.n = s.rows * len(s.cols)
+        a.view[0].sizes[1] = s.rows
+        a.view[0].magic[1], a.view[0].shift[1] = fast_divmod(max(s.rows, 1))
+    _require(n_rows < 1 << 31 and a.n < 1 << 31, f"trace: {a.n} rows; a launch takes fewer than 2^31 an item")
     if s.op == "contiguous":
         a.n_in, a.n_out = len(s.srcs[0][0]), s.srcs[0][1].n_elements
     a.node_id, a.id0, a.id1 = s.ids
@@ -1396,28 +1483,303 @@ def _trace_args(s: TraceStep, dev: torch.device) -> TraceArgs:
     return a
 
 
-def _trace_launch(kernel: Kernel, symbol: str, s: TraceStep) -> None:
+# A pass's node table: the rows of trace_segment's launches.
+
+_ARGS_DTYPE = np.dtype(TraceArgs)
+_VIEW_DTYPE = np.dtype(ViewDesc)
+_CHAIN_DTYPE = np.dtype(SegChain)
+_PHASE_DTYPE = np.dtype(SegPhase)
+_OP_CODE = {op: i for i, op in enumerate(TRACE_OPS)}
+
+
+@dataclass
+class TraceItem:
+    """One row range of a pass's node table: a T1 or T2 node's rows, or a
+    table's padding rows (op "pad", writing `out_mult` into each column of
+    `columns`), by arena offsets and names.
+
+    srcs: ((arena offset, length, View), ...); fresh: the sources that its
+    launch writes before it (read past the L1 cache); out: (arena offset,
+    length) of its int64 output, or None; table, row0: the trace table it
+    writes and its first row there (None: values only); columns: a padding
+    item's columns (None for a node: all of its table's); lut: the LUT kind
+    whose tables it reads; hist: the histogram it counts into; flag: the
+    flag word it may set (-1: none)."""
+
+    op: str
+    rows: int
+    srcs: tuple = ()
+    fresh: tuple = ()
+    out: Optional[tuple] = None
+    table: Optional[str] = None
+    row0: int = 0
+    columns: Optional[tuple] = None
+    ids: tuple = (0, 0, 0)
+    out_mult: int = 0
+    in_mult: int = NEG1
+    lut: Optional[str] = None
+    hist: Optional[str] = None
+    flag: int = -1
+
+
+@functools.lru_cache(maxsize=256)
+def _column_slots(names: tuple, columns: Optional[tuple]) -> np.ndarray:
+    """Each TRACE_COLS slot's index into a table's `names` (-1: none): a
+    node's columns each in its own slot (columns None), a padding item's
+    `columns` in the first slots."""
+    idx = np.full(len(TRACE_COLS), -1, np.int64)
+    if columns is None:
+        idx[[TRACE_COLS.index(c) for c in names]] = np.arange(len(names))
+    else:
+        idx[: len(columns)] = [names.index(c) for c in columns]
+    idx.flags.writeable = False
+    return idx
+
+
+def _kernel_rows(it: TraceItem) -> int:
+    """The rows the kernel runs for an item: a padding item's words."""
+    return it.rows * len(it.columns) if it.op == "pad" else it.rows
+
+
+@dataclass
+class TraceBuffers:
+    """A pass's memory on its device: the int64 arena (node outputs, then
+    the uploaded inputs, constants, LUT tables and node table), each trace
+    table's padded int32 columns {table: (column names, (columns, rows))},
+    the int32 histograms by name, the int32 flag words, and each LUT's
+    (lo, hi, start, outputs) as (arena offset, length) pairs."""
+
+    arena: torch.Tensor
+    storage: Dict[str, tuple] = field(default_factory=dict)
+    hists: Dict[str, torch.Tensor] = field(default_factory=dict)
+    flags: Optional[torch.Tensor] = None
+    luts: Dict[str, tuple] = field(default_factory=dict)
+
+    def zeroed(self, regions) -> "TraceBuffers":
+        """A copy with the arena's `regions` ((offset, length) pairs), every
+        column, histogram and flag set to 0."""
+        arena = self.arena.clone()
+        for off, n in regions:
+            arena[off : off + n] = 0
+        z = torch.zeros_like
+        return TraceBuffers(arena, {k: (names, z(st)) for k, (names, st) in self.storage.items()},
+                            {k: z(h) for k, h in self.hists.items()},
+                            None if self.flags is None else z(self.flags), self.luts)
+
+
+class NodeTable:
+    """The node table of one pass: `items` in table order, `chains` ((first
+    item, count) each: items of the same rows, each reading the current
+    phase's outputs only at its own row, from earlier items of its chain),
+    `phases` ((first chain, count) each; no chain of a phase reads another's
+    output), `segments` ((first phase, end phase) each, one launch each),
+    packed as int64 words at arena offset `at`: the TraceArgs rows, the
+    SegChain rows (each chain's first tile in its phase), the SegPhase rows,
+    the barrier words."""
+
+    def __init__(self, buffers: TraceBuffers, items: List[TraceItem], chains: List[tuple], phases: List[tuple],
+                 segments: List[tuple], at: int):
+        self.buffers, self.items, self.chains, self.phases = buffers, items, chains, phases
+        self.segments, self.at = segments, at
+        self.tiles, self.shifts = zip(*(_chain_tiles(_kernel_rows(items[first])) if count else (0, 0)
+                                        for first, count in chains)) if chains else ((), ())
+
+    @staticmethod
+    def n_words(n_items: int, n_chains: int, n_phases: int) -> int:
+        return (n_items * _ARGS_DTYPE.itemsize + n_chains * _CHAIN_DTYPE.itemsize
+                + n_phases * _PHASE_DTYPE.itemsize) // 8 + 1
+
+    def pack(self) -> np.ndarray:
+        """The table's words, with every address on the buffers' device."""
+        b, items, n = self.buffers, self.items, len(self.items)
+        base = b.arena.data_ptr()
+        rec = np.zeros(n, _ARGS_DTYPE)
+        if n:
+            rec["op"] = [_OP_CODE[it.op] for it in items]
+            rec["n"] = [_kernel_rows(it) for it in items]
+            rec["node_id"], rec["id0"], rec["id1"] = np.array([it.ids for it in items], dtype=np.int64).T
+            rec["out_mult"] = [it.out_mult for it in items]
+            rec["in_mult"] = [it.in_mult for it in items]
+            rec["out"] = [base + 8 * it.out[0] if it.out else 0 for it in items]
+            rec["flag"] = [b.flags.data_ptr() + 4 * it.flag if it.flag >= 0 else 0 for it in items]
+            rec["mult"] = [b.hists[it.hist].data_ptr() if it.hist else 0 for it in items]
+            srcs, views = rec["src"], rec["view"]
+            for i, it in enumerate(items):
+                for k, (off, length, view) in enumerate(it.srcs):
+                    srcs[i, k] = base + 8 * off
+                    views[i, k] = np.frombuffer(_view_bytes(view, length), _VIEW_DTYPE)[0]
+                    views["fresh"][i, k] = k in it.fresh
+                if it.op == "contiguous":
+                    rec["n_in"][i], rec["n_out"][i] = it.srcs[0][1], it.srcs[0][2].n_elements
+                elif it.op == "pad":
+                    views["sizes"][i, 0, 1] = it.rows
+                    views["magic"][i, 0, 1], views["shift"][i, 0, 1] = fast_divmod(max(it.rows, 1))
+                if it.lut:
+                    (lo, n_ranges), hi, start, (outs, lut_n) = b.luts[it.lut]
+                    rec["lut_lo"][i], rec["lut_hi"][i] = base + 8 * lo, base + 8 * hi[0]
+                    rec["lut_start"][i], rec["lut_out"][i] = base + 8 * start[0], base + 8 * outs
+                    rec["n_ranges"][i], rec["lut_n"][i] = n_ranges, lut_n
+            rec["cols"] = self._columns()
+        rec["dsize"], rec["back"] = 1, 1
+        chains = np.zeros(len(self.chains), _CHAIN_DTYPE)
+        phases = np.zeros(len(self.phases), _PHASE_DTYPE)
+        for p, (first, count) in enumerate(self.phases):
+            t = np.asarray(self.tiles[first : first + count], dtype=np.int64)
+            chains[first : first + count] = [(*self.chains[c], t0, self.shifts[c], 0)
+                                             for c, t0 in zip(range(first, first + count), np.cumsum(t) - t)]
+            phases[p] = (first, count, int(t.sum()))
+        return np.concatenate([rec.view(np.int64), chains.view(np.int64), phases.view(np.int64),
+                               np.zeros(1, np.int64)])
+
+    def _columns(self) -> np.ndarray:
+        """(items, TRACE_COLS) column addresses: the table's storage + (its
+        column index x padded rows + the item's first row) x 4 bytes, in the
+        column's slot (a padding item's columns in its first slots), 0 where
+        the item writes no such column."""
+        idx, layout = [], []
+        for it in self.items:
+            if it.table is None:
+                idx.append(_column_slots((), None))
+                layout.append((0, 0, 0))
+                continue
+            names, st = self.buffers.storage[it.table]
+            idx.append(_column_slots(tuple(names), it.columns))
+            layout.append((st.data_ptr(), st.shape[1], it.row0))
+        ptr, size, row0 = np.array(layout, dtype=np.int64).T[:, :, None]
+        idx = np.stack(idx)
+        return np.where(idx >= 0, ptr + 4 * (idx * size + row0), 0).astype(np.uint64)
+
+    def upload(self) -> None:
+        """Pack and copy the table alone into its place in the arena."""
+        w = self.pack()
+        self.buffers.arena[self.at : self.at + len(w)].copy_(torch.from_numpy(w))
+
+    def segment(self, k: int) -> "TraceSegment":
+        return TraceSegment(self, *self.segments[k])
+
+    def phase_tiles(self, p: int) -> int:
+        first, count = self.phases[p]
+        return sum(self.tiles[first : first + count])
+
+    def step(self, it: TraceItem) -> TraceStep:
+        """An item as the plain twins take it: slices of the buffers."""
+        b = self.buffers
+        arena = b.arena
+        cols = {}
+        if it.table is not None:
+            names, st = b.storage[it.table]
+            cols = {c: st[i, it.row0 : it.row0 + it.rows] for i, c in enumerate(names)
+                    if it.columns is None or c in it.columns}
+        return TraceStep(
+            op=it.op, srcs=[(arena[o : o + n], v) for o, n, v in it.srcs], rows=it.rows,
+            out=arena[it.out[0] : it.out[0] + it.out[1]] if it.out else None, cols=cols, ids=it.ids,
+            out_mult=it.out_mult, in_mult=it.in_mult,
+            lut=tuple(arena[o : o + n] for o, n in b.luts[it.lut]) if it.lut else None,
+            mult=b.hists[it.hist] if it.hist else None,
+            flag=b.flags[it.flag : it.flag + 1] if it.flag >= 0 else None,
+        )
+
+
+@dataclass
+class TraceSegment:
+    """Phases [p0, p1) of a pass's node table: one launch of trace_segment."""
+
+    table: NodeTable
+    p0: int
+    p1: int
+
+    def items(self) -> List[TraceItem]:
+        t = self.table
+        if self.p1 <= self.p0:
+            return []
+        c0 = t.phases[self.p0][0]
+        c1 = sum(t.phases[self.p1 - 1])
+        return t.items[t.chains[c0][0] : sum(t.chains[c1 - 1])] if c1 > c0 else []
+
+    @property
+    def has_columns(self) -> bool:
+        return any(it.table is not None for it in self.items())
+
+    def steps(self) -> List[TraceStep]:
+        return [self.table.step(it) for it in self.items()]
+
+    def args(self) -> SegArgs:
+        t = self.table
+        nodes = t.buffers.arena.data_ptr() + 8 * t.at
+        chains = nodes + _ARGS_DTYPE.itemsize * len(t.items)
+        phases = chains + _CHAIN_DTYPE.itemsize * len(t.chains)
+        barrier = phases + _PHASE_DTYPE.itemsize * len(t.phases)
+        tiles = max((t.phase_tiles(p) for p in range(self.p0, self.p1)), default=0)
+        return SegArgs(nodes, chains, phases, barrier, tiles, self.p0, self.p1)
+
+    def fresh(self) -> "TraceSegment":
+        """The same segment over a copy of the buffers in which everything
+        it writes is 0 (its node table packed and uploaded anew)."""
+        t = self.table
+        b = t.buffers.zeroed([it.out for it in self.items() if it.out])
+        table = NodeTable(b, t.items, t.chains, t.phases, t.segments, t.at)
+        table.upload()
+        return TraceSegment(table, self.p0, self.p1)
+
+    def outputs(self) -> torch.Tensor:
+        """Everything the segment writes, as one int64 vector: its items'
+        outputs, the columns of the tables it writes, histograms, flags."""
+        b = self.table.buffers
+        items = self.items()
+        parts = [b.arena[o : o + n] for o, n in (it.out for it in items if it.out)]
+        parts += [b.storage[name][1].reshape(-1) for name in sorted({it.table for it in items if it.table})]
+        parts += [b.hists[k] for k in sorted(b.hists)] + ([b.flags] if b.flags is not None else [])
+        return torch.cat([p.to(torch.int64) for p in parts]) if parts else torch.zeros(0, dtype=torch.int64)
+
+
+def trace_segment(seg: TraceSegment) -> None:
+    """T1+T2: every item of a segment of a pass's node table (its phases in
+    order) in one cooperative launch (see trace.cu); none for a segment of
+    no rows."""
+    arena = seg.table.buffers.arena
+    if _on_cpu(arena):
+        return trace_segment_plain(seg)
+    args = seg.args()
+    if args.max_tiles > 0:
+        TRACE_SEGMENT.launch("lum_trace_segment", arena.device, ctypes.addressof(args))
+
+
+def _launch_one(s: TraceStep) -> None:
+    """One step as a segment of its own (one phase of one chain): its
+    TraceArgs row, the chain, the phase and the barrier words in one
+    upload, one launch."""
     dev = s.srcs[0][0].device
     a = _trace_args(s, dev)
-    kernel.launch(symbol, dev, ctypes.addressof(a))
+    tiles, shift = _chain_tiles(a.n)
+    if tiles == 0:
+        return
+    chain = np.array([(0, 1, 0, shift, 0)], _CHAIN_DTYPE)
+    phase = np.array([(0, 1, tiles)], _PHASE_DTYPE)
+    words = torch.from_numpy(np.concatenate([np.frombuffer(bytes(a), np.int64), chain.view(np.int64),
+                                             phase.view(np.int64), np.zeros(1, np.int64)])).to(dev)
+    chains = words.data_ptr() + ctypes.sizeof(TraceArgs)
+    phases = chains + _CHAIN_DTYPE.itemsize
+    args = SegArgs(words.data_ptr(), chains, phases, phases + _PHASE_DTYPE.itemsize, tiles, 0, 1)
+    TRACE_SEGMENT.launch("lum_trace_segment", dev, ctypes.addressof(args))
 
 
 def trace_binary(s: TraceStep) -> None:
-    """T1: add / mul / rem / less_than rows of one node (see trace.cu)."""
-    _require(s.op in ("add", "mul", "rem", "less_than") and len(s.srcs) == 2, f"trace_binary: op {s.op}")
+    """T1: add / mul / rem / less_than rows of one node, as a one-node
+    segment (see trace.cu)."""
+    _require(s.op in _BINARY_OPS and len(s.srcs) == 2, f"trace_binary: op {s.op}")
     if _on_cpu(s.srcs[0][0]):
         return trace_binary_plain(s)
-    _trace_launch(TRACE_BINARY, "lum_trace_binary", s)
+    _launch_one(s)
 
 
 def trace_unary(s: TraceStep) -> None:
-    """T2: inputs / recip / square / sqrt / lut / contiguous rows of one node."""
-    _require(s.op in ("inputs", "recip", "square", "sqrt", "lut", "contiguous") and len(s.srcs) == 1,
-             f"trace_unary: op {s.op}")
+    """T2: inputs / recip / square / sqrt / lut / contiguous rows of one
+    node, as a one-node segment."""
+    _require(s.op in _UNARY_OPS and len(s.srcs) == 1, f"trace_unary: op {s.op}")
     _require(s.op != "lut" or s.lut is not None, "trace_unary: a LUT op needs its tables")
     if _on_cpu(s.srcs[0][0]):
         return trace_unary_plain(s)
-    _trace_launch(TRACE_UNARY, "lum_trace_unary", s)
+    _launch_one(s)
 
 
 def trace_reduce(s: TraceStep) -> None:
@@ -1426,7 +1788,9 @@ def trace_reduce(s: TraceStep) -> None:
     _require(s.rows * s.dsize == s.srcs[0][1].n_elements, "trace_reduce: outputs x dsize must cover the view")
     if _on_cpu(s.srcs[0][0]):
         return trace_reduce_plain(s)
-    _trace_launch(TRACE_REDUCE, "lum_trace_reduce", s)
+    dev = s.srcs[0][0].device
+    a = _trace_args(s, dev)
+    TRACE_REDUCE.launch("lum_trace_reduce", dev, ctypes.addressof(a))
 
 
 def lut_minmax(buf: torch.Tensor) -> torch.Tensor:
@@ -1438,6 +1802,22 @@ def lut_minmax(buf: torch.Tensor) -> torch.Tensor:
     out = torch.empty(2, dtype=torch.int64, device=buf.device)
     LUT_MINMAX.launch("lum_lut_minmax", buf.device, buf.data_ptr(), len(buf), out.data_ptr())
     return out
+
+
+def trace_segment_plain(seg: TraceSegment) -> None:
+    """The segment's items in table order, each through its op's twin."""
+    for s in seg.steps():
+        if s.op == "pad":
+            trace_pad_plain(s)
+        elif s.op in _BINARY_OPS:
+            trace_binary_plain(s)
+        else:
+            trace_unary_plain(s)
+
+
+def trace_pad_plain(s: TraceStep) -> None:
+    for col in s.cols.values():
+        col.fill_(s.out_mult)
 
 
 def _put(cols: Dict[str, torch.Tensor], name: str, value) -> None:

@@ -331,15 +331,11 @@ def _check_fri_launches(proof):
 
 
 # ---------------------------------------------------------------------------
-# T1-T4: the trace kernels, on the six op graphs.
+# The trace kernels (trace_segment, T3, T4), on the six op graphs.
 
 from luminair_tpu_torch.models import op_graphs  # noqa: E402
 
-_TRACE_TWINS = {
-    "trace_binary": kernels.trace_binary_plain,
-    "trace_unary": kernels.trace_unary_plain,
-    "trace_reduce": kernels.trace_reduce_plain,
-}
+SEGMENT_RUNS = 3
 
 
 def _graph(name):
@@ -351,30 +347,87 @@ def _graph(name):
     return cx
 
 
-@pytest.mark.parametrize("name", list(op_graphs.GRAPHS))
-def test_trace_kernels_match_twins(dev, name, monkeypatch):
-    """Every step the card's settings pass and trace launch, run again
-    through its kernel and through its plain twin on fresh outputs."""
+def _bench_graph(n=16):
     from luminair_tpu_torch import prelude as T
 
-    steps = []
-    for wrapper in _TRACE_TWINS:
+    cx = T.Graph()
+    rng = np.random.default_rng(0)
+    a = cx.tensor((n, n)).set(rng.normal(size=(n, n)))
+    b = cx.tensor((n, n)).set(rng.normal(size=(n, n)))
+    (a * b + a).retrieve()
+    cx.compile()
+    return cx
+
+
+def _pinn_graph(batch=16):
+    from luminair_tpu_torch import prelude as T
+    from luminair_tpu_torch.models import black_scholes as BS
+
+    cx = T.Graph()
+    x, _ = BS.build(cx, BS.load_weights(), batch=batch)
+    rng = np.random.default_rng(7)
+    x.set(np.column_stack([rng.uniform(5.0, 30.0, batch), rng.uniform(0.05, 1.0, batch)]))
+    cx.compile()
+    return cx
+
+
+def _recorded_trace(cx, dev, monkeypatch):
+    """The card's settings pass and trace of `cx`, every segment and T3
+    step they launched kept."""
+    from luminair_tpu_torch import prelude as T
+
+    calls = []
+    for wrapper in ("trace_segment", "trace_reduce"):
         fn = getattr(kernels, wrapper)
 
-        def rec(step, fn=fn, wrapper=wrapper):
-            steps.append((wrapper, step))
-            return fn(step)
+        def rec(x, fn=fn, wrapper=wrapper):
+            calls.append((wrapper, x))
+            return fn(x)
 
         monkeypatch.setattr(kernels, wrapper, rec)
-    cx = _graph(name)
     T.gen_trace(cx, T.gen_circuit_settings(cx, device=dev), device=dev)
     monkeypatch.undo()
-    assert steps
-    for wrapper, step in steps:
-        k, p = step.fresh(), step.fresh()
-        getattr(kernels, wrapper)(k)
-        _TRACE_TWINS[wrapper](p)
-        assert torch.equal(k.outputs(), p.outputs()), (wrapper, step.op)
+    assert any(w == "trace_segment" for w, _ in calls)
+    return calls
+
+
+def _check_trace_calls(calls):
+    """Each segment through its kernel SEGMENT_RUNS times from fresh outputs
+    against its twin, and each T3 step once."""
+    for wrapper, x in calls:
+        if wrapper == "trace_reduce":
+            k, p = x.fresh(), x.fresh()
+            kernels.trace_reduce(k)
+            kernels.trace_reduce_plain(p)
+            assert torch.equal(k.outputs(), p.outputs()), x.op
+            continue
+        want = x.fresh()
+        kernels.trace_segment_plain(want)
+        for run in range(SEGMENT_RUNS):
+            got = x.fresh()
+            kernels.trace_segment(got)
+            assert torch.equal(got.outputs(), want.outputs()), (run, [it.op for it in x.items()])
+
+
+@pytest.mark.parametrize("name", list(op_graphs.GRAPHS))
+def test_trace_kernels_match_twins(dev, name, monkeypatch):
+    """Every segment and T3 step the card's settings pass and trace launch,
+    run again through its kernel and through its plain twin on fresh
+    outputs (each segment several times); each segment's node items also
+    alone, as one-node segments (trace_binary / trace_unary)."""
+    calls = _recorded_trace(_graph(name), dev, monkeypatch)
+    _check_trace_calls(calls)
+    for wrapper, x in calls:
+        if wrapper != "trace_segment":
+            continue
+        for step in x.fresh().steps():
+            if step.op == "pad":
+                continue
+            binary = step.op in ("add", "mul", "rem", "less_than")
+            k, p = step.fresh(), step.fresh()
+            (kernels.trace_binary if binary else kernels.trace_unary)(k)
+            (kernels.trace_binary_plain if binary else kernels.trace_unary_plain)(p)
+            assert torch.equal(k.outputs(), p.outputs()), step.op
 
 
 @pytest.mark.parametrize("name", list(op_graphs.GRAPHS))
@@ -392,6 +445,60 @@ def test_card_trace_equals_cpu_trace(dev, name):
             assert torch.equal(p_gpu.trace_tables[tname].padded[col].cpu(), v), (tname, col)
     for rid, v in cx_cpu.output_data.items():
         assert np.array_equal(cx_gpu.output_data[rid], v)
+
+
+@pytest.mark.parametrize("path", ["bench_n16", "pinn_b16"])
+def test_trace_segments_of_paths(dev, path, monkeypatch):
+    """The bench graph's and the PINN's segments (and T3 steps) against
+    their twins, several runs each; one launch per segment."""
+    cx = _bench_graph() if path == "bench_n16" else _pinn_graph()
+    kernels.reset_counts()
+    calls = _recorded_trace(cx, dev, monkeypatch)
+    segments = sum(w == "trace_segment" for w, _ in calls)
+    assert kernels.TRACE_SEGMENT.launches == segments
+    assert segments <= 2 + kernels.TRACE_REDUCE.launches + kernels.LUT_MINMAX.launches
+    _check_trace_calls(calls)
+
+
+def _random_view(rng):
+    from luminair_tpu_torch.graph.view import View
+
+    shape = tuple(int(x) for x in rng.integers(1, 9, rng.integers(1, 5)))
+    v = View.contiguous(shape)
+    for _ in range(rng.integers(1, 6)):
+        kind, d = rng.integers(0, 4), int(rng.integers(0, len(v.sizes)))
+        if kind == 0:
+            v = v.permute(tuple(int(x) for x in rng.permutation(len(v.sizes))))
+        elif kind == 1 and v.sizes[d] > 1:
+            start = int(rng.integers(0, v.sizes[d]))
+            v = v.slice(d, start, int(rng.integers(start, v.sizes[d] + 1)))
+        elif kind == 2 and len(v.sizes) < kernels.VIEW_MAX_DIMS:
+            v = v.insert(d, int(rng.integers(1, 4)))
+        else:
+            v = v.pad(d, int(rng.integers(0, 3)), int(rng.integers(0, 3)))
+    return v
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_packed_views_on_card(dev, seed):
+    """Random views resolved by the kernel's 32-bit packed gather (a
+    contiguous step, one-node segment) against View.gather on the card."""
+    from luminair_tpu_torch.graph.device_trace import TABLE_COLUMNS
+
+    rng = np.random.default_rng(500 + seed)
+    for _ in range(25):
+        v = _random_view(rng)
+        buf = torch.from_numpy(rng.integers(-2**62, 2**62, max(v.buffer_len, 1))).to(dev)
+        rows = max(len(buf), v.n_elements)
+        step = kernels.TraceStep(
+            "contiguous", [(buf, v)], rows, out=torch.zeros(v.n_elements, dtype=torch.int64, device=dev),
+            cols={c: torch.zeros(rows, dtype=torch.int32, device=dev) for c in TABLE_COLUMNS["contiguous"]},
+            ids=(3, 2, 0), out_mult=4, in_mult=9)
+        k, p = step.fresh(), step.fresh()
+        kernels.trace_unary(k)
+        kernels.trace_unary_plain(p)
+        assert torch.equal(k.out, v.gather(buf)), v
+        assert torch.equal(k.outputs(), p.outputs()), v
 
 
 # T3's scan at segments below, at and above a CTA's 256 rows (walked in
@@ -429,7 +536,7 @@ def test_lut_minmax(dev, n):
 def test_prove_from_card_trace_never_touches_the_host(dev, monkeypatch):
     """The bench graph's settings, trace and prove on the card with every
     plain twin guarded against CUDA tensors and the host upload of trace
-    columns guarded: each of the fourteen kernels launches, and the proof
+    columns guarded: each of the thirteen kernels launches, and the proof
     equals the CPU's."""
     from luminair_tpu_torch import prelude as T
     from luminair_tpu_torch import serde
@@ -438,6 +545,8 @@ def test_prove_from_card_trace_never_touches_the_host(dev, monkeypatch):
     def is_cuda(x):
         if isinstance(x, kernels.TraceStep):
             return x.srcs[0][0].is_cuda
+        if isinstance(x, kernels.TraceSegment):
+            return x.table.buffers.arena.is_cuda
         if isinstance(x, (kernels.DecommitPass, kernels.QuotientPlan)):
             return x.dev.type == "cuda"
         return isinstance(x, torch.Tensor) and x.is_cuda

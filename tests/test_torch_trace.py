@@ -207,7 +207,9 @@ def test_view_rank_limit_raises():
     v = View.contiguous((1,) * (kernels.VIEW_MAX_DIMS + 1))
     with pytest.raises(LuminairError):
         v.packed()
-    assert View.contiguous((2,) * kernels.VIEW_MAX_DIMS).packed()[0] == kernels.VIEW_MAX_DIMS
+    # Reversed strides: no two dimensions merge, so all eight reach the kernel.
+    order = tuple(range(kernels.VIEW_MAX_DIMS))[::-1]
+    assert View.contiguous((2,) * kernels.VIEW_MAX_DIMS).permute(order).packed()[0] == kernels.VIEW_MAX_DIMS
 
 
 def test_find_index_matches_reference():
@@ -295,6 +297,9 @@ def test_prove_rejects_trace_on_another_device(traced):
 # the plain twins.
 
 _SHIM = r"""
+#include <algorithm>
+#include <random>
+#include <utility>
 #include <vector>
 #define __host__
 #define __device__
@@ -310,8 +315,10 @@ struct HostBlock {
   void each(F f) const { for (int t = 0; t < T; t++) f(t); }
 };
 extern "C" long long h_args_size() { return sizeof(lum::TraceArgs); }
+extern "C" long long h_seg_args_size() { return sizeof(lum::SegArgs); }
 extern "C" void h_binary(const lum::TraceArgs* a) { for (long long i = 0; i < a->n; i++) lum::binary_row(*a, i); }
 extern "C" void h_unary(const lum::TraceArgs* a) { for (long long i = 0; i < a->n; i++) lum::unary_row(*a, i); }
+extern "C" void h_rows(const lum::TraceArgs* a) { for (long long i = 0; i < a->n; i++) lum::segment_row(*a, i); }
 extern "C" void h_reduce_ctas(const lum::TraceArgs* a, int T) {
   std::vector<long long> raw(T), scan(2 * T);
   std::vector<int> pos(T);
@@ -319,6 +326,34 @@ extern "C" void h_reduce_ctas(const lum::TraceArgs* a, int T) {
   for (long long c = 0; c < (a->n + per - 1) / per; c++) lum::reduce_cta(HostBlock{T}, *a, c, raw.data(), scan.data(), pos.data());
 }
 extern "C" void h_reduce(const lum::TraceArgs* a) { h_reduce_ctas(a, 256); }  // the card's CTA
+// The segment interpreter on a host grid: the phases between two barriers
+// form a group, and a group's tiles (phase, tile) run one after another in
+// a seeded shuffled order, as CTAs of a grid may take them, each through
+// every item of its chain; a barrier ends the group.
+extern "C" void h_segment(const lum::SegArgs* s, unsigned seed) {
+  const auto* nodes = (const lum::TraceArgs*)s->nodes;
+  const auto* chains = (const lum::SegChain*)s->chains;
+  const auto* phases = (const lum::SegPhase*)s->phases;
+  std::mt19937 rng(seed);
+  for (int p = s->p0; p < s->p1;) {
+    int q = p + 1;
+    while (q < s->p1 && !lum::barrier_before(q, s->p0)) q++;
+    std::vector<std::pair<int, long long>> work;
+    for (int k = p; k < q; k++)
+      for (long long t = 0; t < phases[k].tiles; t++) work.emplace_back(k, t);
+    std::shuffle(work.begin(), work.end(), rng);
+    for (const auto& w : work) {
+      const lum::SegChain& c = chains[lum::tile_chain(chains, phases[w.first], w.second)];
+      for (int j = 0; j < c.count; j++)
+        lum::tile_rows(HostBlock{lum::SEG_THREADS}, nodes[c.first + j], w.second - c.tile0, c.shift);
+    }
+    p = q;
+  }
+}
+extern "C" void h_gather(const lum::ViewDesc* v, const long long* buf, long long n, long long* out) {
+  for (long long i = 0; i < n; i++) out[i] = lum::gather(*v, buf, (uint32_t)i);
+}
+extern "C" unsigned h_fast_div(unsigned n, unsigned magic, unsigned shift) { return lum::fast_div(n, magic, shift); }
 """
 
 
@@ -341,8 +376,9 @@ def _build_rows(d, header=None):
     subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(inc), "-o", str(d / "rows.so"),
                     str(d / "shim.cpp")], check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(d / "rows.so"))
-    lib.h_args_size.restype = ctypes.c_longlong
+    lib.h_args_size.restype = lib.h_seg_args_size.restype = ctypes.c_longlong
     assert lib.h_args_size() == ctypes.sizeof(kernels.TraceArgs)
+    assert lib.h_seg_args_size() == ctypes.sizeof(kernels.SegArgs)
 
     def runner(fn):
         fn.argtypes = [ctypes.c_void_p]
@@ -359,8 +395,33 @@ def _build_rows(d, header=None):
         args = kernels._trace_args(step, CPU)
         lib.h_reduce_ctas(ctypes.addressof(args), threads)
 
-    return {"trace_binary": runner(lib.h_binary), "trace_unary": runner(lib.h_unary),
-            "trace_reduce": runner(lib.h_reduce), "reduce_ctas": reduce_ctas}
+    lib.h_segment.argtypes = [ctypes.c_void_p, ctypes.c_uint]
+
+    def segment(seg, seed=0):
+        args = seg.args()
+        lib.h_segment(ctypes.addressof(args), seed)
+
+    lib.h_gather.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+
+    def gather(view, buf):
+        desc = kernels.ViewDesc.from_buffer_copy(kernels._view_bytes(view, len(buf)))
+        out = torch.zeros(view.n_elements, dtype=torch.int64)
+        lib.h_gather(ctypes.addressof(desc), buf.data_ptr(), len(out), out.data_ptr())
+        return out
+
+    lib.h_fast_div.argtypes = [ctypes.c_uint] * 3
+    lib.h_fast_div.restype = ctypes.c_uint
+    rows = runner(lib.h_rows)
+
+    def segment_rows(seg):
+        """A segment's items in table order, each row by trace.cuh's
+        segment_row (no tiles, no phases)."""
+        for step in seg.steps():
+            rows(step)
+
+    return {"trace_binary": runner(lib.h_binary), "trace_unary": runner(lib.h_unary), "trace_pad": rows,
+            "trace_reduce": runner(lib.h_reduce), "reduce_ctas": reduce_ctas, "segment": segment,
+            "segment_rows": segment_rows, "gather": gather, "fast_div": lib.h_fast_div}
 
 
 @pytest.fixture(scope="module")
@@ -374,18 +435,115 @@ def test_kernel_rows_trace_like_twins(traced, host_rows, name, monkeypatch):
     """The whole device interpreter with trace.cuh's rows in place of the
     twins gives the twins' PIE, settings and outputs."""
     _, _, _, pcx, ps, pp = traced[name]
-    for wrapper in ("trace_binary", "trace_unary", "trace_reduce"):
-        monkeypatch.setattr(kernels, wrapper, host_rows[wrapper])
+    monkeypatch.setattr(kernels, "trace_segment", host_rows["segment_rows"])
+    monkeypatch.setattr(kernels, "trace_reduce", host_rows["trace_reduce"])
+    assert not _trace_mismatches(name, pcx, ps, pp)
+
+
+def _trace_mismatches(name, pcx, ps, pp) -> list:
+    """Where the case's settings, PIE (every padded column) and outputs,
+    traced through whatever kernels.trace_segment / trace_reduce now are,
+    differ from the twins' (empty when they are equal)."""
     cx = _port_case(name)
     settings = T.gen_circuit_settings(cx, device="cpu")
     pie = T.gen_trace(cx, settings, device="cpu")
-    assert settings.to_dict() == ps.to_dict()
-    assert list(pie.trace_tables) == list(pp.trace_tables)
-    for tname, t in pp.trace_tables.items():
-        for col, v in t.padded.items():
-            assert torch.equal(pie.trace_tables[tname].padded[col], v), (tname, col)
-    for rid, v in pcx.output_data.items():
-        assert np.array_equal(cx.output_data[rid], v)
+    if settings.to_dict() != ps.to_dict() or list(pie.trace_tables) != list(pp.trace_tables):
+        return ["settings or tables"]
+    bad = [(tname, col) for tname, t in pp.trace_tables.items() for col, v in t.padded.items()
+           if not torch.equal(pie.trace_tables[tname].padded[col], v)]
+    return bad + [rid for rid, v in pcx.output_data.items() if not np.array_equal(cx.output_data[rid], v)]
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_segment_body_traces_like_twins(traced, host_rows, name, monkeypatch):
+    """The whole device interpreter with trace.cuh's segment interpreter on
+    a host grid (each segment's phases in order, the tiles of a phase in a
+    seeded shuffled order) gives the twins' PIE, settings and outputs --
+    the reference's host interpreter's, tolerance 0."""
+    _, _, _, pcx, ps, pp = traced[name]
+    seeds = iter(range(1000))
+    monkeypatch.setattr(kernels, "trace_segment", lambda seg: host_rows["segment"](seg, next(seeds)))
+    monkeypatch.setattr(kernels, "trace_reduce", host_rows["trace_reduce"])
+    assert not _trace_mismatches(name, pcx, ps, pp)
+    assert next(seeds) > 0
+
+
+def _phased_graph():
+    """A graph whose segments have several phases: rows that read other
+    rows' outputs (transposes, a broadcast of one column) with no
+    reduction between them."""
+    cx = T.Graph()
+    rng = np.random.default_rng(3)
+    a = cx.tensor((16, 16)).set(rng.uniform(-1.0, 1.0, (16, 16)))
+    b = a * a
+    c = b.permute((1, 0)) * b + b.slice_dim(1, 0, 1).expand(1, 16)
+    (c.permute((1, 0)).contiguous() + c).retrieve()
+    cx.compile()
+    return cx
+
+
+def _recorded_segments(graphs):
+    """Every segment of the settings pass and trace of each compiled graph,
+    run by the twin and kept with its pass's buffers."""
+    segs = []
+
+    def record(seg):
+        segs.append(seg)
+        kernels.trace_segment_plain(seg)
+
+    was = kernels.trace_segment
+    kernels.trace_segment = record
+    try:
+        for cx in graphs:
+            T.gen_trace(cx, T.gen_circuit_settings(cx, device="cpu"), device="cpu")
+    finally:
+        kernels.trace_segment = was
+    return segs
+
+
+def _merged(seg):
+    """The segment with its first two phases merged into one (a dependent
+    pair of chains then shares a phase), or None when it has one phase."""
+    t = seg.table
+    if seg.p1 - seg.p0 < 2:
+        return None
+    (f0, c0), (_, c1) = t.phases[seg.p0 : seg.p0 + 2]
+    phases = t.phases[: seg.p0] + [(f0, c0 + c1)] + t.phases[seg.p0 + 2 :]
+    table = kernels.NodeTable(t.buffers, t.items, t.chains, phases, t.segments, t.at)
+    table.upload()
+    return kernels.TraceSegment(table, seg.p0, seg.p1 - 1)
+
+
+# Mutations the segment interpreter must catch: a barrier dropped between
+# two phases of a segment (trace.cuh), two dependent phases merged into one
+# (the node table).  Each segment of several phases of a graph's passes is
+# run from fresh outputs through the mutated interpreter on the host grid
+# (three seeds) and through the twin.
+@pytest.mark.parametrize("mutation", ["barrier", "phases"])
+def test_mutated_segment_fails(host_rows, tmp_path, mutation):
+    from pathlib import Path
+
+    header = None
+    if mutation == "barrier":
+        old = "bool barrier_before(int p, int p0) { return p > p0; }"
+        header = (Path(kernels.__file__).resolve().parent / "csrc" / "trace.cuh").read_text()
+        assert header.count(old) == 1
+        header = header.replace(old, "bool barrier_before(int p, int p0) { return false; }")
+    rows = _build_rows(tmp_path, header)
+    multi = bad = 0
+    for seg in _recorded_segments([_phased_graph(), _port_case("all_ops")]):
+        if seg.p1 - seg.p0 < 2:
+            continue
+        multi += 1
+        want, control = seg.fresh(), seg.fresh()
+        kernels.trace_segment_plain(want)
+        host_rows["segment"](control, 0)  # the interpreter as it is
+        assert torch.equal(control.outputs(), want.outputs())
+        for seed in range(3):
+            got = seg.fresh() if mutation == "barrier" else _merged(seg.fresh())
+            rows["segment"](got, seed)
+            bad += not torch.equal(got.outputs(), want.outputs())
+    assert multi and bad, (multi, bad)
 
 
 TRACE_SEED = 400
@@ -399,7 +557,7 @@ def _random_step(op, rng):
         a = torch.from_numpy(rng.integers(-2**31, 2**31, len(a)))
     n = len(a) - len(a) % 60
     a, b = a[:n].contiguous(), b[:n].contiguous()
-    table = {"inputs": "inputs", "lut": "sin"}.get(op, op)
+    table = {"inputs": "inputs", "lut": "sin", "pad": "mul"}.get(op, op)
     view = View.contiguous((n,))
     kw = dict(out_mult=5, mult=torch.zeros(256, dtype=torch.int32), flag=torch.zeros(1, dtype=torch.int32))
     if op in ("add", "mul", "rem", "less_than"):
@@ -419,13 +577,16 @@ def _random_step(op, rng):
         los, his, starts = (torch.from_numpy(v) for v in layout.packed())
         kw.update(lut=(los, his, starts, torch.from_numpy(rng.integers(-2**40, 2**40, layout.value_count()))),
                   mult=torch.zeros(1 << layout.log_size, dtype=torch.int32))
+    elif op == "pad":  # a table's padding rows: every column gets out_mult
+        srcs, rows = [], n
+        kw = dict(out_mult=5)
     else:
         srcs, rows = [(a, view)], n
     n_rows = rows * kw.get("dsize", 1)
     n_out = view.n_elements if op == "contiguous" else rows
     cols = {c: torch.zeros(n_rows, dtype=torch.int32) for c in TABLE_COLUMNS[table]}
-    return kernels.TraceStep(op, srcs, rows, out=torch.zeros(n_out, dtype=torch.int64), cols=cols,
-                             ids=(7, 3, 4), **kw)
+    out = None if op == "pad" else torch.zeros(n_out, dtype=torch.int64)
+    return kernels.TraceStep(op, srcs, rows, out=out, cols=cols, ids=(7, 3, 4), **kw)
 
 
 @pytest.mark.parametrize("op", kernels.TRACE_OPS)
@@ -436,7 +597,7 @@ def test_kernel_rows_match_twins_on_extremes(host_rows, op):
     through the twin."""
     step = _random_step(op, np.random.default_rng(TRACE_SEED + kernels.TRACE_OPS.index(op)))
     wrapper = ("trace_binary" if op in ("add", "mul", "rem", "less_than")
-               else "trace_reduce" if op.endswith("_reduce") else "trace_unary")
+               else "trace_reduce" if op.endswith("_reduce") else "trace_pad" if op == "pad" else "trace_unary")
     k, p = step.fresh(), step.fresh()
     host_rows[wrapper](k)
     getattr(kernels, wrapper + "_plain")(p)
@@ -510,3 +671,142 @@ def test_mutated_scan_fails(tmp_path, mutation):
         kernels.trace_reduce_plain(p)
         bad += not torch.equal(k.outputs(), p.outputs())
     assert bad
+
+
+# ---------------------------------------------------------------------------
+# Packed 32-bit views (View.packed, trace.cuh gather) against View.gather.
+
+
+def _packed_gather_torch(view, buf):
+    """The packed view resolved as trace.cuh's gather does, in torch: the
+    fast divmod of each inner size, the clamp and the box."""
+    ndim, sizes, strides, los, his, base, magic, shift = view.packed()
+    rest = torch.arange(view.n_elements, dtype=torch.int64)
+    phys = torch.full_like(rest, base)
+    ok = torch.ones_like(rest, dtype=torch.bool)
+    for d in range(ndim - 1, -1, -1):
+        c = rest
+        if d > 0:
+            q = (rest * magic[d]) >> shift[d]
+            c, rest = rest - q * sizes[d], q
+        phys = phys + c * strides[d]
+        ok &= (c >= los[d]) & (c < his[d])
+    return torch.where(ok, buf[phys.clamp(0, len(buf) - 1)], 0)
+
+
+def _random_view(rng):
+    """A contiguous view of 1-4 dims moved by 1-5 random permutes, slices,
+    broadcasts, inserted dims and pads."""
+    shape = tuple(int(x) for x in rng.integers(1, 7, rng.integers(1, 5)))
+    v = View.contiguous(shape)
+    for _ in range(rng.integers(1, 6)):
+        kind = rng.integers(0, 5)
+        d = int(rng.integers(0, len(v.sizes)))
+        if kind == 0:
+            v = v.permute(tuple(int(x) for x in rng.permutation(len(v.sizes))))
+        elif kind == 1 and v.sizes[d] > 1:
+            start = int(rng.integers(0, v.sizes[d]))
+            v = v.slice(d, start, int(rng.integers(start, v.sizes[d] + 1)))
+        elif kind == 2 and v.sizes[d] == 1:
+            v = v.broadcast(d, int(rng.integers(2, 5)))
+        elif kind == 3 and len(v.sizes) < kernels.VIEW_MAX_DIMS:
+            v = v.insert(d, int(rng.integers(1, 4)))
+        else:
+            v = v.pad(d, int(rng.integers(0, 3)), int(rng.integers(0, 3)))
+    return v
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_packed_view_matches_gather(host_rows, seed):
+    """Random views: the packed form through trace.cuh's gather (g++) and
+    through its torch transcription equal View.gather, tolerance 0."""
+    rng = np.random.default_rng(1000 + seed)
+    for _ in range(40):
+        v = _random_view(rng)
+        buf = torch.from_numpy(rng.integers(-2**62, 2**62, max(v.buffer_len, 1)))
+        want = v.gather(buf)
+        assert torch.equal(_packed_gather_torch(v, buf), want), v
+        assert torch.equal(host_rows["gather"](v, buf), want), v
+
+
+def _odd_views():
+    """Edge views: sizes of 1, powers of two and odd sizes, merged and kept
+    dims, a zero-size dim, negative strides, boxes outside the sizes."""
+    c = View.contiguous
+    return [
+        c((1,)), c(()), c((1, 1, 1)), c((2, 4, 8)), c((3, 5, 7)).permute((2, 0, 1)),
+        c((2,) * 8).permute(tuple(range(8))[::-1]), c((4, 0, 3)), c((6, 6)).pad(0, 3, 2).slice(0, 4, 8),
+        c((5, 3)).slice(1, 1, 2).broadcast(1, 9), c((1, 4)).broadcast(0, 1 << 10).permute((1, 0)),
+        View((3, 4), (-4, 1), 8, ((0, 3), (0, 4)), 12), View((4, 3), (1, -4), 9, ((1, 3), (0, 3)), 12),
+        View((2, 3), (3, 1), 0, ((-2, 5), (2, 1)), 6), View((1 << 16, 2), (2, 1), 0, ((0, 1 << 16), (0, 2)), 1 << 17),
+    ]
+
+
+@pytest.mark.parametrize("k", range(14))
+def test_packed_edge_views_match_gather(host_rows, k):
+    v = _odd_views()[k]
+    buf = torch.from_numpy(np.random.default_rng(k).integers(-2**62, 2**62, max(v.buffer_len, 1)))
+    want = v.gather(buf)
+    assert torch.equal(_packed_gather_torch(v, buf), want)
+    assert torch.equal(host_rows["gather"](v, buf), want)
+
+
+@pytest.mark.parametrize("size", [1, 2, 3, 5, 7, 1 << 10, (1 << 10) + 1, 12345, (1 << 30) - 1, 1 << 30,
+                                  (1 << 30) + 1, (1 << 31) - 1])
+def test_fast_divmod_edges(host_rows, size):
+    """n // size == (n * magic) >> shift for the dividends at the edges of
+    [0, 2^31) and around multiples of the size, in Python and in
+    trace.cuh's fast_div (g++); magic fits in 32 bits."""
+    magic, shift = kernels.fast_divmod(size)
+    assert 0 < magic < 1 << 32
+    top = (1 << 31) - 1
+    rng = np.random.default_rng(size)
+    ns = {0, 1, size - 1, size, size + 1, top, top - 1, top - top % size, top - top % size - 1}
+    ns |= {int(x) for x in rng.integers(0, 1 << 31, 200)}
+    ns |= {m * size + e for m in (1, 2, top // size) for e in (-1, 0, 1)}
+    for n in sorted(x for x in ns if 0 <= x <= top):
+        assert (n * magic) >> shift == n // size, n
+        assert host_rows["fast_div"](n, magic, shift) == n // size, n
+
+
+def test_node_of_2_31_rows_raises():
+    """A view or a node of 2^31 elements raises before anything is
+    allocated: its idx column could not hold the row."""
+    with pytest.raises(LuminairError, match="2\\^31"):
+        View.contiguous((1 << 31,)).packed()
+    assert View.contiguous(((1 << 31) - 1,)).packed()[0] == 1
+    cx = T.Graph()
+    a = cx.tensor((1 << 16, 1 << 15))
+    (a * a).retrieve()
+    cx.compile()
+    with pytest.raises(LuminairError, match="2\\^31"):
+        T.gen_circuit_settings(cx, device="cpu")
+
+
+def test_segment_of_many_rows(host_rows):
+    """A segment whose chains take tiles of several rows a thread: a table's
+    padding (two columns of 600,000 rows, column after column) and a chain
+    of an add and a mul of 1,100,000 rows, the mul reading the add at its
+    own row; trace.cuh's interpreter on the host grid against the twin."""
+    n, pad, rows0 = 1_100_000, 600_000, 24_288
+    rng = np.random.default_rng(8)
+    arena = torch.zeros(4 * n + kernels.NodeTable.n_words(3, 2, 1), dtype=torch.int64)
+    arena[: 2 * n] = torch.from_numpy(rng.integers(-2**40, 2**40, 2 * n))
+    size = 1 << 20
+    storage = {"mul": (["lhs", "rhs"], torch.zeros((2, size), dtype=torch.int32))}
+    view = View.contiguous((n,))
+    items = [
+        kernels.TraceItem("pad", pad, table="mul", row0=rows0, columns=("lhs", "rhs"), out_mult=7),
+        kernels.TraceItem("add", n, ((0, n, view), (n, n, view)), out=(2 * n, n), ids=(5, 1, 2)),
+        kernels.TraceItem("mul", n, ((2 * n, n, view), (0, n, view)), out=(3 * n, n), ids=(6, 5, 1)),
+    ]
+    table = kernels.NodeTable(kernels.TraceBuffers(arena, storage, flags=torch.zeros(4, dtype=torch.int32)), items,
+                              [(0, 1), (1, 2)], [(0, 2)], [(0, 1)], 4 * n)
+    assert min(table.shifts) > 0 and max(table.tiles) <= kernels.SEG_MAX_TILES
+    table.upload()
+    seg = table.segment(0)
+    want, got = seg.fresh(), seg.fresh()
+    kernels.trace_segment_plain(want)
+    host_rows["segment"](got, 1)
+    assert torch.equal(got.outputs(), want.outputs())
+    assert int(want.table.buffers.storage["mul"][1][0, rows0 + pad - 1]) == 7
