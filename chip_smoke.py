@@ -18,8 +18,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      below a CTA), K2 on whole trees at the sides of its tile (2^10 nodes),
      K5/K6 on the tape of every PINN component at its batch-256 trace and
      commit sizes, K7 at the PINN's OODS groups, alone and in one call,
-     and at groups below and above a chunk, K3's device-challenge fold at
-     the PINN's 2^23 composition fold, K8 on random channel states, K9 on
+     and at groups below and above a chunk, K3's layer launch at the N=256
+     prove's shapes and at the PINN's 2^23 circle fold and first committed
+     layer, K8 on random channel states, K9 on
      a pass over trees of the PINN's sizes and on one whose position lists
      exceed shared memory, K10 at 16 bits; CUDA-event times of kernel
      and twin and the least time the card could take for the same work;
@@ -35,7 +36,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      must pass, the host PIE's proof must have the same bytes, and the
      native C++ verifier must accept the proof; K2 may take at most
      ceil((L + 1) / (t + 1)) launches per tree of 2^L leaves (tile 2^t),
-     K4 and K7 one call per prove; then the path once more keeping the
+     K4 and K7 one call per prove, K3 one launch per committed FRI layer
+     and one for the largest input's circle fold (8 at N=256, 10 at the
+     PINN); then the path once more keeping the
      inputs of each kernel call at each distinct shape (the trace
      segments and T3 steps too), every kept call run again through the
      kernel and through its plain twin, bit for bit (a segment three
@@ -130,11 +133,11 @@ def fft_work(words_in: int, words_out: int, log_n: int, n_stages: int, inverse: 
 
 
 PORT_KERNEL_NAMES = (
-    "fft_pass_kernel", "merkle_pass_kernel", "fri_fold_kernel",
+    "fft_pass_kernel", "merkle_pass_kernel", "fri_layer_kernel",
     "deep_quotient_kernel", "air_witness_kernel", "scan_tile", "air_domain_kernel",
-    "oods_partial_kernel", "oods_combine_kernel", "fri_fold_chain_kernel", "channel_draw_kernel",
+    "oods_partial_kernel", "oods_combine_kernel", "channel_draw_kernel",
     "channel_mix_draw_kernel", "decommit_kernel", "grind_pow_kernel", "trace_segment_kernel", "trace_reduce_kernel",
-    "lut_minmax_kernel",
+    "lut_boundary_kernel",
 )
 
 
@@ -305,50 +308,50 @@ def phase_kernels(kernels, circle, f, dev, pinn_logs):
         plain_ms=time_ms(lambda: tree_words(kernels, main_tree, kernels.merkle_tree_plain)), bound=tree_bound,
     )
 
-    # K3: the composition's circle fold 2^19 -> 2^18, the trace inputs'
-    # 2^18 -> 2^17, then a line fold 2^18 -> 2^17 that mixes in the next
-    # input (as at line level 17 of the N=256 prove).
-    alpha = rng.integers(0, f.P, 4)
-    beta2 = rng.integers(0, f.P, 4)
-    circ = rnd(1 << 19, 4)
-    tw_c = circle.twiddle_stage(19, 0, True, dev)
-    err = check("fri_fold circle 2^19", lambda: kernels.fri_fold(circ, tw_c, alpha),
-                lambda: kernels.fri_fold_plain(circ, tw_c, alpha))
-    circ18 = rnd(1 << 18, 4)
-    tw_c18 = circle.twiddle_stage(18, 0, True, dev)
-    err |= check("fri_fold circle 2^18", lambda: kernels.fri_fold(circ18, tw_c18, alpha),
-                 lambda: kernels.fri_fold_plain(circ18, tw_c18, alpha))
-    line = kernels.fri_fold(circ, tw_c, alpha)
-    tw_l = circle.twiddle_stage(19, 1, True, dev)
-    mix = rnd(1 << 17, 4)
-    err |= check("fri_fold line+mix 2^18", lambda: kernels.fri_fold(line, tw_l, alpha, mix, beta2),
-                 lambda: kernels.fri_fold_plain(line, tw_l, alpha, mix, beta2))
-    # The chain's form: the challenge read from the card, at the PINN's
-    # composition fold 2^23 -> 2^22 and a line fold t = 1 with a mix.
-    alpha_d = rnd(4)
-    circ23 = rnd(1 << 23, 4)
-    tw_c23 = circle.twiddle_stage(23, 0, True, dev)
-    err |= check("fri_fold_chain circle 2^23", lambda: kernels.fri_fold_chain(circ23, tw_c23, alpha_d, 0),
-                 lambda: kernels.fri_fold_chain_plain(circ23, tw_c23, alpha_d, 0))
-    del circ23
-    err |= check("fri_fold_chain line+mix 2^18 t=1", lambda: kernels.fri_fold_chain(line, tw_l, alpha_d, 1, mix),
-                 lambda: kernels.fri_fold_chain_plain(line, tw_l, alpha_d, 1, mix))
-    fold_ops = (1 << 18) * (8 * OPS_MUL + 8 * OPS_ADD + OPS_QMUL + 4 * OPS_ADD)
-    rows["fri_fold"] = dict(
-        shape="circle fold 2^19 -> 2^18", err=err,
-        ms=time_ms(lambda: kernels.fri_fold(circ, tw_c, alpha)),
-        plain_ms=time_ms(lambda: kernels.fri_fold_plain(circ, tw_c, alpha)),
-        bound=bound(16 * (1 << 19) + 4 * (1 << 18) + 16 * (1 << 18), fold_ops),
-    )
-
+    rows["fri_layer"] = fri_layer_kernel(kernels, circle, dev, rnd, check)
     rows["deep_quotient"] = quotient_kernel(kernels, circle, dev, rng, rnd, check)
     transcript_kernels(kernels, f, dev, rng, rnd, check)
     rows.update(tape_kernels(kernels, f, dev, pinn_logs, rng, rnd, check))
     rows.update(oods_kernel(kernels, circle, f, dev, rng, rnd, check))
+    circle.twiddle_table.cache_clear()  # the checks' tables (K3's of logs 22 and 17) stay out of the paths' peaks
     for name, r in rows.items():
         emit({"phase": "kernel_time", "kernel": name, "shape": r["shape"], "ms": r["ms"],
               "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1]})
     return rows
+
+
+def fri_layer_kernel(kernels, circle, dev, rnd, check) -> dict:
+    """K3 against its twin: the N=256 prove's circle fold 2^19 -> 2^18 and its
+    first committed layer (line log 18, two folds, the inputs of circle
+    logs 18 and 17 joining), a three-fold layer with an input joining at
+    its last fold, and the PINN's 2^23 circle fold and first committed
+    layer (line log 22, two folds, the input of circle log 22 joining at
+    fold 0; timed).  The challenges lie on the card, as K8 draws them."""
+    alpha0, alpha = rnd(4), rnd(4)
+
+    def layer(kmax, L, folds, joins):
+        tws = [circle.twiddle_stage(kmax, kmax - (L - t), True, dev) for t in range(folds)]
+        mixes = [(rnd(1 << (L - t), 4), circle.twiddle_stage(L - t, 0, True, dev)) if L - t in joins else None
+                 for t in range(folds)]
+        return rnd(1 << L, 4), tws, alpha, 0, mixes, alpha0
+
+    def circle_fold(log):
+        return rnd(1 << log, 4), [circle.twiddle_stage(log, 0, True, dev)], alpha0
+
+    err = 0
+    for name, args in (("circle fold 2^19", circle_fold(19)),
+                       ("layer 2^18, 2 folds, inputs 18, 17", layer(19, 18, 2, (18, 17))),
+                       ("layer 2^12, 3 folds, input 10", layer(19, 12, 3, (10,))),
+                       ("circle fold 2^23", circle_fold(23))):
+        err |= check(f"fri_layer {name}", lambda: kernels.fri_layer(*args), lambda: kernels.fri_layer_plain(*args))
+    del args
+    args = layer(23, 22, 2, (22,))
+    err |= check("fri_layer layer 2^22, 2 folds, input 22", lambda: kernels.fri_layer(*args),
+                 lambda: kernels.fri_layer_plain(*args))
+    work = fri_layer_work({"values": args[0], "twiddles": args[1], "mixes": args[4]})
+    return dict(shape="the PINN's first committed layer: 2^22 rows, 2 folds, the input of circle log 22 joining",
+                err=err, ms=time_ms(lambda: kernels.fri_layer(*args)),
+                plain_ms=time_ms(lambda: kernels.fri_layer_plain(*args)), bound=bound(*work))
 
 
 def quotient_groups(circle, rng, rnd, spec):
@@ -680,34 +683,39 @@ class tree_bottoms:
         return False
 
 
-def path_launches(kernels, tag, first_s, launches, bottoms, expect):
+def path_launches(kernels, tag, first_s, launches, bottoms, expect, k3_limit):
     """The path line: launches of one run with the counters reset just
     before it, and K2's trees with the launches they may take (ceil((L +
     1) / (t + 1)) each).  Fails if a kernel of the path never launched, K2
-    took more, or K7 more than one call (two launches) per prove."""
+    took more, K7 more than one call (two launches) per prove, K4 more than
+    one, or K3 more than `k3_limit` (one a committed FRI layer and one
+    for the largest input's circle fold)."""
     limit = sum(-(-(b + 1) // (kernels.MERKLE_TILE_LOG + 1)) for b in bottoms)
     emit({"phase": "path", "path": tag, "first_prove_seconds": first_s, "launches": launches,
-          "merkle_trees": len(bottoms), "merkle_tree_bottoms": bottoms, "merkle_launch_limit": limit})
+          "merkle_trees": len(bottoms), "merkle_tree_bottoms": bottoms, "merkle_launch_limit": limit,
+          "fri_layer_launch_limit": k3_limit})
     missing = [k for k in expect if launches[k] == 0]
     if missing:
         raise AssertionError(f"{tag}: the path launched no {missing}")
     if launches["blake2s_merkle"] > limit or launches["oods_eval"] > 1 or launches["deep_quotient"] > 1:
         raise AssertionError(f"{tag}: K2 took {launches['blake2s_merkle']} launches (at most {limit}), "
                              f"K7 {launches['oods_eval']} calls, K4 {launches['deep_quotient']} (at most 1 each)")
+    if launches["fri_layer"] > k3_limit:
+        raise AssertionError(f"{tag}: K3 took {launches['fri_layer']} launches (at most {k3_limit})")
 
 
 def segment_launch_gate(tag, stages) -> None:
     """trace_segment launches once per segment: a trace's segments are cut at
     its reductions (T3), a settings pass's at its LUT nodes (one T4 each)
     too."""
-    for stage, cuts in (("trace", ("trace_reduce",)), ("settings", ("trace_reduce", "lut_minmax"))):
+    for stage, cuts in (("trace", ("trace_reduce",)), ("settings", ("trace_reduce", "lut_boundary"))):
         got = stages[stage].get("trace_segment", 0)
         most = 1 + sum(stages[stage].get(k, 0) for k in cuts)
         if not 1 <= got <= most:
             raise AssertionError(f"{tag}: the {stage} pass made {got} trace_segment launches (1 to {most})")
 
 
-def phase_path(T, kernels, serde, tracing, f, card, tag, build, host, expect, check_output=None):
+def phase_path(T, kernels, serde, tracing, f, card, tag, build, host, expect, k3_limit, check_output=None):
     """One path.  `host` is the host interpreter's (PIE, settings, seconds,
     seconds).  With every launch counter set to 0 just before it and read
     just after: the card's settings, trace and first prove through the
@@ -725,7 +733,7 @@ def phase_path(T, kernels, serde, tracing, f, card, tag, build, host, expect, ch
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         launches = kernels.counts()
-    path_launches(kernels, tag, first_s, launches, bottoms, expect)
+    path_launches(kernels, tag, first_s, launches, bottoms, expect, k3_limit)
     segment_launch_gate(tag, stage_launches)
 
     card_s = [(settings_s, trace_s, spans)] + [card_trace(T, build()[0])[2:] for _ in range(2)]
@@ -789,8 +797,8 @@ def path_twins(kernels, tape, f):
         "circle_lde": ("circle_fft", lambda a: kernels.circle_lde_plain(a["coeffs"], a["log_blowup"]),
                        ("coeffs", "log_blowup")),
         "merkle_tree": ("blake2s_merkle", lambda a: kernels.merkle_tree_plain(a["desc"]), ("desc",)),
-        "fri_fold": ("fri_fold", lambda a: kernels.fri_fold_plain(a["values"], a["twiddles"], a["alpha"],
-                                                                  a["mix"], a["beta2"]), ("values", "mix")),
+        "fri_layer": ("fri_layer", lambda a: kernels.fri_layer_plain(
+            a["values"], a["twiddles"], a["alpha"], a["t0"], a["mixes"], a["alpha0"]), ("values", "twiddles", "mixes")),
         "deep_quotient_many": ("deep_quotient", lambda a: kernels.deep_quotient_many_plain(a["plan"]), ("plan",)),
         "air_witness": ("air_witness", lambda a: tape.witness_plain(a["tp"], a["main"], a["pp"], a["ew"]),
                         ("tp", "main")),
@@ -798,8 +806,6 @@ def path_twins(kernels, tape, f):
             a["tp"], a["main"], a["pp"], a["inter"], a["is_first"], f.qm31_words(a["claimed"]), a["ew"],
             a["pows"], a["log_trace"], a["stride"], a["acc"]), ("tp", "is_first", "stride", "acc")),
         "oods_eval_many": ("oods_eval", lambda a: kernels.oods_eval_many_plain(a["groups"]), ("groups",)),
-        "fri_fold_chain": ("fri_fold", lambda a: kernels.fri_fold_chain_plain(
-            a["values"], a["twiddles"], a["alpha"], a["fold"], a["mix"]), ("values", "fold", "mix")),
         "channel_draw_felt": ("fri_channel", lambda a: kernels.channel_draw_felt_plain(a["state"], a["out"]), ()),
         "channel_mix_root_draw": ("fri_channel", lambda a: kernels.channel_mix_root_draw_plain(
             a["state"], a["root"], a["out"]), ()),
@@ -813,7 +819,8 @@ def trace_twins(kernels):
     return {
         "trace_segment": ("trace_segment", kernels.trace_segment_plain, ("seg",)),
         "trace_reduce": ("trace_reduce", kernels.trace_reduce_plain, ("s",)),
-        "lut_minmax": ("lut_minmax", lambda a: kernels.lut_minmax_plain(a["buf"]), ("buf",)),
+        "lut_boundary": ("lut_boundary", lambda a: kernels.lut_boundary_plain(a["src"], a["gathered"]),
+                         ("src", "gathered")),
     }
 
 
@@ -827,6 +834,8 @@ def describe(x):
         return tuple(x.shape) if x.is_contiguous() else (tuple(x.shape), x.stride())
     if isinstance(x, (list, tuple)) and x and isinstance(x[0], torch.Tensor):
         return (len(x),) + tuple(x[0].shape)
+    if isinstance(x, list) and all(m is None or isinstance(m[0], torch.Tensor) for m in x):  # K3's joining inputs
+        return tuple(None if m is None else tuple(m[0].shape) for m in x)
     if hasattr(x, "n_ctas"):  # a DEEP-quotient plan: its groups' logs and widths
         return tuple((log, len(cols)) for log, cols, _, _ in x.groups)
     if hasattr(x, "region"):  # a decommitment pass: its trees and output size
@@ -843,6 +852,10 @@ def describe(x):
         return (x.op, x.rows, x.dsize, x.back, tuple((len(b), v.shape) for b, v in x.srcs), bool(x.cols))
     return x
 
+
+# Wrappers whose every call is kept and replayed, not one a shape: each K3
+# layer and each T4 boundary of a path.
+EVERY_CALL = ("fri_layer", "lut_boundary")
 
 # Arguments a kernel updates in place (cloned when kept and for each replay)
 # and record slots it writes (fresh for each replay).
@@ -897,6 +910,8 @@ class recording:
             a = dict(ba.arguments)
             self.calls[name] = self.calls.get(name, 0) + 1
             key = (name,) + tuple(describe(a[k]) for k in key_args)
+            if name in EVERY_CALL:
+                key += (self.calls[name],)
             if key not in self.kept:
                 self.kept[key] = {k: v.clone() if k in UPDATED_ARGS and v is not None else v for k, v in a.items()}
             before = WORK_AFTER[name][0](a) if name in WORK_AFTER else None
@@ -1038,15 +1053,24 @@ def oods_work(n_cols: int, log_n: int, per_coeff: int = 4 * OPS_FOLD_MAC):
     return 4 * n_cols * n + 16 * n_cols, n_cols * n * per_coeff + ((1 << c) + (n >> c)) * OPS_QMUL
 
 
-def fold_work(a: dict):
-    """(bytes, operations) of one K3 call: the 2n input values, n twiddles,
-    the mix (if any) read once, n values written; per output row the fold
-    (8 products, 12 sums, a QM31 product), plus a QM31 product and 4 sums
-    for the mix."""
-    n, mix = a["values"].shape[0] // 2, a["mix"] is not None
-    n_bytes = 16 * 2 * n + 4 * n + 16 * n + (16 * n if mix else 0)
-    per_row = 8 * OPS_MUL + 8 * OPS_ADD + OPS_QMUL + 4 * OPS_ADD + ((OPS_QMUL + 4 * OPS_ADD) if mix else 0)
-    return n_bytes, n * per_row
+def fri_layer_work(a: dict):
+    """(bytes, operations) that one K3 call needs: the layer's 2^L rows read
+    once, each fold's twiddles used (2^(L-t-1) words at fold t) read once,
+    each joining input (2^(L-t) rows) and its circle twiddles read once, the
+    next layer (2^(L-F) rows) written once; per output of fold t the fold (8
+    products, 12 sums, a QM31 product) and, where an input joins, its
+    circle fold and the mix (a QM31 product and 4 sums)."""
+    rows, folds = a["values"].shape[0], len(a["twiddles"])
+    fold = 8 * OPS_MUL + 12 * OPS_ADD + OPS_QMUL
+    n_bytes, ops = 16 * rows + 16 * (rows >> folds), 0
+    for t, mix in enumerate(a["mixes"] or [None] * folds):
+        n = rows >> (t + 1)
+        n_bytes += 4 * n
+        ops += n * fold
+        if mix is not None:
+            n_bytes += 16 * 2 * n + 4 * n
+            ops += n * (fold + OPS_QMUL + 4 * OPS_ADD)
+    return n_bytes, ops
 
 
 def quotient_work(plan):
@@ -1093,8 +1117,7 @@ WORK = {
     "circle_fft": lambda a: k1_work("circle_fft", a),
     "circle_lde": lambda a: k1_work("circle_lde", a),
     "merkle_tree": lambda a: merkle_tree_work(a["desc"].cols),
-    "fri_fold": fold_work,
-    "fri_fold_chain": fold_work,
+    "fri_layer": fri_layer_work,
     "deep_quotient_many": lambda a: quotient_work(a["plan"]),
     "air_witness": witness_work,
     "air_domain": domain_work,
@@ -1102,8 +1125,15 @@ WORK = {
                                                      for cols, chain in a["groups"])))),
     "trace_segment": lambda a: segment_work(a["seg"]),
     "trace_reduce": lambda a: step_work(a["s"]),
-    "lut_minmax": lambda a: (8 * len(a["buf"]) + 16, 2 * len(a["buf"]), INT64_OPS_PER_S),
+    "lut_boundary": lambda a: lut_boundary_work(len(a["src"]), len(a["gathered"])),
 }
+
+
+def lut_boundary_work(n: int, gn: int):
+    """(bytes, operations, rate) of one T4 call: the source and the gathered
+    input read once, the boundary written once; a compare for the min and
+    one for the max per source value."""
+    return 8 * n + 16 * gn + 16, 2 * n, INT64_OPS_PER_S
 
 
 def _counter(state) -> int:
@@ -1195,7 +1225,7 @@ def segment_work(seg, nodes_only: bool = False):
 def trace_kernel_rows(kernels, kept) -> dict:
     """trace_segment and T3 timed at the largest call each made in the
     path's trace (T4 in its settings pre-pass), against the twin on the
-    card; T4 also against torch.aminmax."""
+    card; T4 also against the composition it replaces (lut_boundary_row)."""
     largest = {}
     for key, a in kept.items():
         name = key[0]
@@ -1204,8 +1234,8 @@ def trace_kernel_rows(kernels, kept) -> dict:
             size = (a["seg"].has_columns, sum(it.rows for it in a["seg"].items()))
         elif name == "trace_reduce":
             size = (bool(a["s"].cols), a["s"].rows * a["s"].dsize)
-        elif name == "lut_minmax":
-            size = (True, len(a["buf"]))
+        elif name == "lut_boundary":
+            size = (True, len(a["src"]))
         else:
             continue
         if name not in largest or size > largest[name][0]:
@@ -1236,13 +1266,7 @@ def trace_kernel_rows(kernels, kept) -> dict:
         err=0, ms=time_ms(lambda: kernels.trace_reduce(k)), plain_ms=time_ms(lambda: kernels.trace_reduce_plain(p)),
         bound=step_bound(s), library=None,
     )
-    buf = largest["lut_minmax"][1]["buf"]
-    rows["lut_minmax"] = dict(
-        shape=f"{len(buf)} int64", err=0, ms=time_ms(lambda: kernels.lut_minmax(buf)),
-        plain_ms=time_ms(lambda: kernels.lut_minmax_plain(buf)),
-        bound=bound(8 * len(buf) + 16, 2 * len(buf), INT64_OPS_PER_S),
-        library=time_ms(lambda: torch.aminmax(buf)),
-    )
+    rows["lut_boundary"] = lut_boundary_row(kernels, largest["lut_boundary"][1])
     for name, r in rows.items():
         emit({"phase": "kernel_time", "kernel": name, "shape": r["shape"], "ms": r["ms"],
               "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
@@ -1250,7 +1274,21 @@ def trace_kernel_rows(kernels, kept) -> dict:
     return rows
 
 
-def phase_high_security(T, kernels, serde, tracing, tape, f, card, tag, pie, settings, host, expect):
+def lut_boundary_row(kernels, a) -> dict:
+    """T4 at a LUT boundary of the settings pass, from a fresh staging region,
+    beside the composition it replaces (torch.aminmax, stack, cat: the
+    library time; tools/fri_lut_timing.py times the round trips to the
+    host)."""
+    src, gathered = a["src"], a["gathered"]
+    staging = torch.zeros(kernels.lut_boundary_words(len(src), len(gathered)), dtype=torch.int64, device=src.device)
+    return dict(shape=f"{len(src)} int64 source, {len(gathered)} gathered", err=0,
+                ms=time_ms(lambda: kernels.lut_boundary(src, gathered, staging)),
+                plain_ms=time_ms(lambda: kernels.lut_boundary_plain(src, gathered)),
+                bound=bound(*lut_boundary_work(len(src), len(gathered))),
+                library=time_ms(lambda: torch.cat([torch.stack(torch.aminmax(src)), gathered])))
+
+
+def phase_high_security(T, kernels, serde, tracing, tape, f, card, tag, pie, settings, host, expect, k3_limit):
     """The PINN's card PIE and settings proved at PcsConfig.high_security():
     launches of one prove (counters reset just before it), the median of 3,
     the host PIE's proof the same bytes, native/ accepting the proof and
@@ -1268,7 +1306,7 @@ def phase_high_security(T, kernels, serde, tracing, tape, f, card, tag, pie, set
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         launches = kernels.counts()
-    path_launches(kernels, tag, first_s, launches, bottoms, expect)
+    path_launches(kernels, tag, first_s, launches, bottoms, expect, k3_limit)
     times, phases = [], []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1534,11 +1572,15 @@ def main() -> int:
     }
     # The bench graph has no reduction and no LUT: no T3, no T4.
     expect = {
-        bench_tag: [k.name for k in kernels.KERNELS if k.name not in ("trace_reduce", "lut_minmax")],
+        bench_tag: [k.name for k in kernels.KERNELS if k.name not in ("trace_reduce", "lut_boundary")],
         pinn_tag: [k.name for k in kernels.KERNELS],
     }
     # A prove from a PIE: K1-K10, no trace kernel.
-    expect[hs_tag] = [k.name for k in kernels.KERNELS if k.name not in ("trace_segment", "trace_reduce", "lut_minmax")]
+    expect[hs_tag] = [k.name for k in kernels.KERNELS
+                      if k.name not in ("trace_segment", "trace_reduce", "lut_boundary")]
+    # K3: the largest input's circle fold and one launch a committed FRI
+    # layer (7 layers at N=256, 9 at the PINN).
+    k3_limit = {bench_tag: 8, pinn_tag: 10, hs_tag: 10}
     pinn_host = host_trace(paths[pinn_tag][0])
     emit({"phase": "pinn_host_trace", "batch": PINN_BATCH, "trace_cells": trace_cells(pinn_host[0]),
           "settings_host_seconds": pinn_host[2], "trace_host_seconds": pinn_host[3]})
@@ -1553,7 +1595,7 @@ def main() -> int:
     for tag, (build, check) in paths.items():
         host = pinn_host if tag == pinn_tag else host_trace(build)
         launches[tag], pie, settings = phase_path(T, kernels, serde, tracing, f, card, tag, build, host,
-                                                  expect[tag], check)
+                                                  expect[tag], k3_limit[tag], check)
 
         def settings_trace_prove():
             cx, _ = build()
@@ -1574,7 +1616,8 @@ def main() -> int:
             # PCS profile) at the 80-bit profile.
             torch.cuda.reset_peak_memory_stats()
             launches[hs_tag], path_errs[hs_tag], kept = phase_high_security(
-                T, kernels, serde, tracing, tape, f, card, hs_tag, pie, settings, host, expect[hs_tag])
+                T, kernels, serde, tracing, tape, f, card, hs_tag, pie, settings, host, expect[hs_tag],
+                k3_limit[hs_tag])
             rows.update(transcript_kernel_rows(kernels, kept))
             del kept
             torch.cuda.empty_cache()

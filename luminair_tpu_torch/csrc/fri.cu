@@ -1,83 +1,58 @@
-// K3: one FRI fold of a QM31 evaluation, circle-to-line or line-to-line.
+// K3: the folds of one committed FRI layer in one launch.
 //
 // Replaces the JAX package's `_jit_fold_circle` and `_jit_fold_line`
-// (parallel/accel.py), which trace pcs/fri.fold_circle_to_line and
-// fri.fold_line.
+// (parallel/accel.py :1299, :1314), and the folds that `_jit_fri_layer`
+// (:1487) and `_jit_fri_chain` (:1566) run as one program per committed
+// layer with the smaller inputs mixed in, which trace
+// pcs/fri.fold_circle_to_line and fri.fold_line.
 //
-// One thread per output row i of n: with v0 = src[i] and v1 = src[2n-1-i]
-// (the palindromic pair of the natural row order),
-//   out[i] = (v0 + v1)/2 + alpha * (v0 - v1) * tw[i]        (QM31)
-// where tw is 1/(2y) of the circle domain (circle fold) or 1/(2x) of the
-// line domain (line fold).  With a `mix` input, out[i] += beta2 * mix[i]:
-// the next smaller FRI input joins the chain scaled by the square of the
-// fold challenge.
+// One thread per row of the next committed layer (fri.cuh): it reads the
+// 2^F rows of the layer that fold into its row (128-bit loads through the
+// read-only path), applies the layer's F folds in registers with the
+// challenges beta_t = alpha^(2^t) of the layer's slot of the FRI record
+// (K8 drew alpha into device memory), folds each joining input's pair of
+// circle rows with alpha0 and adds it scaled by beta_t^2, and writes its
+// one row.  The intermediate folds of a layer and the joining inputs'
+// line evaluations never reach device memory.  The largest input's circle
+// fold is a launch of its own (one fold): its output is layer 0, which K2
+// hashes and K8 mixes before layer 0's alpha exists.
 //
-// lum_fri_fold_chain is the same fold with its challenge read from device
-// memory: the alpha K8 drew into the FRI record (channel.cu) and the fold's
-// index t within its committed layer; each thread squares its way to
-// beta = alpha^(2^t) (t <= 8) and mixes with beta^2, so the chain needs no
-// challenge on the host.
-//
-// Bound on this card: device memory -- 32 bytes read (plus 16 of mix) and
-// 16 written per row against about 20 multiplies.
+// Bound on this card: device memory for a fold with nothing joining --
+// per output row 16 * 2^F bytes of the layer read and 16 written against
+// about 2^F QM31 products; a layer with an input joining (two circle rows
+// and a QM31 product more per fold output) reaches the estimated integer
+// rate first (chip_smoke.fri_layer_work).
 
 #include <cuda_runtime.h>
 
-#include "m31.cuh"
+#include "fri.cuh"
 
 namespace {
 
-__global__ void fri_fold_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ out,
-                                const uint32_t* __restrict__ tw, const uint32_t* __restrict__ mix,
-                                lum::qm31 alpha, lum::qm31 beta2, long long n) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  lum::qm31 v0 = lum::qload(src + 4 * i);
-  lum::qm31 v1 = lum::qload(src + 4 * (2 * n - 1 - i));
-  lum::qm31 e = lum::qmul_m31(lum::qadd(v0, v1), lum::INV2);
-  lum::qm31 o = lum::qmul_m31(lum::qsub(v0, v1), tw[i]);
-  lum::qm31 r = lum::qadd(e, lum::qmul(alpha, o));
-  if (mix) r = lum::qadd(r, lum::qmul(beta2, lum::qload(mix + 4 * i)));
-  lum::qstore(out + 4 * i, r);
-}
+constexpr int THREADS = 256;
+static_assert(lum::FRI_MAX_FOLDS == 4, "lum_fri_layer has a case per fold count");
 
-__global__ void fri_fold_chain_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ out,
-                                      const uint32_t* __restrict__ tw, const uint32_t* __restrict__ mix,
-                                      const uint32_t* __restrict__ alpha, int t, long long n) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  lum::qm31 beta = lum::qload(alpha);
-  for (int s = 0; s < t; s++) beta = lum::qmul(beta, beta);
-  lum::qm31 v0 = lum::qload(src + 4 * i);
-  lum::qm31 v1 = lum::qload(src + 4 * (2 * n - 1 - i));
-  lum::qm31 e = lum::qmul_m31(lum::qadd(v0, v1), lum::INV2);
-  lum::qm31 o = lum::qmul_m31(lum::qsub(v0, v1), tw[i]);
-  lum::qm31 r = lum::qadd(e, lum::qmul(beta, o));
-  if (mix) r = lum::qadd(r, lum::qmul(lum::qmul(beta, beta), lum::qload(mix + 4 * i)));
-  lum::qstore(out + 4 * i, r);
+template <int F>
+__global__ void __launch_bounds__(THREADS) fri_layer_kernel(const __grid_constant__ lum::FriLayer a) {
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (i < a.n) lum::fri_layer_row<F>(a, i);
 }
 
 }  // namespace
 
-extern "C" int lum_fri_fold(const uint32_t* src, uint32_t* out, const uint32_t* tw,
-                            const uint32_t* mix, uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                            uint32_t b0, uint32_t b1, uint32_t b2, uint32_t b3, long long n,
-                            void* stream) {
-  if (n > 0) {
-    lum::qm31 alpha = {a0, a1, a2, a3};
-    lum::qm31 beta2 = {b0, b1, b2, b3};
-    fri_fold_kernel<<<(unsigned)((n + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
-        src, out, tw, mix, alpha, beta2, n);
-  }
-  return (int)cudaGetLastError();
-}
+extern "C" long long lum_fri_layer_size() { return (long long)sizeof(lum::FriLayer); }
+extern "C" long long lum_fri_max_folds() { return lum::FRI_MAX_FOLDS; }
 
-extern "C" int lum_fri_fold_chain(const uint32_t* src, uint32_t* out, const uint32_t* tw,
-                                  const uint32_t* mix, const uint32_t* alpha, int t, long long n,
-                                  void* stream) {
-  if (n > 0) {
-    fri_fold_chain_kernel<<<(unsigned)((n + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
-        src, out, tw, mix, alpha, t, n);
+extern "C" int lum_fri_layer(const lum::FriLayer* a, void* stream) {
+  if (a->n <= 0) return 0;
+  const dim3 grid((unsigned)((a->n + THREADS - 1) / THREADS));
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (a->folds) {
+    case 1: fri_layer_kernel<1><<<grid, THREADS, 0, s>>>(*a); break;
+    case 2: fri_layer_kernel<2><<<grid, THREADS, 0, s>>>(*a); break;
+    case 3: fri_layer_kernel<3><<<grid, THREADS, 0, s>>>(*a); break;
+    case 4: fri_layer_kernel<4><<<grid, THREADS, 0, s>>>(*a); break;
+    default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

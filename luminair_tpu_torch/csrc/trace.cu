@@ -17,8 +17,11 @@
 //                  one cooperative launch of a persistent interpreter;
 //   trace_reduce   sum_reduce / max_reduce (T3), one launch per node, one
 //                  thread per trace row, a segmented scan per CTA;
-//   lut_minmax     min and max of a LUT op's raw source buffer (T4, the
-//                  settings pre-pass), one block.
+//   lut_boundary   the boundary of a LUT node of the settings pre-pass (T4,
+//                  lut.cuh): the min and max of its source buffer and its
+//                  gathered input in one staging region, which the host
+//                  copies to pinned memory in one download; a CTA of 256
+//                  threads for every 2,048 source values (8 at the PINN).
 // A segment's items are sorted by the host into phases, and inside a phase
 // into chains: an item that reads an output of the current phase through a
 // view mapping its row r to element r, with the writer's rows, joins the
@@ -48,6 +51,7 @@
 
 #include <cuda_runtime.h>
 
+#include "lut.cuh"
 #include "trace.cuh"
 
 namespace {
@@ -144,32 +148,50 @@ __global__ void __launch_bounds__(THREADS) trace_reduce_kernel(const __grid_cons
   lum::reduce_cta(ReduceBlock{}, a, blockIdx.x, raw, scan, pos);
 }
 
-// One block of MINMAX_THREADS: out[0] = min, out[1] = max of buf[0 .. n).
-constexpr int MINMAX_THREADS = 1024;
-
-__global__ void lut_minmax_kernel(const long long* __restrict__ buf, long long n, long long* out) {
-  __shared__ long long s_min[MINMAX_THREADS], s_max[MINMAX_THREADS];
-  long long mn = buf[0], mx = buf[0];
-  for (long long i = threadIdx.x; i < n; i += blockDim.x) {
-    const long long v = buf[i];
-    mn = v < mn ? v : mn;
-    mx = v > mx ? v : mx;
+// T4's CTA (lut.cuh): the warps' min / max by shuffles (a 64-bit shuffle
+// moves the two 32-bit halves), then one exchange of the warps' partials
+// in shared memory and the same shuffles in warp 0.
+struct LutBlock {
+  long long* warp_lo;
+  long long* warp_hi;
+  __device__ __forceinline__ int threads() const { return lum::LUT_THREADS; }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+  template <class F>
+  __device__ __forceinline__ void each(F f) const { f((int)threadIdx.x); }
+  __device__ __forceinline__ static void shuffle(long long& mn, long long& mx) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const long long o_mn = __shfl_xor_sync(0xffffffffu, mn, off), o_mx = __shfl_xor_sync(0xffffffffu, mx, off);
+      mn = o_mn < mn ? o_mn : mn;
+      mx = o_mx > mx ? o_mx : mx;
+    }
   }
-  s_min[threadIdx.x] = mn;
-  s_max[threadIdx.x] = mx;
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) {
-      const long long a = s_min[threadIdx.x + s], b = s_max[threadIdx.x + s];
-      if (a < s_min[threadIdx.x]) s_min[threadIdx.x] = a;
-      if (b > s_max[threadIdx.x]) s_max[threadIdx.x] = b;
+  __device__ __forceinline__ void minmax(long long* lo, long long* hi) const {
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    long long mn = lo[t], mx = hi[t];
+    shuffle(mn, mx);
+    if (lane == 0) {
+      warp_lo[warp] = mn;
+      warp_hi[warp] = mx;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      mn = lane < lum::LUT_THREADS / 32 ? warp_lo[lane] : lum::LUT_I64_MAX;
+      mx = lane < lum::LUT_THREADS / 32 ? warp_hi[lane] : lum::LUT_I64_MIN;
+      shuffle(mn, mx);
+      if (lane == 0) {
+        lo[0] = mn;
+        hi[0] = mx;
+      }
     }
     __syncthreads();
   }
-  if (threadIdx.x == 0) {
-    out[0] = s_min[0];
-    out[1] = s_max[0];
-  }
+};
+
+__global__ void __launch_bounds__(lum::LUT_THREADS) lut_boundary_kernel(const lum::LutArgs a) {
+  __shared__ long long lo[lum::LUT_THREADS], hi[lum::LUT_THREADS], warp_lo[32], warp_hi[32];
+  __shared__ int last;
+  lum::lut_boundary_cta(LutBlock{warp_lo, warp_hi}, a, blockIdx.x, gridDim.x, lo, hi, &last);
 }
 
 }  // namespace
@@ -222,7 +244,14 @@ extern "C" int lum_trace_reduce(const TraceArgs* a, void* stream) {
   return (int)cudaGetLastError();
 }
 
-extern "C" int lum_lut_minmax(const long long* buf, long long n, long long* out, void* stream) {
-  if (n > 0) lut_minmax_kernel<<<1, MINMAX_THREADS, 0, (cudaStream_t)stream>>>(buf, n, out);
+extern "C" long long lum_lut_threads() { return lum::LUT_THREADS; }
+extern "C" long long lum_lut_pairs() { return lum::LUT_PAIRS; }
+extern "C" long long lum_lut_max_ctas() { return lum::LUT_MAX_CTAS; }
+
+extern "C" int lum_lut_boundary(const long long* src, long long n, const long long* gathered, long long gn,
+                                long long* out, long long out_words, void* stream) {
+  if (n <= 0 || out_words < lum::lut_boundary_words(n, gn, lum::LUT_THREADS)) return (int)cudaErrorInvalidValue;
+  const lum::LutArgs a{src, n, gathered, gn, out, out_words};
+  lut_boundary_kernel<<<(unsigned)lum::lut_ctas(n, lum::LUT_THREADS), lum::LUT_THREADS, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -20,10 +20,12 @@ they were written and prove() reads them there.  On CPU tensors the
 kernels' plain twins do the same work.
 
 The settings pre-pass cannot read LUT outputs (the LUTs do not exist yet),
-so a LUT node's gathered input ends its segment; the host then downloads
-it with the min / max of the raw source buffer (T4), applies f in float64
-exactly as the host pre-pass does (the device's sin and exp2 are not
-numpy's), and uploads the result as the node's output.
+so a LUT node's gathered input ends its segment; T4 writes the node's
+boundary (the min / max of the raw source buffer, then the gathered input)
+into a staging region, the host downloads it in one copy into pinned
+memory, applies f in float64 exactly as the host pre-pass does (the
+device's sin and exp2 are not numpy's), and uploads the result from
+pinned memory as the node's output.
 
 Each pass records its sub-spans (tracing, kinds "trace" and "settings"),
 each ended by a device synchronise on the card.
@@ -482,9 +484,10 @@ def gen_trace_device(graph: Graph, settings: CircuitSettings, dev: torch.device)
 
 def gen_circuit_settings_device(graph: Graph, dev: torch.device) -> CircuitSettings:
     """The settings pre-pass on `dev`: every node's values by the trace
-    kernels with no columns; at each LUT node one download of its gathered
-    input and its source buffer's min / max (T4), f on the host, one
-    upload."""
+    kernels with no columns; at each LUT node its boundary (T4: the source
+    buffer's min / max and the gathered input, in one staging region the
+    pass holds) copied in one download into a pinned host buffer the pass
+    holds, f on the host, its outputs uploaded from that buffer."""
     if not graph.compiled:
         graph.compile()
     timer = _timer("settings", dev)
@@ -495,6 +498,12 @@ def gen_circuit_settings_device(graph: Graph, dev: torch.device) -> CircuitSetti
     with timer.span("allocate"):
         flags = torch.zeros(len(_FLAGS), dtype=f.I32, device=dev)
         buffers = kernels.TraceBuffers(torch.empty(layout.n_words, dtype=torch.int64, device=dev), flags=flags)
+        luts = [k for what, k in layout.program if what == "lut"]
+        src = {k: layout.region[graph.nodes[k].srcs[0][0]] for k in luts}
+        staging = torch.zeros(max((kernels.lut_boundary_words(src[k][1], layout.gathered[k][1]) for k in luts),
+                                  default=0), dtype=torch.int64, device=dev)
+        host = torch.empty(max((max(layout.gathered[k][1] + 2, layout.region[k][1]) for k in luts), default=0),
+                           dtype=torch.int64, pin_memory=dev.type == "cuda")
     with timer.span("pack"):
         table = layout.table(buffers)
         words = table.pack()
@@ -510,13 +519,21 @@ def gen_circuit_settings_device(graph: Graph, dev: torch.device) -> CircuitSetti
                 kernels.trace_reduce(layout.reduce_step(buffers, k))
             else:
                 node = graph.nodes[k]
-                so, sn = layout.region[node.srcs[0][0]]
-                go, gn = layout.gathered[k]
-                host = torch.cat([kernels.lut_minmax(arena[so : so + sn]), arena[go : go + gn]]).cpu().numpy()
-                ranges[node.op].append(lut_range(host[0], host[1]))
-                out = fixed.from_float(LUT_FNS[node.op](fixed.to_float(host[2:])))
-                oo, on = layout.region[k]
-                arena[oo : oo + on].copy_(torch.from_numpy(out))
+                (so, sn), (go, gn), (oo, on) = src[k], layout.gathered[k], layout.region[k]
+                with timer.span("lut_boundary"):
+                    boundary = kernels.lut_boundary(arena[so : so + sn], arena[go : go + gn], staging)
+                with timer.span("lut_download"):
+                    got = host[: gn + 2]
+                    got.copy_(boundary, non_blocking=True)
+                    if dev.type == "cuda":
+                        torch.cuda.current_stream(dev).synchronize()
+                    got = got.numpy()
+                with timer.span("lut_f"):
+                    ranges[node.op].append(lut_range(got[0], got[1]))
+                    out = fixed.from_float(LUT_FNS[node.op](fixed.to_float(got[2:])))
+                with timer.span("lut_upload"):
+                    host[:on].numpy()[:] = out
+                    arena[oo : oo + on].copy_(host[:on], non_blocking=True)
     with timer.span("flags"):
         _raise_flags(flags.cpu().numpy())
         settings = settings_from_ranges(ranges, any(n.op in ("less_than", "max_reduce") for n in graph.nodes))

@@ -1,8 +1,8 @@
 """The port's hand-written Hopper kernels: build, binding, wrappers.
 
 The CUDA C++ sources under csrc/ (with the headers csrc/m31.cuh,
-blake2s.cuh, channel.cuh, decommit.cuh, fft.cuh, merkle.cuh, oods.cuh,
-quotient.cuh, tape.cuh and trace.cuh)
+blake2s.cuh, channel.cuh, decommit.cuh, fft.cuh, fri.cuh, lut.cuh,
+merkle.cuh, oods.cuh, quotient.cuh, tape.cuh and trace.cuh)
 are compiled at first use with nvcc for sm_90a, one shared
 library per source, all sources compiled at once, into build/kernels/ at
 the repository root; each library is named by a hash of its source and
@@ -59,7 +59,6 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
-_U = ctypes.c_uint32
 
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
@@ -183,11 +182,33 @@ MERKLE = Kernel(
     {"lum_merkle_pass": [ctypes.c_uint64, _I]},
     abi={"lum_merkle_tile_log": MERKLE_TILE_LOG},
 )
-FRI_FOLD = Kernel(
-    "fri_fold",
+FRI_MAX_FOLDS = 4  # folds of one K3 launch (csrc/fri.cuh)
+
+
+class FriLayer(ctypes.Structure):
+    """Mirror of lum::FriLayer (csrc/fri.cuh), passed to K3 by value."""
+
+    _fields_ = [
+        ("src", ctypes.c_uint64),
+        ("out", ctypes.c_uint64),
+        ("alpha", ctypes.c_uint64),
+        ("alpha0", ctypes.c_uint64),
+        ("tw", ctypes.c_uint64 * FRI_MAX_FOLDS),
+        ("mix", ctypes.c_uint64 * FRI_MAX_FOLDS),
+        ("mix_tw", ctypes.c_uint64 * FRI_MAX_FOLDS),
+        ("n", ctypes.c_longlong),
+        ("folds", ctypes.c_int),
+        ("t0", ctypes.c_int),
+    ]
+
+
+FRI_LAYER = Kernel(
+    "fri_layer",
     "fri.cu",
-    "luminair_tpu/parallel/accel.py:1299 (_jit_fold_circle; _jit_fold_line :1314)",
-    {"lum_fri_fold": [_P, _P, _P, _P] + [_U] * 8 + [_LL], "lum_fri_fold_chain": [_P, _P, _P, _P, _P, _I, _LL]},
+    "luminair_tpu/parallel/accel.py:1299 (_jit_fold_circle; _jit_fold_line :1314; a committed layer's folds in "
+    "_jit_fri_layer :1487, _jit_fri_chain :1566)",
+    {"lum_fri_layer": [_P]},
+    abi={"lum_fri_layer_size": ctypes.sizeof(FriLayer), "lum_fri_max_folds": FRI_MAX_FOLDS},
 )
 # K4's descriptor (csrc/quotient.cuh): a head, a record per log and per
 # group, then the column addresses and the gammas; a CTA of the card takes
@@ -457,14 +478,19 @@ _TRACE_REPLACES = "luminair_tpu/graph/device_trace.py:158 (_Tracer._traced; sett
 
 TRACE_SEGMENT = Kernel("trace_segment", "trace.cu", _TRACE_REPLACES, {"lum_trace_segment": [_P]}, abi=_TRACE_ABI)
 TRACE_REDUCE = Kernel("trace_reduce", "trace.cu", _TRACE_REPLACES, {"lum_trace_reduce": [_P]}, abi=_TRACE_ABI)
-LUT_MINMAX = Kernel(
-    "lut_minmax", "trace.cu", "luminair_tpu/graph/device_trace.py:556 (jnp.min / jnp.max in _segment_fn)",
-    {"lum_lut_minmax": [_P, _LL, _P]}, abi=_TRACE_ABI,
+LUT_THREADS = 256  # T4's CTA (csrc/lut.cuh)
+LUT_PAIRS = 4  # 16-byte pairs of the source a thread before a second CTA is taken
+LUT_MAX_CTAS = 256
+LUT_BOUNDARY = Kernel(
+    "lut_boundary", "trace.cu",
+    "luminair_tpu/graph/device_trace.py:552 (the LUT boundary (inp, jnp.min, jnp.max) of _segment_fn, :556)",
+    {"lum_lut_boundary": [_P, _LL, _P, _LL, _P, _LL]},
+    abi={**_TRACE_ABI, "lum_lut_threads": LUT_THREADS, "lum_lut_pairs": LUT_PAIRS, "lum_lut_max_ctas": LUT_MAX_CTAS},
 )
 
 KERNELS = (
-    CIRCLE_FFT, MERKLE, FRI_FOLD, DEEP_QUOTIENT, AIR_WITNESS, AIR_DOMAIN, OODS_EVAL, CHANNEL, DECOMMIT, GRIND_POW,
-    TRACE_SEGMENT, TRACE_REDUCE, LUT_MINMAX,
+    CIRCLE_FFT, MERKLE, FRI_LAYER, DEEP_QUOTIENT, AIR_WITNESS, AIR_DOMAIN, OODS_EVAL, CHANNEL, DECOMMIT, GRIND_POW,
+    TRACE_SEGMENT, TRACE_REDUCE, LUT_BOUNDARY,
 )
 
 
@@ -744,7 +770,7 @@ def merkle_layer_plain(prev: Optional[torch.Tensor], cols: Optional[torch.Tensor
 
 
 # ---------------------------------------------------------------------------
-# K3: FRI fold.
+# K3: the folds of a committed FRI layer.
 
 
 def _words(x) -> List[int]:
@@ -754,63 +780,84 @@ def _words(x) -> List[int]:
         raise KernelError(str(e)) from None
 
 
-def fri_fold(values: torch.Tensor, twiddles: torch.Tensor, alpha, mix: Optional[torch.Tensor] = None,
-             beta2=None) -> torch.Tensor:
-    """(2n, 4) QM31 -> (n, 4): (v0+v1)/2 + alpha*(v0-v1)*tw over the pairs
-    (i, 2n-1-i), plus beta2*mix when `mix` is given."""
-    _require(values.dtype == f.I32 and values.dim() == 2 and values.shape[1] == 4,
-             "fri_fold: values must be int32 (2n, 4)")
-    n = values.shape[0] // 2
-    _require(tuple(twiddles.shape) == (n,) and twiddles.dtype == f.I32, "fri_fold: twiddles (n,) int32")
-    if mix is not None:
-        _require(tuple(mix.shape) == (n, 4) and mix.dtype == f.I32, "fri_fold: mix (n, 4) int32")
-    a = _words(alpha)
-    b = _words(beta2) if mix is not None else [0, 0, 0, 0]
+def _row_major(t: torch.Tensor, rows: int, what: str) -> None:
+    """A (rows, 4) int32 QM31 tensor, contiguous; on the card 16-byte aligned
+    (K3 moves a row as one 128-bit access)."""
+    _require(t.dtype == f.I32 and tuple(t.shape) == (rows, 4) and t.is_contiguous(),
+             f"fri_layer: {what} must be contiguous int32 ({rows}, 4)")
+    _require(_on_cpu(t) or t.data_ptr() % 16 == 0, f"fri_layer: {what} must be 16-byte aligned")
+
+
+def _qm31_slot(t: torch.Tensor, beside: torch.Tensor, what: str) -> None:
+    _require(t.dtype == f.I32 and tuple(t.shape) == (4,) and t.is_contiguous() and t.device == beside.device,
+             f"fri_layer: {what} must be 4 contiguous int32 words beside the values")
+
+
+def fri_layer(values: torch.Tensor, twiddles: Sequence[torch.Tensor], alpha: torch.Tensor, t0: int = 0,
+              mixes: Optional[Sequence] = None, alpha0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3: F = len(twiddles) folds of one committed FRI layer in one launch.
+    values (2^L, 4) -> (2^(L-F), 4).  Fold t pairs rows (j, N_t - 1 - j) of
+    its N_t = 2^(L-t) with twiddles[t] (N_t / 2 words) and beta_t =
+    alpha^(2^(t0 + t)), alpha 4 words on the values' device (as K8 draws
+    it); mixes[t], when given and not None, is (input, circle twiddles): the
+    FRI input of circle log L - t (N_t rows), circle-folded with alpha0 and
+    added scaled by beta_t^2 (csrc/fri.cuh)."""
+    F = len(twiddles)
+    _require(1 <= F <= FRI_MAX_FOLDS, f"fri_layer: 1 to {FRI_MAX_FOLDS} folds a launch, got {F}")
+    rows = values.shape[0]
+    _require(rows >> F > 0 and rows == (rows >> F) << F, f"fri_layer: {rows} rows do not fold {F} times")
+    _row_major(values, rows, "values")
+    _qm31_slot(alpha, values, "alpha")
+    _require(0 <= t0 <= 8, "fri_layer: first fold index in 0..8")
+    mixes = list(mixes) if mixes is not None else [None] * F
+    _require(len(mixes) == F, "fri_layer: one mix entry a fold")
+    for t, tw in enumerate(twiddles):
+        n = rows >> (t + 1)
+        _require(tw.dtype == f.I32 and tuple(tw.shape) == (n,) and tw.is_contiguous() and tw.device == values.device,
+                 f"fri_layer: twiddles of fold {t} must be contiguous int32 ({n},)")
+        if mixes[t] is not None:
+            m, mtw = mixes[t]
+            _row_major(m, 2 * n, f"the input joining at fold {t}")
+            _require(mtw.dtype == f.I32 and tuple(mtw.shape) == (n,) and mtw.is_contiguous()
+                     and m.device == mtw.device == values.device,
+                     f"fri_layer: circle twiddles of fold {t} must be contiguous int32 ({n},)")
+    if any(m is not None for m in mixes):
+        _require(alpha0 is not None, "fri_layer: a joining input needs alpha0")
+        _qm31_slot(alpha0, values, "alpha0")
     if _on_cpu(values):
-        return fri_fold_plain(values, twiddles, a, mix, b)
-    values = values.contiguous()
-    twiddles = twiddles.contiguous()
-    mix = mix.contiguous() if mix is not None else None
-    out = torch.empty((n, 4), dtype=f.I32, device=values.device)
-    FRI_FOLD.launch(
-        "lum_fri_fold", values.device, values.data_ptr(), out.data_ptr(), twiddles.data_ptr(),
-        mix.data_ptr() if mix is not None else None, *a, *b, n,
-    )
+        return fri_layer_plain(values, twiddles, alpha, t0, mixes, alpha0)
+    return _fri_layer_launch(values, twiddles, alpha, t0, mixes, alpha0,
+                             lambda args: FRI_LAYER.launch("lum_fri_layer", values.device, ctypes.addressof(args)))
+
+
+def _fri_layer_launch(values, twiddles, alpha, t0, mixes, alpha0, run) -> torch.Tensor:
+    """The layer's output, written by `run` (the card's launch, or a host
+    build of csrc/fri.cuh) from its FriLayer."""
+    F = len(twiddles)
+    out = torch.empty((values.shape[0] >> F, 4), dtype=f.I32, device=values.device)
+    pad = [0] * (FRI_MAX_FOLDS - F)
+    run(FriLayer(
+        values.data_ptr(), out.data_ptr(), alpha.data_ptr(), alpha0.data_ptr() if alpha0 is not None else 0,
+        (ctypes.c_uint64 * FRI_MAX_FOLDS)(*[tw.data_ptr() for tw in twiddles], *pad),
+        (ctypes.c_uint64 * FRI_MAX_FOLDS)(*[m[0].data_ptr() if m is not None else 0 for m in mixes], *pad),
+        (ctypes.c_uint64 * FRI_MAX_FOLDS)(*[m[1].data_ptr() if m is not None else 0 for m in mixes], *pad),
+        out.shape[0], F, t0,
+    ))
     return out
 
 
-def fri_fold_chain(values: torch.Tensor, twiddles: torch.Tensor, alpha: torch.Tensor, fold: int,
-                   mix: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """fri_fold with its challenge in device memory: beta = alpha^(2^fold)
-    from `alpha` (4 int32 words beside `values`, as K8 draws it) and, with
-    `mix`, beta^2 * mix added."""
-    _require(values.dtype == f.I32 and values.dim() == 2 and values.shape[1] == 4,
-             "fri_fold_chain: values must be int32 (2n, 4)")
-    n = values.shape[0] // 2
-    _require(tuple(twiddles.shape) == (n,) and twiddles.dtype == f.I32, "fri_fold_chain: twiddles (n,) int32")
-    _require(alpha.dtype == f.I32 and tuple(alpha.shape) == (4,) and alpha.is_contiguous()
-             and alpha.device == values.device, "fri_fold_chain: alpha must be 4 contiguous int32 words beside values")
-    _require(0 <= fold <= 8, "fri_fold_chain: fold index in 0..8")
-    if mix is not None:
-        _require(tuple(mix.shape) == (n, 4) and mix.dtype == f.I32, "fri_fold_chain: mix (n, 4) int32")
-    if _on_cpu(values):
-        return fri_fold_chain_plain(values, twiddles, alpha, fold, mix)
-    values = values.contiguous()
-    twiddles = twiddles.contiguous()
-    mix = mix.contiguous() if mix is not None else None
-    out = torch.empty((n, 4), dtype=f.I32, device=values.device)
-    FRI_FOLD.launch(
-        "lum_fri_fold_chain", values.device, values.data_ptr(), out.data_ptr(), twiddles.data_ptr(),
-        mix.data_ptr() if mix is not None else None, alpha.data_ptr(), fold, n,
-    )
-    return out
-
-
-def fri_fold_chain_plain(values, twiddles, alpha, fold: int, mix=None) -> torch.Tensor:
+def fri_layer_plain(values, twiddles, alpha, t0: int = 0, mixes=None, alpha0=None) -> torch.Tensor:
+    """One fri_fold_plain a fold, each joining input's circle fold apart."""
     beta = f.to_u32_i64(alpha)
-    for _ in range(fold):
+    for _ in range(t0):
         beta = f.qm31_mul(beta, beta)
-    return fri_fold_plain(values, twiddles, beta, mix, f.qm31_mul(beta, beta) if mix is not None else None)
+    for t, tw in enumerate(twiddles):
+        mix = mixes[t] if mixes is not None else None
+        beta2 = f.qm31_mul(beta, beta)
+        line = fri_fold_plain(mix[0], mix[1], f.to_u32_i64(alpha0)) if mix is not None else None
+        values = fri_fold_plain(values, tw, beta, line, beta2 if mix is not None else None)
+        beta = beta2
+    return values
 
 
 def fri_fold_plain(values, twiddles, alpha, mix=None, beta2=None) -> torch.Tensor:
@@ -1793,15 +1840,33 @@ def trace_reduce(s: TraceStep) -> None:
     TRACE_REDUCE.launch("lum_trace_reduce", dev, ctypes.addressof(a))
 
 
-def lut_minmax(buf: torch.Tensor) -> torch.Tensor:
-    """T4: (min, max) int64 of a non-empty int64 vector."""
-    _require(buf.dtype == torch.int64 and buf.dim() == 1 and len(buf) > 0, "lut_minmax: int64 vector")
-    if _on_cpu(buf):
-        return lut_minmax_plain(buf)
-    buf = buf.contiguous()
-    out = torch.empty(2, dtype=torch.int64, device=buf.device)
-    LUT_MINMAX.launch("lum_lut_minmax", buf.device, buf.data_ptr(), len(buf), out.data_ptr())
-    return out
+def lut_boundary_words(n: int, gn: int) -> int:
+    """Words of the staging region T4 needs for a source of n and a gathered
+    input of gn int64 values: the result, then (when the source takes
+    several CTAs) the CTAs' partials and a counter (csrc/lut.cuh)."""
+    ctas = min(max(1, -(-n // (2 * LUT_PAIRS * LUT_THREADS))), LUT_MAX_CTAS)
+    return gn + 2 + (2 * ctas + 1 if ctas > 1 else 0)
+
+
+def lut_boundary(src: torch.Tensor, gathered: torch.Tensor, staging: torch.Tensor) -> torch.Tensor:
+    """T4: [min(src), max(src), gathered...] int64 into staging[: len(gathered)
+    + 2], returned.  `staging` is a region the caller holds, zeroed once
+    before its first use, of at least lut_boundary_words(len(src),
+    len(gathered)) words: its tail is the kernel's scratch, which every
+    launch leaves as it found it."""
+    _require(src.dtype == gathered.dtype == staging.dtype == torch.int64
+             and src.dim() == gathered.dim() == staging.dim() == 1 and len(src) > 0,
+             "lut_boundary: int64 vectors, a non-empty source")
+    _require(src.is_contiguous() and gathered.is_contiguous() and staging.is_contiguous()
+             and src.device == gathered.device == staging.device, "lut_boundary: contiguous vectors on one device")
+    _require(len(staging) >= lut_boundary_words(len(src), len(gathered)), "lut_boundary: staging region too small")
+    head = staging[: len(gathered) + 2]
+    if _on_cpu(src):
+        head.copy_(lut_boundary_plain(src, gathered))
+        return head
+    LUT_BOUNDARY.launch("lum_lut_boundary", src.device, src.data_ptr(), len(src), gathered.data_ptr(),
+                        len(gathered), staging.data_ptr(), len(staging))
+    return head
 
 
 def trace_segment_plain(seg: TraceSegment) -> None:
@@ -1969,5 +2034,5 @@ def trace_reduce_plain(s: TraceStep) -> None:
         s.out.copy_(outv)
 
 
-def lut_minmax_plain(buf: torch.Tensor) -> torch.Tensor:
-    return torch.stack([buf.min(), buf.max()])
+def lut_boundary_plain(src: torch.Tensor, gathered: torch.Tensor) -> torch.Tensor:
+    return torch.cat([torch.stack([src.min(), src.max()]), gathered])

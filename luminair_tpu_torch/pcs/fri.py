@@ -19,8 +19,10 @@ The commit chain runs on the card with no host sync (the reference's
 accel.fri_commit_chain): the channel state is uploaded once; K8
 (kernels.channel_*) draws alpha0 and, per committed layer, mixes the root
 of the layer's tree (K2) and draws its alpha into a record on the card;
-every fold (K3, kernels.fri_fold_chain) reads its challenge from that
-record.  One download then brings the record -- final channel state,
+one K3 launch (kernels.fri_layer) then runs the layer's folds, reading its
+challenge from that record and circle-folding the smaller inputs where
+they join; the largest input's circle fold, layer 0, is a launch of its
+own.  One download then brings the record -- final channel state,
 alpha0, every root and alpha -- with the last layer.  The host channel,
 which stays authoritative, replays the roots and must reach the same
 challenges and state, or the prove raises ProverError.  The chain runs
@@ -31,7 +33,7 @@ a TPU-dispatch heuristic with the same transcript.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -48,17 +50,33 @@ from .config import FriConfig
 def fold_circle_to_line(values: torch.Tensor, circle_log: int, alpha: torch.Tensor) -> torch.Tensor:
     """(2^circle_log, 4) on D_circle_log -> (N/2, 4) on its line domain:
     f(P) = E(x) + y*O(x), out = E + alpha*O.  alpha: 4 int32 words beside
-    `values` (the challenge as K8 draws it)."""
-    tw = circle.twiddle_stage(circle_log, 0, True, values.device)
-    return kernels.fri_fold_chain(values, tw, alpha, 0)
+    `values` (the challenge as K8 draws it).  A K3 launch of one fold with
+    the 1/(2y) twiddles of the circle domain."""
+    return kernels.fri_layer(values, [circle.twiddle_stage(circle_log, 0, True, values.device)], alpha)
 
 
-def fold_line(values: torch.Tensor, kmax: int, line_log: int, alpha: torch.Tensor, fold: int = 0, mix=None):
-    """(2^line_log, 4) -> (2^(line_log-1), 4) with pairing (i, L-1-i), the
-    1/(2x) twiddles of D_kmax's stage kmax - line_log and the challenge
-    beta = alpha^(2^fold) (+ beta^2 * mix)."""
-    tw = circle.twiddle_stage(kmax, kmax - line_log, True, values.device)
-    return kernels.fri_fold_chain(values, tw, alpha, fold, mix)
+def fold_layer(values: torch.Tensor, kmax: int, line_log: int, folds: int, alpha: torch.Tensor,
+               alpha0: Optional[torch.Tensor], inputs: Dict[int, torch.Tensor], fold: int = 0) -> torch.Tensor:
+    """`folds` line folds from (2^line_log, 4), one K3 launch for every
+    kernels.FRI_MAX_FOLDS of them: fold t pairs (i, L-1-i) with the 1/(2x)
+    twiddles of D_kmax's stage kmax - (line_log - t) and beta =
+    alpha^(2^(fold + t)); where `inputs` has the circle log line_log - t,
+    that input joins, circle-folded with alpha0 and scaled by beta^2."""
+    dev = values.device
+    twiddles = [circle.twiddle_stage(kmax, kmax - (line_log - t), True, dev) for t in range(folds)]
+    mixes = [(inputs[line_log - t], circle.twiddle_stage(line_log - t, 0, True, dev)) if line_log - t in inputs
+             else None for t in range(folds)]
+    for t in range(0, folds, kernels.FRI_MAX_FOLDS):
+        part = slice(t, t + kernels.FRI_MAX_FOLDS)
+        values = kernels.fri_layer(values, twiddles[part], alpha, fold + t, mixes[part], alpha0)
+    return values
+
+
+def fold_line(values: torch.Tensor, kmax: int, line_log: int, alpha: torch.Tensor, fold: int = 0, mix=None,
+              alpha0=None):
+    """(2^line_log, 4) -> (2^(line_log-1), 4): a layer of one fold; `mix`, the
+    FRI input of circle log line_log, joins circle-folded with alpha0."""
+    return fold_layer(values, kmax, line_log, 1, alpha, alpha0, {line_log: mix} if mix is not None else {}, fold)
 
 
 @dataclass
@@ -104,16 +122,14 @@ def commit_chain(inputs: Dict[int, torch.Tensor], last_line_log: int, folds_per_
     rec = f.u32_to_tensor(head, dev)  # the one upload
     state, alpha0 = rec[: kernels.CHANNEL_WORDS], rec[kernels.CHANNEL_WORDS : RECORD_HEAD]
     kernels.channel_draw_felt(state, alpha0)
-    line_evals = {k - 1: fold_circle_to_line(inputs[k], k, alpha0) for k in logs}
-    cur = line_evals[kmax - 1]
+    cur = fold_circle_to_line(inputs[kmax], kmax, alpha0)
     layers = []
     for i, (log, folds) in enumerate(schedule):
         tree = MerkleTree({log: cur.t()})
         slot = rec[RECORD_HEAD + LAYER_WORDS * i : RECORD_HEAD + LAYER_WORDS * (i + 1)]
         kernels.channel_mix_root_draw(state, tree.layers[0][0], slot)
         layers.append((log, cur, tree))
-        for t in range(folds):
-            cur = fold_line(cur, kmax, log - t, slot[8:], t, line_evals.get(log - t - 1))
+        cur = fold_layer(cur, kmax, log, folds, slot[8:], alpha0, inputs)
 
     words = f.tensor_to_u32(torch.cat([rec, cur.reshape(-1)]))  # the one download
     slots = words[RECORD_HEAD : len(rec)].reshape(-1, LAYER_WORDS)

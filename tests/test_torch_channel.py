@@ -91,12 +91,12 @@ def _low_degree_inputs(logs, seed):
     return out
 
 
-@pytest.mark.parametrize("folds", [1, 2])
-def test_commit_chain_matches_reference_chain(folds):
+@pytest.mark.parametrize("folds", [1, 2, 3])
+def test_commit_chain_matches_reference_chain(folds, logs=(8, 7, 5)):
     """fri.commit_chain on CPU tensors against accel.fri_commit_chain at log
     8 with inputs of three sizes: final state, roots, alphas, alpha0, last
     layer."""
-    inputs = _low_degree_inputs((8, 7, 5), folds)
+    inputs = _low_degree_inputs(logs, folds)
     B, bound = 1, 2
     digest = _u32(np.random.default_rng(9), 8).astype("<u4").tobytes()
     ref = accel.fri_commit_chain(inputs, B, bound, folds, B + bound, digest, 3)
@@ -108,6 +108,14 @@ def test_commit_chain_matches_reference_chain(folds):
     assert np.array_equal(got[4], ref[4])
     assert np.array_equal(f.tensor_to_u32(got[5]), ref[5])
     assert not ref[6]  # no input below the last layer: no host tail
+
+
+@pytest.mark.parametrize("folds", [2, 3])
+def test_commit_chain_matches_reference_chain_with_gaps(folds):
+    """The same at four input sizes, a gap between the largest two: the
+    inputs of circle logs 6, 5 and 4 join at folds 1 and 2 of the first
+    layer or in the next."""
+    test_commit_chain_matches_reference_chain(folds, (8, 6, 5, 4))
 
 
 def test_fri_prove_raises_on_a_diverged_channel(monkeypatch):
@@ -130,20 +138,24 @@ def test_fri_prove_raises_on_a_diverged_channel(monkeypatch):
 
 @pytest.mark.parametrize("fold", [0, 1, 3])
 def test_fri_fold_chain_twin(fold):
-    """The device-challenge fold is the host-scalar fold with beta =
-    alpha^(2^fold) and, with a mix, beta^2."""
+    """A one-fold K3 layer with its challenge in device memory, taken up at
+    fold index `fold`, is the host-scalar fold with beta = alpha^(2^fold)
+    and, with an input joining, its circle fold scaled by beta^2."""
     rng = np.random.default_rng(fold)
     v = f.u32_to_tensor(rng.integers(0, P, (64, 4)).astype(np.uint32))
     tw = f.u32_to_tensor(rng.integers(0, P, 32).astype(np.uint32))
-    mix = f.u32_to_tensor(rng.integers(0, P, (32, 4)).astype(np.uint32))
+    mix = f.u32_to_tensor(rng.integers(0, P, (64, 4)).astype(np.uint32))
+    mix_tw = f.u32_to_tensor(rng.integers(0, P, 32).astype(np.uint32))
     alpha = tuple(int(x) for x in rng.integers(0, P, 4))
+    alpha0 = tuple(int(x) for x in rng.integers(0, P, 4))
     beta = alpha
     for _ in range(fold):
         beta = f.qm31_mul_ints(beta, beta)
-    a = f.u32_to_tensor(np.array(alpha, dtype=np.uint32))
-    assert torch.equal(kernels.fri_fold_chain(v, tw, a, fold), kernels.fri_fold_plain(v, tw, beta))
-    assert torch.equal(kernels.fri_fold_chain(v, tw, a, fold, mix),
-                       kernels.fri_fold_plain(v, tw, beta, mix, f.qm31_mul_ints(beta, beta)))
+    a, a0 = (f.u32_to_tensor(np.array(x, dtype=np.uint32)) for x in (alpha, alpha0))
+    assert torch.equal(kernels.fri_layer(v, [tw], a, fold), kernels.fri_fold_plain(v, tw, beta))
+    joined = kernels.fri_fold_plain(mix, mix_tw, alpha0)
+    assert torch.equal(kernels.fri_layer(v, [tw], a, fold, [(mix, mix_tw)], a0),
+                       kernels.fri_fold_plain(v, tw, beta, joined, f.qm31_mul_ints(beta, beta)))
 
 
 @pytest.mark.parametrize("bits", [0, 1, 5, 9, 12, 16])

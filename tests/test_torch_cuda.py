@@ -69,13 +69,18 @@ def test_merkle_tree(dev, sig):
         assert torch.equal(tree.layers[log], plain.layers[log]), log
 
 
-@pytest.mark.parametrize("log", [1, 6, 12])
-def test_fri_fold(dev, log):
+# K3's one-fold layer, the largest input's circle fold, at logs below and
+# above a CTA's rows (256).
+@pytest.mark.parametrize("log", [1, 6, 12, 19])
+def test_fri_layer_circle_fold(dev, log):
+    from luminair_tpu_torch import circle
+
     rng = np.random.default_rng(log)
-    v, tw, mix = _rnd(rng, dev, 1 << log, 4), _rnd(rng, dev, 1 << (log - 1)), _rnd(rng, dev, 1 << (log - 1), 4)
-    a, b2 = rng.integers(0, f.P, 4), rng.integers(0, f.P, 4)
-    assert torch.equal(kernels.fri_fold(v, tw, a), kernels.fri_fold_plain(v, tw, a))
-    assert torch.equal(kernels.fri_fold(v, tw, a, mix, b2), kernels.fri_fold_plain(v, tw, a, mix, b2))
+    v, alpha0 = _rnd(rng, dev, 1 << log, 4), _rnd(rng, dev, 4)
+    tw = [circle.twiddle_stage(log, 0, True, dev)]
+    before = kernels.FRI_LAYER.launches
+    assert torch.equal(kernels.fri_layer(v, tw, alpha0), kernels.fri_layer_plain(v, tw, alpha0))
+    assert kernels.FRI_LAYER.launches - before == 1
 
 
 def _quotient_groups(rng, dev, spec):
@@ -120,14 +125,51 @@ def test_deep_quotient(dev, spec):
         assert torch.equal(got[log], want[log]), log
 
 
-@pytest.mark.parametrize("fold", [0, 1, 2, 8])
-def test_fri_fold_chain(dev, fold):
-    rng = np.random.default_rng(50 + fold)
-    v, tw, mix = _rnd(rng, dev, 1 << 11, 4), _rnd(rng, dev, 1 << 10), _rnd(rng, dev, 1 << 10, 4)
-    alpha = _rnd(rng, dev, 4)
-    assert torch.equal(kernels.fri_fold_chain(v, tw, alpha, fold), kernels.fri_fold_chain_plain(v, tw, alpha, fold))
-    assert torch.equal(kernels.fri_fold_chain(v, tw, alpha, fold, mix),
-                       kernels.fri_fold_chain_plain(v, tw, alpha, fold, mix))
+# K3: one to four folds of a layer in one launch, inputs joining at every
+# fold position, taken up at a later fold of its challenge.
+@pytest.mark.parametrize("folds,joins", [(1, (0,)), (2, (0, 1)), (3, (2,)), (3, (0, 2)), (4, (0, 1, 2, 3)), (4, ())])
+@pytest.mark.parametrize("t0", [0, 2])
+def test_fri_layer(dev, folds, joins, t0):
+    from luminair_tpu_torch import circle
+
+    rng = np.random.default_rng(50 + 10 * folds + t0 + len(joins))
+    kmax, L = 15, 14
+    v = _rnd(rng, dev, 1 << L, 4)
+    tws = [circle.twiddle_stage(kmax, kmax - (L - t), True, dev) for t in range(folds)]
+    mixes = [(_rnd(rng, dev, 1 << (L - t), 4), circle.twiddle_stage(L - t, 0, True, dev)) if t in joins else None
+             for t in range(folds)]
+    args = (v, tws, _rnd(rng, dev, 4), t0, mixes, _rnd(rng, dev, 4))
+    before = kernels.FRI_LAYER.launches
+    assert torch.equal(kernels.fri_layer(*args), kernels.fri_layer_plain(*args))
+    assert kernels.FRI_LAYER.launches - before == 1
+
+
+# The commit chain at the FRI inputs of the three chip_smoke.py paths
+# (bench_n256, pinn_b256 and its 80-bit profile): K3 launches once for the
+# largest input's circle fold and once a committed layer (8 / 10 / 10), and
+# the chain equals the chain with every K3 call through the twin.
+@pytest.mark.parametrize("logs,high_security,launches", [
+    ((19, 18, 17), False, 8), ((23, 22, 18, 16, 14), False, 10), ((23, 22, 18, 16, 14), True, 10),
+])
+def test_fri_commit_chain_launches(dev, monkeypatch, logs, high_security, launches):
+    from luminair_tpu_torch.pcs import fri
+    from luminair_tpu_torch.pcs.config import PcsConfig
+
+    cfg = (PcsConfig.high_security() if high_security else PcsConfig()).fri
+    rng = np.random.default_rng(len(logs) + high_security)
+    inputs = {k: _rnd(rng, dev, 1 << k, 4) for k in logs}
+    args = (inputs, cfg.log_blowup_factor + cfg.log_last_layer_degree_bound, cfg.folds_per_layer, bytes(range(32)), 0)
+    kernels.reset_counts()
+    got = fri.commit_chain(*args)
+    assert kernels.FRI_LAYER.launches == launches
+    monkeypatch.setattr(kernels, "fri_layer", kernels.fri_layer_plain)
+    want = fri.commit_chain(*args)
+    assert got[:2] == want[:2]
+    for a, b in zip(got[2] + got[3] + [got[4]], want[2] + want[3] + [want[4]]):
+        assert np.array_equal(a, b)
+    assert torch.equal(got[5], want[5])
+    for (log_a, evals_a, _), (log_b, evals_b, _) in zip(got[6], want[6]):
+        assert log_a == log_b and torch.equal(evals_a, evals_b)
 
 
 # ---------------------------------------------------------------------------
@@ -322,10 +364,12 @@ def test_prove_path_never_takes_a_plain_twin(dev, monkeypatch):
 
 
 def _check_fri_launches(proof):
-    """K8 once for alpha0 and once per committed FRI layer, K9 once (one
-    opening pass for the FRI layers and the trees), K10 at least once."""
+    """K8 once for alpha0 and once per committed FRI layer, K3 once for the
+    largest input's circle fold and once per layer, K9 once (one opening
+    pass for the FRI layers and the trees), K10 at least once."""
     n_layers = len(proof.pcs_proof.fri_proof.layer_roots)
     assert kernels.CHANNEL.launches == 1 + n_layers and n_layers > 0
+    assert kernels.FRI_LAYER.launches == 1 + n_layers  # the circle fold, then one launch a layer
     assert kernels.DECOMMIT.launches == 1
     assert kernels.GRIND_POW.launches >= 1
 
@@ -456,7 +500,7 @@ def test_trace_segments_of_paths(dev, path, monkeypatch):
     calls = _recorded_trace(cx, dev, monkeypatch)
     segments = sum(w == "trace_segment" for w, _ in calls)
     assert kernels.TRACE_SEGMENT.launches == segments
-    assert segments <= 2 + kernels.TRACE_REDUCE.launches + kernels.LUT_MINMAX.launches
+    assert segments <= 2 + kernels.TRACE_REDUCE.launches + kernels.LUT_BOUNDARY.launches
     _check_trace_calls(calls)
 
 
@@ -526,11 +570,23 @@ def test_trace_reduce_scan(dev, op, dsize, back):
     assert torch.equal(k.outputs(), p.outputs())
 
 
-@pytest.mark.parametrize("n", [1, 5, 1024, 100_003])
-def test_lut_minmax(dev, n):
-    rng = np.random.default_rng(n)
-    buf = torch.from_numpy(rng.integers(-2**62, 2**62, n)).to(dev)
-    assert torch.equal(kernels.lut_minmax(buf), kernels.lut_minmax_plain(buf))
+# T4: one CTA up to 16,384 source values, a last-CTA pass above; sources
+# 16-byte aligned or not; one staging region over several launches (its
+# counter goes back to 0).
+@pytest.mark.parametrize("n", [1, 5, 1024, 16384, 16385, 100_003, 5_000_001])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_lut_boundary(dev, n, offset):
+    rng = np.random.default_rng(n + offset)
+    buf = torch.from_numpy(rng.integers(-2**62, 2**62, n + offset)).to(dev)
+    src = buf[offset:]
+    staging = torch.zeros(kernels.lut_boundary_words(n, 4096), dtype=torch.int64, device=dev)
+    for gn in (4096, 0, 17):
+        gathered = torch.from_numpy(rng.integers(-2**62, 2**62, gn)).to(dev)
+        before = kernels.LUT_BOUNDARY.launches
+        assert torch.equal(kernels.lut_boundary(src, gathered, staging), kernels.lut_boundary_plain(src, gathered))
+        assert kernels.LUT_BOUNDARY.launches - before == 1
+        if kernels.lut_boundary_words(n, 0) > 2:
+            assert int(staging[-1]) == 0
 
 
 def test_prove_from_card_trace_never_touches_the_host(dev, monkeypatch):

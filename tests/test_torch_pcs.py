@@ -39,19 +39,23 @@ def test_fold_circle_to_line(log):
 @pytest.mark.parametrize("kmax,line_log", [(4, 3), (9, 8), (9, 5), (9, 1)])
 @pytest.mark.parametrize("with_mix", [False, True])
 def test_fold_line(kmax, line_log, with_mix):
+    """A line fold; with a mix, the FRI input of circle log line_log joins
+    as the reference's chain joins it: its circle fold with alpha0, scaled
+    by alpha^2."""
     v = _qm31(kmax * 10 + line_log, 1 << line_log)
     alpha = _qm31(7, 1)[0]
     t_inv = ref_circle.ifft_twiddles(kmax)[kmax - line_log]
     ref = ref_fri.fold_line(v, t_inv, alpha)
-    mix = None
+    mix = alpha0 = None
     if with_mix:
         from luminair_tpu.fields import qm31 as ref_qm31
 
-        mix = _qm31(8, 1 << (line_log - 1))
+        mix, alpha0 = _qm31(8, 1 << line_log), _qm31(9, 1)[0]
         beta2 = ref_qm31.mul(alpha, alpha)
-        ref = ref_qm31.add(ref, ref_qm31.mul(np.broadcast_to(beta2, ref.shape), mix))
-        mix = f.u32_to_tensor(mix)
-    _eq(fri.fold_line(f.u32_to_tensor(v), kmax, line_log, f.u32_to_tensor(alpha), mix=mix), ref)
+        joined = ref_fri.fold_circle_to_line(mix, line_log, alpha0)
+        ref = ref_qm31.add(ref, ref_qm31.mul(np.broadcast_to(beta2, ref.shape), joined))
+        mix, alpha0 = f.u32_to_tensor(mix), f.u32_to_tensor(alpha0)
+    _eq(fri.fold_line(f.u32_to_tensor(v), kmax, line_log, f.u32_to_tensor(alpha), mix=mix, alpha0=alpha0), ref)
 
 
 def _sample_setup(seed, logs_and_points):
@@ -91,7 +95,7 @@ def test_accumulate_quotients(layout):
         _eq(port[log], ref[log])
 
 
-@pytest.mark.parametrize("folds_per_layer", [1, 2, 3])
+@pytest.mark.parametrize("folds_per_layer", [1, 2, 3, 5])
 def test_fri_prove_and_decommit(folds_per_layer):
     """Two inputs (logs 9 and 8) of low degree; roots, last layer, channel
     state and openings equal the reference's."""

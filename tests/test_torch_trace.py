@@ -227,9 +227,13 @@ def test_find_index_matches_reference():
 
 
 def test_lut_minmax_twin():
+    """T4 on CPU tensors: the source's min and max, then the gathered input,
+    in the head of the staging region."""
     buf = np.concatenate([_EXTREMES, np.random.default_rng(2).integers(-2**40, 2**40, 1000)])
-    got = kernels.lut_minmax(torch.from_numpy(buf))
-    assert got.tolist() == [buf.min(), buf.max()]
+    gathered = torch.from_numpy(np.random.default_rng(3).integers(-2**40, 2**40, 77))
+    staging = torch.zeros(kernels.lut_boundary_words(len(buf), len(gathered)), dtype=torch.int64)
+    got = kernels.lut_boundary(torch.from_numpy(buf), gathered, staging)
+    assert got.tolist() == [buf.min(), buf.max()] + gathered.tolist()
 
 
 # ---------------------------------------------------------------------------
