@@ -20,10 +20,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      commit sizes, K7 at the PINN's OODS groups, alone and in one call,
      and at groups below and above a chunk, K3's layer launch at the N=256
      prove's shapes and at the PINN's 2^23 circle fold and first committed
-     layer, K8 on random channel states, K9 on
-     a pass over trees of the PINN's sizes and on one whose position lists
-     exceed shared memory, K10 at 16 bits; CUDA-event times of kernel
-     and twin and the least time the card could take for the same work;
+     layer, K8's step in K2's root pass on random channel states (FRI
+     layers' trees of one and of several passes) against the plain tree and
+     step, K9 on a pass over trees of the PINN's sizes and on one whose
+     position lists exceed shared memory, K10 at 0, 5, 12 and 16 bits and
+     on a digest whose first passing nonce lies beyond the first round
+     (each call one launch, no fill, no upload, one download: profiled);
+     the latency of one dependent Blake2s compression on one thread (K8's
+     bound) and of one compression's 240 dependent operations written out
+     apart (its floor; both probes in tools/blake2s_latency.cu, built
+     beside the kernels); CUDA-event times of kernel and twin and the least time the
+     card could take for the same work;
   5. the bench path: the 256x256 a*b + a graph through Graph -> compile ->
      gen_circuit_settings -> gen_trace -> prove, all on the card by
      default; every kernel of the path must launch between the counters'
@@ -38,7 +45,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      ceil((L + 1) / (t + 1)) launches per tree of 2^L leaves (tile 2^t),
      K4 and K7 one call per prove, K3 one launch per committed FRI layer
      and one for the largest input's circle fold (8 at N=256, 10 at the
-     PINN); then the path once more keeping the
+     PINN), K8 one launch per prove (alpha0; each committed layer's step
+     runs in its tree's root pass, counted apart) and K10 one; then the
+     path once more keeping the
      inputs of each kernel call at each distinct shape (the trace
      segments and T3 steps too), every kept call run again through the
      kernel and through its plain twin, bit for bit (a segment three
@@ -46,9 +55,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      a one-node segment), and the bounds of every kernel's calls summed
      (per_run_bound; the settings pass's apart, and trace_segment's also
      over its nodes alone); then one prove, one
-     settings pre-pass and one trace under torch.profiler: device busy
-     time, idle share, copies, and the kernels that take the device's
-     time;
+     settings pre-pass and one trace under torch.profiler (each window
+     padded: Profiled): device busy time, idle share, copies, and
+     the kernels that take the device's time; K8's device time per prove
+     (alpha0's launch and each FRI layer's step, its root pass with the
+     step less without) and K2's less those steps, each against its
+     per-prove bound;
   6. the PINN path: the 2-64-64-1 network (Linear + tanh, random weights
      from a seed) at batch 256 through Graph -> nn.Linear -> compile ->
      gen_circuit_settings -> gen_trace -> prove, the same checks, the
@@ -62,7 +74,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      the median of 3 proves, the host PIE's proof the same bytes, the
      native verifier accepting the proof and rejecting it with its nonce
      plus one, every kernel call of one prove replayed through kernel and
-     twin, K8-K10 timed at the calls this prove made, one profiled prove;
+     twin, K8-K10 timed at the calls this prove made (K8's step as its
+     root pass with and without it), one profiled prove;
   7. the six op graphs (models/op_graphs.py): the card's settings and PIE
      against the host interpreter's, each trace segment and step through
      kernel and twin, and all_ops proved on the card and accepted by the native
@@ -113,6 +126,16 @@ OPS_BLAKE2S_BLOCK = 80 * 12 + 8  # 10 rounds x 8 G x 12 ops, one LOP3 per output
 # (a G: 4 IADD3 that add three words, 4 XOR, 2 PRMT for the 16- and 8-bit
 # rotations, 2 SHF for the 12- and 7-bit ones; tools/blake2s_sass_ops.py
 # counts them in the SASS of csrc/blake2s.cuh's compression)
+# What one proof-of-work candidate needs (K10): the compression less round
+# 0's seven G's that read no nonce word (its column step and three G's of
+# its diagonal step), less the 6 output words the check never reads and
+# round 9's diagonal work that neither read word depends on (the last b
+# rotation of two G's, 2 ops each, and everything after a's second update
+# in the other two, 5 each): 864.  The SASS of csrc/channel.cuh's pow_h01
+# does one candidate in 856 ALU instructions (tools/blake2s_sass_ops.py,
+# sm_90a), so the bound charges the smaller count, as K2's charges 968
+# against the SASS's 970.
+OPS_POW_CANDIDATE = min(OPS_BLAKE2S_BLOCK - 7 * 12 - 6 - (2 * 2 + 2 * 5), 856)
 OPS_DENOM = 4 * OPS_MUL + 8 * OPS_ADD  # v0 + alpha * v1 - z
 # A product added to a 64-bit sum with one fold (K7): the 32x32->64
 # product, the fold's and, shift and add, the 64-bit add (two).
@@ -136,7 +159,7 @@ PORT_KERNEL_NAMES = (
     "fft_pass_kernel", "merkle_pass_kernel", "fri_layer_kernel",
     "deep_quotient_kernel", "air_witness_kernel", "scan_tile", "air_domain_kernel",
     "oods_partial_kernel", "oods_combine_kernel", "channel_draw_kernel",
-    "channel_mix_draw_kernel", "decommit_kernel", "grind_pow_kernel", "trace_segment_kernel", "trace_reduce_kernel",
+    "decommit_kernel", "grind_pow_kernel", "trace_segment_kernel", "trace_reduce_kernel",
     "lut_boundary_kernel",
 )
 
@@ -194,6 +217,100 @@ def time_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
+# Idle host time inside a profiled window before its calls and after they
+# end; the warm-up launches at its start, each of a kernel that spins for
+# about 0.1 ms; the windows tried before a record that must be there is
+# taken as missing (Profiled).
+PROFILE_PAD_S = 0.01
+PROFILE_WARM_UP_LAUNCHES = 8
+PROFILE_WARM_UP_CYCLES = 200_000
+PROFILE_TRIES = 3
+# The host's records of the CUDA runtime and driver calls that put work on
+# the card: kernel launches, copies, fills of memory.
+HOST_LAUNCH = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+HOST_COPY = ("cudaMemcpy", "cuMemcpy")
+HOST_MEMSET = ("cudaMemset", "cuMemset")
+
+
+class Profiled:
+    """`run` under torch.profiler (host and device activity).  The window
+    opens with a warm-up, PROFILE_WARM_UP_LAUNCHES launches of
+    torch.cuda._sleep's kernel, awaited, then PROFILE_PAD_S; `run` follows,
+    and the window closes PROFILE_PAD_S after it has ended on the card.
+    With `need`, a window in which no device record's name holds `need` is
+    run again, PROFILE_TRIES windows at most.  Fields: `device`, {device
+    record name: [ms, count]}; `host`, the counts of the host's records of
+    kernel launches, copies and memory fills (one a runtime or driver
+    call); `lost`, (position among those calls in the window's order, call
+    name) of each call whose correlation id has no device record;
+    `device_lead_us`, the most by which a device record starts before its
+    call's host record; `warm_up_recorded`, how many warm-up launches have
+    a device record; `tries`; `wall_ms`, `run` and a synchronise.  The
+    warm-up is left out of all but `warm_up_recorded`.
+
+    Why: once chip_smoke.py's paths had run, the profiler lost device
+    records at the start of most windows (the first one to six calls'), and
+    once all 100 launches of a window, while the host's records held every
+    call (PERF.md).  The device's records did not start early
+    (`device_lead_us` about -5 us), so a window's lead time does not help;
+    a warm-up does, mostly.  So a count of work reads the host's records,
+    and the device's records name and time that work."""
+
+    def __init__(self, run, need: str = ""):
+        for self.tries in range(1, PROFILE_TRIES + 1):
+            self._window(run)
+            if not need or self.count(need):
+                break
+
+    def _window(self, run):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_WARM_UP_LAUNCHES):
+                torch.cuda._sleep(PROFILE_WARM_UP_CYCLES)
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            self.wall_ms = (time.perf_counter() - t0) * 1e3
+            time.sleep(PROFILE_PAD_S)
+        on_card, calls = [], []
+        for e in prof.profiler.kineto_results.events():
+            name = e.name()
+            if e.device_type() != DeviceType.CPU:
+                dur = e.duration_ns() / 1e6 if hasattr(e, "duration_ns") else e.duration_us() / 1e3
+                on_card.append((e.correlation_id(), name, dur, e.start_ns()))
+            elif name in HOST_LAUNCH or name.startswith(HOST_COPY + HOST_MEMSET):
+                calls.append((e.start_ns(), e.correlation_id(), name))
+        calls.sort()
+        warm_up = {c for _, c, name in calls[:PROFILE_WARM_UP_LAUNCHES] if name in HOST_LAUNCH}
+        if len(warm_up) != PROFILE_WARM_UP_LAUNCHES:
+            raise AssertionError("Profiled: the window holds no record of its warm-up launches")
+        calls = calls[PROFILE_WARM_UP_LAUNCHES:]
+        self.warm_up_recorded = sum(1 for c, *_ in on_card if c in warm_up)
+        self.device, starts = {}, {}
+        for c, name, dur, start in on_card:
+            if c not in warm_up:
+                ms, n = self.device.get(name, (0.0, 0))
+                self.device[name] = [ms + dur, n + 1]
+                starts[c] = start
+        self.host = {"launches": sum(1 for *_, n in calls if n in HOST_LAUNCH),
+                     "copies": sum(1 for *_, n in calls if n.startswith(HOST_COPY)),
+                     "memsets": sum(1 for *_, n in calls if n.startswith(HOST_MEMSET))}
+        self.lost = [(i, name) for i, (_, c, name) in enumerate(calls) if c not in starts]
+        leads = [(t - starts[c]) / 1e3 for t, c, _ in calls if c in starts]
+        self.device_lead_us = max(leads) if leads else None
+
+    def count(self, part: str) -> int:
+        return sum(n for k, (_, n) in self.device.items() if part in k)
+
+    def ms(self, part: str) -> float:
+        return sum(ms for k, (ms, _) in self.device.items() if part in k)
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     """Largest |a - b| over uint32 words (int32 tensors hold bit patterns)."""
     assert a.shape == b.shape, (a.shape, b.shape)
@@ -211,10 +328,42 @@ def phase_card():
     return out
 
 
+PROBE_SOURCE = os.path.join(ROOT, "tools", "blake2s_latency.cu")
+PROBE = {}  # the latency probes' library (phase_build)
+
+
+def start_probe(kernels):
+    """Start nvcc on tools/blake2s_latency.cu (the latency probes, with the
+    kernels' flags and csrc/ headers); returns the function that waits for
+    it and loads the probes into PROBE."""
+    import ctypes
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    probe = os.path.join(OUT_DIR, "blake2s_latency.so")
+    proc = subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels._CSRC), "-o", probe,
+                             PROBE_SOURCE], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def finish():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"tools/blake2s_latency.cu did not build:\n{err}{out}")
+        lib = ctypes.CDLL(probe)
+        for sym in ("lum_blake2s_chain", "lum_blake2s_critical_path"):
+            fn = getattr(lib, sym)
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            PROBE[sym] = fn
+
+    return finish
+
+
 def phase_build(kernels):
+    """The kernels, and beside them the latency probes (start_probe)."""
     t0 = time.perf_counter()
+    probe_done = start_probe(kernels)
     reports = kernels.build()
     kernels.load_all()
+    probe_done()
     regs = {
         name: [l.split("ptxas info    : ")[-1].strip() for l in rep.splitlines() if "registers" in l or "spill" in l]
         for name, rep in reports.items()
@@ -415,25 +564,130 @@ def quotient_kernel(kernels, circle, dev, rng, rnd, check):
                 plain_ms=time_ms(lambda: kernels.deep_quotient_many_plain(plan)), bound=bound(*quotient_work(plan)))
 
 
+def channel_tree(kernels, cols_by_log, state, on_card: bool) -> torch.Tensor:
+    """A FRI layer's tree with K8's step from a copy of `state`: through K2's
+    root pass (on_card) or the plain tree and step.  Returns its digests,
+    the state after the step and the record slot."""
+    bottom = max(cols_by_log)
+    desc = kernels.TreeDesc(kernels.tree_layers(bottom, state.device), cols_by_log)
+    st, slot = state.clone(), torch.zeros(12, dtype=torch.int32, device=state.device)
+    if on_card:
+        kernels.merkle_tree(desc, st, slot)
+    else:
+        kernels.merkle_tree_plain(desc)
+        kernels.channel_mix_root_draw_plain(st, desc.layers[0][0], slot)
+    return torch.cat([desc.layers[log].reshape(-1) for log in range(bottom, -1, -1)] + [st, slot])
+
+
+# The latency of one dependent Blake2s compression on one thread, which
+# bounds K8's steps (blake2s_latency sets it before the first path).
+MEASURED = {}
+
+
+def blake2s_latency(dev, n: int = 1000) -> float:
+    """`n` chained compressions on one thread (tools/blake2s_latency.cu's
+    lum_blake2s_chain), timed by clock64() and by CUDA events; the least
+    time of one, from its cycles at the card's highest SM clock (nvidia-smi
+    clocks.max.sm), is K8's latency unit.  Beside it, `n` times one
+    compression's chain of 240 dependent operations written out apart from
+    csrc/ (lum_blake2s_critical_path): the floor of one compression on one
+    thread, whatever the code."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def cycles_of(sym, words):
+        io = torch.arange(words, dtype=torch.int32, device=dev)
+        cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+        if PROBE[sym](io.data_ptr(), 10, cycles.data_ptr(), stream) != 0:
+            raise AssertionError(f"{sym}: launch failed")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        if PROBE[sym](io.data_ptr(), n, cycles.data_ptr(), stream) != 0:
+            raise AssertionError(f"{sym}: launch failed")
+        end.record()
+        end.synchronize()
+        return int(cycles.item()), start.elapsed_time(end)
+
+    chain, chain_ms = cycles_of("lum_blake2s_chain", 24)
+    floor, floor_ms = cycles_of("lum_blake2s_critical_path", 6)
+    clocks = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,clocks.max.sm",
+                             "--format=csv,noheader,nounits"], check=True, capture_output=True, text=True,
+                            timeout=60).stdout.strip().split(",")
+    sm_mhz, max_mhz = (float(c) for c in clocks)
+    MEASURED["blake2s_latency_s"] = chain / n / (max_mhz * 1e6)
+    emit({"phase": "blake2s_latency", "compressions": n, "cycles": chain, "cycles_per_compression": chain / n,
+          "event_ms": chain_ms, "ns_per_compression_events": chain_ms * 1e6 / n,
+          "critical_path_cycles_per_compression": floor / n, "critical_path_cycles_per_operation": floor / n / 240,
+          "critical_path_ns_per_compression_events": floor_ms * 1e6 / n,
+          "compression_over_critical_path": chain / floor,
+          "sm_clock_mhz_after": sm_mhz, "max_sm_clock_mhz": max_mhz,
+          "ns_per_compression_at_max_clock": MEASURED["blake2s_latency_s"] * 1e9,
+          "critical_path_ns_at_max_clock": floor / n / max_mhz * 1e3})
+    return MEASURED["blake2s_latency_s"]
+
+
+POW_GATE_CALLS = 20
+
+
+def pow_call_gate(kernels, digest: bytes, bits: int, dev) -> int:
+    """POW_GATE_CALLS K10 calls under torch.profiler (the scratch already
+    made; Profiled): one launch each by the wrapper's count and by the
+    host's records, one copy each and no fill of memory by the host's
+    records; the device's records name no kernel but grind_pow_kernel and
+    no copy but device-to-host ones (no fill, no upload), and with the
+    calls that have none they make up the host's counts.  Returns the
+    nonce."""
+    kernels.grind_pow(digest, bits, dev)
+    before = kernels.GRIND_POW.launches
+    nonces = set()
+    p = Profiled(lambda: nonces.update(kernels.grind_pow(digest, bits, dev) for _ in range(POW_GATE_CALLS)),
+                 "grind_pow_kernel")
+    events = {k: n for k, (_, n) in p.device.items()}
+    launches = (kernels.GRIND_POW.launches - before) / p.tries
+    emit({"phase": "pow_call_gate", "bits": bits, "nonce": min(nonces), "calls": POW_GATE_CALLS,
+          "launches": launches, "host_records": p.host, "device_records": events,
+          "without_a_device_record": p.lost, "device_lead_us": p.device_lead_us,
+          "warm_up_recorded": p.warm_up_recorded, "windows": p.tries})
+    others = [k for k in events if k != "Memcpy DtoH (Device -> Pinned)" and "grind_pow_kernel" not in k]
+    lost_launches = sum(1 for _, name in p.lost if name in HOST_LAUNCH)
+    if (len(nonces) != 1 or launches != POW_GATE_CALLS
+            or p.host != {"launches": POW_GATE_CALLS, "copies": POW_GATE_CALLS, "memsets": 0}
+            or others or p.count("grind_pow_kernel") + lost_launches != POW_GATE_CALLS
+            or p.count("Memcpy DtoH") + len(p.lost) - lost_launches != POW_GATE_CALLS
+            or not p.count("grind_pow_kernel") or not p.count("Memcpy DtoH")):
+        raise AssertionError(f"grind_pow at {bits} bits: not one launch and one download a call: {p.host}, "
+                             f"{events}, lost {p.lost}")
+    return nonces.pop()
+
+
 def transcript_kernels(kernels, f, dev, rng, rnd, check):
-    """K8 on random channel states (draw, mix and draw; state and record
-    slot), K9 on a pass over trees of the PINN's sizes, K10 at 16
-    bits.  Their times come from the 80-bit path's own calls
+    """K8 on random channel states (alpha0's draw; the step in K2's root
+    pass on FRI layers' trees of one pass, of two and of three, the root
+    pass hashing 2^0 to 2^10 nodes), K9 on a pass over trees of the PINN's
+    sizes, K10 at 0, 5, 12 and 16 bits and on a digest whose first passing
+    nonce lies beyond the first round, each call profiled
+    (pow_call_gate).  Their times come from the 80-bit path's own calls
     (transcript_kernel_rows)."""
+    from luminair_tpu_torch.crypto.channel import Blake2sChannel
+
+    blake2s_latency(dev)
     for counter in (0, 3):
-        state, root = rnd(kernels.CHANNEL_WORDS), rnd(8)
+        state = rnd(kernels.CHANNEL_WORDS)
         state[8] = counter
 
-        def both(fn, n_out, *args):
+        def draw(fn):
             def run():
-                st, out = state.clone(), torch.zeros(n_out, dtype=torch.int32, device=dev)
-                return torch.cat([fn(st, *args, out), out])
+                st, out = state.clone(), torch.zeros(4, dtype=torch.int32, device=dev)
+                return torch.cat([fn(st, out), out])
             return run
 
-        check(f"fri_channel draw counter {counter}", both(kernels.channel_draw_felt, 4),
-              both(kernels.channel_draw_felt_plain, 4))
-        check(f"fri_channel mix+draw counter {counter}", both(kernels.channel_mix_root_draw, 12, root),
-              both(kernels.channel_mix_root_draw_plain, 12, root))
+        check(f"fri_channel draw counter {counter}", draw(kernels.channel_draw_felt),
+              draw(kernels.channel_draw_felt_plain))
+    for counter, log in ((0, 0), (3, 10), (7, 11), (250, 16), (1, 21), (2, 22)):
+        state = rnd(kernels.CHANNEL_WORDS)
+        state[8] = counter
+        cols = {log: rnd(1 << log, 4).t()}
+        check(f"fri_channel step in the root pass, FRI layer 2^{log}, counter {counter}",
+              lambda: channel_tree(kernels, cols, state, True), lambda: channel_tree(kernels, cols, state, False))
     # K9: a pass over a FRI-sized tree and a main-tree-sized tree, 64
     # queries' worth of positions at several logs.
     from luminair_tpu_torch.crypto.merkle import MerkleTree
@@ -455,9 +709,28 @@ def transcript_kernels(kernels, f, dev, rng, rnd, check):
     check(f"decommit above shared memory (cap {plan.cap})", lambda: kernels.decommit(plan),
           lambda: kernels.decommit_plain(plan))
     del trees, plan
-    digest = rnd(8)
-    check("grind_pow 16 bits", lambda: torch.tensor([kernels.grind_pow(digest, 16)]),
-          lambda: torch.tensor([kernels.grind_pow_plain(digest, 16)]))
+    # K10: random digests at 0-16 bits, then the first seed whose 16-bit
+    # nonce lies beyond the first round (W nonces); each against the twin
+    # on the card and the host channel (hashlib).
+    W = kernels.pow_ctas(16, torch.cuda.get_device_properties(dev).multi_processor_count) * kernels.POW_THREADS
+    cases = [(rng.integers(0, 1 << 32, 8, dtype=np.uint64).astype("<u4").tobytes(), bits) for bits in (0, 5, 12, 16)]
+    seed = 0
+    while True:
+        digest = np.random.default_rng(seed).integers(0, 1 << 32, 8, dtype=np.uint64).astype("<u4").tobytes()
+        if kernels.grind_pow(digest, 16, dev) >= W:
+            break
+        seed += 1
+    cases.append((digest, 16))
+    for i, (digest, bits) in enumerate(cases):
+        nonce = pow_call_gate(kernels, digest, bits, dev)
+        ch = Blake2sChannel()
+        ch.digest = digest
+        name = f"grind_pow {bits} bits, nonce {nonce}" + (f" (seed {seed}: beyond the first round of {W})"
+                                                          if i == len(cases) - 1 else "")
+        if not ch.check_pow_nonce(bits, nonce) or any(ch.check_pow_nonce(bits, n) for n in range(min(nonce, 4096))):
+            raise AssertionError(f"{name}: {nonce} is not the least passing nonce")
+        check(name, lambda: torch.tensor([kernels.grind_pow(digest, bits, dev)]),
+              lambda: torch.tensor([kernels.grind_pow_plain(digest, bits, dev)]))
 
 
 def tape_kernels(kernels, f, dev, pinn_logs, rng, rnd, check):
@@ -670,9 +943,9 @@ class tree_bottoms:
     def __init__(self, kernels):
         self.kernels, self.fn, self.bottoms = kernels, kernels.merkle_tree, []
 
-    def _counted(self, desc):
+    def _counted(self, desc, *channel):
         self.bottoms.append(desc.bottom)
-        return self.fn(desc)
+        return self.fn(desc, *channel)
 
     def __enter__(self):
         self.kernels.merkle_tree = self._counted
@@ -683,17 +956,21 @@ class tree_bottoms:
         return False
 
 
-def path_launches(kernels, tag, first_s, launches, bottoms, expect, k3_limit):
+def path_launches(kernels, tag, first_s, launches, bottoms, expect, k3_limit, proof):
     """The path line: launches of one run with the counters reset just
-    before it, and K2's trees with the launches they may take (ceil((L +
-    1) / (t + 1)) each).  Fails if a kernel of the path never launched, K2
-    took more, K7 more than one call (two launches) per prove, K4 more than
-    one, or K3 more than `k3_limit` (one a committed FRI layer and one
-    for the largest input's circle fold)."""
+    before it (one prove), and K2's trees with the launches they may take
+    (ceil((L + 1) / (t + 1)) each).  Fails if a kernel of the path never
+    launched, K2 took more, K7 more than one call (two launches) per prove,
+    K4 more than one, K3 more than `k3_limit` (one a committed FRI layer
+    and one for the largest input's circle fold), K8 other than one launch
+    (alpha0) with one step in a K2 root pass per committed FRI layer, or
+    K10 other than one."""
     limit = sum(-(-(b + 1) // (kernels.MERKLE_TILE_LOG + 1)) for b in bottoms)
+    fri_layers, in_root_passes = len(proof.pcs_proof.fri_proof.layer_roots), kernels.CHANNEL.hosted
     emit({"phase": "path", "path": tag, "first_prove_seconds": first_s, "launches": launches,
           "merkle_trees": len(bottoms), "merkle_tree_bottoms": bottoms, "merkle_launch_limit": limit,
-          "fri_layer_launch_limit": k3_limit})
+          "fri_layer_launch_limit": k3_limit, "fri_layers": fri_layers,
+          "fri_channel_steps_in_root_passes": in_root_passes})
     missing = [k for k in expect if launches[k] == 0]
     if missing:
         raise AssertionError(f"{tag}: the path launched no {missing}")
@@ -702,6 +979,11 @@ def path_launches(kernels, tag, first_s, launches, bottoms, expect, k3_limit):
                              f"K7 {launches['oods_eval']} calls, K4 {launches['deep_quotient']} (at most 1 each)")
     if launches["fri_layer"] > k3_limit:
         raise AssertionError(f"{tag}: K3 took {launches['fri_layer']} launches (at most {k3_limit})")
+    if launches["fri_channel"] != 1 or in_root_passes != fri_layers or launches["grind_pow"] != 1:
+        raise AssertionError(f"{tag}: K8 took {launches['fri_channel']} launches and {in_root_passes} steps in root "
+                             f"passes ({fri_layers} FRI layers), K10 {launches['grind_pow']}: 1, {fri_layers}, 1 "
+                             "expected")
+    return in_root_passes
 
 
 def segment_launch_gate(tag, stages) -> None:
@@ -733,7 +1015,8 @@ def phase_path(T, kernels, serde, tracing, f, card, tag, build, host, expect, k3
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         launches = kernels.counts()
-    path_launches(kernels, tag, first_s, launches, bottoms, expect, k3_limit)
+    launches["fri_channel_steps_in_root_passes"] = path_launches(kernels, tag, first_s, launches, bottoms, expect,
+                                                                 k3_limit, proof)
     segment_launch_gate(tag, stage_launches)
 
     card_s = [(settings_s, trace_s, spans)] + [card_trace(T, build()[0])[2:] for _ in range(2)]
@@ -796,7 +1079,7 @@ def path_twins(kernels, tape, f):
                        ("coeffs", "m_start")),
         "circle_lde": ("circle_fft", lambda a: kernels.circle_lde_plain(a["coeffs"], a["log_blowup"]),
                        ("coeffs", "log_blowup")),
-        "merkle_tree": ("blake2s_merkle", lambda a: kernels.merkle_tree_plain(a["desc"]), ("desc",)),
+        "merkle_tree": ("blake2s_merkle", lambda a: kernels.merkle_tree_plain(a["desc"]), ("desc", "state")),
         "fri_layer": ("fri_layer", lambda a: kernels.fri_layer_plain(
             a["values"], a["twiddles"], a["alpha"], a["t0"], a["mixes"], a["alpha0"]), ("values", "twiddles", "mixes")),
         "deep_quotient_many": ("deep_quotient", lambda a: kernels.deep_quotient_many_plain(a["plan"]), ("plan",)),
@@ -807,10 +1090,8 @@ def path_twins(kernels, tape, f):
             a["pows"], a["log_trace"], a["stride"], a["acc"]), ("tp", "is_first", "stride", "acc")),
         "oods_eval_many": ("oods_eval", lambda a: kernels.oods_eval_many_plain(a["groups"]), ("groups",)),
         "channel_draw_felt": ("fri_channel", lambda a: kernels.channel_draw_felt_plain(a["state"], a["out"]), ()),
-        "channel_mix_root_draw": ("fri_channel", lambda a: kernels.channel_mix_root_draw_plain(
-            a["state"], a["root"], a["out"]), ()),
         "decommit": ("decommit", lambda a: kernels.decommit_plain(a["plan"]), ("plan",)),
-        "grind_pow": ("grind_pow", lambda a: kernels.grind_pow_plain(a["digest"], a["bits"]), ("bits",)),
+        "grind_pow": ("grind_pow", lambda a: kernels.grind_pow_plain(a["digest"], a["bits"], a["device"]), ("bits",)),
         **trace_twins(kernels),
     }
 
@@ -893,7 +1174,8 @@ class recording:
     `kept` (an argument the kernel updates in place is cloned first),
     counts its calls in `calls` and sums the bound (ms) of every call of
     a wrapper in WORK or WORK_AFTER in `bound_ms`, by kernel (a settings
-    pass's trace steps under the kernel's name + "_settings")."""
+    pass's trace steps under the kernel's name + "_settings"; K8's step in a
+    channel tree's root pass under fri_channel)."""
 
     def __init__(self, kernels, twins, kept, calls):
         self.kernels, self.twins, self.kept, self.calls = kernels, twins, kept, calls
@@ -927,6 +1209,10 @@ class recording:
                     nodes = kernel.replace("trace_segment", "trace_segment_nodes")
                     self.bound_ms[nodes] = self.bound_ms.get(nodes, 0.0) + bound(*segment_work(a["seg"], True))[0]
                     self.bound_calls[nodes] = self.bound_calls.get(nodes, 0) + 1
+                if name == "merkle_tree" and a["state"] is not None:  # K8's step in the root pass
+                    step = bound(*channel_step_work(1 + _counter(a["state"])))[0]
+                    self.bound_ms["fri_channel"] = self.bound_ms.get("fri_channel", 0.0) + step
+                    self.bound_calls["fri_channel"] = self.bound_calls.get("fri_channel", 0) + 1
             return out
 
         return rec
@@ -999,6 +1285,10 @@ def replay(kernels, twins, kept, calls) -> dict:
             getattr(kernels, name)(k)
             plain(p)
             err = trace_err(k.outputs(), p.outputs())
+        elif name == "merkle_tree" and a["state"] is not None:  # a FRI layer's tree and K8's step, from the kept state
+            cols = a["desc"].cols
+            err = max_abs_err(channel_tree(kernels, cols, a["state"], True),
+                              channel_tree(kernels, cols, a["state"], False))
         elif name == "merkle_tree":  # each side hashes new layers over the kept columns
             cols = a["desc"].cols
             err = max_abs_err(tree_words(kernels, cols, getattr(kernels, name)),
@@ -1008,9 +1298,11 @@ def replay(kernels, twins, kept, calls) -> dict:
             got = flat(getattr(kernels, name)(**ka), ka)
             want = flat(plain(pa), pa)
             err = trace_err(got.to(torch.int64), want.to(torch.int64)) if got.dtype == torch.int64 else max_abs_err(got, want)
-        row = by_kernel[kernel_name]
-        row["shapes"].append(repr(key))
-        row["max_abs_err"] = max(row["max_abs_err"], err)
+        owners = [kernel_name] + (["fri_channel"] if name == "merkle_tree" and a["state"] is not None else [])
+        for owner in owners:  # a channel tree checks K2 and K8's step
+            row = by_kernel[owner]
+            row["shapes"].append(repr(key))
+            row["max_abs_err"] = max(row["max_abs_err"], err)
     torch.cuda.synchronize()
     return by_kernel
 
@@ -1110,6 +1402,13 @@ def channel_bytes() -> int:
     return 4 * (2 * 13 + 8 + 12)  # the state read and written, a root, a record slot
 
 
+def channel_step_work(compressions: int):
+    """(bytes, compressions, compressions per second) of one K8 step: its
+    compressions depend each on the last, so one thread does them in turn,
+    each in at least the measured latency of one (blake2s_latency)."""
+    return channel_bytes(), compressions, 1 / MEASURED["blake2s_latency_s"]
+
+
 # The work of one call of each wrapper whose per-run bound is summed, from
 # its arguments (bytes, operations[, operations per second]).
 WORK = {
@@ -1141,15 +1440,17 @@ def _counter(state) -> int:
 
 
 # Work that depends on the data: (before(args), after(args, result, before)).
-# K8 hashes one block per draw counter step (and one to mix a root); K10
-# hashes every nonce up to the one it returns.
+# K8 hashes one block per draw counter step (and one to mix a root, in the
+# root pass: recording), one after another; K10 hashes every nonce up to
+# the one it returns.
 WORK_AFTER = {
     "channel_draw_felt": (lambda a: _counter(a["state"]),
-                          lambda a, out, c0: (channel_bytes(), (_counter(a["state"]) - c0) * OPS_BLAKE2S_BLOCK)),
-    "channel_mix_root_draw": (lambda a: None,
-                              lambda a, out, _: (channel_bytes(), (1 + _counter(a["state"])) * OPS_BLAKE2S_BLOCK)),
-    "grind_pow": (lambda a: None, lambda a, nonce, _: (40, (nonce + 1) * OPS_BLAKE2S_BLOCK)),
+                          lambda a, out, c0: channel_step_work(_counter(a["state"]) - c0)),
+    "grind_pow": (lambda a: None, lambda a, nonce, _: (40, (nonce + 1) * OPS_POW_CANDIDATE)),
 }
+
+
+PER_RUN_BOUND = {}  # {path: {kernel: ms}} (phase_path_kernels)
 
 
 def phase_path_kernels(T, kernels, tape, f, tag: str, run, expect):
@@ -1172,6 +1473,7 @@ def phase_path_kernels(T, kernels, tape, f, tag: str, run, expect):
         line[f"{kernel}_bound_ms"] = rec.bound_ms[kernel]
         line[f"{kernel}_calls"] = rec.bound_calls[kernel]
     emit(line)
+    PER_RUN_BOUND[tag] = dict(rec.bound_ms)
     by_kernel = replay(kernels, twins, kept, calls)
     for kernel_name, row in by_kernel.items():
         emit({"phase": "path_kernel_check", "path": tag, "kernel": kernel_name, **row})
@@ -1277,8 +1579,8 @@ def trace_kernel_rows(kernels, kept) -> dict:
 def lut_boundary_row(kernels, a) -> dict:
     """T4 at a LUT boundary of the settings pass, from a fresh staging region,
     beside the composition it replaces (torch.aminmax, stack, cat: the
-    library time; tools/fri_lut_timing.py times the round trips to the
-    host)."""
+    library time; tools/kernel_timing.py --kernels T4 times the round
+    trips to the host)."""
     src, gathered = a["src"], a["gathered"]
     staging = torch.zeros(kernels.lut_boundary_words(len(src), len(gathered)), dtype=torch.int64, device=src.device)
     return dict(shape=f"{len(src)} int64 source, {len(gathered)} gathered", err=0,
@@ -1306,7 +1608,8 @@ def phase_high_security(T, kernels, serde, tracing, tape, f, card, tag, pie, set
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         launches = kernels.counts()
-    path_launches(kernels, tag, first_s, launches, bottoms, expect, k3_limit)
+    launches["fri_channel_steps_in_root_passes"] = path_launches(kernels, tag, first_s, launches, bottoms, expect,
+                                                                 k3_limit, proof)
     times, phases = [], []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1340,43 +1643,131 @@ def phase_high_security(T, kernels, serde, tracing, tape, f, card, tag, pie, set
     return launches, errs, kept
 
 
-def transcript_kernel_rows(kernels, kept) -> dict:
+LAUNCH_BATCH = 100  # profiled launches of a one-thread or one-CTA launch (launch_device_ms)
+
+
+def launch_device_ms(launch, name: str) -> float:
+    """Device ms of one `launch()`, a single kernel named `name`: the mean of
+    its device records over LAUNCH_BATCH launches (a launch from the host
+    takes longer than such a kernel, so CUDA events would time the host).
+    Fails unless the host's records hold every launch, and the device's at
+    least one, with the launches that have none making up the rest."""
+    launch()
+    p = Profiled(lambda: [launch() for _ in range(LAUNCH_BATCH)], name)
+    n = p.count(name)
+    if p.host["launches"] != LAUNCH_BATCH or not n or n + len(p.lost) != LAUNCH_BATCH:
+        raise AssertionError(f"launch_device_ms: {p.host} and {n} records of {name} for {LAUNCH_BATCH} launches "
+                             f"(lost {p.lost})")
+    return p.ms(name) / n
+
+
+def root_pass_ms(kernels, desc, state=None, slot=None) -> float:
+    """Device ms of one launch of a tree's root pass (its last, one CTA),
+    with K8's step when a state and slot are given."""
+    b = kernels.merkle_passes(desc.bottom)[-1]
+    ch = (state.data_ptr(), slot.data_ptr()) if state is not None else (0, 0)
+    return launch_device_ms(
+        lambda: kernels.MERKLE.launch("lum_merkle_pass", desc.words.device, desc.words.data_ptr(), b, *ch),
+        "merkle_pass_kernel")
+
+
+def channel_steps(kernels, kept) -> dict:
+    """K8 in a prove whose calls were kept: alpha0's draw (its device ms,
+    launch_device_ms) and each FRI layer's step (its tree's root pass with
+    the step less without, root_pass_ms), each with its compressions and
+    its latency bound, and the twins' ms; largest tree first."""
+    draw = next(a for key, a in kept.items() if key[0] == "channel_draw_felt")
+    d_state = draw["state"].clone()  # each timed draw goes on from the last
+    blocks = _counter(kernels.channel_draw_felt_plain(draw["state"].clone())) - _counter(draw["state"])
+    out = {"alpha0": dict(compressions=blocks, device_ms=launch_device_ms(
+        lambda: kernels.channel_draw_felt(d_state, draw["out"]), "channel_draw_kernel"),
+        bound_ms=bound(*channel_step_work(blocks))[0],
+        plain_ms=time_ms(lambda: kernels.channel_draw_felt_plain(draw["state"].clone(), draw["out"].clone()))),
+        "steps": []}
+    for key, a in kept.items():
+        if key[0] != "merkle_tree" or a["state"] is None:
+            continue
+        desc = kernels.TreeDesc(kernels.tree_layers(a["desc"].bottom, a["state"].device), a["desc"].cols)
+        kernels.merkle_tree(desc)
+        root = desc.layers[0][0]
+        blocks = 1 + int(kernels.channel_mix_root_draw_plain(a["state"].clone(), root)[8])  # the mix and the draw's
+        state, slot = a["state"].clone(), torch.zeros(12, dtype=torch.int32, device=a["state"].device)
+        with_step, without = root_pass_ms(kernels, desc, state, slot), root_pass_ms(kernels, desc)
+        out["steps"].append(dict(
+            bottom=desc.bottom, root_pass_bottom=kernels.merkle_passes(desc.bottom)[-1], compressions=blocks,
+            with_step_ms=with_step, without_ms=without, device_ms=with_step - without,
+            bound_ms=bound(*channel_step_work(blocks))[0],
+            plain_ms=time_ms(lambda: kernels.channel_mix_root_draw_plain(state, root, slot))))
+    out["steps"].sort(key=lambda st: -st["bottom"])
+    return out
+
+
+def channel_per_prove(tag, ch, records) -> None:
+    """K8's device ms per prove (alpha0's launch and every FRI layer's step,
+    channel_steps) against its per-prove bound, and K2's profiled device ms
+    per prove (`records`, phase_profile) less the steps that ran inside its
+    root passes, against K2's per-prove bound."""
+    steps_ms = sum(st["device_ms"] for st in ch["steps"])
+    k8 = ch["alpha0"]["device_ms"] + steps_ms
+    k2 = sum(ms for k, (ms, _) in records.items() if "merkle_pass_kernel" in k)
+    b = PER_RUN_BOUND[tag]
+    emit({"phase": "fri_channel_per_prove", "path": tag, "alpha0": ch["alpha0"], "steps": ch["steps"],
+          "steps_device_ms": steps_ms, "fri_channel_device_ms": k8, "fri_channel_bound_ms": b["fri_channel"],
+          "fri_channel_over_bound": k8 / b["fri_channel"], "blake2s_merkle_device_ms_profiled": k2,
+          "blake2s_merkle_device_ms_less_steps": k2 - steps_ms, "blake2s_merkle_bound_ms": b["blake2s_merkle"],
+          "blake2s_merkle_over_bound": (k2 - steps_ms) / b["blake2s_merkle"]})
+
+
+def transcript_kernel_rows(kernels, kept, ch) -> dict:
     """K8, K9 and K10 timed at the first call each made in the 80-bit PINN
-    prove: a layer's mix-and-draw, the opening pass (decommit_row), the
-    16-bit search."""
+    prove: K8 as alpha0's launch and the first FRI layer's step (its root
+    pass with the step less without; channel_steps), the opening pass
+    (decommit_row), the 16-bit search."""
     calls = {}
     for key, a in kept.items():
         name = key[0]
         if name == "decommit":
             if name not in calls or a["plan"].n_words > calls[name][0]:
                 calls[name] = (a["plan"].n_words, a)
-        elif name in ("channel_mix_root_draw", "grind_pow"):
+        elif name == "grind_pow":
             calls.setdefault(name, (0, a))
     rows = {}
-    a = calls["channel_mix_root_draw"][1]
-    after = kernels.channel_mix_root_draw_plain(a["state"].clone(), a["root"])
-    blocks = 1 + int(after[8])  # the mix and this draw's blocks
-    state = a["state"].clone()  # each timed call mixes and draws on from the last
+    a0, st = ch["alpha0"], ch["steps"][0]
+    emit({"phase": "kernel_time_extra", "kernel": "fri_channel", "shape": f"FRI layer 2^{st['bottom']}'s root pass "
+          f"(bottom {st['root_pass_bottom']}) and alpha0", "root_pass_device_ms_with_step": st["with_step_ms"],
+          "root_pass_device_ms_without_step": st["without_ms"], "step_ms": st["device_ms"],
+          "alpha0_device_ms": a0["device_ms"], "blake2s_latency_ms": MEASURED["blake2s_latency_s"] * 1e3})
     rows["fri_channel"] = dict(
-        shape=f"mix a root, draw alpha ({blocks} compressions), one thread", err=0,
-        ms=time_ms(lambda: kernels.channel_mix_root_draw(state, a["root"])),
-        plain_ms=time_ms(lambda: kernels.channel_mix_root_draw_plain(state, a["root"])),
-        bound=bound(4 * (2 * kernels.CHANNEL_WORDS + 8 + 12), blocks * OPS_BLAKE2S_BLOCK), library=None,
+        shape=f"alpha0's launch ({a0['compressions']} compression) and the step in the first FRI layer's root pass "
+              f"(mix the root, draw alpha: {st['compressions']} compressions), one thread each; device time, the "
+              "step's as its root pass with the step less without", err=0, ms=a0["device_ms"] + st["device_ms"],
+        plain_ms=a0["plain_ms"] + st["plain_ms"], bound=(a0["bound_ms"] + st["bound_ms"], "operations"),
+        library=None,
     )
     rows["decommit"] = decommit_row(kernels, calls["decommit"][1]["plan"])
     a = calls["grind_pow"][1]
-    nonce = kernels.grind_pow(a["digest"], a["bits"])
+    nonce = pow_call_gate(kernels, a["digest"], a["bits"], a["device"])
     rows["grind_pow"] = dict(
         shape=f"{a['bits']} bits, first nonce {nonce}", err=0,
-        ms=time_ms(lambda: kernels.grind_pow(a["digest"], a["bits"])),
-        plain_ms=time_ms(lambda: kernels.grind_pow_plain(a["digest"], a["bits"]), reps=3),
-        bound=bound(40, (nonce + 1) * OPS_BLAKE2S_BLOCK), library=None,
+        ms=time_ms(lambda: kernels.grind_pow(a["digest"], a["bits"], a["device"])),
+        plain_ms=time_ms(lambda: kernels.grind_pow_plain(a["digest"], a["bits"], a["device"]), reps=3),
+        bound=bound(40, (nonce + 1) * OPS_POW_CANDIDATE), library=None,
     )
     for name, r in rows.items():
         emit({"phase": "kernel_time", "kernel": name, "shape": r["shape"], "ms": r["ms"],
               "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
               "library_ms": r["library"]})
     return rows
+
+
+def pow_call_extra(kernels, kept) -> None:
+    """K10 at the PINN's default prove's call (5 bits): its profiled events
+    (pow_call_gate) and its call ms."""
+    a = next(a for key, a in kept.items() if key[0] == "grind_pow")
+    nonce = pow_call_gate(kernels, a["digest"], a["bits"], a["device"])
+    emit({"phase": "kernel_time_extra", "kernel": "grind_pow", "shape": f"{a['bits']} bits, first nonce {nonce}",
+          "ms": time_ms(lambda: kernels.grind_pow(a["digest"], a["bits"], a["device"])),
+          "bound_ms": bound(40, (nonce + 1) * OPS_POW_CANDIDATE)[0]})
 
 
 def decommit_specs(plan) -> list:
@@ -1494,30 +1885,16 @@ def phase_profile(tag: str, what: str, run):
     time, the host-to-device copies, and the kernels that take the most
     device time (the profiler's own cost lengthens the wall time, so the
     idle share is an upper estimate)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        # Kernel entries only: an operator's entry repeats its kernels' time.
-        if str(getattr(e, "device_type", "CPU")).endswith("CPU"):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            rows.append((e.key, us / 1e3, e.count))
-    rows.sort(key=lambda r: -r[1])
+    p = Profiled(run)
+    records, wall_ms = p.device, p.wall_ms
+    rows = sorted(((k, ms, c) for k, (ms, c) in records.items() if ms > 0), key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     htod = [(ms, c) for k, ms, c in rows if "Memcpy HtoD" in k]
     dtoh = [(ms, c) for k, ms, c in rows if "Memcpy DtoH" in k]
     emit({
-        "phase": "profile", "path": tag, "run": what, "wall_ms_profiled": wall_ms,
+        "phase": "profile", "path": tag, "run": what, "wall_ms_profiled": wall_ms, "host_records": p.host,
+        "without_a_device_record": p.lost, "device_lead_us": p.device_lead_us,
+        "warm_up_recorded": p.warm_up_recorded,
         "device_busy_ms": busy_ms if rows else "not measured",
         "device_idle_share": 1 - busy_ms / wall_ms if rows else "not measured",
         "device_kernels": len(rows),
@@ -1530,6 +1907,7 @@ def phase_profile(tag: str, what: str, run):
         },
         "top": [{"name": k[:90], "ms": ms, "count": c} for k, ms, c in rows[:15]],
     })
+    return records
 
 
 def phase_parity(T, serde):
@@ -1605,9 +1983,11 @@ def main() -> int:
         path_errs[tag], kept = phase_path_kernels(T, kernels, tape, f, tag, settings_trace_prove, expect[tag])
         if tag == pinn_tag:
             rows.update(trace_kernel_rows(kernels, kept))
+            pow_call_extra(kernels, kept)
+        ch = channel_steps(kernels, kept)
         del kept
         torch.cuda.empty_cache()
-        phase_profile(tag, "prove", lambda: T.prove(pie, settings))
+        channel_per_prove(tag, ch, phase_profile(tag, "prove", lambda: T.prove(pie, settings)))
         cx, _ = build()
         phase_profile(tag, "settings", lambda: T.gen_circuit_settings(cx))
         phase_profile(tag, "trace", lambda: T.gen_trace(cx, settings))
@@ -1618,10 +1998,12 @@ def main() -> int:
             launches[hs_tag], path_errs[hs_tag], kept = phase_high_security(
                 T, kernels, serde, tracing, tape, f, card, hs_tag, pie, settings, host, expect[hs_tag],
                 k3_limit[hs_tag])
-            rows.update(transcript_kernel_rows(kernels, kept))
+            ch = channel_steps(kernels, kept)
+            rows.update(transcript_kernel_rows(kernels, kept, ch))
             del kept
             torch.cuda.empty_cache()
-            phase_profile(hs_tag, "prove", lambda: T.prove(pie, settings, T.PcsConfig.high_security()))
+            channel_per_prove(hs_tag, ch, phase_profile(hs_tag, "prove",
+                                                        lambda: T.prove(pie, settings, T.PcsConfig.high_security())))
         del host, pie, settings, cx
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1635,6 +2017,8 @@ def main() -> int:
             "name": k.name, "route": "cuda", "source": f"luminair_tpu_torch/csrc/{k.source}",
             "replaces": k.replaces, "launches": launches[pinn_tag][k.name],
             "launches_by_path": {p: c[k.name] for p, c in launches.items()},
+            **({"steps_in_root_passes_by_path": {p: c["fri_channel_steps_in_root_passes"] for p, c in launches.items()}}
+               if k is kernels.CHANNEL else {}),
             "max_abs_err": max([r["err"]] + [e.get(k.name, 0) for e in path_errs.values()]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r.get("library"),

@@ -12,8 +12,10 @@ strides, one upload), which the Merkle kernel (kernels.merkle_tree, K2)
 and the decommitment kernel both read; K2 then hashes the whole tree in a
 few launches, reading the columns of each log through their (k, 2^l)
 view: the rows of an LDE output matrix, or the transposed (2^l, 4) QM31
-layer of a FRI fold.  The layers stay on the device; the root and the
-queried openings are the only downloads.
+layer of a FRI fold, whose root pass also mixes the root into the FRI
+channel on the card and draws the layer's alpha (K8's step).  The layers
+stay on the device; the root and the queried openings are the only
+downloads.
 
 Decommitment (the reference package's crypto/merkle.py): per layer, the set
 of nodes the verifier recomputes is
@@ -30,7 +32,7 @@ is one launch of K9 (kernels.decommit) and one download (`open_trees`).
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -41,9 +43,12 @@ from .. import tracing
 
 
 class MerkleTree:
-    def __init__(self, cols_by_log: Dict[int, torch.Tensor]):
+    def __init__(self, cols_by_log: Dict[int, torch.Tensor], state: Optional[torch.Tensor] = None,
+                 slot: Optional[torch.Tensor] = None):
         """cols_by_log: {log: (k, 2^log) int32 view of the columns of that
-        log, in commitment order}."""
+        log, in commitment order}.  A FRI layer's tree also takes the
+        channel `state` and its record `slot`: K8's step (mix the root, draw
+        the layer's alpha) then runs in the pass that writes the root."""
         assert cols_by_log, "empty tree"
         self.cols_by_log = dict(cols_by_log)
         for log, cols in self.cols_by_log.items():
@@ -51,7 +56,7 @@ class MerkleTree:
         self.max_log = max(self.cols_by_log)
         self.layers = kernels.tree_layers(self.max_log, self.cols_by_log[self.max_log].device)
         self.desc = kernels.TreeDesc(self.layers, self.cols_by_log)
-        kernels.merkle_tree(self.desc)
+        kernels.merkle_tree(self.desc, state, slot)
         self._root = None
 
     @property

@@ -1,5 +1,6 @@
-// Blake2s-256 compression shared by the Merkle layer (K2, merkle.cu) and the
-// Fiat-Shamir channel (K8/K10, channel.cu, channel.cuh).
+// Blake2s-256 compression shared by the Merkle layer (K2, merkle.cu), the
+// Fiat-Shamir channel's steps (K8, channel.cuh; one of them inside K2's root
+// pass) and the proof-of-work search (K10, channel.cuh).
 //
 // Digests are bit-identical to hashlib.blake2s: 32-byte output, no key, the
 // 8 state words little-endian.  The message block lives in registers (the
@@ -69,8 +70,8 @@ __device__ __forceinline__ void blake2s_compress(uint32_t h[8], const uint32_t m
   h[7] ^= v7 ^ v15;
 }
 
-#undef LUM_B2S_ROUND
-#undef LUM_B2S_G
+// LUM_B2S_G and LUM_B2S_ROUND stay defined: the proof-of-work search
+// (channel.cuh) runs the same rounds on a state it starts part-way.
 
 __device__ __forceinline__ void blake2s_init(uint32_t h[8]) {
   h[0] = B2S_IV0 ^ B2S_PARAM0;

@@ -5,23 +5,39 @@
 // `_dev_draw_felt`, `_dev_mix_root` and `_jit_draw_felt`
 // (parallel/accel.py), which the FRI commit chain (`_jit_fri_layer`,
 // `_jit_fri_chain`) runs so that no layer root has to come to the host
-// before its fold challenge is drawn.  One thread does one transcript step
-// (csrc/channel.cuh) on the device state {digest[8], counter, alpha[4]}:
-//   lum_channel_draw_felt       draw alpha;
-//   lum_channel_mix_root_draw   mix a tree's root (read from its layer-0
-//                               digest), then draw alpha.
-// Each step also copies what it read and drew into a record slot, so the
-// whole chain's roots and challenges come down in one transfer.
-// Bound on this card: latency -- about three Blake2s compressions in a
-// chain of dependent steps, one thread; the launch costs more than the work.
+// before its fold challenge is drawn.  A transcript step is a chain of
+// dependent Blake2s compressions on the device state {digest[8], counter,
+// alpha[4]} (csrc/channel.cuh), one thread's work.  Here is the one step
+// that stands alone, lum_channel_draw_felt (alpha0); each committed FRI
+// layer's step (mix its root, draw its alpha) runs in the thread of K2's
+// root pass that computes the root (csrc/merkle.cuh), so it costs no
+// launch.  Each step copies what it drew into the FRI record, so the
+// chain's roots and challenges come down in one transfer.
+// Bound on this card: latency -- a step's compressions one after another
+// on one thread (about 2); chip_smoke.py measures one dependent compression
+// (tools/blake2s_latency.cu).
 //
 // K10 is the counterpart of the reference's batched host grind
 // (crypto/channel.py `grind_pow`, numpy Blake2s over chunks of candidate
-// nonces; not a device program there).  One thread per candidate nonce of
-// a chunk [start, start + n): the smallest passing nonce wins an atomicMin
-// on a 64-bit word the host reads after each chunk.  Bound on this card:
-// the integer ALU, one compression (about 1,100 int32 operations) per
-// candidate; nothing is read but the digest.
+// nonces; not a device program there).  One launch a search: a persistent
+// grid walks rounds of ascending nonces, one a thread, and stops at the
+// smallest passing nonce (channel.cuh's
+// pow_search: the invariant that makes the result the reference's whatever
+// order the threads run in).  The digest is a launch parameter; launches
+// alternate between two scratch words, each putting the other back to all
+// ones, so the search needs no fill, no upload and no last-CTA pass; the
+// entry point copies the result into the caller's pinned word and
+// synchronises the stream, since the host waits for it.  Bound on
+// this card: the integer ALU, per candidate the compression less its
+// nonce-independent part and less what the check never reads (856
+// instructions, chip_smoke.OPS_POW_CANDIDATE); nothing is read but the
+// launch's parameters.  The grid is POW_CTAS_PER_SM CTAs an SM: a round
+// is W = 2 x 132 x 128 = 33,792 nonces on an H100, about half the 2^16 a
+// 16-bit search expects, so a search overshoots its nonce by half a round
+// on average; a narrower round pays a hash's latency (about 0.83 us) and a
+// read of `best` a round more often.  Below 12 bits the wrapper launches
+// fewer CTAs (kernels.pow_ctas: a round of 8 times the expected work), so a
+// 5-bit search hashes 256 nonces, not a card's width.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -30,54 +46,41 @@
 
 namespace {
 
+constexpr int POW_THREADS = 128;
+constexpr int POW_CTAS_PER_SM = 2;
+
 __global__ void channel_draw_kernel(uint32_t* state, uint32_t* alpha_out) {
   lum::draw_felt(state);
   if (alpha_out)
     for (int k = 0; k < 4; k++) alpha_out[k] = state[lum::CH_ALPHA + k];
 }
 
-__global__ void channel_mix_draw_kernel(uint32_t* state, const uint32_t* root, uint32_t* out) {
-  uint32_t r[8];
-  for (int w = 0; w < 8; w++) r[w] = root[w];
-  lum::mix_root(state, r);
-  lum::draw_felt(state);
-  if (out) {
-    for (int w = 0; w < 8; w++) out[w] = r[w];
-    for (int k = 0; k < 4; k++) out[8 + k] = state[lum::CH_ALPHA + k];
-  }
-}
-
-__global__ void grind_pow_kernel(const uint32_t* __restrict__ digest, unsigned long long start,
-                                 long long n, int bits, unsigned long long* best) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  uint32_t d[8];
-#pragma unroll
-  for (int w = 0; w < 8; w++) d[w] = digest[w];
-  unsigned long long nonce = start + (unsigned long long)i;
-  if (lum::pow_ok(d, nonce, bits)) atomicMin(best, nonce);
+__global__ void __launch_bounds__(POW_THREADS) grind_pow_kernel(const __grid_constant__ lum::PowArgs a) {
+  lum::pow_search(a, (unsigned long long)blockIdx.x * blockDim.x + threadIdx.x,
+                  (unsigned long long)gridDim.x * blockDim.x);
 }
 
 }  // namespace
 
 extern "C" long long lum_channel_words() { return lum::CH_WORDS; }
+extern "C" long long lum_pow_args_size() { return (long long)sizeof(lum::PowArgs); }
+extern "C" long long lum_pow_threads() { return POW_THREADS; }
+extern "C" long long lum_pow_ctas_per_sm() { return POW_CTAS_PER_SM; }
 
 extern "C" int lum_channel_draw_felt(uint32_t* state, uint32_t* alpha_out, void* stream) {
   channel_draw_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(state, alpha_out);
   return (int)cudaGetLastError();
 }
 
-extern "C" int lum_channel_mix_root_draw(uint32_t* state, const uint32_t* root, uint32_t* out,
-                                         void* stream) {
-  channel_mix_draw_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(state, root, out);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int lum_grind_pow(const uint32_t* digest, unsigned long long start, long long n, int bits,
-                             unsigned long long* best, void* stream) {
-  if (n > 0) {
-    grind_pow_kernel<<<(unsigned)((n + 255) / 256), 256, 0, (cudaStream_t)stream>>>(digest, start, n,
-                                                                                     bits, best);
-  }
-  return (int)cudaGetLastError();
+// One search: the launch, then its parity's word copied into `result`
+// (pinned host memory) and the stream synchronised.
+extern "C" int lum_grind_pow(const lum::PowArgs* a, int ctas, unsigned long long* result, void* stream) {
+  if (ctas <= 0 || a->bits < 0 || a->bits > 64 || (a->parity & ~1)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  grind_pow_kernel<<<ctas, POW_THREADS, 0, s>>>(*a);
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = cudaMemcpyAsync(result, a->scratch + a->parity, sizeof(unsigned long long), cudaMemcpyDeviceToHost, s);
+  if (err == cudaSuccess) err = cudaStreamSynchronize(s);
+  return (int)err;
 }

@@ -15,6 +15,11 @@
 // tree of 2^L leaves takes ceil((L + 1) / (t + 1)) launches, one for a
 // tree of up to 2^t leaves.
 //
+// A FRI layer's tree also carries K8's channel step: its root pass (the
+// last, one CTA) is merkle_pass_kernel<true>, whose thread that writes the
+// root mixes it into the FRI record's channel state and draws the layer's
+// alpha (merkle.cuh).  Every other tree runs merkle_pass_kernel<false>.
+//
 // Bound on this card: the integer ALU -- 10 rounds of 8 G functions (12
 // instructions each: IADD3 adds three words, PRMT rotates by 16 and 8, one
 // SHF by 12 and 7) and 8 LOP3s per 64-byte block, against 4 bytes read per
@@ -37,29 +42,40 @@ struct DeviceBlock {
   __device__ __forceinline__ void sync() const { __syncthreads(); }
 };
 
+template <bool Channel>
 __global__ void __launch_bounds__(THREADS) merkle_pass_kernel(lum::MerklePass p) {
   extern __shared__ uint32_t sm[];
-  lum::merkle_cta(DeviceBlock{}, p, blockIdx.x, sm);
+  lum::merkle_cta<DeviceBlock, Channel>(DeviceBlock{}, p, blockIdx.x, sm);
 }
 
 }  // namespace
 
 extern "C" long long lum_merkle_tile_log() { return TILE_LOG; }
+extern "C" long long lum_merkle_pass_size() { return (long long)sizeof(lum::MerklePass); }
 
-extern "C" int lum_merkle_pass(unsigned long long desc, int bottom, void* stream) {
+// One pass of a tree; state and slot (both 0, or both set on the pass that
+// writes layer 0) give its root pass K8's channel step.
+extern "C" int lum_merkle_pass(unsigned long long desc, int bottom, unsigned long long state, unsigned long long slot,
+                               void* stream) {
   static bool smem_set = false;
   if (!smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(merkle_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)(lum::merkle_smem_words(TILE_LOG) * sizeof(uint32_t)));
+    const int bytes = (int)(lum::merkle_smem_words(TILE_LOG) * sizeof(uint32_t));
+    const cudaFuncAttribute smem_attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+    cudaError_t err = cudaFuncSetAttribute(merkle_pass_kernel<false>, smem_attr, bytes);
+    if (err == cudaSuccess) err = cudaFuncSetAttribute(merkle_pass_kernel<true>, smem_attr, bytes);
     if (err != cudaSuccess) return (int)err;
     smem_set = true;
   }
-  if (bottom < 0) return (int)cudaErrorInvalidValue;
-  const lum::MerklePass p{desc, bottom, TILE_LOG};
+  const lum::MerklePass p{desc, bottom, TILE_LOG, state, slot};
+  if (bottom < 0 || (state == 0) != (slot == 0) || (state != 0 && lum::merkle_tile(p) != bottom))
+    return (int)cudaErrorInvalidValue;  // a channel only on the pass that writes the root
   const int t = lum::merkle_tile(p);
   int threads = 1 << t;
   threads = threads < 32 ? 32 : threads > THREADS ? THREADS : threads;
-  merkle_pass_kernel<<<(unsigned)lum::merkle_ctas(p), threads, lum::merkle_smem_words(t) * sizeof(uint32_t),
-                       (cudaStream_t)stream>>>(p);
+  const size_t smem = lum::merkle_smem_words(t) * sizeof(uint32_t);
+  if (state)
+    merkle_pass_kernel<true><<<(unsigned)lum::merkle_ctas(p), threads, smem, (cudaStream_t)stream>>>(p);
+  else
+    merkle_pass_kernel<false><<<(unsigned)lum::merkle_ctas(p), threads, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

@@ -25,11 +25,22 @@
 // layer's children in shared memory, and writes every digest it computes
 // to its layer, which the decommitment reads.  A tree of bottom log L
 // takes ceil((L + 1) / (t + 1)) passes (kernels.merkle_passes).
+//
+// The pass that writes layer 0 is one CTA.  A FRI layer's tree gives that
+// pass a channel (K8's step; `state` and `slot` not null, merkle_cta's
+// Channel parameter true): thread 0, which computes the root, reads the
+// channel state into registers when the pass starts, so the read waits
+// behind the tile's hashing; at the root it mixes the root into that copy
+// and draws the layer's alpha (channel.cuh's mix_root and draw_felt), then
+// writes the state and the layer's record slot {root[8], alpha[4]}.
+// Nothing else is read from memory but the state, and no launch is spent
+// on the step.  Trees without a channel compile and run as before.
 #pragma once
 
 #include <stdint.h>
 
 #include "blake2s.cuh"
+#include "channel.cuh"
 
 namespace lum {
 
@@ -37,6 +48,8 @@ struct MerklePass {
   unsigned long long desc;  // the tree's descriptor
   int bottom;               // the first layer this pass hashes
   int tile_log;             // its CTAs own 2^min(tile_log, bottom) nodes of it (10 on the card)
+  unsigned long long state;  // with a channel: the channel state (CH_WORDS words), else 0
+  unsigned long long slot;   // with a channel: the layer's record slot (12 words), else 0
 };
 
 __host__ __device__ __forceinline__ int merkle_tile(const MerklePass& p) {
@@ -92,12 +105,17 @@ __device__ __forceinline__ void merkle_node(const uint32_t (&kids)[16], bool has
   }
 }
 
-template <class Block>
+template <class Block, bool Channel = false>
 __device__ __forceinline__ void merkle_cta(const Block& b, const MerklePass& p, long long cta, uint32_t* sm) {
   const long long* desc = reinterpret_cast<const long long*>(p.desc);
   const int L = (int)desc[0];
   const int t = merkle_tile(p);
   uint32_t* keep[2] = {sm, sm + 17 * merkle_pairs(1 << t)};
+  uint32_t chan[CH_WORDS];  // thread 0's copy of the channel state
+  if constexpr (Channel) {
+    if (b.tid() == 0)
+      for (int w = 0; w < CH_ALPHA; w++) chan[w] = reinterpret_cast<const uint32_t*>(p.state)[w];
+  }
   for (int j = 0; j <= t; j++) {
     const int l = p.bottom - j;
     const long long* row = desc + 1 + 5 * l;
@@ -129,6 +147,17 @@ __device__ __forceinline__ void merkle_cta(const Block& b, const MerklePass& p, 
       if (j < t) {
 #pragma unroll
         for (int w = 0; w < 8; w++) out[merkle_slot(i) + w] = h[w];
+      }
+      if constexpr (Channel) {
+        if (l == 0) {  // the root (thread 0's): K8's step on it, still in registers
+          mix_root(chan, h);
+          draw_felt(chan);
+          uint32_t* state = reinterpret_cast<uint32_t*>(p.state);
+          uint32_t* slot = reinterpret_cast<uint32_t*>(p.slot);
+          for (int w = 0; w < CH_WORDS; w++) state[w] = chan[w];
+          for (int w = 0; w < 8; w++) slot[w] = h[w];
+          for (int k = 0; k < 4; k++) slot[8 + k] = chan[CH_ALPHA + k];
+        }
       }
     }
     b.sync();

@@ -263,7 +263,8 @@ __host__ __device__ __forceinline__ long long load_src(const long long* p, int f
 }
 
 // A column word, stored streaming (evict first): the trace never reads its
-// columns back (tools/trace_segment_variants.py measures the choice).
+// columns back (tools/kernel_timing.py --kernels trace_segment measures
+// the choice).
 __host__ __device__ __forceinline__ void store_col(uint32_t* p, uint32_t v) {
 #ifdef __CUDA_ARCH__
   __stcs((unsigned int*)p, v);

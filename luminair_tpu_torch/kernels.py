@@ -9,7 +9,9 @@ the repository root; each library is named by a hash of its source and
 every header it includes, so an edit to either rebuilds it.  The libraries
 have a plain C interface bound with ctypes: every entry point launches on
 PyTorch's current stream, allocates nothing, and returns
-cudaGetLastError(), which the wrapper turns into a KernelError.
+cudaGetLastError(), which the wrapper turns into a KernelError (K10's
+also copies its result into the caller's pinned word and synchronises the
+stream, whose error it returns).
 
 Every wrapper has a plain PyTorch twin here (`*_plain`).  A wrapper takes
 the twin only for tensors that lie on the CPU; for CUDA tensors it launches
@@ -90,6 +92,7 @@ class Kernel:
         self.symbols = symbols
         self.abi = abi or {}
         self.launches = 0
+        self.hosted = 0  # steps of this kernel's work that another kernel's launch ran
         self._fns = None
 
     def library_path(self) -> Path:
@@ -170,17 +173,20 @@ MERKLE_TILE_LOG = 10  # a K2 CTA owns 2^10 nodes of its pass's first layer (csrc
 
 class MerklePass(ctypes.Structure):
     """Mirror of lum::MerklePass (csrc/merkle.cuh): one pass of the header's
-    host build, at any tile; the card's tile is MERKLE_TILE_LOG."""
+    host build, at any tile; the card's tile is MERKLE_TILE_LOG.  `state`
+    and `slot` (0 or both set, on the pass that writes the root) carry K8's
+    channel step."""
 
-    _fields_ = [("desc", ctypes.c_uint64), ("bottom", ctypes.c_int), ("tile_log", ctypes.c_int)]
+    _fields_ = [("desc", ctypes.c_uint64), ("bottom", ctypes.c_int), ("tile_log", ctypes.c_int),
+                ("state", ctypes.c_uint64), ("slot", ctypes.c_uint64)]
 
 
 MERKLE = Kernel(
     "blake2s_merkle",
     "merkle.cu",
     "luminair_tpu/parallel/accel.py:853 (_jit_merkle_tree; _scan_tree_top :1361, _dev_tree_layers :1464)",
-    {"lum_merkle_pass": [ctypes.c_uint64, _I]},
-    abi={"lum_merkle_tile_log": MERKLE_TILE_LOG},
+    {"lum_merkle_pass": [ctypes.c_uint64, _I, ctypes.c_uint64, ctypes.c_uint64]},
+    abi={"lum_merkle_tile_log": MERKLE_TILE_LOG, "lum_merkle_pass_size": ctypes.sizeof(MerklePass)},
 )
 FRI_MAX_FOLDS = 4  # folds of one K3 launch (csrc/fri.cuh)
 
@@ -300,14 +306,15 @@ OODS_EVAL = Kernel(
 )
 
 # The channel state on the card (csrc/channel.cuh): {digest[8], counter,
-# alpha[4]} int32 words.
+# alpha[4]} int32 words.  K8's launches draw alpha0; each FRI layer's step
+# runs in K2's root pass and counts in CHANNEL.hosted.
 CHANNEL_WORDS = 13
 CHANNEL = Kernel(
     "fri_channel",
     "channel.cu",
     "luminair_tpu/parallel/accel.py:1409 (_dev_draw_block; _dev_draw_felt :1421, _dev_mix_root :1449, "
     "_jit_draw_felt :1458; the chain _jit_fri_layer :1487, _jit_fri_chain :1566)",
-    {"lum_channel_draw_felt": [_P, _P], "lum_channel_mix_root_draw": [_P, _P, _P]},
+    {"lum_channel_draw_felt": [_P, _P]},
     abi={"lum_channel_words": CHANNEL_WORDS},
 )
 # The decommit pass's ABI (csrc/decommit.cuh): a tree descriptor and a
@@ -325,12 +332,25 @@ DECOMMIT = Kernel(
     abi={"lum_dc_tree_words": DC_TREE_WORDS, "lum_dc_desc_words": DC_DESC_WORDS,
          "lum_dc_shared_bytes": DC_SHARED_BYTES},
 )
+POW_THREADS = 128  # K10's CTA (csrc/channel.cu)
+POW_CTAS_PER_SM = 2
+POW_ROUND_WORK = 8  # a round of a search below the card's width: 8 times its expected candidates
+
+
+class PowArgs(ctypes.Structure):
+    """Mirror of lum::PowArgs (csrc/channel.cuh), K10's launch parameters."""
+
+    _fields_ = [("digest", ctypes.c_uint32 * 8), ("limit", ctypes.c_uint64), ("scratch", ctypes.c_uint64),
+                ("bits", ctypes.c_int), ("parity", ctypes.c_int)]
+
+
 GRIND_POW = Kernel(
     "grind_pow",
     "channel.cu",
     "luminair_tpu/crypto/channel.py:104 (grind_pow, batched numpy Blake2s on the host; not a device program)",
-    {"lum_grind_pow": [_P, ctypes.c_ulonglong, _LL, _I, _P]},
-    abi={"lum_channel_words": CHANNEL_WORDS},
+    {"lum_grind_pow": [_P, _I, _P]},
+    abi={"lum_channel_words": CHANNEL_WORDS, "lum_pow_args_size": ctypes.sizeof(PowArgs),
+         "lum_pow_threads": POW_THREADS, "lum_pow_ctas_per_sm": POW_CTAS_PER_SM},
 )
 
 # The trace kernels' ABI (csrc/trace.cuh): ops and column slots in enum
@@ -349,7 +369,8 @@ TRACE_COLS = (
 VIEW_MAX_DIMS = 8
 SEG_TILE = 256  # rows of a tile of the segment interpreter
 SEG_CHAIN = 8  # descriptors a CTA of the segment interpreter holds at once
-SEG_MAX_TILES = 256  # a chain of more rows takes tiles of more rows a thread (tools/trace_segment_variants.py)
+# A chain of more rows takes tiles of more rows a thread (tools/kernel_timing.py --kernels trace_segment).
+SEG_MAX_TILES = 256
 
 
 def fast_divmod(size: int) -> tuple:
@@ -496,7 +517,7 @@ KERNELS = (
 
 def reset_counts() -> None:
     for k in KERNELS:
-        k.launches = 0
+        k.launches = k.hosted = 0
 
 
 def counts() -> Dict[str, int]:
@@ -729,26 +750,44 @@ def merkle_passes(bottom: int, tile_log: int = MERKLE_TILE_LOG) -> List[int]:
     return passes
 
 
-def _merkle_launch(desc: "TreeDesc", tile_log: int = MERKLE_TILE_LOG, run=None) -> None:
+def _merkle_launch(desc: "TreeDesc", tile_log: int = MERKLE_TILE_LOG, run=None, state=None, slot=None) -> None:
     """Every pass of one tree: one launch each on the card, whose tile is
-    2^MERKLE_TILE_LOG, or `run(MerklePass)` at any tile (the host build)."""
+    2^MERKLE_TILE_LOG, or `run(MerklePass)` at any tile (the host build).
+    With a channel (`state`, `slot`) the last pass, which writes the root,
+    also runs K8's step."""
     _require(tile_log >= 0 and (run is not None or tile_log == MERKLE_TILE_LOG),
              f"merkle_tree: the card's tile log is {MERKLE_TILE_LOG}")
-    for b in merkle_passes(desc.bottom, tile_log):
+    passes = merkle_passes(desc.bottom, tile_log)
+    for b in passes:
+        ch = (state.data_ptr(), slot.data_ptr()) if state is not None and b == passes[-1] else (0, 0)
         if run is None:
-            MERKLE.launch("lum_merkle_pass", desc.words.device, desc.words.data_ptr(), b)
+            MERKLE.launch("lum_merkle_pass", desc.words.device, desc.words.data_ptr(), b, *ch)
         else:
-            run(MerklePass(desc.words.data_ptr(), b, tile_log))
+            run(MerklePass(desc.words.data_ptr(), b, tile_log, *ch))
+    if state is not None and run is None:
+        CHANNEL.hosted += 1
 
 
-def merkle_tree(desc: "TreeDesc") -> None:
+def merkle_tree(desc: "TreeDesc", state: Optional[torch.Tensor] = None, slot: Optional[torch.Tensor] = None) -> None:
     """Hash every layer of the tree that `desc` describes into its digest
     layers, from the columns up: node i of layer log is H(layer[log+1][2i]
     || layer[log+1][2i+1] || cols[log][:, i]) (no children on the bottom
-    layer).  On the card: one launch per pass (`merkle_passes`)."""
+    layer).  On the card: one launch per pass (`merkle_passes`).  With a
+    channel `state` (CHANNEL_WORDS words) and a record `slot` (12 words):
+    then K8's step, the root mixed into the state and one QM31 drawn, the
+    slot receiving the root and the alpha -- on the card inside the root
+    pass, which needs no launch of its own."""
+    _require((state is None) == (slot is None), "merkle_tree: a channel state and a record slot, or neither")
+    dev = desc.layers[desc.bottom].device
+    if state is not None:
+        _check_words(state, CHANNEL_WORDS, "channel state", dev)
+        _check_words(slot, 12, "merkle_tree slot", dev)
     if _on_cpu(desc.layers[desc.bottom]):
-        return merkle_tree_plain(desc)
-    _merkle_launch(desc)
+        merkle_tree_plain(desc)
+        if state is not None:
+            channel_mix_root_draw_plain(state, desc.layers[0][0], slot)
+        return
+    _merkle_launch(desc, state=state, slot=slot)
 
 
 def merkle_tree_plain(desc: "TreeDesc") -> None:
@@ -1155,7 +1194,8 @@ def oods_eval_plain(cols: Sequence[torch.Tensor], chain: Sequence[tuple]) -> tor
 
 
 # ---------------------------------------------------------------------------
-# K8: the Blake2s channel on the card; K10: the proof-of-work search.
+# K8: the Blake2s channel on the card (each FRI layer's step in K2's root
+# pass, `merkle_tree`); K10: the proof-of-work search.
 
 
 def _check_words(t: Optional[torch.Tensor], n: int, what: str, device: torch.device) -> None:
@@ -1173,20 +1213,6 @@ def channel_draw_felt(state: torch.Tensor, out: Optional[torch.Tensor] = None) -
     if _on_cpu(state):
         return channel_draw_felt_plain(state, out)
     CHANNEL.launch("lum_channel_draw_felt", state.device, state.data_ptr(), out.data_ptr() if out is not None else None)
-    return state
-
-
-def channel_mix_root_draw(state: torch.Tensor, root: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mix a Merkle root (8 int32 words on the card: a tree's layer-0
-    digest) into `state`, then draw one QM31; `out` (12 words) receives
-    the root and the alpha when given.  Returns state."""
-    _check_words(state, CHANNEL_WORDS, "channel state", state.device)
-    _check_words(root, 8, "channel_mix_root_draw root", state.device)
-    _check_words(out, 12, "channel_mix_root_draw out", state.device)
-    if _on_cpu(state):
-        return channel_mix_root_draw_plain(state, root, out)
-    CHANNEL.launch("lum_channel_mix_root_draw", state.device, state.data_ptr(), root.data_ptr(),
-                   out.data_ptr() if out is not None else None)
     return state
 
 
@@ -1214,6 +1240,9 @@ def channel_draw_felt_plain(state, out=None):
 
 
 def channel_mix_root_draw_plain(state, root, out=None):
+    """K8's step on a root (8 int32 words): the twin of a channel tree's
+    root pass (merkle_tree with a state and a slot); `out` (12 words)
+    receives the root and the alpha when given.  Returns state."""
     state[:8] = f.to_i32(_hash_plain(torch.cat([state[:8], root])))
     state[8] = 0
     channel_draw_felt_plain(state)
@@ -1223,48 +1252,95 @@ def channel_mix_root_draw_plain(state, root, out=None):
     return state
 
 
-def _pow_chunk(bits: int) -> int:
-    """Candidates per K10 launch: 16 times the expected work, so a chunk
-    misses with probability about e^-16; 2^10 to 2^22."""
-    return 1 << min(max(bits + 4, 10), 22)
+def pow_limit(bits: int) -> int:
+    """The search's end: 4096 times a `bits`-bit search's expected work."""
+    return 1 << min(bits + 12, 62)
 
 
-def grind_pow(digest: torch.Tensor, bits: int) -> int:
+def pow_ctas(bits: int, sms: int) -> int:
+    """K10's grid: POW_CTAS_PER_SM CTAs an SM (a round of 33,792 nonces on
+    132 SMs), or fewer while a round of POW_ROUND_WORK times the expected
+    2^bits candidates takes fewer, so a low-bit search hashes one small
+    round and not a card's width (at 5 bits: 2 CTAs, 256 nonces)."""
+    return max(1, min(POW_CTAS_PER_SM * sms, (POW_ROUND_WORK << min(bits, 40)) // POW_THREADS))
+
+
+def _digest_words(digest: bytes) -> np.ndarray:
+    _require(isinstance(digest, bytes) and len(digest) == 32, "grind_pow: a 32-byte digest")
+    return np.frombuffer(digest, dtype="<u4")
+
+
+class _PowScratch:
+    """K10's state on one device: two scratch words on the card (all ones
+    when made; each launch puts the other parity's word back), the parity
+    of the next launch, and the pinned word a result comes down to.  One
+    search at a time a device: the wrapper waits for each."""
+
+    def __init__(self, dev: torch.device):
+        self.words = torch.tensor([-1, -1], dtype=torch.int64).to(dev)
+        self.parity = 0
+        self.result = torch.empty(1, dtype=torch.int64, pin_memory=True)
+        self.value = self.result.numpy()
+
+
+_POW_SCRATCH: Dict[torch.device, _PowScratch] = {}
+
+
+def _pow_search(digest: bytes, bits: int, run) -> int:
+    """A search's result: `run(PowArgs)` sets the scratch address and
+    parity, launches it and returns its result word; all ones means no
+    nonce below the limit, which raises."""
+    limit = pow_limit(bits)
+    args = PowArgs((ctypes.c_uint32 * 8)(*_digest_words(digest).tolist()), limit, 0, bits, 0)
+    hit = run(args)
+    if hit == -1:
+        raise KernelError(f"grind_pow: no {bits}-bit nonce below {limit}")
+    return hit
+
+
+def grind_pow(digest: bytes, bits: int, device) -> int:
     """The smallest nonce whose H(digest || LE64(nonce)) has `bits` low
     zero bits in its first 8 bytes (LE64): Blake2sChannel.grind_pow's
-    nonce.  digest: 8 int32 words.  On the card one launch per chunk of
-    candidates, then one 8-byte download that says whether to go on."""
-    _check_words(digest, 8, "grind_pow digest", digest.device)
+    nonce, searched below `pow_limit(bits)` (KernelError beyond).  digest:
+    the channel's 32 bytes.  On a CUDA `device` one launch (the digest
+    among its parameters), one 8-byte copy into pinned memory and one
+    stream synchronise; on the CPU the twin."""
     _require(0 <= bits <= 64, "grind_pow: bits in 0..64")
-    if _on_cpu(digest):
-        return grind_pow_plain(digest, bits)
-    best = torch.empty(1, dtype=torch.int64, device=digest.device)
-    chunk, start = _pow_chunk(bits), 0
-    while start < 1 << min(bits + 12, 62):  # 4096 times the expected work
-        best.fill_(-1)  # no hit: all ones
-        GRIND_POW.launch("lum_grind_pow", digest.device, digest.data_ptr(), start, chunk, bits, best.data_ptr())
-        hit = int(best.item())
-        if hit != -1:
-            return hit
-        start += chunk
-    raise KernelError(f"grind_pow: no {bits}-bit nonce below {start}")
+    device = torch.device(device)
+    if device.type == "cpu":
+        return grind_pow_plain(digest, bits, device)
+    _require(device.type == "cuda", f"unsupported device {device}")
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _POW_SCRATCH:
+        _POW_SCRATCH[device] = _PowScratch(device)
+    st = _POW_SCRATCH[device]
+    ctas = pow_ctas(bits, _sm_count(device))
+
+    def run(args: PowArgs) -> int:
+        args.scratch, args.parity = st.words.data_ptr(), st.parity
+        GRIND_POW.launch("lum_grind_pow", device, ctypes.addressof(args), ctas, st.result.data_ptr())
+        st.parity ^= 1
+        return int(st.value[0])
+
+    return _pow_search(digest, bits, run)
 
 
-def grind_pow_plain(digest: torch.Tensor, bits: int) -> int:
-    dev = digest.device
-    chunk = min(_pow_chunk(bits), 1 << 13)  # (4, chunk) rows stay under torch's parallel grain
+def grind_pow_plain(digest: bytes, bits: int, device="cpu") -> int:
+    words = f.u32_to_tensor(_digest_words(digest), device, f.I64)
+    limit = pow_limit(bits)
+    chunk = 1 << 13  # (4, chunk) rows stay under torch's parallel grain
     lo_mask = (1 << min(bits, 32)) - 1
     hi_mask = (1 << max(bits - 32, 0)) - 1
-    start = 0
-    while True:
-        nonces = torch.arange(start, start + chunk, dtype=f.I64, device=dev)
-        msgs = torch.cat([f.to_u32_i64(digest).expand(chunk, 8), (nonces & 0xFFFFFFFF)[:, None],
-                          (nonces >> 32)[:, None]], dim=1)
+    for start in range(0, limit, chunk):
+        nonces = torch.arange(start, min(start + chunk, limit), dtype=f.I64, device=words.device)
+        n = len(nonces)
+        msgs = torch.cat([words.expand(n, 8), (nonces & 0xFFFFFFFF)[:, None], (nonces >> 32)[:, None]], dim=1)
         h = f.to_u32_i64(blake2s.hash_words_plain(f.to_i32(msgs)))
         hit = torch.nonzero(((h[:, 0] & lo_mask) == 0) & ((h[:, 1] & hi_mask) == 0))
         if len(hit):
             return start + int(hit[0, 0])
-        start += chunk
+    raise KernelError(f"grind_pow: no {bits}-bit nonce below {limit}")
 
 
 # ---------------------------------------------------------------------------

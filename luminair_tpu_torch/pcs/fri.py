@@ -17,15 +17,17 @@ reference package's pcs/fri.py):
 
 The commit chain runs on the card with no host sync (the reference's
 accel.fri_commit_chain): the channel state is uploaded once; K8
-(kernels.channel_*) draws alpha0 and, per committed layer, mixes the root
-of the layer's tree (K2) and draws its alpha into a record on the card;
-one K3 launch (kernels.fri_layer) then runs the layer's folds, reading its
-challenge from that record and circle-folding the smaller inputs where
-they join; the largest input's circle fold, layer 0, is a launch of its
-own.  One download then brings the record -- final channel state,
-alpha0, every root and alpha -- with the last layer.  The host channel,
-which stays authoritative, replays the roots and must reach the same
-challenges and state, or the prove raises ProverError.  The chain runs
+(kernels.channel_draw_felt) draws alpha0; per committed layer, the pass of
+the layer's tree (K2) that writes its root also mixes the root into the
+channel and draws the layer's alpha into a record on the card (K8's step,
+kernels.merkle_tree with the state and the layer's slot); one K3 launch
+(kernels.fri_layer) then runs the layer's folds, reading its challenge
+from that record and circle-folding the smaller inputs where they join;
+the largest input's circle fold, layer 0, is a launch of its own.  One
+download then brings the record -- final channel state, alpha0, every
+root and alpha -- with the last layer.  The host channel, which stays
+authoritative, replays the roots and must reach the same challenges and
+state, or the prove raises ProverError.  The chain runs
 down to the last layer: the reference's host tail below FUSED_MIN_ROWS is
 a TPU-dispatch heuristic with the same transcript.
 """
@@ -125,9 +127,8 @@ def commit_chain(inputs: Dict[int, torch.Tensor], last_line_log: int, folds_per_
     cur = fold_circle_to_line(inputs[kmax], kmax, alpha0)
     layers = []
     for i, (log, folds) in enumerate(schedule):
-        tree = MerkleTree({log: cur.t()})
         slot = rec[RECORD_HEAD + LAYER_WORDS * i : RECORD_HEAD + LAYER_WORDS * (i + 1)]
-        kernels.channel_mix_root_draw(state, tree.layers[0][0], slot)
+        tree = MerkleTree({log: cur.t()}, state, slot)
         layers.append((log, cur, tree))
         cur = fold_layer(cur, kmax, log, folds, slot[8:], alpha0, inputs)
 

@@ -140,8 +140,7 @@ class CommitmentSchemeProver:
         # 3. PoW (K10 on the card) + queries.
         with timer.span("3b_pow"):
             bits = self.config.pow_bits
-            digest = f.u32_to_tensor(np.frombuffer(ch.digest, dtype="<u4").copy(), quotients[max(quotients)].device)
-            nonce = kernels.grind_pow(digest, bits)
+            nonce = kernels.grind_pow(ch.digest, bits, quotients[max(quotients)].device)
             if not ch.check_pow_nonce(bits, nonce):
                 raise ProverError(f"the proof-of-work nonce {nonce} fails its {bits}-bit check")
         ch.mix_u64(nonce)

@@ -2,7 +2,9 @@
 search (K10) of luminair_tpu_torch: their plain
 twins against the reference's device programs (luminair_tpu.parallel.accel
 on JAX's CPU) and host channel, and csrc/channel.cuh + csrc/blake2s.cuh
-built with g++ against hashlib and the twins."""
+built with g++ against hashlib and the twins: the channel's steps, the
+search's compression, and the search itself with its CTAs run in several
+orders against the reference's grind."""
 
 import ctypes
 import hashlib
@@ -22,6 +24,7 @@ from luminair_tpu.parallel import accel
 from luminair_tpu_torch import fields as f
 from luminair_tpu_torch import kernels
 from luminair_tpu_torch.crypto.channel import Blake2sChannel
+from luminair_tpu_torch.errors import KernelError
 from luminair_tpu_torch.pcs import fri
 
 P = (1 << 31) - 1
@@ -69,7 +72,7 @@ def test_mix_root_draw_twin_matches_reference():
         rng = np.random.default_rng(100 + seed)
         digest, root = _u32(rng, 8), _u32(rng, 8)
         out = torch.zeros(12, dtype=torch.int32)
-        state = kernels.channel_mix_root_draw(_state(digest, counter), f.u32_to_tensor(root), out)
+        state = kernels.channel_mix_root_draw_plain(_state(digest, counter), f.u32_to_tensor(root), out)
         words = f.tensor_to_u32(state)
         ref_digest = mix(jnp.asarray(digest), jnp.asarray(root))
         ref_alpha, ref_ctr = run(ref_digest, jnp.int32(0))
@@ -124,14 +127,14 @@ def test_fri_prove_raises_on_a_diverged_channel(monkeypatch):
     from luminair_tpu_torch.pcs.config import FriConfig
 
     inputs = {k: f.u32_to_tensor(v) for k, v in _low_degree_inputs((6,), 1).items()}
-    draw = kernels.channel_mix_root_draw
+    draw = kernels.channel_mix_root_draw_plain
 
     def skewed(state, root, out=None):
         draw(state, root, out)
         out[8] ^= 1
         return state
 
-    monkeypatch.setattr(kernels, "channel_mix_root_draw", skewed)
+    monkeypatch.setattr(kernels, "channel_mix_root_draw_plain", skewed)
     with pytest.raises(ProverError, match="diverged"):
         fri.fri_prove(inputs, FriConfig(log_last_layer_degree_bound=1), Blake2sChannel())
 
@@ -161,7 +164,7 @@ def test_fri_fold_chain_twin(fold):
 @pytest.mark.parametrize("bits", [0, 1, 5, 9, 12, 16])
 def test_grind_pow_twin_matches_reference(bits):
     digest = _u32(np.random.default_rng(bits), 8)
-    nonce = kernels.grind_pow(f.u32_to_tensor(digest), bits)
+    nonce = kernels.grind_pow(digest.astype("<u4").tobytes(), bits, "cpu")
     assert nonce == _ref_channel(digest, 0).grind_pow(bits)
     if bits <= 12:
         ch = Blake2sChannel()
@@ -173,36 +176,76 @@ def test_grind_pow_twin_matches_reference(bits):
 # csrc/channel.cuh and csrc/blake2s.cuh, built with g++.
 
 _SHIM = r"""
+#include <algorithm>
+#include <numeric>
+#include <random>
+#include <vector>
+#define __host__
 #define __device__
 #define __forceinline__ inline
 #include "channel.cuh"
 extern "C" long long h_channel_words() { return lum::CH_WORDS; }
+extern "C" long long h_pow_args_size() { return sizeof(lum::PowArgs); }
 extern "C" void h_compress(uint32_t* h, const uint32_t* m, uint32_t t, int last) { lum::blake2s_compress(h, m, t, last); }
 extern "C" void h_init(uint32_t* h) { lum::blake2s_init(h); }
 extern "C" int h_take_words(const uint32_t* block, uint32_t* out, int n) { return lum::take_words(block, out, n); }
 extern "C" void h_draw_felt(uint32_t* state) { lum::draw_felt(state); }
 extern "C" void h_mix_root(uint32_t* state, const uint32_t* root) { lum::mix_root(state, root); }
-extern "C" int h_pow_ok(const uint32_t* digest, unsigned long long nonce, int bits) { return lum::pow_ok(digest, nonce, bits); }
+extern "C" void h_pow_h01(const uint32_t* digest, unsigned long long nonce, uint32_t* h) {
+  uint32_t pre[16];
+  lum::pow_prefix(digest, pre);
+  lum::pow_h01(pre, digest, nonce, h[0], h[1]);
+}
+extern "C" int h_pow_ok(const uint32_t* digest, unsigned long long nonce, int bits) {
+  uint32_t pre[16];
+  lum::pow_prefix(digest, pre);
+  return lum::pow_pass(pre, digest, nonce, lum::pow_mask(bits));
+}
+// One search launch of `grid` CTAs of T threads, each thread run to its
+// end in turn, the CTAs in order (0), in reverse (1) or shuffled with
+// `seed` (2), a CTA's threads in order.
+extern "C" void h_grind(const lum::PowArgs* a, long long grid, int T, int order, unsigned seed) {
+  std::vector<long long> ctas(grid);
+  std::iota(ctas.begin(), ctas.end(), 0);
+  if (order == 1) std::reverse(ctas.begin(), ctas.end());
+  if (order == 2) {
+    std::mt19937 rng(seed);
+    std::shuffle(ctas.begin(), ctas.end(), rng);
+  }
+  for (long long c : ctas)
+    for (int t = 0; t < T; t++) lum::pow_search(*a, (unsigned long long)(c * T + t), (unsigned long long)(grid * T));
+}
 """
+
+
+_CSRC = Path(kernels.__file__).resolve().parent / "csrc"
+
+
+def _build(d: Path, header: str):
+    """The shim over `header` (csrc/channel.cuh's text) with csrc/blake2s.cuh."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no C++ compiler for the host build of csrc/channel.cuh")
+    (d / "channel.cuh").write_text(header)
+    (d / "blake2s.cuh").write_text((_CSRC / "blake2s.cuh").read_text())
+    (d / "shim.cpp").write_text(_SHIM)
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(d), "-o", str(d / "ch.so"),
+                    str(d / "shim.cpp")], check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(d / "ch.so"))
+    lib.h_channel_words.restype = lib.h_pow_args_size.restype = ctypes.c_longlong
+    assert lib.h_channel_words() == kernels.CHANNEL_WORDS
+    assert lib.h_pow_args_size() == ctypes.sizeof(kernels.PowArgs)
+    lib.h_compress.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int]
+    lib.h_take_words.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    lib.h_pow_h01.argtypes = [ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_void_p]
+    lib.h_pow_ok.argtypes = [ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_int]
+    lib.h_grind.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_uint]
+    return lib
 
 
 @pytest.fixture(scope="module")
 def host_channel(tmp_path_factory):
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no C++ compiler for the host build of csrc/channel.cuh")
-    d = tmp_path_factory.mktemp("channel")
-    (d / "shim.cpp").write_text(_SHIM)
-    csrc = Path(kernels.__file__).resolve().parent / "csrc"
-    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(csrc), "-o", str(d / "ch.so"),
-                    str(d / "shim.cpp")], check=True, capture_output=True, timeout=300)
-    lib = ctypes.CDLL(str(d / "ch.so"))
-    lib.h_channel_words.restype = ctypes.c_longlong
-    assert lib.h_channel_words() == kernels.CHANNEL_WORDS
-    lib.h_compress.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int]
-    lib.h_take_words.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-    lib.h_pow_ok.argtypes = [ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_int]
-    return lib
+    return _build(tmp_path_factory.mktemp("channel"), (_CSRC / "channel.cuh").read_text())
 
 
 def _ptr(a: np.ndarray):
@@ -272,7 +315,7 @@ def test_host_draws_match_twin_and_channel(host_channel):
         host_channel.h_draw_felt(_ptr(state))
         ch.mix_root(root)
         assert np.array_equal(state[9:], ch.draw_felt()) and state[8] == ch._counter
-        twin = kernels.channel_mix_root_draw(_state(digest, counter).clone(), f.u32_to_tensor(root))
+        twin = kernels.channel_mix_root_draw_plain(_state(digest, counter).clone(), f.u32_to_tensor(root))
         plain = np.zeros(kernels.CHANNEL_WORDS, dtype=np.uint32)
         plain[:8], plain[8] = digest, counter
         host_channel.h_mix_root(_ptr(plain), _ptr(root))
@@ -287,3 +330,88 @@ def test_host_pow_check_matches_channel(host_channel, bits):
     ch.digest = digest.astype("<u4").tobytes()
     for nonce in list(range(40)) + [2**32 - 1, 2**32, 2**40 + 3]:
         assert bool(host_channel.h_pow_ok(_ptr(digest), nonce, bits)) == ch.check_pow_nonce(bits, nonce)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_host_search_hash_matches_hashlib(host_channel, seed):
+    """The search's compression (pow_prefix, then pow_h01 per candidate):
+    h[0] and h[1] are hashlib's first 8 bytes of H(digest || LE64(nonce)),
+    nonces across the 32-bit boundary included."""
+    rng = np.random.default_rng(500 + seed)
+    digest = _u32(rng, 8)
+    h = np.zeros(2, dtype=np.uint32)
+    for nonce in [0, 1, 2**32 - 1, 2**32, 2**62 - 1] + [int(x) for x in rng.integers(0, 2**62, 20)]:
+        host_channel.h_pow_h01(_ptr(digest), nonce, _ptr(h))
+        want = hashlib.blake2s(digest.astype("<u4").tobytes() + nonce.to_bytes(8, "little")).digest()[:8]
+        assert h.astype("<u4").tobytes() == want, nonce
+
+
+def _host_search(lib, digest, bits, grid, threads, order, seed=0, parity=0):
+    """kernels._pow_search through the host build: one launch of `grid`
+    CTAs of `threads`, run in `order`, from a scratch whose other parity's
+    word holds a stale value; returns (nonce, the scratch after)."""
+    scratch = torch.tensor([-1, -1], dtype=torch.int64)
+    scratch[1 - parity] = 12345
+
+    def run(args):
+        args.scratch, args.parity = scratch.data_ptr(), parity
+        lib.h_grind(ctypes.addressof(args), grid, threads, order, seed)
+        return int(scratch[parity])
+
+    return kernels._pow_search(digest.astype("<u4").tobytes(), bits, run), scratch
+
+
+# Round widths W = grid x threads of 1, 7 and 256; CTAs in order, reversed
+# and shuffled: whatever order the CTAs run in, the least passing nonce, and
+# the other parity's word put back to all ones for the next launch.
+@pytest.mark.parametrize("order", [0, 1, 2], ids=["forward", "reversed", "shuffled"])
+@pytest.mark.parametrize("grid,threads", [(1, 1), (7, 1), (8, 32)], ids=["W1", "W7", "W256"])
+def test_host_grind_cta_orders(host_channel, order, grid, threads):
+    for bits in range(13):
+        digest = _u32(np.random.default_rng(700 + bits), 8)
+        want = _ref_channel(digest, 0).grind_pow(bits)
+        parity = bits & 1
+        got, scratch = _host_search(host_channel, digest, bits, grid, threads, order, seed=bits, parity=parity)
+        assert got == want, bits
+        assert int(scratch[1 - parity]) == -1
+
+
+def test_grind_none_below_limit_raises(host_channel, monkeypatch):
+    """A search whose limit (kernels.pow_limit, patched to 40) lies below
+    the least passing nonce finds none: the host build's result word stays
+    all ones and the wrapper raises, and so does the twin."""
+    digest = next(d for d in (_u32(np.random.default_rng(900 + s), 8) for s in range(100))
+                  if _ref_channel(d, 0).grind_pow(10) > 40)
+    with monkeypatch.context() as m:
+        m.setattr(kernels, "pow_limit", lambda bits: 40)
+        with pytest.raises(KernelError, match="no 10-bit nonce below 40"):
+            _host_search(host_channel, digest, 10, 3, 4, 2)
+        with pytest.raises(KernelError, match="no 10-bit nonce below 40"):
+            kernels.grind_pow_plain(digest.astype("<u4").tobytes(), 10)
+    got, _ = _host_search(host_channel, digest, 10, 3, 4, 2)
+    assert got == _ref_channel(digest, 0).grind_pow(10)
+
+
+# Mutations the order test must catch: a thread that stops once any nonce
+# has passed (a smaller one may lie in a round it has not reached), and a
+# launch that puts its own parity's word back, not the other.
+@pytest.mark.parametrize("mutation", [
+    ("if (pow_read(best) < start + W) break;", "if (pow_read(best) != ~0ull) break;"),
+    ("if (mine == 0) a.scratch[1 - a.parity] = ~0ull;", "if (mine == 0) a.scratch[a.parity] = ~0ull;"),
+])
+def test_mutated_search_fails(tmp_path, mutation):
+    old, new = mutation
+    header = (_CSRC / "channel.cuh").read_text()
+    assert header.count(old) == 1
+    lib = _build(tmp_path, header.replace(old, new))
+    wrong = 0
+    for bits in range(4, 10):
+        digest = _u32(np.random.default_rng(700 + bits), 8)
+        for seed in range(3):
+            try:
+                got, scratch = _host_search(lib, digest, bits, 8, 32, 2, seed=seed)
+            except KernelError:
+                wrong += 1
+                continue
+            wrong += got != _ref_channel(digest, 0).grind_pow(bits) or int(scratch[1]) != -1
+    assert wrong

@@ -182,35 +182,65 @@ def _channel_state(rng, dev, counter):
     return s
 
 
+# alpha0's draw (K8's one launch), and K8's step in the root pass of FRI
+# layers' trees of one pass (logs 0, 10), two (11, 14) and three (22).
 @pytest.mark.parametrize("counter", [0, 1, 7, 1000])
 def test_channel_kernels(dev, counter):
     rng = np.random.default_rng(counter)
-    for _ in range(8):
-        state, root = _channel_state(rng, dev, counter), _rnd(rng, dev, 8)
+    for log in (0, 10, 11, 14, 22):
+        state = _channel_state(rng, dev, counter)
         a, b = state.clone(), state.clone()
         out_a, out_b = torch.zeros(4, dtype=torch.int32, device=dev), torch.zeros(4, dtype=torch.int32, device=dev)
         assert torch.equal(kernels.channel_draw_felt(a, out_a), kernels.channel_draw_felt_plain(b, out_b))
         assert torch.equal(out_a, out_b) and torch.equal(out_a, a[9:])
+        cols = {log: _rnd(rng, dev, 1 << log, 4).t()}
         a, b = state.clone(), state.clone()
         out_a, out_b = torch.zeros(12, dtype=torch.int32, device=dev), torch.zeros(12, dtype=torch.int32, device=dev)
-        assert torch.equal(kernels.channel_mix_root_draw(a, root, out_a),
-                           kernels.channel_mix_root_draw_plain(b, root, out_b))
-        assert torch.equal(out_a, out_b)
+        launches, hosted = kernels.CHANNEL.launches, kernels.CHANNEL.hosted
+        tree = kernels.TreeDesc(kernels.tree_layers(log, dev), cols)
+        kernels.merkle_tree(tree, a, out_a)
+        assert kernels.CHANNEL.launches == launches and kernels.CHANNEL.hosted == hosted + 1
+        plain = kernels.TreeDesc(kernels.tree_layers(log, dev), cols)
+        kernels.merkle_tree_plain(plain)
+        kernels.channel_mix_root_draw_plain(b, plain.layers[0][0], out_b)
+        assert all(torch.equal(tree.layers[l], plain.layers[l]) for l in range(log + 1))
+        assert torch.equal(a, b) and torch.equal(out_a, out_b)
+
+
+def _grind(dev, digest: bytes, bits: int) -> int:
+    """One K10 call, one launch; the least passing nonce (the twin's and,
+    at 12 bits and below, the host channel's)."""
+    from luminair_tpu_torch.crypto.channel import Blake2sChannel
+
+    before = kernels.GRIND_POW.launches
+    nonce = kernels.grind_pow(digest, bits, dev)
+    assert kernels.GRIND_POW.launches == before + 1
+    assert nonce == kernels.grind_pow_plain(digest, bits, dev)
+    ch = Blake2sChannel()
+    ch.digest = digest
+    assert ch.check_pow_nonce(bits, nonce)
+    if bits <= 12:
+        assert nonce == ch.grind_pow(bits)
+    return nonce
 
 
 @pytest.mark.parametrize("bits", [0, 1, 5, 9, 12, 16, 20])
 def test_grind_pow(dev, bits):
-    from luminair_tpu_torch.crypto.channel import Blake2sChannel
+    _grind(dev, np.random.default_rng(bits).integers(0, 1 << 32, 8, dtype=np.uint64).astype("<u4").tobytes(), bits)
 
-    rng = np.random.default_rng(bits)
-    digest = _rnd(rng, dev, 8)
-    nonce = kernels.grind_pow(digest, bits)
-    assert nonce == kernels.grind_pow_plain(digest, bits)
-    ch = Blake2sChannel()
-    ch.digest = f.tensor_to_u32(digest).astype("<u4").tobytes()
-    assert ch.check_pow_nonce(bits, nonce)
-    if bits <= 12:
-        assert nonce == ch.grind_pow(bits)
+
+def test_grind_pow_beyond_the_first_round(dev):
+    """16-bit searches whose first passing nonce lies beyond the first round
+    of W = pow_ctas(16, SMs) x POW_THREADS nonces: the first such digest of
+    seeds 0, 1, ... and of seeds 100, 101, ...."""
+    W = kernels.pow_ctas(16, torch.cuda.get_device_properties(dev).multi_processor_count) * kernels.POW_THREADS
+    for first in (0, 100):
+        for seed in range(first, first + 50):
+            digest = np.random.default_rng(seed).integers(0, 1 << 32, 8, dtype=np.uint64).astype("<u4").tobytes()
+            if _grind(dev, digest, 16) >= W:
+                break
+        else:
+            raise AssertionError("no 16-bit nonce beyond the first round in 50 seeds")
 
 
 def test_decommit(dev):
@@ -324,7 +354,7 @@ def test_prove_path_never_takes_a_plain_twin(dev, monkeypatch):
         def checked(*args, **kwargs):
             flat = [a for x in list(args) + list(kwargs.values()) for a in (x if isinstance(x, (list, tuple)) else [x])]
             if any(isinstance(a, torch.Tensor) and a.is_cuda or isinstance(a, (kernels.DecommitPass, kernels.QuotientPlan))
-                   and a.dev.type == "cuda" for a in flat):
+                   and a.dev.type == "cuda" or isinstance(a, torch.device) and a.type == "cuda" for a in flat):
                 raise AssertionError(f"{name} reached with a CUDA tensor")
             return fn(*args, **kwargs)
 
@@ -346,9 +376,9 @@ def test_prove_path_never_takes_a_plain_twin(dev, monkeypatch):
     bottoms = []
     tree = kernels.merkle_tree
 
-    def counted_tree(desc):
+    def counted_tree(desc, *channel):
         bottoms.append(desc.bottom)
-        return tree(desc)
+        return tree(desc, *channel)
 
     monkeypatch.setattr(kernels, "merkle_tree", counted_tree)
     kernels.reset_counts()
@@ -364,14 +394,15 @@ def test_prove_path_never_takes_a_plain_twin(dev, monkeypatch):
 
 
 def _check_fri_launches(proof):
-    """K8 once for alpha0 and once per committed FRI layer, K3 once for the
-    largest input's circle fold and once per layer, K9 once (one opening
-    pass for the FRI layers and the trees), K10 at least once."""
+    """K8 launched once, for alpha0, and its step run once per committed
+    FRI layer in the layer's root pass; K3 once for the largest input's
+    circle fold and once per layer, K9 once (one opening pass for the FRI
+    layers and the trees), K10 once."""
     n_layers = len(proof.pcs_proof.fri_proof.layer_roots)
-    assert kernels.CHANNEL.launches == 1 + n_layers and n_layers > 0
+    assert kernels.CHANNEL.launches == 1 and kernels.CHANNEL.hosted == n_layers and n_layers > 0
     assert kernels.FRI_LAYER.launches == 1 + n_layers  # the circle fold, then one launch a layer
     assert kernels.DECOMMIT.launches == 1
-    assert kernels.GRIND_POW.launches >= 1
+    assert kernels.GRIND_POW.launches == 1
 
 
 # ---------------------------------------------------------------------------
@@ -605,6 +636,8 @@ def test_prove_from_card_trace_never_touches_the_host(dev, monkeypatch):
             return x.table.buffers.arena.is_cuda
         if isinstance(x, (kernels.DecommitPass, kernels.QuotientPlan)):
             return x.dev.type == "cuda"
+        if isinstance(x, torch.device):
+            return x.type == "cuda"
         return isinstance(x, torch.Tensor) and x.is_cuda
 
     def guard(mod, name):
@@ -647,7 +680,8 @@ def test_prove_from_card_trace_never_touches_the_host(dev, monkeypatch):
 @pytest.mark.parametrize("high_security", [False, True])
 def test_fri_commit_downloads_once_and_each_pass_uploads_once(dev, monkeypatch, high_security):
     """On the card, the FRI commit chain makes one device-to-host download
-    (no root comes down per layer), and the prove's one decommitment pass
+    (no root comes down per layer), the proof-of-work search no upload (its
+    digest is a launch parameter), and the prove's one decommitment pass
     one upload of its records and positions, and no upload per index."""
     from luminair_tpu_torch import prelude as T
     from luminair_tpu_torch.pcs import fri
@@ -662,7 +696,7 @@ def test_fri_commit_downloads_once_and_each_pass_uploads_once(dev, monkeypatch, 
             return fn(*args, **kw)
 
         monkeypatch.setattr(f, name, counted)
-    for mod, name in ((fri, "fri_prove"), (kernels, "decommit")):
+    for mod, name in ((fri, "fri_prove"), (kernels, "decommit"), (kernels, "grind_pow")):
         fn = getattr(mod, name)
 
         def marked(*args, fn=fn, name=name, **kw):
@@ -694,3 +728,4 @@ def test_fri_commit_downloads_once_and_each_pass_uploads_once(dev, monkeypatch, 
     assert chain.count("tensor_to_u32") == 1, chain
     passes = inside("decommit")
     assert len(passes) == 1 and all(p.count("upload") == 1 and "u32_to_tensor" not in p for p in passes), passes
+    assert inside("grind_pow") == [[]]

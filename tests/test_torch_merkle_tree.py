@@ -1,7 +1,9 @@
 """K2, the whole Merkle tree (csrc/merkle.cu): the pass plan, the plain twin
 against the reference's MerkleTree, and csrc/merkle.cuh built with g++ and
 run on the CPU, one CTA after another, at several tile sizes against the
-twin."""
+twin; with K8's channel step in the root pass against the reference's
+host channel, and the FRI commit chain through that build against the
+reference's device chain (luminair_tpu.parallel.accel on JAX's CPU)."""
 
 import ctypes
 import shutil
@@ -13,9 +15,12 @@ import pytest
 import torch
 
 from luminair_tpu.crypto import merkle as ref_merkle
+from luminair_tpu.crypto.channel import Blake2sChannel as RefChannel
+from luminair_tpu.parallel import accel
 from luminair_tpu_torch import fields as f
 from luminair_tpu_torch import kernels
 from luminair_tpu_torch.crypto.merkle import MerkleTree
+from luminair_tpu_torch.pcs import fri
 
 P = (1 << 31) - 1
 
@@ -109,7 +114,12 @@ struct HostBlock {
 extern "C" long long h_pass_size() { return sizeof(lum::MerklePass); }
 extern "C" void h_merkle_pass(lum::MerklePass p) {
   std::vector<uint32_t> sm(lum::merkle_smem_words(lum::merkle_tile(p)));
-  for (long long c = 0; c < lum::merkle_ctas(p); c++) lum::merkle_cta(HostBlock{}, p, c, sm.data());
+  for (long long c = 0; c < lum::merkle_ctas(p); c++) {
+    if (p.state)
+      lum::merkle_cta<HostBlock, true>(HostBlock{}, p, c, sm.data());
+    else
+      lum::merkle_cta(HostBlock{}, p, c, sm.data());
+  }
 }
 """
 
@@ -124,7 +134,8 @@ def _build(d: Path, header: str):
         pytest.skip("no C++ compiler for the host build of csrc/merkle.cuh")
     csrc = Path(kernels.__file__).resolve().parent / "csrc"
     (d / "merkle.cuh").write_text(header)
-    (d / "blake2s.cuh").write_text((csrc / "blake2s.cuh").read_text())
+    for name in ("blake2s.cuh", "channel.cuh"):
+        (d / name).write_text((csrc / name).read_text())
     (d / "shim.cpp").write_text(_SHIM)
     subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(d), "-o", str(d / "merkle.so"),
                     str(d / "shim.cpp")], check=True, capture_output=True, timeout=300)
@@ -140,12 +151,13 @@ def host_merkle(tmp_path_factory):
     return _build(tmp_path_factory.mktemp("merkle"), _header())
 
 
-def _host_tree(lib, cols_by_log, tile_log):
-    """The tree through the header's passes; {log: layer}."""
+def _host_tree(lib, cols_by_log, tile_log, state=None, slot=None):
+    """The tree through the header's passes (with a channel: K8's step in
+    the root pass); {log: layer}."""
     desc = _fresh(cols_by_log)
     for layer in desc.layers.values():
         layer.fill_(-1)  # every word must be written by a pass
-    kernels._merkle_launch(desc, tile_log, lib.h_merkle_pass)
+    kernels._merkle_launch(desc, tile_log, lib.h_merkle_pass, state, slot)
     return desc.layers
 
 
@@ -172,12 +184,101 @@ def test_header_at_the_card_tile(host_merkle):
     assert all(torch.equal(got[log], want[log]) for log in want)
 
 
+# ---------------------------------------------------------------------------
+# K8's channel step in the root pass.
+
+
+def _channel(seed):
+    """A random channel state (digest, counter, alpha) and a record slot."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 1 << 32, size=kernels.CHANNEL_WORDS, dtype=np.uint64).astype(np.uint32)
+    words[8] = rng.integers(0, 300)
+    return f.u32_to_tensor(words), torch.full((12,), -1, dtype=torch.int32)
+
+
+def _ref_step(state, root):
+    """The reference's host channel from `state`: mix_root(root), draw_felt()."""
+    words = f.tensor_to_u32(state)
+    ch = RefChannel()
+    ch.digest, ch._counter = words[:8].astype("<u4").tobytes(), int(words[8])
+    ch.mix_root(root)
+    alpha = ch.draw_felt()
+    return np.concatenate([np.frombuffer(ch.digest, dtype="<u4"), [ch._counter], alpha]).astype(np.uint32), alpha
+
+
+# FRI layers' trees of logs 0-12: one pass at every log at the card's tile
+# (2^10), two passes from log 11; at a tile of 2^2 the root pass comes after
+# one to four others.
+@pytest.mark.parametrize("tile_log", [2, kernels.MERKLE_TILE_LOG])
+@pytest.mark.parametrize("log", range(13))
+def test_header_channel_step_equals_reference(host_merkle, log, tile_log):
+    rng = np.random.default_rng(1000 + log)
+    v = rng.integers(0, P, size=(1 << log, 4), dtype=np.int64).astype(np.uint32)
+    cols = {log: f.u32_to_tensor(v).t()}
+    state, slot = _channel(log + 50 * tile_log)
+    want_state, want_alpha = _ref_step(state, ref_merkle.MerkleTree([np.ascontiguousarray(v[:, k])
+                                                                      for k in range(4)]).root)
+    got = _host_tree(host_merkle, cols, tile_log, state, slot)
+    plain = _plain_tree(cols)
+    assert all(torch.equal(got[l], plain[l]) for l in plain)  # the tree is the tree without the step
+    assert np.array_equal(f.tensor_to_u32(state), want_state)
+    assert np.array_equal(f.tensor_to_u32(slot), np.concatenate([f.tensor_to_u32(plain[0][0]), want_alpha]))
+
+
+def test_twin_channel_step_equals_reference():
+    """merkle_tree with a channel on CPU tensors: the plain tree, then the
+    plain step (channel_mix_root_draw_plain)."""
+    for log in (0, 5, 11):
+        cols = {log: f.u32_to_tensor(np.random.default_rng(log).integers(0, P, size=(3, 1 << log)).astype(np.uint32))}
+        state, slot = _channel(log)
+        want_state, want_alpha = _ref_step(state, MerkleTree(cols).root)
+        tree = MerkleTree(cols, state, slot)
+        assert np.array_equal(f.tensor_to_u32(state), want_state)
+        assert np.array_equal(f.tensor_to_u32(slot), np.concatenate([tree.root, want_alpha]))
+
+
+# The chains of tests/test_torch_channel.py (input logs, folds a layer),
+# every FRI layer's tree and channel step through the host build (at a tile
+# of 2^2: roots after several passes; at the card's, one pass a tree).
+CHAINS = [((8, 7, 5), 1), ((8, 7, 5), 2), ((8, 7, 5), 3), ((8, 6, 5, 4), 2), ((8, 6, 5, 4), 3)]
+
+
+@pytest.mark.parametrize("tile_log", [2, kernels.MERKLE_TILE_LOG])
+@pytest.mark.parametrize("logs,folds", CHAINS)
+def test_commit_chain_through_header_matches_reference(host_merkle, monkeypatch, logs, folds, tile_log):
+    rng = np.random.default_rng(sum(logs) + folds)
+    inputs = {k: rng.integers(0, P, size=(1 << k, 4), dtype=np.int64).astype(np.uint32) for k in logs}
+    B, bound = 1, 2
+    digest = rng.integers(0, 1 << 32, 8, dtype=np.uint64).astype("<u4").tobytes()
+    ref = accel.fri_commit_chain(inputs, B, bound, folds, B + bound, digest, 3)
+    steps = []
+
+    def tree(desc, state=None, slot=None):
+        steps.append(state is not None)
+        kernels._merkle_launch(desc, tile_log, host_merkle.h_merkle_pass, state, slot)
+
+    monkeypatch.setattr(kernels, "merkle_tree", tree)
+    monkeypatch.setattr(kernels, "channel_mix_root_draw_plain", None)  # the step runs in the header alone
+    got = fri.commit_chain({k: f.u32_to_tensor(v) for k, v in inputs.items()}, B + bound, folds, digest, 3)
+    assert steps == [True] * len(fri.layer_schedule(max(logs), B + bound, folds))
+    assert got[0] == ref[0] and got[1] == ref[1]
+    assert len(got[2]) == len(ref[2]) == len(steps)
+    for a, b in zip(got[2] + got[3], ref[2] + ref[3]):
+        assert np.array_equal(a, np.asarray(b, dtype=np.uint32))
+    assert np.array_equal(got[4], ref[4])
+    assert np.array_equal(f.tensor_to_u32(got[5]), ref[5])
+
+
 # Mutations the twin must catch: the byte counter of a message's last
-# block or of an earlier block, and the two children read in swapped order.
+# block or of an earlier block, the two children read in swapped order; in
+# the channel step, the step on a layer other than the root's, and the
+# counter written where the alpha goes.
 @pytest.mark.parametrize("mutation", [
     ("last ? (uint32_t)(4 * len)", "last ? (uint32_t)(4 * k)"),
     (": (uint32_t)(64 * (blk + 1))", ": (uint32_t)(64 * blk)"),
     ("for (int w = 0; w < 16; w++) m[w] = kids[w];", "for (int w = 0; w < 16; w++) m[w] = kids[w ^ 8];"),
+    ("if (l == 0) {  // the root", "if (l == 1) {  // the root"),
+    ("slot[8 + k] = chan[CH_ALPHA + k];", "slot[8 + k] = chan[CH_COUNTER + k];"),
 ])
 def test_mutated_header_fails(tmp_path, mutation):
     old, new = mutation
@@ -185,5 +286,9 @@ def test_mutated_header_fails(tmp_path, mutation):
     assert header.count(old) == 1
     lib = _build(tmp_path, header.replace(old, new))
     _, cols_by_log = _case("bottom 9")
-    got, want = _host_tree(lib, cols_by_log, 3), _plain_tree(cols_by_log)
-    assert not all(torch.equal(got[log], want[log]) for log in want)
+    state, slot = _channel(9)
+    want_state, want_slot = state.clone(), slot.clone()
+    kernels.merkle_tree(_fresh(cols_by_log), want_state, want_slot)
+    got, want = _host_tree(lib, cols_by_log, 3, state, slot), _plain_tree(cols_by_log)
+    assert not (all(torch.equal(got[log], want[log]) for log in want) and torch.equal(state, want_state)
+                and torch.equal(slot, want_slot))

@@ -7,7 +7,11 @@ disassembles both with `cuobjdump -sass`.  The difference of the two
 opcode counts is one compression with its per-block set-up (the counter
 and flag words), free of the loads and stores around it.  It also counts the same
 opcodes in K2's `merkle_pass_kernel` as `luminair_tpu_torch.kernels`
-builds it.
+builds it, and in the same way (one candidate and two) the work of one
+proof-of-work candidate of K10's search (csrc/channel.cuh `pow_h01`, from
+the state `pow_prefix` leaves).  Last, the ALU instructions of
+tools/blake2s_latency.cu's critical-path probe, whose loop body is one
+compression's 240 dependent operations.
 
 Run from the repository root on a machine with the CUDA toolkit:
 
@@ -15,7 +19,8 @@ Run from the repository root on a machine with the CUDA toolkit:
 
 It prints one JSON object: the opcodes of one compression, the ALU
 instructions among them (`alu`), and `chip_smoke.OPS_BLAKE2S_BLOCK`, the
-count the bounds use.
+count the bounds use; the same for one candidate beside
+`chip_smoke.OPS_POW_CANDIDATE`; the probe's.
 """
 
 import collections
@@ -36,6 +41,7 @@ OUT = ROOT / "build" / "sass"
 SOURCE = r"""
 #include <stdint.h>
 #include "blake2s.cuh"
+#include "channel.cuh"
 
 // in: h[8], then per compression its block m[16], byte counter and last flag.
 template <int N>
@@ -57,6 +63,25 @@ __device__ void chain(const uint32_t* in, uint32_t* out) {
 
 extern "C" __global__ void one_compression(const uint32_t* in, uint32_t* out) { chain<1>(in, out); }
 extern "C" __global__ void two_compressions(const uint32_t* in, uint32_t* out) { chain<2>(in, out); }
+
+// in: the prefix state pre[16], the digest d[8], then N 64-bit nonces;
+// out: h[0], h[1] of each candidate.
+template <int N>
+__device__ void candidates(const uint32_t* in, uint32_t* out) {
+  uint32_t pre[16], d[8];
+#pragma unroll
+  for (int i = 0; i < 16; i++) pre[i] = in[i];
+#pragma unroll
+  for (int i = 0; i < 8; i++) d[i] = in[16 + i];
+#pragma unroll
+  for (int r = 0; r < N; r++) {
+    const unsigned long long nonce = reinterpret_cast<const unsigned long long*>(in + 24)[r];
+    lum::pow_h01(pre, d, nonce, out[2 * r], out[2 * r + 1]);
+  }
+}
+
+extern "C" __global__ void one_candidate(const uint32_t* in, uint32_t* out) { candidates<1>(in, out); }
+extern "C" __global__ void two_candidates(const uint32_t* in, uint32_t* out) { candidates<2>(in, out); }
 """
 
 # Instruction lines of `cuobjdump -sass`: /*0090*/  @!P0 IADD3 R5, R2, R3, R4 ;
@@ -103,10 +128,20 @@ def main() -> int:
                    check=True)
     funcs = opcodes(subprocess.run([_cuobjdump(), "-sass", str(cubin)], check=True, capture_output=True,
                                    text=True).stdout)
-    one, two = funcs["one_compression"], funcs["two_compressions"]
-    block = collections.Counter(two)
-    block.subtract(one)
-    block = {op: n for op, n in sorted(block.items()) if n}
+    def difference(one, two):
+        d = collections.Counter(two)
+        d.subtract(one)
+        return {op: n for op, n in sorted(d.items()) if n}
+
+    one = funcs["one_compression"]
+    block = difference(one, funcs["two_compressions"])
+    candidate = difference(funcs["one_candidate"], funcs["two_candidates"])
+    probe = OUT / "blake2s_latency.cubin"
+    subprocess.run([kernels._nvcc(), *flags, "-cubin", "-I", str(kernels._CSRC), "-o", str(probe),
+                    str(ROOT / "tools" / "blake2s_latency.cu")], check=True)
+    critical = next(c for name, c in opcodes(subprocess.run([_cuobjdump(), "-sass", str(probe)], check=True,
+                                                            capture_output=True, text=True).stdout).items()
+                    if "critical_path_kernel" in name)
 
     kernels.build()
     lib = kernels.MERKLE.library_path()
@@ -121,6 +156,9 @@ def main() -> int:
         "one_compression_kernel": dict(sorted(one.items())),
         "merkle_pass_kernel": {name: {"opcodes": dict(sorted(c.items())), "alu": alu(c)} for name, c in merkle.items()},
         "OPS_BLAKE2S_BLOCK": chip_smoke.OPS_BLAKE2S_BLOCK,
+        "pow_candidate_opcodes": candidate, "pow_candidate_alu": alu(candidate),
+        "OPS_POW_CANDIDATE": chip_smoke.OPS_POW_CANDIDATE,
+        "critical_path_kernel_opcodes": dict(sorted(critical.items())), "critical_path_kernel_alu": alu(critical),
     }))
     return 0
 

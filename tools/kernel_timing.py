@@ -1,0 +1,444 @@
+"""Kernels of the port timed on the card at the black-scholes PINN's calls
+(batch 256, chip_smoke.py's graph), in the design of whichever tree is
+given, so that two commits can be measured in turns in one run on one card.
+
+    python3 tools/kernel_timing.py [--tree DIR] [--kernels K3,T4,K8,K10]
+
+DIR (default: this repository) is the root of a checkout whose
+luminair_tpu_torch is imported; the measurement code (this file and
+chip_smoke.py's graph, timers, work counts and profiled windows,
+chip_smoke.Profiled) is this repository's.  --kernels picks from:
+
+  T4   settings: the settings pass's sub-spans (graph/device_trace.py; the
+       LUT round trip's parts among them), 3 runs after a warm-up, and the
+       device time of its T4 launches; lut_call: T4 at the pass's largest
+       LUT source -- the wrapper's call ms (events), its host time per call
+       (50 calls enqueued, wall over 50) and its kernel's device ms (50
+       calls profiled), torch.aminmax and the composition the boundary
+       replaces (aminmax + cat) the same way, and the round trip to the
+       host (the tree's form, and the composition with a pageable copy);
+  K3   fri_chain: one FRI commit chain (pcs/fri.commit_chain) on a prove's
+       inputs, profiled: K3's device ms and launches, the chain's device
+       ms, the device memory it allocates above where it started, and the
+       chain's K3 bound as what it needs (chip_smoke.fri_layer_work);
+       fri_calls: K3 at the first committed layer (line log kmax - 1, its
+       folds and the inputs that join them) in the tree's form (one launch
+       a fold and the joining circle folds apart, or one launch a layer),
+       and the circle fold of the largest input; CUDA-event median of 7;
+  K8   prove, per profile (default: 5 PoW bits; high_security(): 16): one
+  K10  prove with the counters reset just before it -- K8's launches and
+       its steps in K2 root passes (where the tree has them), K2's and
+       K10's launches; one profiled prove -- device ms and launches of K8's
+       kernels (channel_*), K2's (merkle_pass_kernel) and K10's; where K8's
+       steps run in root passes, each step as its root pass with it less
+       without (chip_smoke.channel_steps) and K2 less the steps; the host
+       seconds of 3b_fri_commit and 3b_pow over 5 proves; pow: K10 at the
+       call that prove made -- call ms (CUDA events, median of 7), the
+       host's wall a call over 50 calls, the device ms a call and every
+       device record of those 50 calls (kernels and copies, by name);
+  trace_segment
+       the settings pass's and the trace's segments, each alone from fresh
+       outputs (device ms a launch, the mean of 5), with csrc/ built as it
+       is and in variants that each undo one choice of trace.cu /
+       trace.cuh (copies under build/variants/), and at other tile limits
+       (kernels.SEG_MAX_TILES); the build as it is runs first and again
+       last (their drift is the yardstick's noise);
+  profiler_window
+       where a profiled window loses device records: windows
+       (chip_smoke.Profiled) of a prove, then of chip_smoke.LAUNCH_BATCH
+       launches of K8's one-thread kernel; per window the host's records of
+       launches and copies, the kernel's device records, the positions of
+       the calls whose correlation id has no device record, and how far
+       the device's records start before their calls' host records.
+
+Each line names the card and its power limit (nvidia-smi).
+"""
+
+import argparse
+import shutil
+import statistics
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import torch  # noqa: E402
+
+import chip_smoke  # noqa: E402
+
+REPS = 50  # calls per profiled or enqueued batch
+PROVES = 5
+KINDS = ("K3", "T4", "K8", "K10", "trace_segment", "profiler_window")
+
+# Design choices of the trace segment kernel, each undone in a copy of csrc/.
+VARIANTS = {
+    "plain_stores": ("trace.cuh", "__stcs((unsigned int*)p, v);", "*p = v;"),
+    "mod_to_m31": ("trace.cuh", "const unsigned long long u = (unsigned long long)v ^ (1ull << 63);",
+                   "long long m = v % M31_P; return (uint32_t)(m < 0 ? m + M31_P : m);\n"
+                   "  const unsigned long long u = (unsigned long long)v ^ (1ull << 63);"),
+    "poll_32ns": ("trace.cu", "__nanosleep(256)", "__nanosleep(32)"),
+    "grid_2_per_sm": ("trace.cu", "fit[dev] = (long long)per_sm * sms;",
+                      "fit[dev] = (long long)(per_sm < 2 ? per_sm : 2) * sms;"),
+    "l2_reads": ("trace.cuh", "return fresh ? __ldcg(p) : __ldg(p);", "return __ldcg(p);"),
+}
+
+
+def device_ms(run, names) -> dict:
+    """One call of `run`, profiled: device ms and launches of the kernels
+    whose names hold any of `names` (in all and by name), and of every
+    kernel."""
+    ms = count = all_ms = 0.0
+    by_name = {}
+    for key, (m, n) in chip_smoke.Profiled(run).device.items():
+        all_ms += m
+        if any(name in key for name in names):
+            ms += m
+            count += n
+            by_name[key[:80]] = [m, n]
+    return {"ms": ms, "launches": int(count), "all_kernels_ms": all_ms, "by_name": by_name}
+
+
+def per_call(fn) -> dict:
+    """REPS calls of fn: the host's wall per call while enqueueing them (no
+    synchronise inside), and the device ms per call of every kernel they
+    launched."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(REPS):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / REPS
+    torch.cuda.synchronize()
+    d = device_ms(lambda: [fn() for _ in range(REPS)], ())
+    return {"call_ms": chip_smoke.time_ms(fn), "host_ms_per_call": host_ms,
+            "device_ms_per_call": d["all_kernels_ms"] / REPS}
+
+
+def settings_t4(kernels, T, BS, tracing, emit, layer_form: bool) -> None:
+    """The settings pass's spans and T4 (the `T4` lines above)."""
+    lut = {}
+    if layer_form:
+        real_boundary = kernels.lut_boundary
+
+        def boundary(src, gathered, out):
+            if len(src) > len(lut.get("src", ())):
+                lut.update(src=src.clone(), gathered=gathered.clone(), out=out)
+            return real_boundary(src, gathered, out)
+
+        kernels.lut_boundary = boundary
+    else:
+        real_minmax, real_cat = kernels.lut_minmax, torch.cat
+
+        def minmax(buf):
+            mm = real_minmax(buf)
+            if len(buf) > len(lut.get("src", ())):
+                lut.update(src=buf.clone(), mm=mm)
+            return mm
+
+        def cat(ts, *args, **kw):  # the earlier round trip: cat([min/max, gathered])
+            if isinstance(ts, list) and len(ts) == 2 and ts[0] is lut.get("mm"):
+                lut["gathered"] = ts[1].clone()
+            return real_cat(ts, *args, **kw)
+
+        kernels.lut_minmax, torch.cat = minmax, cat
+    cx, _ = chip_smoke.pinn_graph(T, BS)
+    T.gen_circuit_settings(cx)
+    if layer_form:
+        kernels.lut_boundary = real_boundary
+    else:
+        kernels.lut_minmax, torch.cat = real_minmax, real_cat
+    spans = []
+    for _ in range(3):
+        cx, _ = chip_smoke.pinn_graph(T, BS)
+        torch.cuda.synchronize()
+        T.gen_circuit_settings(cx)
+        spans.append(tracing.last_phases("settings"))
+    cx, _ = chip_smoke.pinn_graph(T, BS)
+    t4 = device_ms(lambda: T.gen_circuit_settings(cx), ("lut_minmax", "lut_boundary"))
+    emit({"phase": "settings", "spans_s": spans, "t4_device_ms": t4["ms"], "t4_launches": t4["launches"],
+          "all_kernels_ms": t4["all_kernels_ms"]})
+
+    src, gathered = lut["src"], lut["gathered"]
+
+    def composition():
+        return torch.cat([torch.stack(torch.aminmax(src)), gathered])
+
+    line = {"phase": "lut_call", "src": len(src), "gathered": len(gathered),
+            "bound_ms": chip_smoke.bound(8 * len(src) + 16 * len(gathered) + 16, 2 * len(src),
+                                         chip_smoke.INT64_OPS_PER_S)[0],
+            "aminmax": per_call(lambda: torch.aminmax(src)),
+            "composition": per_call(composition)}
+    if layer_form:
+        out = lut["out"]
+        pinned = torch.empty(len(gathered) + 2, dtype=torch.int64, pin_memory=True)
+        line["kernel"] = per_call(lambda: kernels.lut_boundary(src, gathered, out))
+
+        def round_trip():
+            pinned.copy_(kernels.lut_boundary(src, gathered, out), non_blocking=True)
+            torch.cuda.current_stream().synchronize()
+    else:
+        line["kernel"] = per_call(lambda: kernels.lut_minmax(src))
+
+        def round_trip():
+            torch.cat([kernels.lut_minmax(src), gathered]).cpu()
+    line["round_trip_ms"] = chip_smoke.time_ms(round_trip)
+    line["composition_round_trip_ms"] = chip_smoke.time_ms(lambda: composition().cpu())
+    emit(line)
+
+
+def fri_k3(T, fri, pie, settings, dev, emit, layer_form: bool) -> None:
+    """K3 on a prove's commit chain (the `K3` lines above)."""
+    chain = {}
+    real_chain = fri.commit_chain
+
+    def keep(inputs, last_line_log, folds, digest, counter):
+        chain.update(inputs={k: v.clone() for k, v in inputs.items()}, args=(last_line_log, folds, digest, counter))
+        return real_chain(inputs, last_line_log, folds, digest, counter)
+
+    fri.commit_chain = keep
+    T.prove(pie, settings)
+    fri.commit_chain = real_chain
+    inputs, (last_line_log, folds, digest, counter) = chain["inputs"], chain["args"]
+    logs = sorted(inputs, reverse=True)
+    kmax = logs[0]
+    run_chain = lambda: fri.commit_chain(inputs, last_line_log, folds, digest, counter)  # noqa: E731
+    run_chain()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run_chain()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    k3 = device_ms(run_chain, ("fri_fold", "fri_layer"))
+    schedule = fri.layer_schedule(kmax, last_line_log, folds)
+    works = [chip_smoke.fri_layer_work({"values": inputs[kmax], "twiddles": [None], "mixes": None})]
+    for log, f in schedule:
+        rows = torch.empty((1 << log, 0))
+        works.append(chip_smoke.fri_layer_work({
+            "values": rows, "twiddles": [None] * f,
+            "mixes": [(inputs[log - t], None) if log - t in inputs else None for t in range(f)]}))
+    emit({"phase": "fri_chain", "input_logs": logs, "schedule": schedule, "k3_device_ms": k3["ms"],
+          "k3_launches": k3["launches"], "k3_by_kernel": k3["by_name"], "chain_device_ms": k3["all_kernels_ms"],
+          "chain_peak_bytes_above_start": peak,
+          "k3_bound_ms": sum(chip_smoke.bound(*w)[0] for w in works), "k3_bound_bytes": sum(w[0] for w in works),
+          "k3_bound_ops": sum(w[1] for w in works)})
+
+    rng = torch.Generator().manual_seed(5)
+    alpha0, alpha = (torch.randint(0, (1 << 31) - 1, (4,), generator=rng, dtype=torch.int32).to(dev) for _ in range(2))
+    cur = fri.fold_circle_to_line(inputs[kmax], kmax, alpha0)
+    L, F = schedule[0]
+    joins = [L - t for t in range(F) if L - t in inputs]
+    line = {"phase": "fri_calls", "layer": [L, F], "joining_inputs": joins,
+            "circle_fold_ms": chip_smoke.time_ms(lambda: fri.fold_circle_to_line(inputs[kmax], kmax, alpha0)),
+            "circle_fold_bound_ms": chip_smoke.bound(*works[0])[0], "layer_bound_ms": chip_smoke.bound(*works[1])[0]}
+    if layer_form:
+        line["layer_ms"] = chip_smoke.time_ms(lambda: fri.fold_layer(cur, kmax, L, F, alpha, alpha0, inputs))
+    else:
+        def line_evals():
+            return {k - 1: fri.fold_circle_to_line(inputs[k], k, alpha0) for k in joins}
+
+        evals = line_evals()
+
+        def folds_of_layer():
+            v = cur
+            for t in range(F):
+                v = fri.fold_line(v, kmax, L - t, alpha, t, evals.get(L - t - 1))
+            return v
+
+        line["layer_folds_ms"] = chip_smoke.time_ms(folds_of_layer)
+        line["joining_circle_folds_ms"] = chip_smoke.time_ms(line_evals)
+    emit(line)
+
+
+def channel_pow(kernels, T, tracing, pie, settings, emit, kinds) -> None:
+    """K8 and K10 in a prove at each profile (the `K8`, `K10` lines above)."""
+    fused = hasattr(kernels.CHANNEL, "hosted")
+    names = ("channel_", "merkle_pass_kernel", "grind_pow")
+    for tag, cfg in (("pinn_b256", None), ("pinn_b256_hs", T.PcsConfig.high_security())):
+        calls, kept = [], {}
+        real_grind, real_tree, real_draw = kernels.grind_pow, kernels.merkle_tree, kernels.channel_draw_felt
+
+        def grind(*args):
+            calls.append(args)
+            return real_grind(*args)
+
+        def tree(desc, state=None, slot=None):  # the change's channel trees, as chip_smoke keeps them
+            if state is not None:
+                kept[("merkle_tree", len(kept))] = {"desc": desc, "state": state.clone()}
+            return real_tree(desc, state, slot)
+
+        def draw(state, out=None):
+            kept[("channel_draw_felt",)] = {"state": state.clone(), "out": out}
+            return real_draw(state, out)
+
+        kernels.grind_pow = grind
+        if fused:
+            kernels.merkle_tree, kernels.channel_draw_felt = tree, draw
+        T.prove(pie, settings, cfg)  # warm-up, and the calls' arguments
+        kernels.grind_pow, kernels.merkle_tree, kernels.channel_draw_felt = real_grind, real_tree, real_draw
+        if "K8" in kinds:
+            kernels.reset_counts()
+            proof = T.prove(pie, settings, cfg)
+            torch.cuda.synchronize()
+            counts = kernels.counts()
+            steps = getattr(kernels.CHANNEL, "hosted", 0)
+            spans = []
+            for _ in range(PROVES):
+                T.prove(pie, settings, cfg)
+                torch.cuda.synchronize()
+                spans.append(tracing.last_phases("prove"))
+            prof = device_ms(lambda: T.prove(pie, settings, cfg), names)
+            by_kernel = {n: [sum(v[0] for k, v in prof["by_name"].items() if n in k),
+                             sum(v[1] for k, v in prof["by_name"].items() if n in k)] for n in names}
+            line = {"phase": "prove", "path": tag, "fri_layers": len(proof.pcs_proof.fri_proof.layer_roots),
+                    "k8_launches": counts["fri_channel"], "k8_steps_in_root_passes": steps,
+                    "k2_launches": counts["blake2s_merkle"], "k10_launches": counts["grind_pow"],
+                    "device_ms_and_launches": by_kernel, "prove_device_ms": prof["all_kernels_ms"],
+                    "fri_commit_host_s": [p["3b_fri_commit"] for p in spans],
+                    "pow_host_s": [p["3b_pow"] for p in spans]}
+            line["fri_commit_host_s_median"] = statistics.median(line["fri_commit_host_s"])
+            line["pow_host_s_median"] = statistics.median(line["pow_host_s"])
+            if fused:
+                ch = chip_smoke.channel_steps(kernels, kept)
+                steps_ms = sum(st["device_ms"] for st in ch["steps"])
+                line.update(k8_step_device_ms=[st["device_ms"] for st in ch["steps"]],
+                            k8_device_ms=by_kernel["channel_"][0] + steps_ms,
+                            k2_device_ms_less_steps=by_kernel["merkle_pass_kernel"][0] - steps_ms)
+            emit(line)
+        if "K10" in kinds:
+            args = calls[0]
+            fn = lambda: kernels.grind_pow(*args)  # noqa: E731
+            nonce = fn()
+            events = device_ms(lambda: [fn() for _ in range(REPS)], ("",))
+            emit({"phase": "pow", "path": tag, "bits": args[1], "nonce": nonce, **per_call(fn),
+                  "device_events_per_call": {k: [ms / REPS, c / REPS] for k, (ms, c) in events["by_name"].items()},
+                  "bound_ms": chip_smoke.bound(40, (nonce + 1) * chip_smoke.OPS_POW_CANDIDATE)[0]})
+
+
+def trace_segment_variants(kernels, T, BS, tree: Path, emit) -> None:
+    """The `trace_segment` lines above."""
+    csrc = Path(kernels._CSRC)
+
+    def use(src: Path, build: Path) -> None:
+        kernels._CSRC, kernels.BUILD_DIR = src, build
+        for k in kernels.KERNELS:
+            k._fns = None
+        kernels.load_all()
+
+    def segments() -> list:
+        kept, launch = [], kernels.trace_segment
+
+        def keep(seg):
+            kept.append(seg)
+            return launch(seg)
+
+        kernels.trace_segment = keep
+        try:
+            cx, _ = chip_smoke.pinn_graph(T, BS)
+            T.gen_trace(cx, T.gen_circuit_settings(cx))
+        finally:
+            kernels.trace_segment = launch
+        return kept
+
+    def seg_ms(run, n: int = 5) -> float:
+        run()
+        p = chip_smoke.Profiled(lambda: [run() for _ in range(n)])
+        count = p.count("trace_segment_kernel")
+        if not count:
+            raise AssertionError(f"trace_segment: no device record of {n} launches")
+        return p.ms("trace_segment_kernel") / count
+
+    builds, variants_dir = {"as_built": csrc}, tree / "build" / "variants"
+    for name, (source, old, new) in VARIANTS.items():
+        copy = variants_dir / name / "csrc"
+        shutil.rmtree(copy, ignore_errors=True)
+        shutil.copytree(csrc, copy)
+        text = (copy / source).read_text()
+        if text.count(old) != 1:
+            raise AssertionError(f"{name}: {old!r} is not in {source} once")
+        (copy / source).write_text(text.replace(old, new))
+        builds[name] = copy
+    builds["as_built_again"] = csrc
+    build_dir, limit = kernels.BUILD_DIR, kernels.SEG_MAX_TILES
+    for name, src in builds.items():
+        use(src, variants_dir / name.replace("_again", "") / "kernels")
+        segs = segments()
+        for tiles in ((limit, 4096, 1024) if name == "as_built" else (limit,)):
+            kernels.SEG_MAX_TILES = tiles
+            ms = [seg_ms(lambda f=seg.fresh(): kernels.trace_segment(f)) for seg in segs]
+            n_settings = sum(not seg.has_columns for seg in segs)
+            emit({"phase": "trace_segment", "build": name, "seg_max_tiles": tiles, "device_ms": ms,
+                  "settings_ms": sum(ms[:n_settings]), "trace_ms": sum(ms[n_settings:])})
+        kernels.SEG_MAX_TILES = limit
+    use(csrc, build_dir)
+
+
+def profiler_window(kernels, T, pie, settings, dev, emit, windows: int = 4) -> None:
+    """The `profiler_window` lines above."""
+    n = chip_smoke.LAUNCH_BATCH
+    state = torch.zeros(kernels.CHANNEL_WORDS, dtype=torch.int32, device=dev)
+    out = torch.zeros(4, dtype=torch.int32, device=dev)
+    kernels.channel_draw_felt(state, out)
+    for w in range(windows):
+        prove = chip_smoke.Profiled(lambda: T.prove(pie, settings))
+        p = chip_smoke.Profiled(lambda: [kernels.channel_draw_felt(state, out) for _ in range(n)])
+        emit({"phase": "profiler_window", "window": w, "launches": n, "host_records": p.host,
+              "kernel_records": p.count("channel_draw_kernel"), "without_a_device_record": p.lost,
+              "device_lead_us": p.device_lead_us, "prove_host_records": prove.host,
+              "prove_without_a_device_record": prove.lost, "prove_device_lead_us": prove.device_lead_us})
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=str(ROOT))
+    ap.add_argument("--kernels", default="K3,T4,K8,K10", help=f"a comma-separated list from {', '.join(KINDS)}")
+    opts = ap.parse_args()
+    tree = Path(opts.tree).resolve()
+    kinds = opts.kernels.split(",")
+    if not set(kinds) <= set(KINDS):
+        ap.error(f"--kernels: pick from {KINDS}")
+    if not torch.cuda.is_available():
+        print("kernel_timing: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(tree))
+    from luminair_tpu_torch import kernels, tracing
+    from luminair_tpu_torch import prelude as T
+    from luminair_tpu_torch.models import black_scholes as BS
+    from luminair_tpu_torch.pcs import fri
+
+    if Path(kernels.__file__).resolve().parent.parent != tree:
+        raise AssertionError(f"imported {kernels.__file__}, not the tree's")
+    card = chip_smoke.phase_card()
+    kernels.load_all()
+    dev = torch.device("cuda", 0)
+    layer_form = hasattr(fri, "fold_layer")
+    head = {"tree": str(tree), "card": card, "torch": torch.__version__}
+
+    def emit(line):
+        chip_smoke.emit({**head, **line})
+
+    if "T4" in kinds:
+        settings_t4(kernels, T, BS, tracing, emit, layer_form)
+    if "trace_segment" in kinds:
+        trace_segment_variants(kernels, T, BS, tree, emit)
+    if not {"K3", "K8", "K10", "profiler_window"} & set(kinds):
+        return 0
+    cx, _ = chip_smoke.pinn_graph(T, BS)
+    settings = T.gen_circuit_settings(cx)
+    pie = T.gen_trace(cx, settings)
+    if "K3" in kinds:
+        fri_k3(T, fri, pie, settings, dev, emit, layer_form)
+    if "K8" in kinds and hasattr(kernels.CHANNEL, "hosted"):  # the steps' bounds need the latency unit
+        chip_smoke.start_probe(kernels)()
+        chip_smoke.blake2s_latency(dev)
+    if {"K8", "K10"} & set(kinds):
+        channel_pow(kernels, T, tracing, pie, settings, emit, kinds)
+    if "profiler_window" in kinds:
+        profiler_window(kernels, T, pie, settings, dev, emit)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
