@@ -76,10 +76,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      plus one, every kernel call of one prove replayed through kernel and
      twin, K8-K10 timed at the calls this prove made (K8's step as its
      root pass with and without it), one profiled prove;
+  6c. after each path's prove (bench_n256, pinn_b256, pinn_b256_hs) and
+     for all_ops, the verify path: the port's verify on the card (the 80-bit
+     proof held to its profile and 80 bits) with every launch counter set to
+     0 just before the first verify (the preprocessed root's cache cold) and
+     read just after, every plain twin refused: it must accept, launch K1
+     and K2 and nothing else, and recommit the proof's tree-0 root; the
+     median of 3 warm verifies with the spans; the port and native/ (the
+     port's ctypes binding) rejecting the proof with its nonce plus one, a
+     byte of a main-tree opened value flipped and a byte of the preprocessed
+     root flipped; the proof's .npz and JSON files, the settings' JSON and
+     binary files and the card PIE's file (proved again on the card) giving
+     the path's bytes back; the recommit's K1 and K2 calls replayed through
+     kernel and twin; one profiled cold verify (the `verify` line);
   7. the six op graphs (models/op_graphs.py): the card's settings and PIE
      against the host interpreter's, each trace segment and step through
      kernel and twin, and all_ops proved on the card and accepted by the native
-     verifier;
+     verifier (then its verify path, 6c);
   8. the 16x16 graph traced and proved on the card equals, byte for byte,
      the same traced and proved on the CPU, at the default profile and at
      high_security().
@@ -916,24 +929,23 @@ def pie_mismatches(f, card_pie, host_pie) -> list:
 
 
 def native_verify(serde, proof_bytes: bytes, settings, tag: str, expect_accept: bool = True) -> float:
-    """Run native/'s verifier on the proof; it must accept it (or, with
-    expect_accept False, reject it).  Returns its seconds."""
-    os.makedirs(OUT_DIR, exist_ok=True)
-    proof_path = os.path.join(OUT_DIR, f"proof_{tag}.lmv")
-    settings_path = os.path.join(OUT_DIR, f"settings_{tag}.lms")
-    with open(proof_path, "wb") as fh:
-        fh.write(proof_bytes)
-    with open(settings_path, "wb") as fh:
-        fh.write(serde.settings_to_flat_bytes(settings))
-    subprocess.run(["make", "-C", os.path.join(ROOT, "native")], check=True,
-                   capture_output=True, text=True, timeout=600)
+    """Run native/'s verifier on the flat proof through the port's binding
+    (luminair_tpu_torch/native.py; the library is built first, outside the
+    timed call); it must accept it (or, with expect_accept False, reject
+    it).  Returns the seconds of the verify call."""
+    from luminair_tpu_torch import native
+
+    native.build()
+    settings_bytes = serde.settings_to_flat_bytes(settings)
     t0 = time.perf_counter()
-    res = subprocess.run([os.path.join(ROOT, "native", "build", "luminair-verify"), proof_path,
-                          settings_path], capture_output=True, text=True, timeout=600)
+    try:
+        native.verify_flat(proof_bytes, settings_bytes)
+        accepted, why = True, ""
+    except native.NativeVerifierError as e:
+        accepted, why = False, str(e)
     verify_s = time.perf_counter() - t0
-    if (res.returncode == 0) != expect_accept:
-        raise AssertionError(f"{tag}: native verifier {'rejected' if expect_accept else 'accepted'} the proof: "
-                             f"{res.stdout}{res.stderr}")
+    if accepted != expect_accept:
+        raise AssertionError(f"{tag}: native verifier {'rejected' if expect_accept else 'accepted'} the proof {why}")
     return verify_s
 
 
@@ -1065,7 +1077,7 @@ def phase_path(T, kernels, serde, tracing, f, card, tag, build, host, expect, k3
         "self_check": "passed", "host_pie_proof_equal": True,
         "native_verify": "accepted", "native_verify_seconds": verify_s,
     })
-    return launches, pie, settings
+    return launches, pie, settings, proof
 
 
 # The wrappers a path calls: the kernel each launches, its plain twin on
@@ -1640,7 +1652,171 @@ def phase_high_security(T, kernels, serde, tracing, tape, f, card, tag, pie, set
         "native_rejects_nonce_plus_one": True,
     })
     errs, kept = phase_path_kernels(T, kernels, tape, f, tag, lambda: T.prove(pie, settings, cfg), expect)
-    return launches, errs, kept
+    return launches, errs, kept, proof
+
+
+class twins_refused:
+    """While active, every `*_plain` twin (kernels, tape, blake2s) raises:
+    a run inside goes through the kernels and host code alone."""
+
+    def __init__(self, kernels, tape):
+        from luminair_tpu_torch.crypto import blake2s
+
+        self.saved = [(mod, name, getattr(mod, name)) for mod in (kernels, tape, blake2s) for name in dir(mod)
+                      if name.endswith("_plain")]
+
+    @staticmethod
+    def _refuse(name):
+        def twin(*args, **kwargs):
+            raise AssertionError(f"{name} was called")
+
+        return twin
+
+    def __enter__(self):
+        for mod, name, _ in self.saved:
+            setattr(mod, name, self._refuse(name))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+VERIFY_LAUNCHES = {}  # {path: the cold verify's launches} (phase_verify)
+VERIFY_KERNELS = ("circle_fft", "blake2s_merkle")  # the preprocessed recommit's: K1, K2
+VERIFY_WARM = 3
+
+
+def tampered(proof, where: str):
+    """A copy of the proof with its PoW nonce plus one, or one byte flipped
+    in a value the main tree opens, or in the preprocessed root."""
+    import copy
+
+    bad = copy.deepcopy(proof)
+    pcs = bad.pcs_proof
+    if where == "pow_nonce":
+        pcs.pow_nonce += 1
+        pcs.fri_proof.pow_nonce = pcs.pow_nonce
+    elif where == "tree_value":
+        pcs.tree_queried_values[1][0] = pcs.tree_queried_values[1][0].copy()
+        pcs.tree_queried_values[1][0].view(np.uint8)[1] ^= 0x01
+    else:
+        bad.roots[0] = bad.roots[0].copy()
+        bad.roots[0].view(np.uint8)[1] ^= 0x01
+    return bad
+
+
+def file_round_trips(T, serde, tag: str, pie, settings, proof, config, shared_from=None) -> dict:
+    """The proof through its .npz and JSON files, the settings through
+    theirs, the card PIE through its file and a prove on the card: each
+    must give the path's flat bytes.  Files under OUT_DIR; a path that
+    shares its PIE and settings with the path `shared_from` reads that
+    path's PIE and settings files again."""
+    from luminair_tpu_torch.air.settings import CircuitSettings
+
+    d = os.path.join(OUT_DIR, f"files_{tag}")
+    os.makedirs(d, exist_ok=True)
+    pb, sb = serde.proof_to_flat_bytes(proof), serde.settings_to_flat_bytes(settings)
+    path = {k: os.path.join(d, k) for k in ("proof.npz", "proof.json")}
+    d = os.path.join(OUT_DIR, f"files_{shared_from or tag}")
+    path.update({k: os.path.join(d, k) for k in ("settings.json", "settings.bin", "pie.npz")})
+    t0 = time.perf_counter()
+    serde.proof_to_file(proof, path["proof.npz"])
+    serde.proof_to_json_file(proof, path["proof.json"])
+    if shared_from is None:
+        settings.to_json_file(path["settings.json"])
+        settings.to_bin_file(path["settings.bin"])
+        serde.pie_to_file(pie, path["pie.npz"])
+    write_s = time.perf_counter() - t0
+    same = {
+        "proof_npz": serde.proof_to_flat_bytes(serde.proof_from_file(path["proof.npz"])) == pb,
+        "proof_json": serde.proof_to_flat_bytes(serde.proof_from_json_file(path["proof.json"])) == pb,
+        "settings_json": serde.settings_to_flat_bytes(CircuitSettings.from_json_file(path["settings.json"])) == sb,
+        "settings_bin": serde.settings_to_flat_bytes(CircuitSettings.from_bin_file(path["settings.bin"])) == sb,
+    }
+    host_pie = serde.pie_from_file(path["pie.npz"])
+    same["pie_proved_on_card"] = serde.proof_to_flat_bytes(
+        T.prove(host_pie, CircuitSettings.from_bin_file(path["settings.bin"]), config)) == pb
+    if not all(same.values()):
+        raise AssertionError(f"{tag}: a file round trip changed the proof or settings bytes: {same}")
+    return {"files_equal": same, "files_write_seconds": write_s, "files_shared_from": shared_from,
+            "file_bytes": {k: os.path.getsize(v) for k, v in path.items()}}
+
+
+def phase_verify(T, kernels, serde, tracing, tape, f, card, tag, pie, settings, proof, config=None, expected=None,
+                 min_bits: int = 0, shared_from=None):
+    """The path's proof verified on the card through the port's entry point.
+    The first verify (the preprocessed root's cache cold) with every launch
+    counter set to 0 just before it and read just after, and every plain
+    twin refused: it must accept, launch K1 and K2 and nothing else, and
+    recommit the proof's tree-0 root.  Then the median of VERIFY_WARM warm
+    verifies, with their spans; the port and native/ (through the port's
+    binding) must reject the proof with its nonce plus one, a byte of a
+    main-tree opened value flipped, and a byte of the preprocessed root
+    flipped; the files' round trips (file_round_trips); the recommit's kernel calls replayed
+    through kernel and twin; one profiled cold verify.  Returns the replay's
+    {kernel: max_abs_err}."""
+    from luminair_tpu_torch import verifier
+
+    kw = {"expected_config": expected, "min_security_bits": min_bits}
+    verifier._PP_ROOT_CACHE.clear()
+    with twins_refused(kernels, tape):
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = T.verify(proof, settings, **kw)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        launches = kernels.counts()
+    cold_spans = tracing.last_phases("verify")
+    launches["fri_channel_steps_in_root_passes"] = kernels.CHANNEL.hosted
+    VERIFY_LAUNCHES[tag] = launches
+    roots = [r.tolist() for r in verifier._PP_ROOT_CACHE.values()]
+    launched = sorted(k for k in VERIFY_KERNELS if launches[k] > 0)
+    others = {k: v for k, v in launches.items() if v and k not in VERIFY_KERNELS}
+    if ok is not True or launched != sorted(VERIFY_KERNELS) or others or roots != [proof.roots[0].tolist()]:
+        raise AssertionError(f"{tag}: the cold verify returned {ok}, launched {launches}, recommitted {roots}")
+
+    warm_s, warm_spans = [], []
+    for _ in range(VERIFY_WARM):
+        t0 = time.perf_counter()
+        T.verify(proof, settings, **kw)
+        torch.cuda.synchronize()
+        warm_s.append(time.perf_counter() - t0)
+        warm_spans.append(tracing.last_phases("verify"))
+    med = statistics.median(warm_s)
+
+    rejected = {}
+    for where in ("pow_nonce", "tree_value", "root0"):
+        bad = tampered(proof, where)
+        try:
+            T.verify(bad, settings, **kw)
+            raise AssertionError(f"{tag}: the port's verify accepted the proof with {where} tampered")
+        except T.StwoVerifierError as e:
+            rejected[where] = str(e)
+        native_verify(serde, serde.proof_to_flat_bytes(bad), settings, f"{tag}_{where}", expect_accept=False)
+    native_s = native_verify(serde, serde.proof_to_flat_bytes(proof), settings, tag)
+    files = file_round_trips(T, serde, tag, pie, settings, proof, config, shared_from)
+    emit({
+        "phase": "verify", "path": tag, "card": card, "accepted": True,
+        "expected_config": expected.to_dict() if expected is not None else None, "min_security_bits": min_bits,
+        "first_verify_seconds": cold_s, "first_verify_spans_s": cold_spans,
+        "warm_verify_seconds": warm_s, "warm_verify_seconds_median": med,
+        "warm_verify_spans_s": warm_spans[warm_s.index(med)],
+        "native_verify_seconds": native_s, "launches": {k: launches[k] for k in VERIFY_KERNELS},
+        "recommitted_root_equals_proof": True, "twins_called": 0,
+        "port_rejects": rejected, "native_rejects": sorted(rejected), **files,
+    })
+
+    def cold_verify():
+        verifier._PP_ROOT_CACHE.clear()
+        T.verify(proof, settings, **kw)
+
+    errs, kept = phase_path_kernels(T, kernels, tape, f, f"verify_{tag}", cold_verify, VERIFY_KERNELS)
+    del kept
+    phase_profile(f"verify_{tag}", "verify", cold_verify)
+    return errs
 
 
 LAUNCH_BATCH = 100  # profiled launches of a one-thread or one-CTA launch (launch_device_ms)
@@ -1833,7 +2009,8 @@ def phase_op_graphs(T, kernels, serde, tape, f, card):
     and PIE on the card against the host interpreter; every distinct trace
     step replayed through kernel and twin (kernel_check); all_ops proved on
     the card from its card PIE, the same bytes as from its host PIE,
-    accepted by the native verifier."""
+    accepted by the native verifier.  Returns ({kernel: max_abs_err}, the
+    all_ops card PIE, settings and proof)."""
     from luminair_tpu_torch.graph import trace as host
     from luminair_tpu_torch.models import op_graphs
 
@@ -1860,7 +2037,8 @@ def phase_op_graphs(T, kernels, serde, tape, f, card):
         line = {"phase": "op_graph", "graph": name, "tables": sorted(pie.trace_tables),
                 "pie_equals_host": not bad, "settings_bytes_equal_host": same_settings, "outputs_equal_host": same_out}
         if name == "all_ops":
-            pb = serde.proof_to_flat_bytes(T.prove(pie, settings))
+            all_ops = (pie, settings, T.prove(pie, settings))
+            pb = serde.proof_to_flat_bytes(all_ops[2])
             line["host_pie_proof_equal"] = pb == serde.proof_to_flat_bytes(T.prove(hp, hs))
             line["native_verify_seconds"] = native_verify(serde, pb, settings, "all_ops")
         emit(line)
@@ -1875,7 +2053,7 @@ def phase_op_graphs(T, kernels, serde, tape, f, card):
         if row["max_abs_err"] != 0 or not row["shapes"]:
             raise AssertionError(f"{kernel_name}: disagrees with its twin on the op graphs, or never ran")
         errs[kernel_name] = row["max_abs_err"]
-    return errs
+    return errs, all_ops
 
 
 def phase_profile(tag: str, what: str, run):
@@ -1972,8 +2150,10 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     for tag, (build, check) in paths.items():
         host = pinn_host if tag == pinn_tag else host_trace(build)
-        launches[tag], pie, settings = phase_path(T, kernels, serde, tracing, f, card, tag, build, host,
-                                                  expect[tag], k3_limit[tag], check)
+        launches[tag], pie, settings, proof = phase_path(T, kernels, serde, tracing, f, card, tag, build, host,
+                                                         expect[tag], k3_limit[tag], check)
+        path_errs["verify_" + tag] = phase_verify(T, kernels, serde, tracing, tape, f, card, tag, pie, settings, proof)
+        del proof
 
         def settings_trace_prove():
             cx, _ = build()
@@ -1995,9 +2175,17 @@ def main() -> int:
             # The same PIE and settings (the trace does not depend on the
             # PCS profile) at the 80-bit profile.
             torch.cuda.reset_peak_memory_stats()
-            launches[hs_tag], path_errs[hs_tag], kept = phase_high_security(
+            launches[hs_tag], path_errs[hs_tag], kept, proof = phase_high_security(
                 T, kernels, serde, tracing, tape, f, card, hs_tag, pie, settings, host, expect[hs_tag],
                 k3_limit[hs_tag])
+            # The profile, with the last FRI layer where prove() clamps it
+            # for the smallest committed column.
+            profile = T.PcsConfig.high_security()
+            profile.fri.log_last_layer_degree_bound = proof.config.fri.log_last_layer_degree_bound
+            path_errs["verify_" + hs_tag] = phase_verify(T, kernels, serde, tracing, tape, f, card, hs_tag, pie,
+                                                         settings, proof, T.PcsConfig.high_security(), profile, 80,
+                                                         shared_from=pinn_tag)
+            del proof
             ch = channel_steps(kernels, kept)
             rows.update(transcript_kernel_rows(kernels, kept, ch))
             del kept
@@ -2007,9 +2195,13 @@ def main() -> int:
         del host, pie, settings, cx
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    path_errs["op_graphs"] = phase_op_graphs(T, kernels, serde, tape, f, card)
+    path_errs["op_graphs"], (pie, settings, proof) = phase_op_graphs(T, kernels, serde, tape, f, card)
+    path_errs["verify_all_ops"] = phase_verify(T, kernels, serde, tracing, tape, f, card, "all_ops", pie, settings,
+                                               proof)
+    del pie, settings, proof
     phase_parity(T, serde)
 
+    launches.update({"verify_" + tag: c for tag, c in VERIFY_LAUNCHES.items()})
     line = []
     for k in kernels.KERNELS:
         r = rows[k.name]

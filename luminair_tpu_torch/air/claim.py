@@ -27,6 +27,13 @@ class LuminairClaim:
     def max_log_size(self) -> int:
         return max(self.log_sizes.values())
 
+    def to_dict(self):
+        return {k: int(v) for k, v in self.log_sizes.items()}
+
+    @staticmethod
+    def from_dict(d):
+        return LuminairClaim({k: int(v) for k, v in d.items()})
+
 
 @dataclass
 class LuminairInteractionClaim:
@@ -46,3 +53,10 @@ class LuminairInteractionClaim:
     def is_balanced(self) -> bool:
         """The global LogUp sum must vanish."""
         return bool(np.all(self.total() == 0))
+
+    def to_dict(self):
+        return {k: np.asarray(v, dtype=np.uint32).tolist() for k, v in self.sums.items()}
+
+    @staticmethod
+    def from_dict(d):
+        return LuminairInteractionClaim({k: np.asarray(v, dtype=np.uint32) for k, v in d.items()})

@@ -8,6 +8,8 @@ A trace table is column-oriented M31 words in one of two forms:
     storage, padding rows filled when the table was allocated, and
     `columns` views of its first n_rows.  The prover reads `padded` where
     it lies.
+The dict form (`to_dict`, and the PIE file of serde.py) is always the host
+form: uint32 numpy columns, n_rows long, padding left out.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..fields import tensor_to_u32
 from .preprocessed import calculate_log_size
 
 #: padding value per column name (default 0): padding rows must satisfy all
@@ -66,22 +69,62 @@ class TraceTable:
             out[name] = padded
         return out
 
+    def host_columns(self) -> Dict[str, np.ndarray]:
+        """The columns as uint32 numpy words, n_rows long (int32 tensors
+        bit-cast, downloaded when they lie on a device)."""
+        return {k: tensor_to_u32(v) if isinstance(v, torch.Tensor) else np.asarray(v, dtype=np.uint32)
+                for k, v in self.columns.items()}
+
+    def to_dict(self):
+        return {"name": self.name, "columns": {k: v.tolist() for k, v in self.host_columns().items()}}
+
+    @staticmethod
+    def from_dict(d):
+        return TraceTable(d["name"], {k: np.asarray(v, dtype=np.uint32) for k, v in d["columns"].items()})
+
 
 @dataclass
 class ExecutionResources:
     op_counter: Dict[str, int] = field(default_factory=dict)
     max_log_size: int = 0
 
+    def to_dict(self):
+        return {"op_counter": dict(self.op_counter), "max_log_size": self.max_log_size}
+
+    @staticmethod
+    def from_dict(d):
+        return ExecutionResources(dict(d["op_counter"]), int(d["max_log_size"]))
+
 
 @dataclass
 class Metadata:
     execution_resources: ExecutionResources
+
+    def to_dict(self):
+        return {"execution_resources": self.execution_resources.to_dict()}
+
+    @staticmethod
+    def from_dict(d):
+        return Metadata(ExecutionResources.from_dict(d["execution_resources"]))
 
 
 @dataclass
 class LuminairPie:
     trace_tables: Dict[str, TraceTable]
     metadata: Metadata
+
+    def to_dict(self):
+        return {
+            "trace_tables": {k: t.to_dict() for k, t in self.trace_tables.items()},
+            "metadata": self.metadata.to_dict(),
+        }
+
+    @staticmethod
+    def from_dict(d):
+        return LuminairPie(
+            {k: TraceTable.from_dict(t) for k, t in d["trace_tables"].items()},
+            Metadata.from_dict(d["metadata"]),
+        )
 
 
 def pie_from_arrays(

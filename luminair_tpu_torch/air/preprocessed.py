@@ -162,11 +162,39 @@ LUT_FNS = {
 }
 
 
+_SAFE_MAX = float(1 << 62)
+# Tolerance for verifying a shipped LUT table against float64 f(x), in raw
+# fixed units: two steps of absolute slack (0.5 from round-to-fixed plus a
+# full step of generation noise) and a 2^-48 relative term that absorbs
+# cross-libm last-ulp divergence (at most 2 ulps between numpy, glibc and
+# JS Math on the sin/exp2/log2 grids; 2^-48 ~ 16 ulps).  Normative: host
+# float64 only.
+_LUT_TOL_ABS = 2.0
+_LUT_TOL_REL = 2.0 ** -48
+
+
 def lut_reference_outputs(kind: str, values: np.ndarray) -> np.ndarray:
     """The RECOMMENDED generation procedure for the normative output table:
     float64 f over the fixed grid, round-half-even to fixed; this is what
     gen_circuit_settings ships."""
     return fixed.from_float(LUT_FNS[kind](fixed.to_float(values)))
+
+
+def validate_lut_outputs(kind: str, values: np.ndarray, outputs: np.ndarray):
+    """Check a shipped output table approximates f within tolerance, in
+    float64 numpy on the host.  Verifiers run this before trusting settings
+    bytes: the table is part of the public statement, and the check bounds
+    how far a malicious prover can bend "sin"/"exp2"/"log2" (relative error
+    <= ~2^-48 plus one fixed step).  Returns (ok, n_bad)."""
+    outputs = np.asarray(outputs, dtype=np.int64)
+    if len(outputs) != len(values):
+        return False, len(values)
+    ys = LUT_FNS[kind](fixed.to_float(values)) * float(fixed.SCALE_FACTOR)
+    ys = np.nan_to_num(ys, nan=0.0, posinf=_SAFE_MAX, neginf=-_SAFE_MAX)
+    ys = np.clip(ys, -_SAFE_MAX, _SAFE_MAX)
+    tol = _LUT_TOL_ABS + np.abs(ys) * _LUT_TOL_REL
+    bad = np.abs(outputs.astype(np.float64) - ys) > tol
+    return not bool(bad.any()), int(bad.sum())
 
 
 def finalize_lookups(lookups) -> None:

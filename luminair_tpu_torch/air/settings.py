@@ -1,10 +1,13 @@
-"""CircuitSettings: lookup-table layouts shared by prover and verifier."""
+"""CircuitSettings: lookup-table layouts shared by prover and verifier,
+with their JSON and binary (.npz container, serde.py) files."""
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
 from typing import Optional
 
+from ..errors import SerializationError
 from .preprocessed import LookupLayout
 
 
@@ -43,6 +46,29 @@ class CircuitSettings:
     @staticmethod
     def from_dict(d):
         return CircuitSettings(Lookups.from_dict(d["lookups"]))
+
+    def to_json_file(self, path: str):
+        with open(path, "w") as fh:
+            json.dump(self.to_dict(), fh)
+
+    @staticmethod
+    def from_json_file(path: str) -> "CircuitSettings":
+        with open(path) as fh:
+            return CircuitSettings.from_dict(json.load(fh))
+
+    def to_bin_file(self, path: str):
+        from .. import serde
+
+        serde.write_msg_file(path, "settings", self.to_dict())
+
+    @staticmethod
+    def from_bin_file(path: str) -> "CircuitSettings":
+        from .. import serde
+
+        kind, d = serde.read_msg_file(path)
+        if kind != "settings":
+            raise SerializationError(f"expected settings file, got {kind}")
+        return CircuitSettings.from_dict(d)
 
 
 def settings_from_dict(d) -> CircuitSettings:

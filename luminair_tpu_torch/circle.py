@@ -141,6 +141,21 @@ def domain_points(log_size: int):
     return xs, ys
 
 
+def domain_points_at(log_size: int, positions):
+    """(xs, ys) int64 CPU tensors of the rows `positions` of D_log_size
+    alone: (2i+1) * G_{n+1} by double-and-add over the bits of 2i+1,
+    vectorised over the positions (bit b adds G_{n+1-b}).  The verifier's
+    domain points, without the whole domain."""
+    k = 2 * torch.as_tensor(positions, dtype=f.I64).reshape(-1) + 1
+    xs, ys = torch.ones_like(k), torch.zeros_like(k)
+    for b in range(log_size + 1):
+        gx, gy = group_gen(log_size + 1 - b)
+        nx, ny = point_add((xs, ys), (gx, gy))
+        bit = ((k >> b) & 1).bool()
+        xs, ys = torch.where(bit, nx, xs), torch.where(bit, ny, ys)
+    return xs, ys
+
+
 @lru_cache(maxsize=32)
 def fft_twiddles(log_size: int):
     """Forward twiddles per stage: [0] = y of the first N/2 points (circle

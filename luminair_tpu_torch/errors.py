@@ -20,3 +20,11 @@ class KernelError(LuminairError):
 
 class SerializationError(LuminairError):
     pass
+
+
+class StwoVerifierError(LuminairError):
+    """Low-level STARK verification failed."""
+
+
+class InvalidLogUpError(LuminairError):
+    """Global LogUp sum != 0."""

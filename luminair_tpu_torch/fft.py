@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from . import circle
 from . import fields as f
 from . import kernels
 
@@ -94,3 +95,19 @@ def line_ifft_qm31(values: torch.Tensor, twiddles_inv) -> torch.Tensor:
         m //= 2
         stage += 1
     return a
+
+
+def line_eval_at_x(coeffs: torch.Tensor, x) -> torch.Tensor:
+    """Evaluate line coefficients (L, 4) (the basis of `line_ifft_qm31`:
+    MSB..LSB = [x, pi(x), ...]) at M31 x-coordinates `x` (a scalar or a
+    tensor of them): (..., 4) int64 on the host."""
+    x = f.host_i64(x)
+    L = coeffs.shape[-2]
+    ts = []
+    for _ in range(L.bit_length() - 1):
+        ts.append(circle.pi_x(ts[-1]) if ts else x)
+    a = f.host_i64(coeffs).expand(x.shape + (L, 4))
+    for t in reversed(ts):
+        a = a.reshape(x.shape + (a.shape[-2] // 2, 2, 4))
+        a = f.add(a[..., 0, :], f.mul(a[..., 1, :], t[..., None, None]))
+    return a[..., 0, :]

@@ -46,6 +46,14 @@ def tensor_to_u32(t: torch.Tensor) -> np.ndarray:
     return np.ascontiguousarray(t.to(I32).numpy()).view(np.uint32)
 
 
+def host_i64(a) -> torch.Tensor:
+    """Words (a uint32 numpy array or sequence) or an int64 tensor as an
+    int64 CPU tensor of their values."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().to(I64)
+    return torch.from_numpy(np.asarray(a, dtype=np.uint32).astype(np.int64))
+
+
 def upload(a: np.ndarray, device) -> torch.Tensor:
     """One host-to-device copy of a numpy array: pinned and asynchronous on
     the card (stream-ordered before the kernels launched after it)."""

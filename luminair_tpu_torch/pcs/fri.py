@@ -1,4 +1,5 @@
-"""Circle FRI, prover side: commit, fold, decommit.
+"""Circle FRI: commit, fold, decommit (prover) and replay, check
+(verifier).
 
 Inputs are QM31 DEEP-quotient evaluations on canonic circle domains of
 mixed sizes (one per committed column log size).  The protocol (the
@@ -30,6 +31,12 @@ authoritative, replays the roots and must reach the same challenges and
 state, or the prove raises ProverError.  The chain runs
 down to the last layer: the reference's host tail below FUSED_MIN_ROWS is
 a TPU-dispatch heuristic with the same transcript.
+
+The verifier's half (`fri_replay`, `fri_check_queries`) runs on the host:
+the transcript through the hashlib channel, the folds at the drawn queries
+only, exact M31/QM31 arithmetic on int64 CPU tensors, the layers' Merkle
+paths through hashlib (crypto/merkle.verify_decommitment), and the fold
+twiddles of the queried positions alone (circle.domain_points_at).
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ from .. import circle
 from .. import fields as f
 from .. import fft
 from .. import kernels
-from ..crypto.merkle import MerkleTree, open_trees
+from ..crypto.merkle import MerkleTree, open_trees, verify_decommitment
 from ..errors import ProverError
 from .config import FriConfig
 
@@ -275,3 +282,141 @@ def needed_input_positions(drawn_positions, input_logs, fri_config) -> Dict[int,
         pos = sets[-1]
         cur_log -= fl
     return need
+
+
+# ---------------------------------------------------------------------------
+# Verifier.
+
+
+def fri_replay(proof: FriProof, config: FriConfig, channel, input_logs: List[int]):
+    """Replay the FRI transcript (roots, last-layer coefficients) on the
+    channel; (alpha0, alphas) as uint32 words, or None on a structural
+    mismatch."""
+    logs = sorted(input_logs, reverse=True)
+    kmax = logs[0]
+    last_line_log = config.log_blowup_factor + config.log_last_layer_degree_bound
+    # Soundness: the fold chain must reach every input's line level
+    # (circle_log - 1).  input_logs come from the trusted claim and
+    # settings, the config from the untrusted proof: with a last layer above
+    # the smallest input's line level, that input would never join FRI and
+    # its committed columns would stay unbound.
+    if last_line_log > min(logs) - 1:
+        return None
+
+    F = max(1, int(config.folds_per_layer))
+    alpha0 = channel.draw_felt()
+    alphas = []
+    cur_log = kmax - 1
+    while cur_log > last_line_log:
+        if len(alphas) >= len(proof.layer_roots):
+            return None
+        channel.mix_root(proof.layer_roots[len(alphas)])
+        alphas.append(channel.draw_felt())
+        cur_log -= min(F, cur_log - last_line_log)
+    if len(proof.layer_roots) != len(alphas):
+        return None
+    if len(proof.last_layer_coeffs) != 1 << config.log_last_layer_degree_bound:
+        return None
+    channel.mix_felts(proof.last_layer_coeffs)
+    return alpha0, alphas
+
+
+def fri_verify(proof: FriProof, config: FriConfig, channel, query_eval_fn, input_logs: List[int], positions) -> bool:
+    """Replay and check in one call (the PCS runs the two around the PoW
+    and the query draw)."""
+    replay = fri_replay(proof, config, channel, input_logs)
+    if replay is None:
+        return False
+    alpha0, alphas = replay
+    return fri_check_queries(proof, config, alpha0, alphas, query_eval_fn, input_logs, positions)
+
+
+def line_twiddles_at(line_log: int, positions) -> torch.Tensor:
+    """x of the line domain of size 2^line_log at `positions`: the x of
+    rows `positions` of D_(line_log + 1) (int64)."""
+    return circle.domain_points_at(line_log + 1, positions)[0]
+
+
+def _fold(v_p: torch.Tensor, v_sib: torch.Tensor, twiddle: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """E + alpha O with E = (v_p + v_sib) / 2, O = (v_p - v_sib) / (2 t)."""
+    e = f.mul(f.add(v_p, v_sib), f.INV2)
+    o = f.qm31_mul_m31(f.mul(f.sub(v_p, v_sib), f.INV2), f.inv(twiddle))
+    return f.add(e, f.qm31_mul(alpha, o))
+
+
+def fri_check_queries(proof: FriProof, config: FriConfig, alpha0, alphas, query_eval_fn, input_logs: List[int],
+                      positions) -> bool:
+    """The FRI check at the drawn query positions.
+
+    query_eval_fn(circle_log, positions) -> (k, 4) QM31 values of the FRI
+    input (the verifier's DEEP quotients) at an int64 position array.  Per
+    committed layer: its opening's Merkle path, the carried values against
+    the opened ones, then its folds at the positions they reach, smaller
+    inputs joining scaled by the square of the fold's challenge; at the
+    end, the carried values against the last layer's polynomial."""
+    logs = sorted(input_logs, reverse=True)
+    kmax = logs[0]
+    B = config.log_blowup_factor
+    last_line_log = B + config.log_last_layer_degree_bound
+    alpha0 = f.host_i64(alpha0)
+
+    def circle_fold_at(circle_log, pos):
+        n = 1 << circle_log
+        i = np.minimum(pos, n - 1 - pos)
+        v_i = f.host_i64(query_eval_fn(circle_log, i))
+        v_sib = f.host_i64(query_eval_fn(circle_log, n - 1 - i))
+        return _fold(v_i, v_sib, circle.domain_points_at(circle_log, i)[1], alpha0)
+
+    def lookup(sorted_pos, vals, targets):
+        """The rows of `vals` at `targets`; None if one is not opened."""
+        idx = np.searchsorted(sorted_pos, targets)
+        if np.any(idx >= len(sorted_pos)) or np.any(sorted_pos[np.minimum(idx, len(sorted_pos) - 1)] != targets):
+            return None
+        return vals[torch.from_numpy(idx)]
+
+    n0 = 1 << kmax
+    pos = np.asarray(positions, dtype=np.int64)
+    pend_pos = np.unique(np.minimum(pos, n0 - 1 - pos))  # line level kmax - 1
+    pend_vals = circle_fold_at(kmax, pend_pos)
+
+    cur_line_log = kmax - 1
+    F = max(1, int(config.folds_per_layer))
+    layer = 0
+    while cur_line_log > last_line_log:
+        log = cur_line_log
+        folds = min(F, log - last_line_log)
+        sets = fold_position_sets(pend_pos, log, folds)
+        vals, wit = proof.layer_queried_values[layer], proof.layer_witnesses[layer]
+        if not verify_decommitment(proof.layer_roots[layer], [log] * 4, {log: sets[0]}, vals, wit):
+            return False
+        cur_pos = sets[0]
+        cur_vals = torch.stack([f.host_i64(vals[c]) for c in range(4)], dim=-1)
+        carried = lookup(cur_pos, cur_vals, pend_pos)
+        if carried is None or not torch.equal(carried, pend_vals):
+            return False
+        beta = f.host_i64(alphas[layer])
+        for t in range(folds):
+            lvl = log - t  # the level folded, of size 2^lvl
+            nxt_pos = sets[t + 1]
+            v_p = lookup(cur_pos, cur_vals, nxt_pos)
+            v_sib = lookup(cur_pos, cur_vals, (1 << lvl) - 1 - nxt_pos)
+            if v_p is None or v_sib is None:
+                return False
+            # Swapping p and its sibling negates both the numerator and the
+            # x twiddle, so p's own x serves.
+            cur_vals = _fold(v_p, v_sib, line_twiddles_at(lvl, nxt_pos), beta)
+            cur_pos = nxt_pos
+            # An input of circle log lvl joins at line level lvl - 1,
+            # scaled by the square of the challenge just applied.
+            if lvl in logs and lvl != kmax:
+                cur_vals = f.add(cur_vals, f.qm31_mul(f.qm31_mul(beta, beta), circle_fold_at(lvl, cur_pos)))
+            beta = f.qm31_mul(beta, beta)
+        pend_pos, pend_vals = cur_pos, cur_vals
+        cur_line_log -= folds
+        layer += 1
+
+    # The last layer: its strided coefficients at the carried positions.
+    coeffs = torch.zeros((1 << last_line_log, 4), dtype=f.I64)
+    coeffs[:: 1 << B] = f.host_i64(proof.last_layer_coeffs)
+    expect = fft.line_eval_at_x(coeffs, line_twiddles_at(last_line_log, pend_pos))
+    return bool(torch.equal(expect, pend_vals))

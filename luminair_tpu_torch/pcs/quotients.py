@@ -1,5 +1,5 @@
 """DEEP quotients: reduce "column c opened at point z with value v" claims
-to a FRI low-degree claim (prover side).
+to a FRI low-degree claim.
 
 For committed columns with M31 coefficients, the quotient for a sample
 (z, v) divides by the line through z and conj(z) (the Gal(QM31/CM31)
@@ -13,7 +13,11 @@ The per-group constants are host work on CPU (S, 4) tensors; every
 of the DEEP-quotient kernel (kernels.deep_quotient_many, K4).  Because a
 sample point lies off the base field, A, B and C below lie in u * CM31: the
 line is L = u * d with d a CM31 value affine in the row's (x, y), which K4
-inverts in the base field's tower (csrc/quotient.cuh)."""
+inverts in the base field's tower (csrc/quotient.cuh).
+
+The verifier evaluates the same quotients at the opened positions only, on
+the host (`quotients_at_positions`): the groups' constants from
+`quotient_groups`, the denominators inverted in one batch."""
 
 from __future__ import annotations
 
@@ -109,3 +113,30 @@ def accumulate_quotients(
         plan = kernels.QuotientPlan(groups)
     with timer.span("3b_quotients.launch"):
         return kernels.deep_quotient_many(plan)
+
+
+def quotients_at_positions(
+    samples: List[ColumnSample],
+    opened: Dict[Tuple[int, int], torch.Tensor],
+    gamma,
+    domains: Dict[int, tuple],
+) -> Dict[int, torch.Tensor]:
+    """The verifier's quotients, on the host: {commit_log: (m, 4) int64}
+    at the m positions of `domains[log]` = (xs, ys) (int64 tensors), from
+    `opened` = {(tree, col): (m,) int64 values of the column there}.  Each
+    group's denominator A x - B y + C, numerator sum_i g_i c_i - acc_a x -
+    acc_c0; every group's denominators inverted in one batch."""
+    groups = quotient_groups(samples, opened, f.host_i64(gamma))
+    dens, nums = [], []
+    for log, cols, gp, consts in groups:
+        xs, ys = domains[log]
+        A, B, C, acc_a, acc_c0 = torch.from_numpy(consts)
+        dens.append(f.add(f.sub(f.qm31_mul_m31(A, xs), f.qm31_mul_m31(B, ys)), C))
+        g_c = (torch.from_numpy(gp)[:, None, :] * torch.stack(cols)[:, :, None]) % f.P
+        nums.append(f.sub(f.sub(g_c.sum(0) % f.P, f.qm31_mul_m31(acc_a, xs)), acc_c0))
+    inv = f.qm31_inv(torch.cat(dens)).split([len(d) for d in dens])
+    out: Dict[int, torch.Tensor] = {}
+    for (log, *_), num, d_inv in zip(groups, nums, inv):
+        q = f.qm31_mul(num, d_inv)
+        out[log] = f.add(out[log], q) if log in out else q
+    return out

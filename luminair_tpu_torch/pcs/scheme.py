@@ -1,5 +1,5 @@
-"""Commitment scheme, prover side: multi-tree column commitments and their
-opening through DEEP quotients and FRI.
+"""Commitment scheme: multi-tree column commitments and their opening
+through DEEP quotients and FRI, prover and verifier.
 
   commit phase:   per tree: LDE columns -> Merkle -> mix root
   opening phase:  OODS values -> mix -> draw gamma -> quotients -> FRI ->
@@ -9,6 +9,12 @@ FRI commits on the card with its channel there (pcs/fri.py, K8); the PoW
 nonce is searched on the card (kernels.grind_pow, K10); the opening of
 the FRI layers and the trees is one decommitment pass: one upload, one
 launch of K9 and one download.
+
+The verifier (`CommitmentSchemeVerifier`) replays the transcript from the
+proof and checks the openings at the drawn queries on the host: Merkle
+paths through hashlib, quotients at the opened positions, FRI folds at the
+queries.  Only the preprocessed tree's recommit (verifier.py) runs on the
+card.
 
 The transcript choreography is the reference package's pcs/scheme.py.
 """
@@ -25,11 +31,12 @@ from .. import fields as f
 from .. import fft
 from .. import kernels
 from .. import tracing
-from ..crypto.merkle import MerkleTree, open_trees
+from .. import circle
+from ..crypto.merkle import MerkleTree, computed_positions, open_trees, verify_decommitment
 from ..errors import ProverError
 from . import fri as fri_mod
 from .config import PcsConfig
-from .quotients import ColumnSample, accumulate_quotients
+from .quotients import ColumnSample, accumulate_quotients, quotients_at_positions
 
 
 @dataclass
@@ -167,3 +174,83 @@ class CommitmentSchemeProver:
             tree_queried_values=[v for v, _ in opened],
             tree_witnesses=[w for _, w in opened],
         )
+
+
+class CommitmentSchemeVerifier:
+    def __init__(self, config: PcsConfig, channel):
+        self.config = config
+        self.channel = channel
+        self.roots: List[np.ndarray] = []
+        self.tree_trace_logs: List[List[int]] = []
+
+    def commit(self, root, column_trace_logs: List[int]):
+        self.channel.mix_root(root)
+        self.roots.append(np.asarray(root, dtype=np.uint32))
+        self.tree_trace_logs.append(list(column_trace_logs))
+
+    def verify_values(self, sample_points, proof: PcsProof) -> bool:
+        """Check the proof's openings of the committed trees at
+        `sample_points` ([tree][col] -> list of QM31 points); False at the
+        first check that fails."""
+        ch = self.channel
+        B = self.config.log_blowup
+        # 1. The claimed sampled values (shapes against the points), mixed.
+        samples: List[ColumnSample] = []
+        for t, tree_pts in enumerate(sample_points):
+            if len(proof.sampled_values[t]) != len(tree_pts):
+                return False
+            for c, pts in enumerate(tree_pts):
+                vals = proof.sampled_values[t][c]
+                if len(vals) != len(pts):
+                    return False
+                for pt, v in zip(pts, vals):
+                    samples.append(ColumnSample(self.tree_trace_logs[t][c] + B, t, c, pt,
+                                                np.asarray(v, dtype=np.uint32)))
+        for tree_vals in proof.sampled_values:
+            for col_vals in tree_vals:
+                for v in col_vals:
+                    ch.mix_felts(np.asarray(v, dtype=np.uint32))
+
+        gamma = ch.draw_felt()
+        input_logs = sorted({s.commit_log for s in samples}, reverse=True)
+        kmax = input_logs[0]
+
+        # 2. The FRI commitments (structure and channel).
+        replay = fri_mod.fri_replay(proof.fri_proof, self.config.fri, ch, input_logs)
+        if replay is None:
+            return False
+        alpha0, alphas = replay
+
+        # 3. PoW and queries.
+        if not ch.check_pow_nonce(self.config.pow_bits, proof.pow_nonce):
+            return False
+        ch.mix_u64(proof.pow_nonce)
+        positions = ch.draw_queries(self.config.fri.n_queries, kmax)
+
+        # 4. The trees' openings; the opened values at the needed positions.
+        need = fri_mod.needed_input_positions(positions, input_logs, self.config.fri)
+        opened: Dict[tuple, torch.Tensor] = {}
+        for t, logs in enumerate(self.tree_trace_logs):
+            commit_logs = [l + B for l in logs]
+            queries = {log: need[log] for log in set(commit_logs) if log in need}
+            values, witness = proof.tree_queried_values[t], proof.tree_witnesses[t]
+            if not verify_decommitment(self.roots[t], commit_logs, queries, values, witness):
+                return False
+            comp = computed_positions(commit_logs, queries)
+            # Values come logs descending, commitment order within a log.
+            vi = iter(values)
+            for log in sorted(set(commit_logs), reverse=True):
+                at = torch.from_numpy(np.searchsorted(comp[log], need[log]))
+                for c in [i for i, cl in enumerate(commit_logs) if cl == log]:
+                    opened[(t, c)] = f.host_i64(next(vi))[at]
+
+        # 5. The quotients at the needed positions, then FRI at the queries.
+        domains = {log: circle.domain_points_at(log, pos) for log, pos in need.items()}
+        quots = quotients_at_positions(samples, opened, gamma, domains)
+
+        def query_eval(circle_log, pos):
+            at = np.searchsorted(need[circle_log], np.asarray(pos, dtype=np.int64))
+            return quots[circle_log][torch.from_numpy(at)]
+
+        return fri_mod.fri_check_queries(proof.fri_proof, self.config.fri, alpha0, alphas, query_eval, input_logs,
+                                         positions)

@@ -10,6 +10,7 @@
     settings = gen_circuit_settings(cx)   # on the CUDA device
     pie = gen_trace(cx, settings)         # columns born on the card
     proof = prove(pie, settings)          # reads them where they lie
+    verify(proof, settings)               # recommits the preprocessed tree there
 
 Each entry point takes device="cpu" to run on the CPU instead.
 """
@@ -20,7 +21,15 @@ from .air.pie import LuminairPie
 from .air.settings import CircuitSettings
 from .pcs.config import FriConfig, PcsConfig
 from .prover import LuminairProof, prove
-from .errors import EmptyTraceError, KernelError, LuminairError, ProverError
+from .verifier import verify
+from .errors import (
+    EmptyTraceError,
+    InvalidLogUpError,
+    KernelError,
+    LuminairError,
+    ProverError,
+    StwoVerifierError,
+)
 
 __all__ = [
     "Graph",
@@ -34,8 +43,11 @@ __all__ = [
     "PcsConfig",
     "LuminairProof",
     "prove",
+    "verify",
     "EmptyTraceError",
+    "InvalidLogUpError",
     "KernelError",
     "LuminairError",
     "ProverError",
+    "StwoVerifierError",
 ]

@@ -4,6 +4,8 @@ Replays the Fiat-Shamir transcript from the proof's own roots (no tree
 recomputation) and checks the composition identity at the OODS point: the
 composition polynomial's sampled value must equal the constraint quotients
 recombined from the sampled trace values.  Host-side, on (4,) CPU tensors.
+The verifier (verifier.py) checks the same identity with
+`composition_oods_matches`.
 """
 
 from __future__ import annotations

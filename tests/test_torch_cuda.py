@@ -393,6 +393,41 @@ def test_prove_path_never_takes_a_plain_twin(dev, monkeypatch):
     assert kernels.DEEP_QUOTIENT.launches == 1
 
 
+def test_verify_on_the_card_recommits_through_the_kernels(dev, monkeypatch):
+    """A verify of an N=16 proof on the card: the preprocessed recommit
+    launches K1 and K2 and its root is the proof's; no `*_plain` twin is
+    called at all (the query-side checks are host code of the verifier)."""
+    from luminair_tpu_torch import prelude as T
+    from luminair_tpu_torch import verifier
+    from luminair_tpu_torch.crypto import blake2s
+
+    cx = T.Graph()
+    rng = np.random.default_rng(0)
+    a = cx.tensor((16, 16)).set(rng.normal(size=(16, 16)))
+    b = cx.tensor((16, 16)).set(rng.normal(size=(16, 16)))
+    (a * b + a).retrieve()
+    cx.compile()
+    settings = T.gen_circuit_settings(cx, device=dev)
+    proof = T.prove(T.gen_trace(cx, settings, device=dev), settings, device=dev)
+
+    def refuse(name):
+        def twin(*args, **kwargs):
+            raise AssertionError(f"the verify called {name}")
+
+        return twin
+
+    for mod in (kernels, tape, blake2s):
+        for name in [n for n in dir(mod) if n.endswith("_plain")]:
+            monkeypatch.setattr(mod, name, refuse(name))
+    verifier._PP_ROOT_CACHE.clear()
+    kernels.reset_counts()
+    assert T.verify(proof, settings) is True
+    counts = kernels.counts()
+    assert counts["circle_fft"] > 0 and counts["blake2s_merkle"] > 0, counts
+    assert {k for k, v in counts.items() if v} == {"circle_fft", "blake2s_merkle"}, counts
+    assert [np.asarray(r).tolist() for r in verifier._PP_ROOT_CACHE.values()] == [proof.roots[0].tolist()]
+
+
 def _check_fri_launches(proof):
     """K8 launched once, for alpha0, and its step run once per committed
     FRI layer in the layer's root pass; K3 once for the largest input's

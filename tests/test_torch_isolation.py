@@ -61,6 +61,19 @@ def test_prove_defaults_to_cuda():
         prove(pie, CircuitSettings(), device="cuda")
 
 
+def test_verify_defaults_to_cuda():
+    from luminair_tpu_torch.air.settings import CircuitSettings
+    from luminair_tpu_torch.errors import ProverError
+    from luminair_tpu_torch.verifier import verify
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    with pytest.raises(ProverError, match="no CUDA device"):
+        verify(None, CircuitSettings())
+    with pytest.raises(ProverError, match="no CUDA device"):
+        verify(None, CircuitSettings(), device="cuda")
+
+
 def test_kernel_wrappers_reject_unsupported_tensors():
     from luminair_tpu_torch import kernels
     from luminair_tpu_torch.errors import KernelError

@@ -94,15 +94,9 @@ def test_proof_bytes_match_reference(pinn):
     assert serde.settings_to_flat_bytes(settings) == ref_serde.settings_to_flat_bytes(ref_settings)
 
 
-def _payload(proof) -> dict:
-    from tests.test_torch_prove import _payload as payload
-
-    return payload(proof)
-
-
 def test_reference_verifier_accepts_and_rejects(pinn):
     _, ref_settings, _, _, _, proof, *_ = pinn
-    payload = _payload(proof)
+    payload = serde.proof_to_payload(proof)
     assert ref_verify(ref_serde.proof_from_payload(payload), ref_settings)
     bad = copy.deepcopy(payload)
     bad["pcs"]["sampled_values"][1][0][0].view(np.uint8)[1] ^= 0x01
@@ -135,7 +129,7 @@ def test_high_security_verifies_at_80_bits_and_binds_the_nonce(pinn, pinn_hs):
     this network's smallest committed column -- and rejects it with the
     PoW nonce plus one."""
     ref_settings = pinn[1]
-    payload = _payload(pinn_hs[1])
+    payload = serde.proof_to_payload(pinn_hs[1])
     profile = R.PcsConfig.high_security()
     profile.fri.log_last_layer_degree_bound = 3
     assert ref_verify(ref_serde.proof_from_payload(payload), ref_settings,

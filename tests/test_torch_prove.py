@@ -1,6 +1,6 @@
 """End to end: the a*b + a bench graph through luminair_tpu_torch on the CPU,
 byte for byte against the reference package's host proof, accepted by the
-reference verifier."""
+reference verifier and by the port's."""
 
 import copy
 
@@ -89,31 +89,6 @@ def test_proof_bytes_match_reference(reference, n, log_blowup):
     assert serde.settings_to_flat_bytes(settings) == ref_serde.settings_to_flat_bytes(reference[(n, 1)][1])
 
 
-def _payload(proof) -> dict:
-    """The port's proof in the reference's plain payload form
-    (luminair_tpu.serde.proof_from_payload reads it)."""
-    p, fp = proof.pcs_proof, proof.pcs_proof.fri_proof
-    return {
-        "claim": dict(proof.claim.log_sizes),
-        "interaction_claim": {k: np.asarray(v).tolist() for k, v in proof.interaction_claim.sums.items()},
-        "roots": list(proof.roots),
-        "config": proof.config.to_dict(),
-        "pcs": {
-            "sampled_values": p.sampled_values,
-            "pow_nonce": p.pow_nonce,
-            "tree_queried_values": p.tree_queried_values,
-            "tree_witnesses": p.tree_witnesses,
-            "fri": {
-                "layer_roots": fp.layer_roots,
-                "layer_queried_values": fp.layer_queried_values,
-                "layer_witnesses": fp.layer_witnesses,
-                "last_layer_coeffs": fp.last_layer_coeffs,
-                "pow_nonce": fp.pow_nonce,
-            },
-        },
-    }
-
-
 def _port_proof_from_reference_pie(reference, n, log_blowup):
     ref_pie, ref_settings = reference[(n, log_blowup)][:2]
     pie = pie_from_arrays(
@@ -126,16 +101,19 @@ def _port_proof_from_reference_pie(reference, n, log_blowup):
 
 @pytest.mark.parametrize("n,log_blowup", CASES)
 def test_reference_verifier_accepts_port_proof(reference, n, log_blowup):
+    """The port's proof, accepted by the reference verifier (through the
+    payload) and by the port's."""
     proof = _port_proof_from_reference_pie(reference, n, log_blowup)
     assert serde.proof_to_flat_bytes(proof) == reference[(n, log_blowup)][3]
-    ref_proof = ref_serde.proof_from_payload(_payload(proof))
+    ref_proof = ref_serde.proof_from_payload(serde.proof_to_payload(proof))
     assert ref_verify(ref_proof, reference[(n, log_blowup)][1])
+    assert T.verify(proof, settings_from_dict(reference[(n, log_blowup)][1].to_dict()), device="cpu")
 
 
 @pytest.mark.parametrize("where", ["sampled_value", "queried_value", "fri_root"])
 def test_tampered_port_proof_is_rejected(reference, where):
     proof = _port_proof_from_reference_pie(reference, 8, 1)
-    payload = copy.deepcopy(_payload(proof))
+    payload = copy.deepcopy(serde.proof_to_payload(proof))
     pcs = payload["pcs"]
     if where == "sampled_value":
         target = pcs["sampled_values"][1][3][0]
@@ -146,6 +124,8 @@ def test_tampered_port_proof_is_rejected(reference, where):
     target.view(np.uint8)[1] ^= 0x01  # one byte
     with pytest.raises(RefLuminairError):
         ref_verify(ref_serde.proof_from_payload(payload), reference[(8, 1)][1])
+    with pytest.raises(T.StwoVerifierError):
+        T.verify(serde.proof_from_payload(payload), settings_from_dict(reference[(8, 1)][1].to_dict()), device="cpu")
 
 
 HS_BLOWUPS = [1, 2]
@@ -177,7 +157,7 @@ def test_high_security_proof_matches_reference_and_verifies(reference, reference
                     device="cpu")
     assert serde.proof_to_flat_bytes(proof) == reference_hs[log_blowup]
     ref_settings = reference[(8, 1)][1]
-    payload = _payload(proof)
+    payload = serde.proof_to_payload(proof)
     assert ref_verify(ref_serde.proof_from_payload(payload), ref_settings,
                       expected_config=R.PcsConfig.high_security(log_blowup), min_security_bits=80)
     bad = copy.deepcopy(payload)

@@ -31,7 +31,6 @@ from luminair_tpu_torch.models import black_scholes as bs
 from luminair_tpu_torch.models import op_graphs
 from tests import test_device_trace as ref_graphs
 from tests.test_torch_pinn import XS, _reference_graph, _small_weights
-from tests.test_torch_prove import _payload
 
 CPU = torch.device("cpu")
 
@@ -149,7 +148,7 @@ def test_all_ops_proof_matches_reference(traced):
         accel.enable(was)
     proof = T.prove(pp, ps, config(T), device="cpu")
     assert serde.proof_to_flat_bytes(proof) == ref_bytes
-    assert ref_verify(ref_serde.proof_from_payload(_payload(proof)), rs)
+    assert ref_verify(ref_serde.proof_from_payload(serde.proof_to_payload(proof)), rs)
 
 
 # ---------------------------------------------------------------------------
