@@ -5,7 +5,7 @@
 
 Phases, one JSON line each; any failure raises and exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build the thirteen kernels from luminair_tpu_torch/csrc (nvcc,
+  2. build the fourteen kernels from luminair_tpu_torch/csrc (nvcc,
      sm_90a, one process per source, all at once), with ptxas' register
      and spill report;
   3. the black-scholes PINN's settings and trace on the host interpreter
@@ -16,8 +16,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      constants come from sample points (the N=256 prove's five groups in
      one call, three points at one log, a line through a domain row, logs
      below a CTA), K2 on whole trees at the sides of its tile (2^10 nodes),
-     K5/K6 on the tape of every PINN component at its batch-256 trace and
-     commit sizes, K7 at the PINN's OODS groups, alone and in one call,
+     K5/K6 and the check (air_check) on the tape of every PINN component
+     at its batch-256 trace and commit sizes, K7 at the PINN's OODS groups, alone and in one call,
      and at groups below and above a chunk, K3's layer launch at the N=256
      prove's shapes and at the PINN's 2^23 circle fold and first committed
      layer, K8's step in K2's root pass on random channel states (FRI
@@ -89,10 +89,28 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      binary files and the card PIE's file (proved again on the card) giving
      the path's bytes back; the recommit's K1 and K2 calls replayed through
      kernel and twin; one profiled cold verify (the `verify` line);
+  6d. the PINN's card PIE proved at log blowup 2 (path pinn_b256_b2: commit
+     domains up to 2^23): launches of the first prove, the median of 3, the
+     host PIE's proof the same bytes, native/ accepting it, peak device
+     memory beside blowup 1's;
+  6e. check_pie_constraints (air/debug.py) on the PINN's card PIE (phase
+     debug): empty, K5 and air_check the only launches of the first call
+     (counters reset just before it, read just after), its seconds cold and
+     warm; mul.out changed at row 3 names constraint 1 of mul at row 3
+     alone; every air_check call of a run through kernel and twin;
   7. the six op graphs (models/op_graphs.py): the card's settings and PIE
      against the host interpreter's, each trace segment and step through
      kernel and twin, and all_ops proved on the card and accepted by the native
-     verifier (then its verify path, 6c);
+     verifier (then its verify path, 6c); then every op graph proved from
+     its card PIE at log blowups 1-4 (phase op_graph_blowup): the same bytes
+     as the card's proof of the host PIE and (but for all_ops and mlp at 3-4)
+     as the port's CPU proof, accepted by the port's verify and native/;
+     check_pie_constraints on every op graph's card PIE (empty) and on
+     twelve card PIEs with one cell changed, each the same dict as the
+     port's check on the CPU, every air_check call through kernel and twin;
+  7b. the three port examples (examples/torch_*.py), each main() on the
+     card (phase example): its printed lines, seconds and launches; each
+     passes its own assertions, and examples/out/ keeps its bytes;
   8. the 16x16 graph traced and proved on the card equals, byte for byte,
      the same traced and proved on the CPU, at the default profile and at
      high_security().
@@ -173,7 +191,7 @@ PORT_KERNEL_NAMES = (
     "deep_quotient_kernel", "air_witness_kernel", "scan_tile", "air_domain_kernel",
     "oods_partial_kernel", "oods_combine_kernel", "channel_draw_kernel",
     "decommit_kernel", "grind_pow_kernel", "trace_segment_kernel", "trace_reduce_kernel",
-    "lut_boundary_kernel",
+    "lut_boundary_kernel", "air_check_kernel",
 )
 
 
@@ -201,6 +219,18 @@ def domain_row_ops(tp, log_trace: int) -> int:
         + tp.n_relations * (OPS_DENOM + 2 * OPS_QMUL + 16 * OPS_ADD)
         + 8 * OPS_ADD + 4 * OPS_MUL
         + (log_trace - 1) * (OPS_MUL + 2 * OPS_ADD) + OPS_INV + 4 * OPS_MUL
+    )
+
+
+def check_row_ops(tp) -> int:
+    """air_check per trace row: the tape, a compare per recorded constraint,
+    per entry a denominator, a QM31 product, the differences and a compare
+    of four coordinates; the last entry's previous row and is_first times
+    the claimed sum."""
+    return (
+        tape_ops(tp) + tp.n_constraints
+        + tp.n_relations * (OPS_DENOM + OPS_QMUL + 8 * OPS_ADD + 4)
+        + 8 * OPS_ADD + 4 * OPS_MUL
     )
 
 
@@ -747,14 +777,14 @@ def transcript_kernels(kernels, f, dev, rng, rnd, check):
 
 
 def tape_kernels(kernels, f, dev, pinn_logs, rng, rnd, check):
-    """K5 and K6 on the tape of every PINN component at its batch-256 trace
-    size (2^n rows) and commit size (2^(n+1) rows, blowup 1); timed on mul,
-    the largest (2^21 and 2^22 rows)."""
+    """K5, K6 and the check on the tape of every PINN component at its
+    batch-256 trace size (2^n rows; K6 at its commit size, 2^(n+1) rows,
+    blowup 1); timed on mul, the largest (2^21 and 2^22 rows)."""
     from luminair_tpu_torch.air import tape
     from luminair_tpu_torch.air.components import COMPONENTS_BY_NAME
 
     ew = [[tuple(int(x) for x in rng.integers(0, f.P, 4)) for _ in range(2)] for _ in tape.ELEM_KINDS]
-    err5 = err6 = 0
+    err5 = err6 = err_check = 0
     rows = {}
     for name, n in pinn_logs.items():
         comp = COMPONENTS_BY_NAME[name]
@@ -773,6 +803,21 @@ def tape_kernels(kernels, f, dev, pinn_logs, rng, rnd, check):
             )
         del main, pp
         tpd = tape.record(comp)
+        cargs = (
+            tpd, [rnd(1 << n) for _ in comp.MAIN], [rnd(1 << n) for _ in comp.PP_IDS],
+            [rnd(1 << n) for _ in range(4 * tpd.n_relations)], rnd(1 << n),
+            tuple(int(x) for x in rng.integers(0, f.P, 4)), ew,
+        )
+        err_check |= check(f"air_check {name} 2^{n}", lambda: kernels.air_check(*cargs),
+                           lambda: tape.check_plain(*cargs))
+        if name == "mul":
+            a = dict(zip(("tp", "main", "pp", "inter", "is_first"), cargs))
+            rows["air_check"] = dict(
+                shape=f"mul, 2^{n} rows, K = {tpd.n_constraints}, E = {tpd.n_relations}", err=0,
+                ms=time_ms(lambda: kernels.air_check(*cargs)), plain_ms=time_ms(lambda: tape.check_plain(*cargs)),
+                bound=bound(*check_work(a)),
+            )
+        del cargs
         m = 1 << (n + 1)
         args = (
             tpd, [rnd(m) for _ in comp.MAIN], [rnd(m) for _ in comp.PP_IDS],
@@ -793,7 +838,7 @@ def tape_kernels(kernels, f, dev, pinn_logs, rng, rnd, check):
                 bound=bound((4 * n_cols + 16) * m, m * domain_row_ops(tpd, n)),
             )
         del args
-    rows["air_witness"]["err"], rows["air_domain"]["err"] = err5, err6
+    rows["air_witness"]["err"], rows["air_domain"]["err"], rows["air_check"]["err"] = err5, err6, err_check
     return rows
 
 
@@ -1147,8 +1192,8 @@ def describe(x):
 
 
 # Wrappers whose every call is kept and replayed, not one a shape: each K3
-# layer and each T4 boundary of a path.
-EVERY_CALL = ("fri_layer", "lut_boundary")
+# layer and each T4 boundary of a path, each check of a PIE's component.
+EVERY_CALL = ("fri_layer", "lut_boundary", "air_check")
 
 # Arguments a kernel updates in place (cloned when kept and for each replay)
 # and record slots it writes (fresh for each replay).
@@ -1410,6 +1455,15 @@ def domain_work(a: dict):
     return n_bytes, m * domain_row_ops(tp, a["log_trace"])
 
 
+def check_work(a: dict):
+    """(bytes, operations) of one air_check call: the main, preprocessed and
+    interaction columns and is_first read once, one word per row written;
+    the tape and the constraints' arithmetic per row."""
+    tp, n = a["tp"], a["is_first"].shape[0]
+    n_cols = len(a["main"]) + len(a["pp"]) + len(a["inter"]) + 1
+    return 4 * (n_cols + 1) * n, n * check_row_ops(tp)
+
+
 def channel_bytes() -> int:
     return 4 * (2 * 13 + 8 + 12)  # the state read and written, a root, a record slot
 
@@ -1432,6 +1486,7 @@ WORK = {
     "deep_quotient_many": lambda a: quotient_work(a["plan"]),
     "air_witness": witness_work,
     "air_domain": domain_work,
+    "air_check": check_work,
     "oods_eval_many": lambda a: tuple(map(sum, zip(*(oods_work(len(cols), len(chain))
                                                      for cols, chain in a["groups"])))),
     "trace_segment": lambda a: segment_work(a["seg"]),
@@ -2010,12 +2065,13 @@ def phase_op_graphs(T, kernels, serde, tape, f, card):
     step replayed through kernel and twin (kernel_check); all_ops proved on
     the card from its card PIE, the same bytes as from its host PIE,
     accepted by the native verifier.  Returns ({kernel: max_abs_err}, the
-    all_ops card PIE, settings and proof)."""
+    all_ops card PIE, settings and proof, {graph: (card PIE, card settings,
+    host PIE, host settings)})."""
     from luminair_tpu_torch.graph import trace as host
     from luminair_tpu_torch.models import op_graphs
 
     twins = trace_twins(kernels)
-    kept, calls = {}, {}
+    kept, calls, graphs = {}, {}, {}
     for name, build in op_graphs.GRAPHS.items():
         def graph():
             cx = T.Graph()
@@ -2044,6 +2100,7 @@ def phase_op_graphs(T, kernels, serde, tape, f, card):
         emit(line)
         if bad or not same_settings or not same_out or not line.get("host_pie_proof_equal", True):
             raise AssertionError(f"op graph {name}: the card's trace differs from the host's: {bad[:8]}")
+        graphs[name] = (pie, settings, hp, hs)
     by_kernel = replay(kernels, twins, kept, calls)
     errs = {}
     for kernel_name in twins:
@@ -2053,7 +2110,264 @@ def phase_op_graphs(T, kernels, serde, tape, f, card):
         if row["max_abs_err"] != 0 or not row["shapes"]:
             raise AssertionError(f"{kernel_name}: disagrees with its twin on the op graphs, or never ran")
         errs[kernel_name] = row["max_abs_err"]
-    return errs, all_ops
+    return errs, all_ops, graphs
+
+
+# Log blowups every op graph is proved at (phase_op_graph_blowups).  The
+# port's CPU proof of the host PIE is compared where it is cheap: all six
+# graphs at blowups 1-2 and the four small ones at 3-4; all_ops and mlp,
+# whose sin / exp2 tables take 2^14 rows, prove in 8-22 s each on one CPU
+# thread at 3-4 and are left out there.
+OP_GRAPH_BLOWUPS = (1, 2, 3, 4)
+OP_GRAPH_CPU_SKIPPED = (("all_ops", 3), ("all_ops", 4), ("mlp", 3), ("mlp", 4))
+
+
+def phase_op_graph_blowups(T, serde, card, graphs):
+    """Each op graph proved from its card PIE at every log blowup of
+    OP_GRAPH_BLOWUPS: the same bytes as the card's proof of the host
+    interpreter's PIE and, but for OP_GRAPH_CPU_SKIPPED, as the port's CPU
+    proof; the port's verify (on the card) and native/ accept it."""
+    t_phase = time.perf_counter()
+    for name, (pie, settings, hp, hs) in graphs.items():
+        for b in OP_GRAPH_BLOWUPS:
+            cfg = T.PcsConfig(fri=T.FriConfig(log_blowup_factor=b))
+            t0 = time.perf_counter()
+            proof = T.prove(pie, settings, cfg)
+            prove_s = time.perf_counter() - t0
+            pb = serde.proof_to_flat_bytes(proof)
+            line = {"phase": "op_graph_blowup", "graph": name, "log_blowup": b, "card": card,
+                    "prove_seconds": prove_s, "proof_bytes": len(pb),
+                    "host_pie_proof_equal": serde.proof_to_flat_bytes(T.prove(hp, hs, cfg)) == pb}
+            if (name, b) in OP_GRAPH_CPU_SKIPPED:
+                line["cpu_proof_equal"] = "skipped"
+            else:
+                t0 = time.perf_counter()
+                line["cpu_proof_equal"] = serde.proof_to_flat_bytes(T.prove(hp, hs, cfg, device="cpu")) == pb
+                line["cpu_prove_seconds"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            line["verified"] = T.verify(proof, settings) is True
+            line["verify_seconds"] = time.perf_counter() - t0
+            line["native_verify_seconds"] = native_verify(serde, pb, settings, f"{name}_b{b}")
+            emit(line)
+            if not line["host_pie_proof_equal"] or line["cpu_proof_equal"] is False or not line["verified"]:
+                raise AssertionError(f"{name} at log blowup {b}: {line}")
+    emit({"phase": "op_graph_blowups", "seconds": time.perf_counter() - t_phase, "graphs": len(graphs),
+          "blowups": list(OP_GRAPH_BLOWUPS), "cpu_skipped": [list(x) for x in OP_GRAPH_CPU_SKIPPED]})
+
+
+def phase_pinn_blowup(T, kernels, serde, card, tag, pie, settings, host, expect, peak_b1):
+    """The PINN's card PIE and settings proved at log blowup 2 (commit
+    domains up to 2^23, the composition's working domain 2^24): launches
+    of the first prove with the counters reset just before it (path line),
+    the median of 3, the host PIE's proof the same bytes, native/ accepting
+    it, and the peak device memory since a reset beside blowup 1's."""
+    t_phase = time.perf_counter()
+    cfg = T.PcsConfig(fri=T.FriConfig(log_blowup_factor=2))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tree_bottoms(kernels) as bottoms:
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        proof = T.prove(pie, settings, cfg)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = kernels.counts()
+    k3_limit = 1 + len(proof.pcs_proof.fri_proof.layer_roots)
+    launches["fri_channel_steps_in_root_passes"] = path_launches(kernels, tag, first_s, launches, bottoms, expect,
+                                                                 k3_limit, proof)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again = T.prove(pie, settings, cfg)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    pb = serde.proof_to_flat_bytes(proof)
+    if serde.proof_to_flat_bytes(again) != pb:
+        raise AssertionError(f"{tag}: repeated proves of one PIE differ")
+    if serde.proof_to_flat_bytes(T.prove(host[0], host[1], cfg)) != pb:
+        raise AssertionError(f"{tag}: the proof of the host's PIE differs from the proof of the card's")
+    verify_s = native_verify(serde, pb, settings, tag)
+    emit({
+        "phase": "prove", "path": tag, "card": card, "config": proof.config.to_dict(),
+        "trace_cells": trace_cells(pie), "prove_seconds": times, "prove_seconds_median": statistics.median(times),
+        "proof_bytes": len(pb), "fri_layers": len(proof.pcs_proof.fri_proof.layer_roots),
+        "peak_device_bytes": peak, "peak_device_bytes_blowup_1": peak_b1, "self_check": "passed",
+        "host_pie_proof_equal": True, "native_verify": "accepted", "native_verify_seconds": verify_s,
+        "phase_seconds": time.perf_counter() - t_phase,
+    })
+    return launches
+
+
+DEBUG_KERNELS = ("air_witness", "air_check")  # check_pie_constraints: K5 and the check
+DEBUG_WARM = 3
+# Cells changed in the op graphs' card PIEs (graph, table, column, row): the
+# port's check on the card must give the same dict as on the CPU.
+DEBUG_MUTATIONS = (
+    ("all_ops", "mul", "out", 3), ("all_ops", "mul", "lhs", 0), ("all_ops", "add", "out", 7),
+    ("all_ops", "mul", "out_mult", 0), ("all_ops", "sin_lookup", "multiplicity", 5),
+    ("all_ops", "less_than", "diff", 1), ("all_ops", "rem", "rem", 2), ("all_ops", "max_reduce", "is_max", 0),
+    ("negative", "sqrt", "rem", 4), ("reduce_axes", "sum_reduce", "acc", 1), ("mlp", "sum_reduce", "input", 9),
+    ("slices", "contiguous", "out", 2),
+)
+
+
+def debug_twins(tape, f):
+    return {"air_check": ("air_check", lambda a: tape.check_plain(
+        a["tp"], a["main"], a["pp"], a["inter"], a["is_first"], f.qm31_words(a["claimed"]), a["ew"]), ("tp", "is_first"))}
+
+
+def host_form(pie):
+    """A card PIE's host form: its columns downloaded as uint32 words."""
+    from luminair_tpu_torch.air.pie import LuminairPie, TraceTable
+
+    return LuminairPie({k: TraceTable(k, t.host_columns()) for k, t in pie.trace_tables.items()}, pie.metadata)
+
+
+def mutate_cell(f, pie, table: str, column: str, row: int) -> int:
+    """Adds 1 (mod P) to one cell of a card PIE in place; returns the old
+    word."""
+    col = pie.trace_tables[table].padded[column]
+    old = int(col[row])
+    col[row] = (old + 1) % f.P
+    return old
+
+
+def phase_debug_pinn(T, kernels, tape, f, card, tag, pie, settings):
+    """check_pie_constraints on the PINN's card PIE: the first call (cold)
+    with every launch counter set to 0 just before it and read just after
+    (K5 and air_check only, an empty result), DEBUG_WARM more; then one run
+    with every air_check call kept, and mul.out changed at row 3 (the check
+    must name constraint 1 of mul at row 3 alone); each kept call through
+    kernel and twin.  Returns (launches, {kernel: max_abs_err})."""
+    from luminair_tpu_torch.air.debug import check_pie_constraints
+
+    t_phase = time.perf_counter()
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = check_pie_constraints(pie, settings)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = kernels.counts()
+    launched = sorted(k for k, v in launches.items() if v)
+    launches["fri_channel_steps_in_root_passes"] = kernels.CHANNEL.hosted
+    if got != {} or launched != sorted(DEBUG_KERNELS) or kernels.CHANNEL.hosted:
+        raise AssertionError(f"{tag}: check_pie_constraints returned {got}, launched {launches}")
+    warm_s = []
+    for _ in range(DEBUG_WARM):
+        t0 = time.perf_counter()
+        check_pie_constraints(pie, settings)
+        torch.cuda.synchronize()
+        warm_s.append(time.perf_counter() - t0)
+    twins, kept, calls = debug_twins(tape, f), {}, {}
+    with recording(kernels, twins, kept, calls) as rec:
+        check_pie_constraints(pie, settings)
+    old = mutate_cell(f, pie, "mul", "out", 3)
+    with recording(kernels, twins, kept, calls):
+        mutated = check_pie_constraints(pie, settings)
+    pie.trace_tables["mul"].padded["out"][3] = old
+    row = replay(kernels, twins, kept, calls)["air_check"]
+    del kept
+    phase_profile(tag, "check", lambda: check_pie_constraints(pie, settings))
+    emit({"phase": "debug", "path": tag, "card": card, "result": got, "first_seconds": cold_s, "warm_seconds": warm_s,
+          "warm_seconds_median": statistics.median(warm_s), "launches": {k: launches[k] for k in DEBUG_KERNELS},
+          "air_check_bound_ms": rec.bound_ms.get("air_check"), "air_check_calls": rec.bound_calls.get("air_check"),
+          "mutated_mul_out_row_3": {k: [list(x) for x in v] for k, v in mutated.items()},
+          "phase_seconds": time.perf_counter() - t_phase})
+    emit({"phase": "kernel_check", "kernel": "air_check", "path": tag, "calls": row["calls"],
+          "shapes": len(row["shapes"]), "max_abs_err": row["max_abs_err"]})
+    if mutated != {"mul": [(1, [3])]} or row["max_abs_err"] != 0 or not row["shapes"]:
+        raise AssertionError(f"{tag}: the check found {mutated} for mul.out at row 3, air_check {row}")
+    return launches, {"air_check": row["max_abs_err"]}
+
+
+def phase_debug_graphs(T, kernels, tape, f, card, graphs):
+    """check_pie_constraints on each op graph's card PIE (empty), and on the
+    card PIEs of DEBUG_MUTATIONS against the port's check on the CPU of
+    the same PIE's host form; every air_check call through kernel and twin.
+    Returns {kernel: max_abs_err}."""
+    from luminair_tpu_torch.air.debug import check_pie_constraints
+
+    t0 = time.perf_counter()
+    twins, kept, calls = debug_twins(tape, f), {}, {}
+    found = {}
+    with recording(kernels, twins, kept, calls):
+        for name, (pie, settings, _, _) in graphs.items():
+            got = check_pie_constraints(pie, settings)
+            if got != {}:
+                raise AssertionError(f"op graph {name}: the check found {got} in an honest PIE")
+        for name, table, column, row in DEBUG_MUTATIONS:
+            pie, settings = graphs[name][:2]
+            old = mutate_cell(f, pie, table, column, row)
+            got = check_pie_constraints(pie, settings)
+            want = check_pie_constraints(host_form(pie), settings, device="cpu")
+            pie.trace_tables[table].padded[column][row] = old
+            found[f"{name}.{table}.{column}[{row}]"] = {k: [list(x) for x in v] for k, v in got.items()}
+            if got != want:
+                raise AssertionError(f"{name}: {table}.{column} at row {row}: the card found {got}, the CPU {want}")
+    row = replay(kernels, twins, kept, calls)["air_check"]
+    emit({"phase": "debug", "path": "op_graphs", "card": card, "honest_graphs": sorted(graphs),
+          "mutations_equal_cpu": found, "seconds": time.perf_counter() - t0})
+    emit({"phase": "kernel_check", "kernel": "air_check", "graphs": "op_graphs", "calls": row["calls"],
+          "shapes": len(row["shapes"]), "max_abs_err": row["max_abs_err"]})
+    if row["max_abs_err"] != 0 or not row["shapes"]:
+        raise AssertionError(f"air_check disagrees with its twin on the op graphs, or never ran: {row}")
+    return {"air_check": row["max_abs_err"]}
+
+
+EXAMPLES = ("torch_simple", "torch_risk_assessment", "torch_black_scholes_nn")
+# Every example settles, traces, proves and verifies on the card.
+EXAMPLE_KERNELS = ("circle_fft", "blake2s_merkle", "fri_layer", "deep_quotient", "air_witness", "air_domain",
+                   "oods_eval", "fri_channel", "decommit", "grind_pow", "trace_segment")
+
+
+def example_module(name: str):
+    """examples/<name>.py, loaded from its file (the examples are scripts)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"chip_smoke_{name}", os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def files_digest(d: str) -> dict:
+    import hashlib
+
+    return {n: hashlib.sha256(open(os.path.join(d, n), "rb").read()).hexdigest() for n in sorted(os.listdir(d))}
+
+
+def phase_examples(kernels, card):
+    """Each port example's main() on the card, its launches counted from a
+    reset just before it: it must pass its own assertions and launch every
+    kernel of EXAMPLE_KERNELS; the reference's examples/out/ keeps its
+    bytes."""
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(ROOT, "examples", "out")
+    before = files_digest(out_dir) if os.path.isdir(out_dir) else None
+    for name in EXAMPLES:
+        mod = example_module(name)
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        r = mod.main()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = kernels.counts()
+        line = {"phase": "example", "example": name, "card": card, "printed": r["printed"], "seconds": wall_s,
+                "launches": {k: v for k, v in launches.items() if v}}
+        for k in ("prove_seconds", "verify_seconds", "native_verify_seconds", "seconds"):
+            if k in r:
+                line[k if k != "seconds" else "stage_seconds"] = r[k]
+        if name == "torch_simple":
+            line["output_expected"] = r["output"] == [[11.0, 42.0], [93.0, 164.0]]
+        emit(line)
+        missing = [k for k in EXAMPLE_KERNELS if launches[k] == 0]
+        if missing or launches["air_check"] or not line.get("output_expected", True):
+            raise AssertionError(f"{name}: launched no {missing}, or air_check, or a wrong output: {line}")
+    if before is not None and files_digest(out_dir) != before:
+        raise AssertionError("examples/out/ changed")
+    emit({"phase": "examples", "seconds": time.perf_counter() - t_phase, "examples_out_unchanged": before is not None})
 
 
 def phase_profile(tag: str, what: str, run):
@@ -2126,17 +2440,22 @@ def main() -> int:
         pinn_tag: (lambda: pinn_graph(T, BS), lambda out: {"model_max_abs_err": float(np.max(np.abs(
             np.asarray(out.data()).reshape(-1) - BS.reference_forward(*pinn_inputs(BS)).reshape(-1))))}),
     }
-    # The bench graph has no reduction and no LUT: no T3, no T4.
+    b2_tag, debug_tag = pinn_tag + "_b2", "debug_" + pinn_tag
+    # The bench graph has no reduction and no LUT: no T3, no T4.  The check
+    # (air_check) is on no prove path.
     expect = {
-        bench_tag: [k.name for k in kernels.KERNELS if k.name not in ("trace_reduce", "lut_boundary")],
-        pinn_tag: [k.name for k in kernels.KERNELS],
+        bench_tag: [k.name for k in kernels.KERNELS if k.name not in ("trace_reduce", "lut_boundary", "air_check")],
+        pinn_tag: [k.name for k in kernels.KERNELS if k.name != "air_check"],
     }
     # A prove from a PIE: K1-K10, no trace kernel.
-    expect[hs_tag] = [k.name for k in kernels.KERNELS
-                      if k.name not in ("trace_segment", "trace_reduce", "lut_boundary")]
+    expect[hs_tag] = expect[b2_tag] = [k.name for k in kernels.KERNELS
+                                       if k.name not in ("trace_segment", "trace_reduce", "lut_boundary", "air_check")]
     # K3: the largest input's circle fold and one launch a committed FRI
     # layer (7 layers at N=256, 9 at the PINN).
     k3_limit = {bench_tag: 8, pinn_tag: 10, hs_tag: 10}
+    # The run whose launch counts the kernels line gives: the PINN's prove,
+    # the check's on the PINN's card PIE.
+    main_path = {"air_check": debug_tag}
     pinn_host = host_trace(paths[pinn_tag][0])
     emit({"phase": "pinn_host_trace", "batch": PINN_BATCH, "trace_cells": trace_cells(pinn_host[0]),
           "settings_host_seconds": pinn_host[2], "trace_host_seconds": pinn_host[3]})
@@ -2152,6 +2471,7 @@ def main() -> int:
         host = pinn_host if tag == pinn_tag else host_trace(build)
         launches[tag], pie, settings, proof = phase_path(T, kernels, serde, tracing, f, card, tag, build, host,
                                                          expect[tag], k3_limit[tag], check)
+        peak = torch.cuda.max_memory_allocated()
         path_errs["verify_" + tag] = phase_verify(T, kernels, serde, tracing, tape, f, card, tag, pie, settings, proof)
         del proof
 
@@ -2192,13 +2512,21 @@ def main() -> int:
             torch.cuda.empty_cache()
             channel_per_prove(hs_tag, ch, phase_profile(hs_tag, "prove",
                                                         lambda: T.prove(pie, settings, T.PcsConfig.high_security())))
+            launches[b2_tag] = phase_pinn_blowup(T, kernels, serde, card, b2_tag, pie, settings, host, expect[b2_tag],
+                                                 peak)
+            launches[debug_tag], path_errs[debug_tag] = phase_debug_pinn(T, kernels, tape, f, card, tag, pie,
+                                                                         settings)
         del host, pie, settings, cx
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    path_errs["op_graphs"], (pie, settings, proof) = phase_op_graphs(T, kernels, serde, tape, f, card)
+    path_errs["op_graphs"], (pie, settings, proof), graphs = phase_op_graphs(T, kernels, serde, tape, f, card)
     path_errs["verify_all_ops"] = phase_verify(T, kernels, serde, tracing, tape, f, card, "all_ops", pie, settings,
                                                proof)
     del pie, settings, proof
+    phase_op_graph_blowups(T, serde, card, graphs)
+    path_errs["debug_op_graphs"] = phase_debug_graphs(T, kernels, tape, f, card, graphs)
+    del graphs
+    phase_examples(kernels, card)
     phase_parity(T, serde)
 
     launches.update({"verify_" + tag: c for tag, c in VERIFY_LAUNCHES.items()})
@@ -2207,7 +2535,7 @@ def main() -> int:
         r = rows[k.name]
         line.append({
             "name": k.name, "route": "cuda", "source": f"luminair_tpu_torch/csrc/{k.source}",
-            "replaces": k.replaces, "launches": launches[pinn_tag][k.name],
+            "replaces": k.replaces, "launches": launches[main_path.get(k.name, pinn_tag)][k.name],
             "launches_by_path": {p: c[k.name] for p, c in launches.items()},
             **({"steps_in_root_passes_by_path": {p: c["fri_channel_steps_in_root_passes"] for p, c in launches.items()}}
                if k is kernels.CHANNEL else {}),

@@ -1,0 +1,82 @@
+"""Constraint debugging: every component's constraints evaluated on the
+trace domain, and the rows where each one fails.
+
+The counterpart of the JAX package's air/debug.py, with the same result.  A
+failure elsewhere shows only as a verifier's rejection; this names the
+component, the constraint (its index in the order `evaluate` emits them,
+the LogUp constraints after the recorded ones, one per relation entry) and
+the first rows where it does not vanish.
+
+On the card (the default): the PIE's columns are read where they lie (a
+card PIE's `padded` tensors; host words are uploaded), the preprocessed
+columns are uploaded once, and per component K5 (`kernels.air_witness`)
+builds the interaction and the claimed sum as the prover does; then
+`kernels.air_check` writes one word per row, a bit per failing constraint.
+One download of the claimed sums, one `torch.nonzero` over every
+component's words and one download of the rows it finds.  device="cpu"
+runs the same steps through the kernels' plain twins.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+
+from .. import fields as f
+from .. import kernels
+from ..crypto.channel import Blake2sChannel
+from ..prover import _main_column, resolve_device
+from . import tape
+from .claim import LuminairClaim
+from .layout import AirLayout
+
+FIRST_ROWS = 8  # rows reported for each failing constraint
+
+
+def check_pie_constraints(pie, settings, device=None) -> Dict[str, List[tuple]]:
+    """{component: [(constraint_idx, bad_rows), ...]} for every constraint
+    that does not vanish on the trace domain, with the first FIRST_ROWS
+    rows where it does not; {} for an honest PIE.  Components without rows
+    are left out.  The lookup elements are drawn from a channel that has
+    mixed b"debug"."""
+    dev = resolve_device(device)
+    tables = {n: t for n, t in pie.trace_tables.items() if t.n_rows > 0}
+    layout = AirLayout(LuminairClaim({n: t.log_size for n, t in tables.items()}), settings)
+    ch = Blake2sChannel()
+    ch.mix_bytes(b"debug")
+    ew = tape.element_words(layout.draw_elements(ch))
+    pp = dict(zip(layout.pp.ids(), (f.u32_to_tensor(c, dev) for c in layout.pp.columns())))
+
+    comps = []
+    for c in layout.components:
+        padded = tables[c.name].padded_columns(c.MAIN)
+        main = [_main_column(padded[n], dev) for n in c.MAIN]
+        pp_cols = [pp[p] for p in c.PP_IDS]
+        inter, claimed = kernels.air_witness(tape.record(c, witness=True), main, pp_cols, ew)
+        comps.append((c, main, pp_cols, inter, claimed))
+    sums = f.tensor_to_u32(torch.stack([claimed for *_, claimed in comps]))
+    words = [
+        kernels.air_check(tape.record(c), main, pp_cols, list(inter.unbind(0)), pp[layout.is_first_id(c.name)],
+                          s, ew)
+        for (c, main, pp_cols, inter, _), s in zip(comps, sums)
+    ]
+    every = torch.cat(words)
+    at = torch.nonzero(every).flatten()
+    at, bits = torch.stack([at, every[at].to(f.I64) & 0xFFFFFFFF]).cpu().numpy()
+
+    out = {}
+    start = 0
+    for (c, *_), w in zip(comps, words):
+        n = w.shape[0]
+        here = (at >= start) & (at < start + n)
+        rows, row_bits = at[here] - start, bits[here]
+        fails = []
+        for i in range(tape.record(c).n_pows):
+            bad = rows[(row_bits >> i) & 1 == 1]
+            if len(bad):
+                fails.append((i, bad[:FIRST_ROWS].tolist()))
+        if fails:
+            out[c.name] = fails
+        start += n
+    return out

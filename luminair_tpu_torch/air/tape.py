@@ -3,11 +3,11 @@ its plain PyTorch interpreter.
 
 A component writes its constraints once (`evaluate(ev, elems)`,
 air/components.py).  `record(comp)` runs that once with symbolic values and
-keeps what it did as a tape: an int32 program that the witness and domain
-kernels (csrc/air.cu, csrc/tape.cuh) interpret with one thread per row, and
-that `witness_plain` / `domain_plain` here interpret column-wise for CPU
-tensors.  Both read the same instructions, so there is one definition of
-each component and one format.
+keeps what it did as a tape: an int32 program that the witness, domain and
+check kernels (csrc/air.cu, csrc/tape.cuh) interpret with one thread per
+row, and that `witness_plain` / `domain_plain` / `check_plain` here
+interpret column-wise for CPU tensors.  Both read the same instructions,
+so there is one definition of each component and one format.
 
 Every constraint and every relation input is an M31 expression of main and
 preprocessed columns and integer constants (reduced mod P when recorded:
@@ -17,9 +17,10 @@ relation entry b with multiplicity n_b and values v,
     d_b = v_0 + alpha * v_1 - z          (the entry's lookup elements)
     S_b = S_{b-1} + n_b / d_b            (within the row)
 and the last column also carries the running sum down the rows.  The domain
-interpreter adds, after the K recorded constraints, one LogUp constraint per
-entry (air/framework.py `_finalize_logup`), so a component uses K + E powers
-of the composition's alpha.
+and check interpreters add, after the K recorded constraints, one LogUp
+constraint per entry (air/framework.py `_finalize_logup`), so a component
+uses K + E powers of the composition's alpha, and K + E bits of a check
+word.
 
 Instructions are 5 words [op, dst, a, b, c]:
     MAIN        dst <- main column a (this row)
@@ -342,6 +343,53 @@ def witness_plain(tape: Tape, main: Sequence[torch.Tensor], pp: Sequence[torch.T
     return out, out[-4:, -1].clone()
 
 
+def _logup(tape: Tape, inter, is_first, claimed, ew, stride: int, emit):
+    """`on_relation` for `_run` that calls emit(c, K + b) with entry b's
+    LogUp constraint c (M, 4) int64:
+        (S_b - S_{b-1} [- S_last(r - stride) + is_first * claimed]) * d_b - n_b
+    (S_{-1} = 0; the bracket on the last entry only)."""
+    dev = is_first.device
+    state = {"b": 0, "prev": None}
+
+    def on_relation(kind, mult, v0, v1):
+        b = state["b"]
+        d = _denominator(ew, kind, v0, v1, dev)
+        s = torch.stack([inter[4 * b + k] for k in range(4)], dim=-1).to(f.I64)
+        diff = s if state["prev"] is None else f.sub(s, state["prev"])
+        if b == tape.n_relations - 1:
+            s_prev = torch.roll(s, stride, 0)
+            cl = torch.tensor(claimed, dtype=f.I64, device=dev)
+            diff = f.add(f.sub(diff, s_prev), f.qm31_mul_m31(cl, is_first.to(f.I64)))
+        emit(f.sub(f.qm31_mul(diff, d), f.qm31_from_m31(mult)), tape.n_constraints + b)
+        state["prev"] = s
+        state["b"] += 1
+
+    return on_relation
+
+
+def check_plain(tape: Tape, main, pp, inter, is_first, claimed, ew) -> torch.Tensor:
+    """The constraint check on the trace domain (N = 2^n rows): (N,) int32,
+    bit i of row r set when constraint i is nonzero at r -- the K recorded
+    constraints, then the E LogUp constraints (a QM31 one when any
+    coordinate is).  Next row r + 1, the last entry's previous row r - 1
+    (cyclic); no alpha powers, no vanishing factor."""
+    n = is_first.shape[0]
+    dev = is_first.device
+    mask = torch.zeros(n, dtype=f.I64, device=dev)
+    state = {"k": 0}
+
+    def set_bit(c, i):
+        nonzero = (c != 0).any(dim=-1) if c.dim() == 2 else c != 0
+        mask.bitwise_or_(nonzero.to(f.I64) << i)
+
+    def on_constraint(v):
+        set_bit(v, state["k"])
+        state["k"] += 1
+
+    _run(tape, main, pp, n, 1, _logup(tape, inter, is_first, claimed, ew, 1, set_bit), on_constraint, dev)
+    return f.to_i32(mask)
+
+
 def domain_plain(tape: Tape, main, pp, inter, is_first, claimed, ew, pows, log_trace: int, stride: int,
                  acc=None):
     """Quotient evaluations (M, 4) int32 of one component on its commit
@@ -355,7 +403,7 @@ def domain_plain(tape: Tape, main, pp, inter, is_first, claimed, ew, pows, log_t
     log = m.bit_length() - 1
     pw = torch.tensor(pows, dtype=f.I64, device=dev).reshape(-1, 4)
     total = f.qm31_zero((m,), dev)
-    state = {"k": 0, "b": 0, "prev": None}
+    state = {"k": 0}
 
     def add(c, i):
         nonlocal total
@@ -365,19 +413,7 @@ def domain_plain(tape: Tape, main, pp, inter, is_first, claimed, ew, pows, log_t
         add(v, state["k"])
         state["k"] += 1
 
-    def on_relation(kind, mult, v0, v1):
-        b = state["b"]
-        d = _denominator(ew, kind, v0, v1, dev)
-        s = torch.stack([inter[4 * b + k] for k in range(4)], dim=-1).to(f.I64)
-        diff = s if state["prev"] is None else f.sub(s, state["prev"])
-        if b == tape.n_relations - 1:
-            s_prev = torch.roll(s, stride, 0)
-            cl = torch.tensor(claimed, dtype=f.I64, device=dev)
-            diff = f.add(f.sub(diff, s_prev), f.qm31_mul_m31(cl, is_first.to(f.I64)))
-        add(f.sub(f.qm31_mul(diff, d), f.qm31_from_m31(mult)), tape.n_constraints + b)
-        state["prev"] = s
-        state["b"] += 1
-
+    on_relation = _logup(tape, inter, is_first, claimed, ew, stride, add)
     _run(tape, main, pp, m, stride, on_relation, on_constraint, dev)
     xs = circle.domain_table(log, dev)[0].to(f.I64)
     q = f.qm31_mul_m31(total, f.inv(circle.coset_vanishing_eval(xs, log_trace)))

@@ -1,6 +1,6 @@
-// K5: the LogUp interaction columns, and K6: the constraint quotients on a
-// component's commit domain -- one interpreter of the component's tape
-// (tape.cuh) with one thread per row.
+// K5: the LogUp interaction columns, K6: the constraint quotients on a
+// component's commit domain, and the trace-domain constraint check -- one
+// interpreter of the component's tape (tape.cuh) with one thread per row.
 //
 // Replaces the JAX package's `_jit_witness` (parallel/accel.py, which traces
 // WitnessEval.build_interaction) and `_jit_domain` (which traces DomainEval
@@ -21,6 +21,12 @@
 //   with pows[K + b]; then acc / V_n(x_r), V_n = pi^(n-1)(x).  MAIN_NEXT
 //   reads row r + stride, the previous row of the last entry r - stride.
 //   With `accumulate` the quotient is added into out (n, 4) in place.
+// The check (air_check), per trace row r: the same K + E constraints
+//   without the alpha powers and the 1 / V_n factor (V_n vanishes on the
+//   trace domain), next row r + 1, previous row r - 1 (cyclic); one word
+//   per row, bit i set when constraint i is nonzero there (a QM31
+//   constraint when any of its coordinates is).  Replaces the JAX
+//   package's host `_CheckEval` (air/debug.py).
 //
 // Bound on this card: the integer ALU.  Per row K6 does ~20-100 M31 ops for
 // the tape, a QM31 product per constraint, two per LogUp entry and one M31
@@ -65,6 +71,22 @@ __device__ __forceinline__ qm31 load_inter(const AirArgs& a, int b, long long r)
           ((const uint32_t*)a.inter[4 * b + 2])[r], ((const uint32_t*)a.inter[4 * b + 3])[r]};
 }
 
+// Entry b's LogUp constraint at row r:
+//   (S_b - S_{b-1} [- S_last(r - stride) + is_first * claimed]) * d_b - n_b.
+// `prev` holds S_{b-1}(r) (zero before the first entry) and becomes S_b(r).
+__device__ __forceinline__ qm31 logup_constraint(const AirArgs& a, int b, long long r, qm31& prev,
+                                                 uint32_t m, qm31 d) {
+  qm31 s = load_inter(a, b, r);
+  qm31 diff = lum::qsub(s, prev);
+  if (b == a.n_rel - 1) {
+    qm31 s_prev = load_inter(a, b, (r - a.stride) & (a.n - 1));
+    uint32_t first = ((const uint32_t*)a.is_first)[r];
+    diff = lum::qadd(lum::qsub(diff, s_prev), lum::qmul_m31(lum::qword(a.claimed), first));
+  }
+  prev = s;
+  return lum::qsub(lum::qmul(diff, d), {m, 0u, 0u, 0u});
+}
+
 __global__ void air_domain_kernel(const __grid_constant__ AirArgs a) {
   __shared__ int s_tape[lum::TAPE_INS_WORDS * lum::TAPE_MAX_INS];
   lum::load_tape(a, s_tape);
@@ -80,17 +102,8 @@ __global__ void air_domain_kernel(const __grid_constant__ AirArgs a) {
         k++;
       },
       [&](int kind, uint32_t m, uint32_t v0, uint32_t v1, bool two) {
-        qm31 d = lum::denominator(a, kind, v0, v1, two);
-        qm31 s = load_inter(a, b, r);
-        qm31 diff = lum::qsub(s, prev);
-        if (b == a.n_rel - 1) {
-          qm31 s_prev = load_inter(a, b, (r - a.stride) & (a.n - 1));
-          uint32_t first = ((const uint32_t*)a.is_first)[r];
-          diff = lum::qadd(lum::qsub(diff, s_prev), lum::qmul_m31(lum::qword(a.claimed), first));
-        }
-        qm31 c = lum::qsub(lum::qmul(diff, d), {m, 0u, 0u, 0u});
+        qm31 c = logup_constraint(a, b, r, prev, m, lum::denominator(a, kind, v0, v1, two));
         acc = lum::qadd(acc, lum::qmul(c, lum::qword(a.pows[a.n_constraints + b])));
-        prev = s;
         b++;
       });
   // 1 / V_n(x): n - 1 squarings pi(x) = 2x^2 - 1, then one inverse.
@@ -103,6 +116,31 @@ __global__ void air_domain_kernel(const __grid_constant__ AirArgs a) {
   uint32_t* out = (uint32_t*)a.out + 4 * r;
   if (a.accumulate) acc = lum::qadd(lum::qload(out), acc);
   lum::qstore(out, acc);
+}
+
+// One word per trace row: bit i set when constraint i does not vanish there
+// (the K recorded constraints, then entry b's LogUp constraint as bit K + b;
+// K + E <= TAPE_MAX_POWS = 32).  The wrapper passes stride 1.
+__global__ void air_check_kernel(const __grid_constant__ AirArgs a) {
+  __shared__ int s_tape[lum::TAPE_INS_WORDS * lum::TAPE_MAX_INS];
+  lum::load_tape(a, s_tape);
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= a.n) return;
+  uint32_t mask = 0;
+  qm31 prev = {0, 0, 0, 0};
+  int k = 0, b = 0;
+  lum::run_tape(
+      s_tape, a, r,
+      [&](uint32_t v) {
+        if (v != 0u) mask |= 1u << k;
+        k++;
+      },
+      [&](int kind, uint32_t m, uint32_t v0, uint32_t v1, bool two) {
+        qm31 c = logup_constraint(a, b, r, prev, m, lum::denominator(a, kind, v0, v1, two));
+        if ((c.a | c.b | c.c | c.d) != 0u) mask |= 1u << (a.n_constraints + b);
+        b++;
+      });
+  ((uint32_t*)a.out)[r] = mask;
 }
 
 // ---------------------------------------------------------------------------
@@ -210,6 +248,13 @@ extern "C" int lum_air_witness(const AirArgs* args, void* stream) {
 extern "C" int lum_air_domain(const AirArgs* args, void* stream) {
   if (args->n > 0) {
     air_domain_kernel<<<blocks_for(args->n, 128), 128, 0, (cudaStream_t)stream>>>(*args);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lum_air_check(const AirArgs* args, void* stream) {
+  if (args->n > 0) {
+    air_check_kernel<<<blocks_for(args->n, 128), 128, 0, (cudaStream_t)stream>>>(*args);
   }
   return (int)cudaGetLastError();
 }

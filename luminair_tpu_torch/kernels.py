@@ -297,6 +297,13 @@ AIR_DOMAIN = Kernel(
     {"lum_air_domain": [_P]},
     abi=_AIR_ABI,
 )
+AIR_CHECK = Kernel(
+    "air_check",
+    "air.cu",
+    "luminair_tpu/air/debug.py:20 (_CheckEval, host numpy)",
+    {"lum_air_check": [_P]},
+    abi=_AIR_ABI,
+)
 OODS_EVAL = Kernel(
     "oods_eval",
     "oods.cu",
@@ -511,7 +518,7 @@ LUT_BOUNDARY = Kernel(
 
 KERNELS = (
     CIRCLE_FFT, MERKLE, FRI_LAYER, DEEP_QUOTIENT, AIR_WITNESS, AIR_DOMAIN, OODS_EVAL, CHANNEL, DECOMMIT, GRIND_POW,
-    TRACE_SEGMENT, TRACE_REDUCE, LUT_BOUNDARY,
+    TRACE_SEGMENT, TRACE_REDUCE, LUT_BOUNDARY, AIR_CHECK,
 )
 
 
@@ -1016,7 +1023,8 @@ def deep_quotient_plain(cols, gammas, consts, log: int, acc=None) -> torch.Tenso
 
 
 # ---------------------------------------------------------------------------
-# K5 / K6: the component tape on the trace domain and on the commit domain.
+# K5 / K6 and the check: the component tape on the trace domain and on the
+# commit domain.
 
 
 def _check_rows(cols: Sequence[torch.Tensor], n: int, what: str) -> None:
@@ -1101,6 +1109,37 @@ def air_domain(tp, main, pp, inter, is_first: torch.Tensor, claimed, ew, pows, l
     a.claimed[:] = list(f.qm31_words(claimed))
     a.pows[: 4 * len(pows)] = [w for q in pows for w in q]
     AIR_DOMAIN.launch("lum_air_domain", dev, ctypes.addressof(a))
+    return out
+
+
+def air_check(tp, main, pp, inter, is_first: torch.Tensor, claimed, ew) -> torch.Tensor:
+    """Which of a component's constraints fail where on its trace domain:
+    (N,) int32, bit i of row r set when constraint i does not vanish at r --
+    the K recorded constraints in tape order, then entry b's LogUp
+    constraint as bit K + b (see air.cu).  Next row r + 1, previous row
+    r - 1, cyclic.
+
+    main / pp: the component's padded trace columns int32 (N,) in MAIN /
+    PP_IDS order; inter: its 4E interaction coordinates (`air_witness`);
+    is_first: the trace domain's is_first column; claimed: 4 words."""
+    n = is_first.shape[0]
+    _log2(n)
+    _require(len(main) == tp.n_main and len(pp) == tp.n_pp and len(inter) == 4 * tp.n_relations,
+             f"air_check({tp.name}): column count")
+    _require(tp.n_pows <= TAPE_MAX_POWS, f"air_check({tp.name}): {tp.n_pows} constraints, a word holds 32")
+    _check_rows(list(main) + list(pp) + list(inter) + [is_first], n, "air_check")
+    if _on_cpu(is_first):
+        from .air import tape as tp_mod
+
+        return tp_mod.check_plain(tp, main, pp, inter, is_first, f.qm31_words(claimed), ew)
+    dev = is_first.device
+    out = torch.empty(n, dtype=f.I32, device=dev)
+    a = _air_args(tp, main, pp, ew, n, dev)
+    a.inter[: len(inter)] = _ptrs(inter, dev)
+    a.is_first = _ptrs([is_first], dev)[0]
+    a.out, a.stride = out.data_ptr(), 1
+    a.claimed[:] = list(f.qm31_words(claimed))
+    AIR_CHECK.launch("lum_air_check", dev, ctypes.addressof(a))
     return out
 
 

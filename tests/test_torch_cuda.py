@@ -325,6 +325,32 @@ def test_air_domain(dev, name, log_blowup):
     assert torch.equal(kernels.air_domain(*args, acc=acc.clone()), tape.domain_plain(*args, acc=acc))
 
 
+# Random words (every constraint fails nearly everywhere) and zeros (every
+# recorded constraint vanishes, the LogUp ones where their multiplicity is 0).
+@pytest.mark.parametrize("fill", ["random", "zeros"])
+@pytest.mark.parametrize("log", [1, 6, 12])
+@pytest.mark.parametrize("name", COMPONENT_NAMES)
+def test_air_check(dev, name, log, fill):
+    comp = ALL_COMPONENTS[COMPONENT_NAMES.index(name)]
+    tp = tape.record(comp)
+    n = 1 << log
+    rng = np.random.default_rng(200 + COMPONENT_NAMES.index(name) + log)
+
+    def col():
+        return _rnd(rng, dev, n) if fill == "random" else torch.zeros(n, dtype=f.I32, device=dev)
+
+    main, pp = [col() for _ in comp.MAIN], [col() for _ in comp.PP_IDS]
+    inter = [col() for _ in range(4 * tp.n_relations)]
+    is_first = torch.zeros(n, dtype=f.I32, device=dev)
+    is_first[0] = 1
+    (claimed,) = _words(rng, 1)
+    args = (tp, main, pp, inter, is_first, claimed, _ew(rng))
+    before = kernels.AIR_CHECK.launches
+    got = kernels.air_check(*args)
+    assert kernels.AIR_CHECK.launches - before == 1
+    assert got.is_cuda and torch.equal(got, tape.check_plain(*args))
+
+
 # Groups below, at and above a chunk (2^11 rows), more than 256 columns,
 # one row; all of a call in one launch of the wrapper.
 @pytest.mark.parametrize("groups", [((0, 3), (1, 2), (5, 7)), ((11, 3), (13, 20), (6, 300)), ((22, 4), (21, 64))])
@@ -557,6 +583,31 @@ def test_card_trace_equals_cpu_trace(dev, name):
         assert np.array_equal(cx_gpu.output_data[rid], v)
 
 
+# One cell of a card PIE changed (graph, table, column, row), or none.
+@pytest.mark.parametrize("cell", [None, ("all_ops", "mul", "out", 3), ("all_ops", "less_than", "diff", 1),
+                                  ("negative", "sqrt", "rem", 4), ("reduce_axes", "sum_reduce", "acc", 1)])
+def test_check_pie_constraints_from_a_card_pie(dev, cell):
+    """check_pie_constraints on a card PIE launches K5 and air_check only and
+    gives the CPU's dict for the same PIE (its host form)."""
+    from luminair_tpu_torch import prelude as T
+    from luminair_tpu_torch.air.debug import check_pie_constraints
+    from luminair_tpu_torch.air.pie import LuminairPie, TraceTable
+
+    name = cell[0] if cell else "all_ops"
+    cx = _graph(name)
+    settings = T.gen_circuit_settings(cx, device=dev)
+    pie = T.gen_trace(cx, settings, device=dev)
+    if cell:
+        column = pie.trace_tables[cell[1]].padded[cell[2]]
+        column[cell[3]] = (int(column[cell[3]]) + 1) % f.P
+    kernels.reset_counts()
+    got = check_pie_constraints(pie, settings)
+    assert {k for k, v in kernels.counts().items() if v} == {"air_witness", "air_check"}, kernels.counts()
+    host = LuminairPie({k: TraceTable(k, t.host_columns()) for k, t in pie.trace_tables.items()}, pie.metadata)
+    assert got == check_pie_constraints(host, settings, device="cpu")
+    assert (got == {}) == (cell is None)
+
+
 @pytest.mark.parametrize("path", ["bench_n16", "pinn_b16"])
 def test_trace_segments_of_paths(dev, path, monkeypatch):
     """The bench graph's and the PINN's segments (and T3 steps) against
@@ -703,7 +754,7 @@ def test_prove_from_card_trace_never_touches_the_host(dev, monkeypatch):
     pie = T.gen_trace(cx, settings)
     assert all(c.is_cuda for t in pie.trace_tables.values() for c in t.padded.values())
     proof = T.prove(pie, settings, device=dev)
-    assert all(v > 0 for v in kernels.counts().values()), kernels.counts()
+    assert all(v > 0 for k, v in kernels.counts().items() if k != "air_check"), kernels.counts()
     _check_fri_launches(proof)
     monkeypatch.undo()
     cpu_cx = _graph("all_ops")

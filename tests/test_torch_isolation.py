@@ -1,5 +1,5 @@
-"""The port stands alone: no JAX, nothing of luminair_tpu or examples/, and
-its entry points default to the CUDA device."""
+"""The port stands alone: no JAX, nothing of luminair_tpu or of the
+reference's examples, and its entry points default to the CUDA device."""
 
 import ast
 import os
@@ -12,7 +12,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = (sorted((ROOT / "luminair_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-              + sorted((ROOT / "tools").glob("*.py")))
+              + sorted((ROOT / "tools").glob("*.py")) + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _imported_modules(path: Path):
@@ -72,6 +72,34 @@ def test_verify_defaults_to_cuda():
         verify(None, CircuitSettings())
     with pytest.raises(ProverError, match="no CUDA device"):
         verify(None, CircuitSettings(), device="cuda")
+
+
+def test_check_pie_constraints_defaults_to_cuda():
+    from luminair_tpu_torch.air.debug import check_pie_constraints
+    from luminair_tpu_torch.air.pie import pie_from_arrays
+    from luminair_tpu_torch.air.settings import CircuitSettings
+    from luminair_tpu_torch.errors import ProverError
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    pie = pie_from_arrays({})
+    with pytest.raises(ProverError, match="no CUDA device"):
+        check_pie_constraints(pie, CircuitSettings())
+    with pytest.raises(ProverError, match="no CUDA device"):
+        check_pie_constraints(pie, CircuitSettings(), device="cuda")
+
+
+@pytest.mark.parametrize("name", ["torch_simple", "torch_risk_assessment", "torch_black_scholes_nn"])
+def test_examples_default_to_cuda(name):
+    import importlib
+
+    from luminair_tpu_torch.errors import ProverError
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    example = importlib.import_module(f"examples.{name}")
+    with pytest.raises(ProverError, match="no CUDA device"):
+        example.main()
 
 
 def test_kernel_wrappers_reject_unsupported_tensors():
