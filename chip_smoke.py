@@ -5,7 +5,7 @@
 
 Phases, one JSON line each; any failure raises and exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build the fourteen kernels from luminair_tpu_torch/csrc (nvcc,
+  2. build the fifteen kernels from luminair_tpu_torch/csrc (nvcc,
      sm_90a, one process per source, all at once), with ptxas' register
      and spill report;
   3. the black-scholes PINN's settings and trace on the host interpreter
@@ -113,7 +113,27 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      passes its own assertions, and examples/out/ keeps its bytes;
   8. the 16x16 graph traced and proved on the card equals, byte for byte,
      the same traced and proved on the CPU, at the default profile and at
-     high_security().
+     high_security();
+  9. several devices (luminair_tpu_torch/parallel/sharding.py): logup_sum
+     against its twin at prover_step's two shapes (2 relation columns of
+     8 x 2^5 and of 16 x 2^21, the PINN's `mul` width and rows), timed at
+     the larger beside its twin and bound (with the kernel checks of 4);
+     after each of bench_n256's and pinn_b256's verify, the path's card
+     PIE proved under prove_mesh over 2 and 4 shards of the card (phase
+     mesh_prove: counters set to 0 and every twin refused just before the
+     first prove, the one-device proof's bytes, native/ accepting them, 3
+     timed proves beside 3 one-device ones, the lead's gathered bytes and
+     the reshards', K1 / K2 / K7 / K9 launches per shard, peak memory; every
+     shard must launch K1 and K2), and over the distinct cards where there
+     are two or more (else a mesh_devices line: "ran": false); at the end
+     prover_step at both shapes over 1, 2 and 4 shards and a 2 x 2
+     ('rows', 'cols') mesh of the card (phase mesh_step: each first call's
+     launches equal to sharding.step_launches -- the kernels line's
+     logup_sum launches are the full-width 4-shard call's -- results equal
+     to the one-shard call's and the twins', the reshard's bytes against
+     (n - 1)/n of the tree's, 3 timed calls), and dryrun_multichip(4)
+     (luminair_tpu_torch/graft_entry.py; its line says whether the mesh was
+     virtual).
 Then the `kernels` line, and last {"ok": true, "device": {...}}.
 """
 
@@ -1000,9 +1020,9 @@ class tree_bottoms:
     def __init__(self, kernels):
         self.kernels, self.fn, self.bottoms = kernels, kernels.merkle_tree, []
 
-    def _counted(self, desc, *channel):
+    def _counted(self, desc, *channel, **start):
         self.bottoms.append(desc.bottom)
-        return self.fn(desc, *channel)
+        return self.fn(desc, *channel, **start)
 
     def __enter__(self):
         self.kernels.merkle_tree = self._counted
@@ -2418,6 +2438,225 @@ def phase_parity(T, serde):
         emit({"phase": "gpu_vs_cpu", "n": N_PARITY, "config": name, "proof_bytes": len(proofs[0]), "equal": True})
 
 
+
+# --- several devices (luminair_tpu_torch/parallel/sharding.py) -------------
+
+MESH_KINDS = ("1", "2", "4", "rows_cols_2x2")  # prover_step's meshes, all on the card
+# prover_step's shapes (columns, log rows), 2 relation columns: the
+# reference test's, and the PINN's `mul` table (16 columns, 2^21 rows).
+MESH_STEP_SHAPES = {"reference": (8, 5), "full_width": (16, 21)}
+MESH_REL_COLS = 2
+MESH_PROVE_SHARDS = (2, 4)
+MESH_PROVE_KERNELS = ("circle_fft", "blake2s_merkle", "oods_eval", "decommit")  # K1, K2, K7, K9
+
+
+def logup_work(k: int, n: int):
+    """(bytes, operations) of one logup_sum call over n rows of k relation
+    columns: the k columns and the multiplicities read once, 4 words
+    written; a row's k QM31-by-M31 products and subtractions, a QM31
+    inverse, a product by the multiplicity and an add; the k - 1 alpha
+    powers once."""
+    row = k * (4 * OPS_MUL + 4 * OPS_ADD) + OPS_QINV + 4 * OPS_MUL + 4 * OPS_ADD
+    return 4 * (k + 1) * n + 16, n * row + max(k - 1, 0) * OPS_QMUL
+
+
+def step_inputs(n_cols: int, log_n: int):
+    """prover_step's inputs as the reference's test draws them."""
+    rng = np.random.default_rng(7 + log_n)
+    cols = rng.integers(0, (1 << 31) - 1, size=(n_cols, 1 << log_n), dtype=np.uint32)
+    mult = rng.integers(0, (1 << 31) - 1, size=(1 << log_n,), dtype=np.uint32)
+    z = rng.integers(1, (1 << 31) - 1, size=(4,), dtype=np.uint32)
+    alpha = rng.integers(1, (1 << 31) - 1, size=(4,), dtype=np.uint32)
+    return cols, mult, z, alpha
+
+
+def mesh_of(S, kind: str, devices):
+    if kind == "rows_cols_2x2":
+        return S.make_mesh(4, (2, 2), devices=devices[:4])
+    return S.make_chip_mesh(int(kind), devices=devices[: int(kind)])
+
+
+def phase_logup_kernel(kernels, f, dev) -> dict:
+    """logup_sum against its twin on the card at prover_step's two shapes
+    (the relation columns of each), timed at full width beside its twin
+    and its bound: the kernels line's row."""
+    row = {"err": 0}
+    for name, (n_cols, log) in MESH_STEP_SHAPES.items():
+        cols, mult, z, alpha = step_inputs(n_cols, log)
+        values = f.u32_to_tensor(cols[:MESH_REL_COLS], dev)
+        m = f.u32_to_tensor(mult, dev)
+        err = max_abs_err(kernels.logup_sum(values, m, z, alpha), kernels.logup_sum_plain(values, m, z, alpha))
+        emit({"phase": "kernel_check", "kernel": "logup_sum", "shape": [MESH_REL_COLS, 1 << log], "max_abs_err": err})
+        row["err"] = max(row["err"], err)
+        if name == "full_width":
+            row["ms"] = time_ms(lambda: kernels.logup_sum(values, m, z, alpha))
+            row["plain_ms"] = time_ms(lambda: kernels.logup_sum_plain(values, m, z, alpha), reps=3)
+            row["bound"] = bound(*logup_work(MESH_REL_COLS, 1 << log))
+            row["shape"] = [MESH_REL_COLS, 1 << log]
+    emit({"phase": "kernel_time", "kernel": "logup_sum", "shape": row["shape"], "ms": row["ms"],
+          "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0], "bound_by": row["bound"][1]})
+    if row["err"]:
+        raise AssertionError(f"logup_sum disagrees with its twin: {row['err']}")
+    return row
+
+
+def plain_step(kernels, f, dev, cols, mult, z, alpha):
+    """prover_step's result from the plain twins on the card, one device."""
+    t = f.u32_to_tensor(cols, dev)
+    evals = kernels.circle_lde_plain(kernels.circle_ifft_plain(t), 1)
+    log = evals.shape[1].bit_length() - 1
+    desc = kernels.TreeDesc(kernels.tree_layers(log, dev), {log: evals})
+    kernels.merkle_tree_plain(desc)
+    claimed = kernels.logup_sum_plain(t[:MESH_REL_COLS], f.u32_to_tensor(mult, dev), z, alpha)
+    return f.tensor_to_u32(evals), f.tensor_to_u32(desc.layers[0][0]), f.tensor_to_u32(claimed)
+
+
+def phase_mesh_step(S, kernels, f, dev, card) -> dict:
+    """prover_step at both shapes over virtual meshes of the card (1, 2 and
+    4 shards, 2 x 2 ('rows', 'cols')): the launches of each first call
+    (counters set to 0 just before it) gated to the plan
+    (sharding.step_launches: K1 a column shard, K2 a row shard and the
+    top, logup_sum a row shard, nothing else); evals, root and claimed
+    equal to the one-shard result and the twins' (the CPU's at the
+    reference's shape, the twins on the card at full width); the
+    reshard's bytes beside (n - 1)/n of the tree's; host seconds of 3
+    more calls.  Returns the launches of the full-width 4-shard call (the
+    kernels line's run for logup_sum)."""
+    t_phase = time.perf_counter()
+    main = None
+    for name, (n_cols, log) in MESH_STEP_SHAPES.items():
+        cols, mult, z, alpha = step_inputs(n_cols, log)
+        if name == "reference":
+            want = S.prover_step(S.make_chip_mesh(1, devices=["cpu"]), cols, mult, z, alpha, n_rel_cols=MESH_REL_COLS)
+        else:
+            want = plain_step(kernels, f, dev, cols, mult, z, alpha)
+        one = None
+        for kind in MESH_KINDS:
+            mesh = mesh_of(S, kind, [dev] * 4)
+            stats = {}
+            kernels.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = S.prover_step(mesh, cols, mult, z, alpha, n_rel_cols=MESH_REL_COLS, stats=stats)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            launches = kernels.counts()
+            first = {k: v for k, v in launches.items() if v}
+            launches["fri_channel_steps_in_root_passes"] = kernels.CHANNEL.hosted
+            by_shard = {str(k): dict(v) for k, v in kernels.SHARD_LAUNCHES.items()}
+            plan = S.step_launches(mesh, n_cols, log, 1)
+            if name == "full_width" and kind == "4":
+                main = dict(launches)
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                S.prover_step(mesh, cols, mult, z, alpha, n_rel_cols=MESH_REL_COLS)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            one = got if one is None else one
+            equal = all(np.array_equal(g, w) and np.array_equal(g, o) for g, w, o in zip(got, want, one))
+            n = mesh.size
+            emit({"phase": "mesh_step", "shape": name, "columns": n_cols, "rows": 1 << log, "mesh": mesh.shape,
+                  "virtual": mesh.virtual, "card": card, "first_seconds": first_s, "seconds": times,
+                  "seconds_median": statistics.median(times),
+                  "launches": first,
+                  "launches_planned": plan, "launches_by_shard": by_shard, "reshard_bytes": stats["moved_bytes"],
+                  "block_exchange_bytes": stats["tree_bytes"] * (n - 1) // n, "tree_bytes": stats["tree_bytes"],
+                  "equal_one_shard_and_twins": equal})
+            if first != plan or not equal:
+                raise AssertionError(f"prover_step {name} over {mesh}: launches {launches} (planned {plan}), "
+                                     f"results equal: {equal}")
+            if stats["moved_bytes"] * n != stats["tree_bytes"] * (n - 1):
+                raise AssertionError(f"prover_step {name} over {mesh}: the reshard moved {stats['moved_bytes']} bytes")
+    emit({"phase": "mesh_steps", "seconds": time.perf_counter() - t_phase})
+    return main
+
+
+def phase_mesh_prove(T, S, kernels, serde, tape, card, tag, pie, settings, proof, devices=None) -> dict:
+    """The path's card PIE proved under prove_mesh over 2 and 4 shards (of
+    the card, or of `devices`): the first prove with every launch counter
+    set to 0 just before it and every plain twin refused, the same bytes
+    as the path's one-device proof, native/ accepting them; 3 timed proves
+    beside 3 one-device proves; the lead's gathered bytes and the
+    reshards' bytes of one prove, K1 / K2 / K7 / K9 launches per shard,
+    peak device memory.  Every shard must launch K1 and K2.  Returns
+    {shards: launches}."""
+    t_phase = time.perf_counter()
+    one_bytes = serde.proof_to_flat_bytes(proof)
+    virtual = devices is None
+    out = {}
+    for n in MESH_PROVE_SHARDS:
+        devs = [torch.device("cuda", torch.cuda.current_device())] * n if virtual else devices[:n]
+        if len(devs) < n:
+            continue
+        mesh = S.make_chip_mesh(n, devices=devs)
+        one_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            T.prove(pie, settings)
+            torch.cuda.synchronize()
+            one_s.append(time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        S.reset_bytes()
+        with twins_refused(kernels, tape), S.prove_mesh(mesh):
+            t0 = time.perf_counter()
+            got = T.prove(pie, settings)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+        launches = kernels.counts()
+        launches["fri_channel_steps_in_root_passes"] = kernels.CHANNEL.hosted
+        by_shard = {str(k): {name: v.get(name, 0) for name in MESH_PROVE_KERNELS}
+                    for k, v in kernels.SHARD_LAUNCHES.items()}
+        moved = dict(S.BYTES)
+        peak = torch.cuda.max_memory_allocated()
+        pb = serde.proof_to_flat_bytes(got)
+        if pb != one_bytes:
+            raise AssertionError(f"{tag}: the proof over {mesh} differs from the one-device proof")
+        verify_s = native_verify(serde, pb, settings, f"{tag} over {n} shards")
+        times = []
+        with S.prove_mesh(mesh):
+            for _ in range(3):
+                t0 = time.perf_counter()
+                T.prove(pie, settings)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        emit({"phase": "mesh_prove", "path": tag, "card": card, "shards": n, "virtual": mesh.virtual,
+              "devices": [str(d) for d in devs], "first_prove_seconds": first_s, "prove_seconds": times,
+              "prove_seconds_median": statistics.median(times), "one_device_seconds": one_s,
+              "one_device_median": statistics.median(one_s), "gathered_bytes": moved["gathered"],
+              "reshard_bytes": moved["moved"], "launches": {k: v for k, v in launches.items() if v},
+              "launches_by_shard": by_shard, "peak_device_bytes": peak, "proof_bytes_equal_one_device": True,
+              "twins_called": 0, "native_verify": "accepted", "native_verify_seconds": verify_s})
+        short = [r for r in range(n) if not all(by_shard.get(str(r), {}).get(k) for k in MESH_PROVE_KERNELS[:2])]
+        if short or not any(by_shard.get(str(r), {}).get("oods_eval") for r in range(n)):
+            raise AssertionError(f"{tag} over {n} shards: shards {short} launched no K1 or K2, or none K7: {by_shard}")
+        out[n] = launches
+    emit({"phase": "mesh_proves", "path": tag, "virtual": virtual, "seconds": time.perf_counter() - t_phase})
+    return out
+
+
+def phase_mesh_devices(T, S, kernels, serde, tape, card, tag, pie, settings, proof) -> None:
+    """The two proves over distinct cards where the machine has two or more;
+    else one line saying that no run had them."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit({"phase": "mesh_devices", "path": tag, "cards": cards, "ran": False})
+        return
+    phase_mesh_prove(T, S, kernels, serde, tape, card, tag, pie, settings, proof,
+                     devices=[torch.device("cuda", i) for i in range(cards)])
+
+
+def phase_dryrun(card) -> None:
+    from luminair_tpu_torch import graft_entry
+
+    r = graft_entry.dryrun_multichip(4)
+    emit({"phase": "dryrun_multichip", "card": card, "printed": r["printed"], "virtual": r["virtual"],
+          "devices": r["devices"], "forward_rel_err": r["forward_rel_err"], "meshes": r["meshes"],
+          "seconds": r["seconds"]})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2428,6 +2667,7 @@ def main() -> int:
     from luminair_tpu_torch import prelude as T
     from luminair_tpu_torch.air import tape
     from luminair_tpu_torch.models import black_scholes as BS
+    from luminair_tpu_torch.parallel import sharding as S
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -2444,23 +2684,25 @@ def main() -> int:
     # The bench graph has no reduction and no LUT: no T3, no T4.  The check
     # (air_check) is on no prove path.
     expect = {
-        bench_tag: [k.name for k in kernels.KERNELS if k.name not in ("trace_reduce", "lut_boundary", "air_check")],
-        pinn_tag: [k.name for k in kernels.KERNELS if k.name != "air_check"],
+        bench_tag: [k.name for k in kernels.KERNELS
+                    if k.name not in ("trace_reduce", "lut_boundary", "air_check", "logup_sum")],
+        pinn_tag: [k.name for k in kernels.KERNELS if k.name not in ("air_check", "logup_sum")],
     }
-    # A prove from a PIE: K1-K10, no trace kernel.
-    expect[hs_tag] = expect[b2_tag] = [k.name for k in kernels.KERNELS
-                                       if k.name not in ("trace_segment", "trace_reduce", "lut_boundary", "air_check")]
+    # A prove from a PIE: K1-K10, no trace kernel.  logup_sum is prover_step's (phase mesh_step).
+    expect[hs_tag] = expect[b2_tag] = [k.name for k in kernels.KERNELS if k.name not in (
+        "trace_segment", "trace_reduce", "lut_boundary", "air_check", "logup_sum")]
     # K3: the largest input's circle fold and one launch a committed FRI
     # layer (7 layers at N=256, 9 at the PINN).
     k3_limit = {bench_tag: 8, pinn_tag: 10, hs_tag: 10}
     # The run whose launch counts the kernels line gives: the PINN's prove,
     # the check's on the PINN's card PIE.
-    main_path = {"air_check": debug_tag}
+    main_path = {"air_check": debug_tag, "logup_sum": "mesh_step"}
     pinn_host = host_trace(paths[pinn_tag][0])
     emit({"phase": "pinn_host_trace", "batch": PINN_BATCH, "trace_cells": trace_cells(pinn_host[0]),
           "settings_host_seconds": pinn_host[2], "trace_host_seconds": pinn_host[3]})
     pinn_logs = {k: t.log_size for k, t in pinn_host[0].trace_tables.items() if t.n_rows}
     rows = phase_kernels(kernels, circle, f, dev, pinn_logs)
+    rows["logup_sum"] = phase_logup_kernel(kernels, f, dev)
 
     launches, path_errs = {}, {}
     # The kernel checks' buffers (2^27-word LDEs) stay out of the first
@@ -2473,6 +2715,9 @@ def main() -> int:
                                                          expect[tag], k3_limit[tag], check)
         peak = torch.cuda.max_memory_allocated()
         path_errs["verify_" + tag] = phase_verify(T, kernels, serde, tracing, tape, f, card, tag, pie, settings, proof)
+        for n, c in phase_mesh_prove(T, S, kernels, serde, tape, card, tag, pie, settings, proof).items():
+            launches[f"mesh_{tag}_{n}"] = c
+        phase_mesh_devices(T, S, kernels, serde, tape, card, tag, pie, settings, proof)
         del proof
 
         def settings_trace_prove():
@@ -2528,6 +2773,8 @@ def main() -> int:
     del graphs
     phase_examples(kernels, card)
     phase_parity(T, serde)
+    launches["mesh_step"] = phase_mesh_step(S, kernels, f, dev, card)
+    phase_dryrun(card)
 
     launches.update({"verify_" + tag: c for tag, c in VERIFY_LAUNCHES.items()})
     line = []

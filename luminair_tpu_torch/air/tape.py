@@ -172,8 +172,8 @@ class Tape:
             yield self.words[i : i + INS_WORDS]
 
     def tensor(self, device) -> torch.Tensor:
-        """The int32 program on `device`, uploaded once."""
-        dev = torch.device(device)
+        """The int32 program on `device`, uploaded once (per `cuda:i`)."""
+        dev = f.device_key(device)
         if dev not in self._dev:
             self._dev[dev] = torch.tensor(self.words, dtype=f.I32).to(dev)
         return self._dev[dev]

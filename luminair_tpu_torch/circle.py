@@ -180,13 +180,21 @@ def stage_offset(log_size: int, stage: int) -> int:
     return (1 << log_size) - (1 << (log_size - stage))
 
 
+def twiddle_table(log_size: int, inverse: bool, device) -> torch.Tensor:
+    """All stages of a size-2^log_size transform, flat int32 on `device`
+    (cached per log, direction and `cuda:i`)."""
+    return _twiddle_table(log_size, inverse, f.device_key(device))
+
+
 @lru_cache(maxsize=64)
-def twiddle_table(log_size: int, inverse: bool, device: torch.device) -> torch.Tensor:
-    """All stages of a size-2^log_size transform, flat int32 on `device`."""
+def _twiddle_table(log_size: int, inverse: bool, device: torch.device) -> torch.Tensor:
     tw = ifft_twiddles(log_size) if inverse else fft_twiddles(log_size)
     if not tw:
         return torch.zeros(0, dtype=f.I32, device=device)
     return torch.cat(tw).to(f.I32).to(device)
+
+
+twiddle_table.cache_clear = _twiddle_table.cache_clear
 
 
 def twiddle_stage(log_size: int, stage: int, inverse: bool, device) -> torch.Tensor:
@@ -196,8 +204,16 @@ def twiddle_stage(log_size: int, stage: int, inverse: bool, device) -> torch.Ten
     return table[off : off + (1 << (log_size - 1 - stage))]
 
 
+def domain_table(log_size: int, device):
+    """(xs, ys) of D_log_size as int32 on `device` (cached per log and
+    `cuda:i`)."""
+    return _domain_table(log_size, f.device_key(device))
+
+
 @lru_cache(maxsize=64)
-def domain_table(log_size: int, device: torch.device):
-    """(xs, ys) of D_log_size as int32 on `device`."""
+def _domain_table(log_size: int, device: torch.device):
     xs, ys = domain_points(log_size)
     return xs.to(f.I32).to(device), ys.to(f.I32).to(device)
+
+
+domain_table.cache_clear = _domain_table.cache_clear

@@ -61,12 +61,17 @@ extern "C" long long lum_fft_groups_log() { return GROUPS_LOG; }
 extern "C" long long lum_fft_pass_size() { return sizeof(lum::FftPass); }
 
 extern "C" int lum_fft_pass(lum::FftPass p, void* stream) {
-  static bool smem_set = false;
-  if (!smem_set) {
+  // The attribute is a device's: set it once on each device (the caller
+  // makes the tensors' device current).
+  constexpr int MAX_DEVICES = 64;
+  static bool smem_set[MAX_DEVICES] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
     cudaError_t err = cudaFuncSetAttribute(fft_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            2 * MAX_WORDS * (int)sizeof(uint32_t));
     if (err != cudaSuccess) return (int)err;
-    smem_set = true;
+    smem_set[dev] = true;
   }
   long long ctas = lum::fft_ctas(p);
   int words = 1 << (p.log_g + p.log_groups);

@@ -57,14 +57,19 @@ extern "C" long long lum_merkle_pass_size() { return (long long)sizeof(lum::Merk
 // writes layer 0) give its root pass K8's channel step.
 extern "C" int lum_merkle_pass(unsigned long long desc, int bottom, unsigned long long state, unsigned long long slot,
                                void* stream) {
-  static bool smem_set = false;
-  if (!smem_set) {
+  // The attribute is a device's: set it once on each device (the caller
+  // makes the tensors' device current).
+  constexpr int MAX_DEVICES = 64;
+  static bool smem_set[MAX_DEVICES] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
     const int bytes = (int)(lum::merkle_smem_words(TILE_LOG) * sizeof(uint32_t));
     const cudaFuncAttribute smem_attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
     cudaError_t err = cudaFuncSetAttribute(merkle_pass_kernel<false>, smem_attr, bytes);
     if (err == cudaSuccess) err = cudaFuncSetAttribute(merkle_pass_kernel<true>, smem_attr, bytes);
     if (err != cudaSuccess) return (int)err;
-    smem_set = true;
+    smem_set[dev] = true;
   }
   const lum::MerklePass p{desc, bottom, TILE_LOG, state, slot};
   if (bottom < 0 || (state == 0) != (slot == 0) || (state != 0 && lum::merkle_tile(p) != bottom))

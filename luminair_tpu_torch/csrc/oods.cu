@@ -89,12 +89,17 @@ extern "C" long long lum_oods_group_words() { return lum::OODS_GROUP_WORDS; }
 // bytes of the largest group's tables.
 extern "C" int lum_oods_eval(const long long* desc, int n_ctas, long long n_rows, long long smem, uint32_t* partial,
                              uint32_t* out, void* stream) {
-  static bool smem_set = false;
-  if (!smem_set) {
+  // The attribute is a device's: set it once on each device (the caller
+  // makes the tensors' device current).
+  constexpr int MAX_DEVICES = 64;
+  static bool smem_set[MAX_DEVICES] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
     cudaError_t err = cudaFuncSetAttribute(oods_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            200 * 1024);
     if (err != cudaSuccess) return (int)err;
-    smem_set = true;
+    smem_set[dev] = true;
   }
   if (smem > 200 * 1024 || n_ctas <= 0 || n_rows <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;

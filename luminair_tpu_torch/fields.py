@@ -54,6 +54,15 @@ def host_i64(a) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a, dtype=np.uint32).astype(np.int64))
 
 
+def device_key(device) -> torch.device:
+    """A device as caches key it: `cuda` becomes the current `cuda:i`, so
+    one card never takes two entries, nor an entry of another card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def upload(a: np.ndarray, device) -> torch.Tensor:
     """One host-to-device copy of a numpy array: pinned and asynchronous on
     the card (stream-ordered before the kernels launched after it)."""
@@ -138,8 +147,8 @@ def _constant(values: tuple, device: torch.device) -> torch.Tensor:
 def constant(values, device="cpu") -> torch.Tensor:
     """A small read-only int64 tensor, made once per device: a copy from
     pageable host memory waits for the device stream, so constants in hot
-    loops must not be re-uploaded."""
-    return _constant(tuple(int(v) for v in values), torch.device(device))
+    loops must not be re-uploaded.  Cached per `cuda:i`."""
+    return _constant(tuple(int(v) for v in values), device_key(device))
 
 
 def qm31_from_ints(a: int, b: int = 0, c: int = 0, d: int = 0, device="cpu"):

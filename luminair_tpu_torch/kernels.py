@@ -124,9 +124,17 @@ class Kernel:
         return self._fns
 
     def launch(self, symbol: str, device: torch.device, *args):
+        """One call of `symbol` on `device`'s current stream, with `device`
+        the current device for its duration: the C entry point launches
+        on (and sets attributes of) the current device.  The device is
+        switched only when it is another than the current one."""
         fn = self._load()[symbol]
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
+        if device.index is None or device.index == torch.cuda.current_device():
+            err = fn(*args, stream)
+        else:
+            with torch.cuda.device(device):
+                err = fn(*args, stream)
         if err != 0:
             raise KernelError(f"{self.name}.{symbol}: CUDA error {err} at launch")
         self.launches += 1
@@ -516,19 +524,74 @@ LUT_BOUNDARY = Kernel(
     abi={**_TRACE_ABI, "lum_lut_threads": LUT_THREADS, "lum_lut_pairs": LUT_PAIRS, "lum_lut_max_ctas": LUT_MAX_CTAS},
 )
 
+LOGUP_MAX_K = 32  # relation columns of one logup_sum call (csrc/logup.cu)
+LOGUP_THREADS = 256
+
+
+class LogupArgs(ctypes.Structure):
+    """Mirror of LogupArgs (csrc/logup.cu), logup_sum's launch parameters."""
+
+    _fields_ = [
+        ("values", ctypes.c_uint64),
+        ("mult", ctypes.c_uint64),
+        ("partial", ctypes.c_uint64),
+        ("out", ctypes.c_uint64),
+        ("n", ctypes.c_longlong),
+        ("stride", ctypes.c_longlong),
+        ("k", ctypes.c_int),
+        ("pad_", ctypes.c_int),
+        ("z", ctypes.c_uint32 * 4),
+        ("pows", ctypes.c_uint32 * (4 * LOGUP_MAX_K)),
+    ]
+
+
+LOGUP_SUM = Kernel(
+    "logup_sum",
+    "logup.cu",
+    "luminair_tpu/parallel/sharding.py:184 (_logup_sum_body; _compiled_prover_step :224)",
+    {"lum_logup_sum": [_P, _I]},
+    abi={"lum_logup_args_size": ctypes.sizeof(LogupArgs), "lum_logup_max_k": LOGUP_MAX_K,
+         "lum_logup_threads": LOGUP_THREADS},
+)
+
 KERNELS = (
     CIRCLE_FFT, MERKLE, FRI_LAYER, DEEP_QUOTIENT, AIR_WITNESS, AIR_DOMAIN, OODS_EVAL, CHANNEL, DECOMMIT, GRIND_POW,
-    TRACE_SEGMENT, TRACE_REDUCE, LUT_BOUNDARY, AIR_CHECK,
+    TRACE_SEGMENT, TRACE_REDUCE, LUT_BOUNDARY, AIR_CHECK, LOGUP_SUM,
 )
 
 
 def reset_counts() -> None:
     for k in KERNELS:
         k.launches = k.hosted = 0
+    SHARD_LAUNCHES.clear()
 
 
 def counts() -> Dict[str, int]:
     return {k.name: k.launches for k in KERNELS}
+
+
+# Launches by the shard of a mesh that made them (parallel/sharding.py):
+# {mesh position, or "lead" for the top of a sharded tree: {kernel: n}}.
+SHARD_LAUNCHES: Dict[object, Dict[str, int]] = {}
+
+
+class on_shard:
+    """While active, the launches made count also under `shard` in
+    SHARD_LAUNCHES."""
+
+    def __init__(self, shard):
+        self.shard = shard
+
+    def __enter__(self):
+        self.before = counts()
+        return self
+
+    def __exit__(self, *exc):
+        mine = SHARD_LAUNCHES.setdefault(self.shard, {})
+        for name, n in counts().items():
+            if n != self.before[name]:
+                mine[name] = mine.get(name, 0) + n - self.before[name]
+        return False
 
 
 def _nvcc() -> str:
@@ -757,14 +820,16 @@ def merkle_passes(bottom: int, tile_log: int = MERKLE_TILE_LOG) -> List[int]:
     return passes
 
 
-def _merkle_launch(desc: "TreeDesc", tile_log: int = MERKLE_TILE_LOG, run=None, state=None, slot=None) -> None:
-    """Every pass of one tree: one launch each on the card, whose tile is
-    2^MERKLE_TILE_LOG, or `run(MerklePass)` at any tile (the host build).
-    With a channel (`state`, `slot`) the last pass, which writes the root,
-    also runs K8's step."""
+def _merkle_launch(desc: "TreeDesc", tile_log: int = MERKLE_TILE_LOG, run=None, state=None, slot=None,
+                   start: Optional[int] = None) -> None:
+    """Every pass of one tree from layer `start` (the bottom by default)
+    up: one launch each on the card, whose tile is 2^MERKLE_TILE_LOG, or
+    `run(MerklePass)` at any tile (the host build).  With a channel
+    (`state`, `slot`) the last pass, which writes the root, also runs K8's
+    step."""
     _require(tile_log >= 0 and (run is not None or tile_log == MERKLE_TILE_LOG),
              f"merkle_tree: the card's tile log is {MERKLE_TILE_LOG}")
-    passes = merkle_passes(desc.bottom, tile_log)
+    passes = merkle_passes(desc.bottom if start is None else start, tile_log)
     for b in passes:
         ch = (state.data_ptr(), slot.data_ptr()) if state is not None and b == passes[-1] else (0, 0)
         if run is None:
@@ -775,31 +840,37 @@ def _merkle_launch(desc: "TreeDesc", tile_log: int = MERKLE_TILE_LOG, run=None, 
         CHANNEL.hosted += 1
 
 
-def merkle_tree(desc: "TreeDesc", state: Optional[torch.Tensor] = None, slot: Optional[torch.Tensor] = None) -> None:
+def merkle_tree(desc: "TreeDesc", state: Optional[torch.Tensor] = None, slot: Optional[torch.Tensor] = None,
+                start: Optional[int] = None) -> None:
     """Hash every layer of the tree that `desc` describes into its digest
     layers, from the columns up: node i of layer log is H(layer[log+1][2i]
     || layer[log+1][2i+1] || cols[log][:, i]) (no children on the bottom
-    layer).  On the card: one launch per pass (`merkle_passes`).  With a
-    channel `state` (CHANNEL_WORDS words) and a record `slot` (12 words):
-    then K8's step, the root mixed into the state and one QM31 drawn, the
-    slot receiving the root and the alpha -- on the card inside the root
-    pass, which needs no launch of its own."""
+    layer).  From layer `start` < bottom when given: the layers below it
+    already hold their digests (the top of a row-sharded tree, whose layer
+    start + 1 holds the shards' roots).  On the card: one launch per pass
+    (`merkle_passes`).  With a channel `state` (CHANNEL_WORDS words) and a
+    record `slot` (12 words): then K8's step, the root mixed into the state
+    and one QM31 drawn, the slot receiving the root and the alpha -- on the
+    card inside the root pass, which needs no launch of its own."""
     _require((state is None) == (slot is None), "merkle_tree: a channel state and a record slot, or neither")
+    _require(start is None or 0 <= start < desc.bottom, f"merkle_tree: start layer {start} of a tree of bottom "
+             f"{desc.bottom}")
     dev = desc.layers[desc.bottom].device
     if state is not None:
         _check_words(state, CHANNEL_WORDS, "channel state", dev)
         _check_words(slot, 12, "merkle_tree slot", dev)
     if _on_cpu(desc.layers[desc.bottom]):
-        merkle_tree_plain(desc)
+        merkle_tree_plain(desc, start)
         if state is not None:
             channel_mix_root_draw_plain(state, desc.layers[0][0], slot)
         return
-    _merkle_launch(desc, state=state, slot=slot)
+    _merkle_launch(desc, state=state, slot=slot, start=start)
 
 
-def merkle_tree_plain(desc: "TreeDesc") -> None:
-    prev = None
-    for log in range(desc.bottom, -1, -1):
+def merkle_tree_plain(desc: "TreeDesc", start: Optional[int] = None) -> None:
+    start = desc.bottom if start is None else start
+    prev = desc.layers[start + 1] if start < desc.bottom else None
+    for log in range(start, -1, -1):
         prev = desc.layers[log].copy_(merkle_layer_plain(prev, desc.cols.get(log)))
 
 
@@ -1179,8 +1250,12 @@ def _oods_plan(groups, chunk_log: int = OODS_CHUNK_LOG) -> OodsPlan:
     return OodsPlan(desc, units, rows, smem)
 
 
+def _sm_count(dev) -> int:
+    return _sm_count_of(f.device_key(dev))
+
+
 @functools.lru_cache(maxsize=None)
-def _sm_count(dev: torch.device) -> int:
+def _sm_count_of(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
@@ -1349,8 +1424,7 @@ def grind_pow(digest: bytes, bits: int, device) -> int:
     if device.type == "cpu":
         return grind_pow_plain(digest, bits, device)
     _require(device.type == "cuda", f"unsupported device {device}")
-    if device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    device = f.device_key(device)
     if device not in _POW_SCRATCH:
         _POW_SCRATCH[device] = _PowScratch(device)
     st = _POW_SCRATCH[device]
@@ -1496,6 +1570,20 @@ class DecommitPass:
             out.append((values, witness))
         return out
 
+    def split_layers(self, words: np.ndarray) -> List[tuple]:
+        """`split` by layer: per tree ({log: the opened values of its
+        columns, commitment order}, {layer: (n, 8) witness digests, the
+        children on that layer}), numpy views."""
+        out = []
+        for (values, witness), tree, (hdr, _, _, L) in zip(self.split(words), self.trees, self.region):
+            h = words[hdr : hdr + 2 * (L + 1)].astype(np.int64).reshape(L + 1, 2)
+            vals, it = {}, iter(values)
+            for log in sorted(tree.cols, reverse=True):
+                vals[log] = [next(it) for _ in range(int(tree.k[log]))]
+            ends = np.cumsum(h[:, 1])
+            out.append((vals, {L - i: witness[ends[i] - h[i, 1] : ends[i]] for i in range(L + 1)}))
+        return out
+
 
 def decommit(plan: DecommitPass) -> torch.Tensor:
     """The pass's output words (int32, on the trees' device): per tree a
@@ -1542,6 +1630,56 @@ def decommit_plain(plan: DecommitPass) -> torch.Tensor:
                 val += len(v)
         out[hdr : hdr + 2 * (L + 1)] = torch.tensor(heads, dtype=f.I32, device=dev).reshape(-1)
     return out
+
+
+# ---------------------------------------------------------------------------
+# logup_sum: a row shard's LogUp claimed sum (parallel/sharding.py).
+
+
+LOGUP_CTAS_PER_SM = 4
+# logup_sum's partials and finish counter on each device (`cuda:i`).
+_LOGUP_SCRATCH: Dict[torch.device, torch.Tensor] = {}
+
+
+def logup_sum(values: torch.Tensor, mult: torch.Tensor, z, alpha) -> torch.Tensor:
+    """(4,) int32 QM31: sum_i mult_i / (z - sum_k alpha^k values[k, i]).
+    values: (K, n) int32 M31 words, each row contiguous (any row stride);
+    mult: (n,) int32 M31 words on the same device; z, alpha: QM31 (4
+    words).  The inverse of 0 is 0.  On the card: one launch, its CTAs'
+    partials added by the last one, in a scratch kept per device (its
+    counter zeroed when made and reset by each launch's last CTA: one
+    stream a device)."""
+    _require(values.dtype == f.I32 and values.dim() == 2 and values.stride(1) == 1,
+             "logup_sum: values must be (K, n) int32 with contiguous rows")
+    k, n = values.shape
+    _require(1 <= k <= LOGUP_MAX_K, f"logup_sum: 1 to {LOGUP_MAX_K} relation columns, got {k}")
+    _require(n > 0 and mult.dtype == f.I32 and tuple(mult.shape) == (n,) and mult.is_contiguous()
+             and mult.device == values.device, f"logup_sum: mult must be ({n},) contiguous int32 beside the values")
+    z, alpha = _words(z), _words(alpha)
+    if _on_cpu(values):
+        return logup_sum_plain(values, mult, z, alpha)
+    dev = f.device_key(values.device)
+    ctas = min(-(-n // LOGUP_THREADS), LOGUP_CTAS_PER_SM * _sm_count(dev))
+    if dev not in _LOGUP_SCRATCH:
+        _LOGUP_SCRATCH[dev] = torch.zeros(4 * LOGUP_CTAS_PER_SM * _sm_count(dev) + 1, dtype=f.I32, device=dev)
+    scratch = _LOGUP_SCRATCH[dev]
+    out = torch.empty(4, dtype=f.I32, device=dev)
+    a = LogupArgs(values.data_ptr(), mult.data_ptr(), scratch.data_ptr(), out.data_ptr(), n, values.stride(0), k, 0)
+    a.z[:] = z
+    a.pows[: 4 * k] = [w for q in f.qm31_powers_ints((1, 0, 0, 0), alpha, k)[0] for w in q]
+    LOGUP_SUM.launch("lum_logup_sum", dev, ctypes.addressof(a), ctas)
+    return out
+
+
+def logup_sum_plain(values: torch.Tensor, mult: torch.Tensor, z, alpha) -> torch.Tensor:
+    dev = values.device
+    acc = torch.tensor(_words(z), dtype=f.I64, device=dev).expand(values.shape[1], 4)
+    apow = (1, 0, 0, 0)
+    for row in values:
+        acc = f.sub(acc, f.qm31_mul_m31(torch.tensor(apow, dtype=f.I64, device=dev), f.to_u32_i64(row)))
+        apow = f.qm31_mul_ints(apow, _words(alpha))
+    frac = f.qm31_mul_m31(f.qm31_inv(acc), f.to_u32_i64(mult))
+    return (frac.sum(0) % f.P).to(f.I32)
 
 
 # ---------------------------------------------------------------------------

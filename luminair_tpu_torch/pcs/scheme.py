@@ -5,6 +5,15 @@ through DEEP quotients and FRI, prover and verifier.
   opening phase:  OODS values -> mix -> draw gamma -> quotients -> FRI ->
                   PoW -> draw queries -> decommit trees and FRI layers
 
+Every tree is committed through sharding.ShardedCommit, over the mesh of
+parallel/sharding.prove_mesh or else a mesh of the columns' one device.
+Under a mesh of several shards that is K1 per column shard, the block
+reshard, K2 per row shard and the top on the lead; the OODS values come
+from one K7 call per column shard on the coefficients it holds, and each
+tree is opened by one K9 pass per row shard and one on the lead.  The quotients,
+FRI and the PoW run on the lead over each tree's evaluations, which the
+lead assembles from the column blocks.
+
 FRI commits on the card with its channel there (pcs/fri.py, K8); the PoW
 nonce is searched on the card (kernels.grind_pow, K10); the opening of
 the FRI layers and the trees is one decommitment pass: one upload, one
@@ -32,8 +41,9 @@ from .. import fft
 from .. import kernels
 from .. import tracing
 from .. import circle
-from ..crypto.merkle import MerkleTree, computed_positions, open_trees, verify_decommitment
+from ..crypto.merkle import computed_positions, open_trees, verify_decommitment
 from ..errors import ProverError
+from ..parallel import sharding
 from . import fri as fri_mod
 from .config import PcsConfig
 from .quotients import ColumnSample, accumulate_quotients, quotients_at_positions
@@ -51,7 +61,11 @@ class PcsProof:
 class TreeProver:
     """One committed tree: columns on their trace domains, kept as
     coefficients and as LDE evaluations on their commit domains
-    (trace log + blowup), one (C, 2^log) matrix per size group."""
+    (trace log + blowup), one (C, 2^log) matrix per size group.  The
+    commitment runs over the current mesh, or a mesh of the columns' one
+    device: the coefficients lie on the column shards (`coeff_shards[c]`:
+    the mesh position holding column c's) and `merkle` is row-sharded
+    where the mesh has more than one shard."""
 
     def __init__(self, columns: List[torch.Tensor], log_blowup: int):
         self.log_blowup = log_blowup
@@ -60,22 +74,24 @@ class TreeProver:
             log = int(col.shape[0]).bit_length() - 1
             assert 1 << log == col.shape[0]
             self.trace_logs.append(log)
-        self.coeffs: List[torch.Tensor] = [None] * len(columns)
-        self.evals: List[torch.Tensor] = [None] * len(columns)
+        self.commit_logs = [l + log_blowup for l in self.trace_logs]
         by_log: Dict[int, List[int]] = {}
         for i, log in enumerate(self.trace_logs):
             by_log.setdefault(log, []).append(i)
-        evals_by_commit_log = {}
+        self.mesh = sharding.current_mesh() or sharding.Mesh([columns[0].device], ("chips",))
+        commit = sharding.ShardedCommit(
+            self.mesh, {log: torch.stack([columns[i].to(f.I32) for i in idxs]) for log, idxs in by_log.items()},
+            log_blowup)
+        self.coeffs: List[torch.Tensor] = [None] * len(columns)
+        self.coeff_shards: List[int] = [None] * len(columns)
+        self.evals: List[torch.Tensor] = [None] * len(columns)
         for log, idxs in by_log.items():
-            mat = torch.stack([columns[i].to(f.I32) for i in idxs])
-            coeffs = fft.ifft(mat)
-            evals = fft.extend_coeffs_and_fft(coeffs, log_blowup)
-            evals_by_commit_log[log + log_blowup] = evals
+            for b in commit.blocks[log + log_blowup]:
+                for j in range(b.c0, b.c1):
+                    self.coeffs[idxs[j]], self.coeff_shards[idxs[j]] = b.coeffs[j - b.c0], b.pos
             for j, i in enumerate(idxs):
-                self.coeffs[i] = coeffs[j]
-                self.evals[i] = evals[j]
-        self.commit_logs = [l + log_blowup for l in self.trace_logs]
-        self.merkle = MerkleTree(evals_by_commit_log)
+                self.evals[i] = commit.evals[log + log_blowup][j]
+        self.merkle = commit.tree
 
     @property
     def root(self) -> np.ndarray:
@@ -94,6 +110,31 @@ class CommitmentSchemeProver:
         self.trees.append(tree)
         return len(self.trees) - 1
 
+    def _oods_values(self, groups: Dict[tuple, tuple], keys: List[tuple]) -> torch.Tensor:
+        """The OODS values: one K7 call per column shard over the
+        coefficients it holds (each group's members on that shard, at the
+        group's point), the results moved to the lead and put back in the
+        order of `keys` (already their order on one shard)."""
+        lead = self.trees[0].mesh.lead
+        by_shard: Dict[int, list] = {}  # position -> [(group's members there, point)]
+        for pt, members in groups.values():
+            here: Dict[int, list] = {}
+            for m in members:
+                here.setdefault(self.trees[m[0]].coeff_shards[m[1]], []).append(m)
+            for pos, ms in here.items():
+                by_shard.setdefault(pos, []).append((ms, pt))
+        parts, order = [], []
+        for pos in sorted(by_shard):
+            calls = by_shard[pos]
+            with kernels.on_shard(pos):
+                vals = fft.eval_at_point_many([([self.trees[t].coeffs[c] for t, c, _ in ms], pt) for ms, pt in calls])
+            parts.append(vals.to(lead))
+            order.extend(m for ms, _ in calls for m in ms)
+        if len(parts) == 1:
+            return parts[0]
+        at = {m: i for i, m in enumerate(order)}
+        return torch.cat(parts)[torch.tensor([at[k] for k in keys], device=lead)]
+
     def prove_values(self, sample_points) -> PcsProof:
         """sample_points[tree][col] = list of (x, y) QM31 points.  Returns the
         opening proof; mixes everything into the channel."""
@@ -108,10 +149,9 @@ class CommitmentSchemeProver:
                     key = (tuple(pt[0].tolist()), tuple(pt[1].tolist()), len(tree.coeffs[c]))
                     groups.setdefault(key, (pt, []))[1].append((t, c, pi))
         with timer.span("3b_oods_eval"):
-            evals = fft.eval_at_point_many(
-                [([self.trees[t].coeffs[c] for t, c, _ in members], pt) for pt, members in groups.values()])
-            flat = f.tensor_to_u32(evals).reshape(-1, 4)
             keys = [key for _, members in groups.values() for key in members]
+            evals = self._oods_values(groups, keys)
+            flat = f.tensor_to_u32(evals).reshape(-1, 4)
             values = {key: flat[i].copy() for i, key in enumerate(keys)}
         # Coefficients only serve the OODS values; free them.
         for tree in self.trees:

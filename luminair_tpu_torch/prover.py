@@ -10,7 +10,8 @@
             (pcs/scheme.py).
 
 Column work runs on one torch device: CUDA unless the caller passes
-device="cpu".  The transcript and the proof's scalars stay on the host.
+device="cpu"; under parallel/sharding.prove_mesh the commitments run over
+the mesh and the rest on its lead device.  The transcript and the proof's scalars stay on the host.
 Before returning, prove() replays the transcript and checks the composition
 identity at the OODS point (selfcheck.py); a mismatch raises ProverError.
 """
@@ -34,6 +35,7 @@ from .air.layout import AirLayout
 from .air.pie import LuminairPie
 from .crypto.channel import Blake2sChannel
 from .errors import EmptyTraceError, ProverError
+from .parallel import sharding
 from .pcs.config import PcsConfig
 from .pcs.scheme import CommitmentSchemeProver, PcsProof
 
@@ -64,7 +66,13 @@ def resolve_device(device=None) -> torch.device:
 def prove(pie: LuminairPie, settings, config: Optional[PcsConfig] = None, device=None) -> LuminairProof:
     from .selfcheck import prover_self_check
 
-    dev = resolve_device(device)
+    mesh = sharding.current_mesh()
+    if mesh is None:
+        dev = resolve_device(device)
+    else:
+        dev = mesh.lead
+        if device is not None and resolve_device(device) != dev:
+            raise ProverError(f"prove() under a mesh runs on its lead device {dev}, not {device}")
     proof = _prove_once(pie, settings, config or PcsConfig(), dev)
     with tracing.current("prove").span("self_check"):
         ok = prover_self_check(proof, settings)

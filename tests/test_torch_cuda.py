@@ -754,7 +754,7 @@ def test_prove_from_card_trace_never_touches_the_host(dev, monkeypatch):
     pie = T.gen_trace(cx, settings)
     assert all(c.is_cuda for t in pie.trace_tables.values() for c in t.padded.values())
     proof = T.prove(pie, settings, device=dev)
-    assert all(v > 0 for k, v in kernels.counts().items() if k != "air_check"), kernels.counts()
+    assert all(v > 0 for k, v in kernels.counts().items() if k not in ("air_check", "logup_sum")), kernels.counts()
     _check_fri_launches(proof)
     monkeypatch.undo()
     cpu_cx = _graph("all_ops")
@@ -815,3 +815,123 @@ def test_fri_commit_downloads_once_and_each_pass_uploads_once(dev, monkeypatch, 
     passes = inside("decommit")
     assert len(passes) == 1 and all(p.count("upload") == 1 and "u32_to_tensor" not in p for p in passes), passes
     assert inside("grind_pow") == [[]]
+
+
+# --- several devices (parallel/sharding.py) --------------------------------
+
+
+@pytest.mark.parametrize("k,log", [(1, 0), (2, 5), (3, 10), (8, 13), (2, 21), (32, 9)])
+def test_logup_sum(dev, k, log):
+    rng = np.random.default_rng(100 * k + log)
+    values, mult = _rnd(rng, dev, k, 1 << log), _rnd(rng, dev, 1 << log)
+    z, alpha = rng.integers(0, f.P, 4).tolist(), rng.integers(0, f.P, 4).tolist()
+    before = kernels.LOGUP_SUM.launches
+    got = kernels.logup_sum(values, mult, z, alpha)
+    assert kernels.LOGUP_SUM.launches - before == 1
+    assert torch.equal(got, kernels.logup_sum_plain(values, mult, z, alpha))
+    assert torch.equal(kernels.logup_sum(values, mult, z, alpha), got)  # the scratch's counter was reset
+    wide = _rnd(rng, dev, k, 2 << log)[:, : 1 << log]  # rows of another stride
+    assert torch.equal(kernels.logup_sum(wide, mult, z, alpha), kernels.logup_sum_plain(wide, mult, z, alpha))
+    with pytest.raises(kernels.KernelError):
+        kernels.logup_sum(_rnd(rng, dev, kernels.LOGUP_MAX_K + 1, 4), mult[:4], z, alpha)
+
+
+def _virtual(mesh_kind, dev):
+    from luminair_tpu_torch.parallel import sharding as S
+
+    if mesh_kind == "rows_cols_2x2":
+        return S.make_mesh(4, (2, 2), devices=[dev] * 4)
+    return S.make_chip_mesh(int(mesh_kind), devices=[dev] * int(mesh_kind))
+
+
+@pytest.mark.parametrize("mesh_kind", ["1", "2", "4", "rows_cols_2x2"])
+@pytest.mark.parametrize("log_blowup", [1, 2])
+def test_prover_step_on_a_virtual_mesh_of_the_card(dev, mesh_kind, log_blowup):
+    """n shards on the card: the CPU's result, and the launches the plan
+    names (K1, K2, logup_sum) and no others."""
+    from luminair_tpu_torch.parallel import sharding as S
+
+    rng = np.random.default_rng(5)
+    cols = rng.integers(0, f.P, size=(16, 1 << 9), dtype=np.uint32)
+    mult = rng.integers(0, f.P, size=(1 << 9,), dtype=np.uint32)
+    z, alpha = rng.integers(1, f.P, 4, dtype=np.uint32), rng.integers(1, f.P, 4, dtype=np.uint32)
+    mesh = _virtual(mesh_kind, dev)
+    kernels.reset_counts()
+    got = S.prover_step(mesh, cols, mult, z, alpha, log_blowup=log_blowup)
+    launches = {k: v for k, v in kernels.counts().items() if v}
+    assert launches == S.step_launches(mesh, 16, 9, log_blowup)
+    want = S.prover_step(S.make_chip_mesh(1, devices=["cpu"]), cols, mult, z, alpha, log_blowup=log_blowup)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_bench_graph_prove_on_a_virtual_mesh_of_the_card(dev):
+    """The N=16 bench graph's card PIE proved over 4 shards of the card:
+    the bytes of the card's one-device proof and of the CPU's proof; each
+    shard launched K1, K2, K7 and K9."""
+    from luminair_tpu_torch import prelude as T
+    from luminair_tpu_torch import serde
+    from luminair_tpu_torch.parallel import sharding as S
+
+    def graph():
+        cx = T.Graph()
+        rng = np.random.default_rng(0)
+        a = cx.tensor((16, 16)).set(rng.normal(size=(16, 16)))
+        b = cx.tensor((16, 16)).set(rng.normal(size=(16, 16)))
+        (a * b + a).retrieve()
+        cx.compile()
+        return cx
+
+    cx = graph()
+    settings = T.gen_circuit_settings(cx)
+    pie = T.gen_trace(cx, settings)
+    one = serde.proof_to_flat_bytes(T.prove(pie, settings, device=dev))
+    kernels.reset_counts()
+    with S.prove_mesh(_virtual("4", dev)):
+        mesh_bytes = serde.proof_to_flat_bytes(T.prove(pie, settings))
+    assert mesh_bytes == one
+    for r in range(4):
+        assert all(kernels.SHARD_LAUNCHES[r].get(k) for k in ("circle_fft", "blake2s_merkle", "decommit")), r
+    assert sum(1 for r in range(4) if kernels.SHARD_LAUNCHES[r].get("oods_eval")) >= 2
+    cpu_cx = graph()
+    cpu_settings = T.gen_circuit_settings(cpu_cx, device="cpu")
+    cpu = T.prove(T.gen_trace(cpu_cx, cpu_settings, device="cpu"), cpu_settings, device="cpu")
+    assert mesh_bytes == serde.proof_to_flat_bytes(cpu)
+
+
+@pytest.fixture
+def second_card(dev):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return torch.device("cuda", 1)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K7", "K9"])
+def test_kernel_on_the_second_card_while_the_first_is_current(second_card, kernel):
+    """Each launch runs on its tensors' device, whatever device is
+    current."""
+    from luminair_tpu_torch import fft
+    from luminair_tpu_torch.crypto.merkle import MerkleTree, open_trees
+
+    torch.cuda.set_device(0)
+    rng = np.random.default_rng(1)
+    v = _rnd(rng, second_card, 3, 1 << 13)
+    if kernel == "K1":
+        got, want = kernels.circle_lde(kernels.circle_ifft(v), 1), kernels.circle_lde_plain(kernels.circle_ifft_plain(v), 1)
+    elif kernel == "K2":
+        tree = MerkleTree({13: v})
+        plain = kernels.TreeDesc(kernels.tree_layers(13, second_card), {13: v})
+        kernels.merkle_tree_plain(plain)
+        got, want = tree.layers[0], plain.layers[0]
+    elif kernel == "K7":
+        point = (torch.tensor([5, 6, 7, 8]), torch.tensor([9, 10, 11, 12]))
+        got = fft.eval_at_point_many([(v, point)])
+        want = kernels.oods_eval_many_plain([(list(v), fft.twiddle_chain(13, point))])
+    else:
+        tree = MerkleTree({13: v})
+        q = {13: np.unique(rng.integers(0, 1 << 13, 20))}
+        plan = kernels.DecommitPass([tree.desc], [q])
+        got, want = kernels.decommit(plan), kernels.decommit_plain(plan)
+        assert open_trees([tree], [q])[0][1].shape[1] == 8
+    assert got.device == second_card and torch.cuda.current_device() == 0
+    assert torch.equal(got, want)

@@ -2,7 +2,7 @@
 (batch 256, chip_smoke.py's graph), in the design of whichever tree is
 given, so that two commits can be measured in turns in one run on one card.
 
-    python3 tools/kernel_timing.py [--tree DIR] [--kernels K3,T4,K8,K10]
+    python3 tools/kernel_timing.py [--tree DIR] [--kernels K3,T4,K8,K10,prove]
 
 DIR (default: this repository) is the root of a checkout whose
 luminair_tpu_torch is imported; the measurement code (this file and
@@ -49,7 +49,14 @@ chip_smoke.Profiled) is this repository's.  --kernels picks from:
        launches of K8's one-thread kernel; per window the host's records of
        launches and copies, the kernel's device records, the positions of
        the calls whose correlation id has no device record, and how far
-       the device's records start before their calls' host records.
+       the device's records start before their calls' host records;
+  prove
+       one-device proves of bench_n256 and the PINN (5 PoW bits, 80-bit
+       high_security(), log blowup 2) from their card PIEs: after a
+       warm-up, PROVE_TIMES proves each timed to a synchronise (their
+       median, and each phase's median from the tracing spans), and one
+       profiled prove's device ms of every kernel, so that a change in
+       the wall time can be told apart as the host's or the device's.
 
 Each line names the card and its power limit (nvidia-smi).
 """
@@ -70,7 +77,8 @@ import chip_smoke  # noqa: E402
 
 REPS = 50  # calls per profiled or enqueued batch
 PROVES = 5
-KINDS = ("K3", "T4", "K8", "K10", "trace_segment", "profiler_window")
+PROVE_TIMES = 9  # timed proves a path (`prove`)
+KINDS = ("K3", "T4", "K8", "K10", "trace_segment", "profiler_window", "prove")
 
 # Design choices of the trace segment kernel, each undone in a copy of csrc/.
 VARIANTS = {
@@ -317,6 +325,33 @@ def channel_pow(kernels, T, tracing, pie, settings, emit, kinds) -> None:
                   "bound_ms": chip_smoke.bound(40, (nonce + 1) * chip_smoke.OPS_POW_CANDIDATE)[0]})
 
 
+def prove_times(T, BS, tracing, emit) -> None:
+    """One-device proves (the `prove` lines above)."""
+    bench, _ = chip_smoke.bench_graph(T, 256)
+    pinn, _ = chip_smoke.pinn_graph(T, BS)
+    inputs = {}
+    for tag, cx in (("bench_n256", bench), ("pinn_b256", pinn)):
+        settings = T.gen_circuit_settings(cx)
+        inputs[tag] = (T.gen_trace(cx, settings), settings)
+    paths = (("bench_n256", None), ("pinn_b256", None), ("pinn_b256_hs", T.PcsConfig.high_security()),
+             ("pinn_b256_b2", T.PcsConfig(fri=T.FriConfig(log_blowup_factor=2))))
+    for tag, cfg in paths:
+        pie, settings = inputs[tag if tag == "bench_n256" else "pinn_b256"]
+        T.prove(pie, settings, cfg)  # warm-up
+        torch.cuda.synchronize()
+        times, phases = [], []
+        for _ in range(PROVE_TIMES):
+            t0 = time.perf_counter()
+            T.prove(pie, settings, cfg)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            phases.append(tracing.last_phases("prove"))
+        dev = device_ms(lambda: T.prove(pie, settings, cfg), ())
+        emit({"phase": "prove", "path": tag, "prove_s": times, "prove_s_median": statistics.median(times),
+              "phases_s_median": {k: statistics.median(p.get(k, 0.0) for p in phases) for k in phases[0]},
+              "prove_device_ms": dev["all_kernels_ms"]})
+
+
 def trace_segment_variants(kernels, T, BS, tree: Path, emit) -> None:
     """The `trace_segment` lines above."""
     csrc = Path(kernels._CSRC)
@@ -423,6 +458,8 @@ def main() -> int:
         settings_t4(kernels, T, BS, tracing, emit, layer_form)
     if "trace_segment" in kinds:
         trace_segment_variants(kernels, T, BS, tree, emit)
+    if "prove" in kinds:
+        prove_times(T, BS, tracing, emit)
     if not {"K3", "K8", "K10", "profiler_window"} & set(kinds):
         return 0
     cx, _ = chip_smoke.pinn_graph(T, BS)
