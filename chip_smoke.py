@@ -5,7 +5,7 @@
 
 Phases, one JSON line each; any failure raises and exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build the fifteen kernels from luminair_tpu_torch/csrc (nvcc,
+  2. build the sixteen kernels from luminair_tpu_torch/csrc (nvcc,
      sm_90a, one process per source, all at once), with ptxas' register
      and spill report;
   3. the black-scholes PINN's settings and trace on the host interpreter
@@ -122,10 +122,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      PIE proved under prove_mesh over 2 and 4 shards of the card (phase
      mesh_prove: counters set to 0 and every twin refused just before the
      first prove, the one-device proof's bytes, native/ accepting them, 3
-     timed proves beside 3 one-device ones, the lead's gathered bytes and
-     the reshards', K1 / K2 / K7 / K9 launches per shard, peak memory; every
-     shard must launch K1 and K2), and over the distinct cards where there
-     are two or more (else a mesh_devices line: "ran": false); at the end
+     timed proves beside 3 one-device ones, the bytes gathered onto the
+     lead -- gated at or below the sharding docstring's formula -- moved
+     between shards and scattered from the lead, K1-K7 and K9 launches per
+     shard, peak memory (each card's on distinct cards); every row shard
+     must launch K1-K6, and each but the first K5's carry pass,
+     add_carry), and over the distinct cards where there
+     are two or more (else a mesh_devices line: "ran": false); after the
+     PINN's, K3-K6 in their row-shard modes at the PINN's shapes (phase
+     mesh_kernels): its card PIE proved over 4 shards of the card at log
+     blowups 1 and 2 with every call of K3-K6 and the carry pass kept,
+     each kept call then through kernel and twin on the same inputs, bit
+     for bit (K5 on a row block with its carry, K6 on a row block with its
+     row offset and halo at strides 2 and 4, K4's plan of a row shard, K3
+     on a mirror-assembled block), the carry pass and K6 on its largest
+     block timed; at the end
      prover_step at both shapes over 1, 2 and 4 shards and a 2 x 2
      ('rows', 'cols') mesh of the card (phase mesh_step: each first call's
      launches equal to sharding.step_launches -- the kernels line's
@@ -1160,11 +1171,13 @@ def path_twins(kernels, tape, f):
         "fri_layer": ("fri_layer", lambda a: kernels.fri_layer_plain(
             a["values"], a["twiddles"], a["alpha"], a["t0"], a["mixes"], a["alpha0"]), ("values", "twiddles", "mixes")),
         "deep_quotient_many": ("deep_quotient", lambda a: kernels.deep_quotient_many_plain(a["plan"]), ("plan",)),
-        "air_witness": ("air_witness", lambda a: tape.witness_plain(a["tp"], a["main"], a["pp"], a["ew"]),
-                        ("tp", "main")),
+        "air_witness": ("air_witness", lambda a: tape.witness_plain(a["tp"], a["main"], a["pp"], a["ew"],
+                                                                    a.get("carry")), ("tp", "main")),
+        "add_carry": ("add_carry", lambda a: kernels.add_carry_plain(a["rows"], a["carry"]), ("rows",)),
         "air_domain": ("air_domain", lambda a: tape.domain_plain(
             a["tp"], a["main"], a["pp"], a["inter"], a["is_first"], f.qm31_words(a["claimed"]), a["ew"],
-            a["pows"], a["log_trace"], a["stride"], a["acc"]), ("tp", "is_first", "stride", "acc")),
+            a["pows"], a["log_trace"], a["stride"], a["acc"], a.get("row0", 0), a.get("log_domain"), a.get("halo")),
+            ("tp", "is_first", "stride", "acc", "row0")),
         "oods_eval_many": ("oods_eval", lambda a: kernels.oods_eval_many_plain(a["groups"]), ("groups",)),
         "channel_draw_felt": ("fri_channel", lambda a: kernels.channel_draw_felt_plain(a["state"], a["out"]), ()),
         "decommit": ("decommit", lambda a: kernels.decommit_plain(a["plan"]), ("plan",)),
@@ -1194,8 +1207,8 @@ def describe(x):
         return (len(x),) + tuple(x[0].shape)
     if isinstance(x, list) and all(m is None or isinstance(m[0], torch.Tensor) for m in x):  # K3's joining inputs
         return tuple(None if m is None else tuple(m[0].shape) for m in x)
-    if hasattr(x, "n_ctas"):  # a DEEP-quotient plan: its groups' logs and widths
-        return tuple((log, len(cols)) for log, cols, _, _ in x.groups)
+    if hasattr(x, "n_ctas"):  # a DEEP-quotient plan: its groups' logs and widths (and its row shard)
+        return tuple((log, len(cols)) for log, cols, _, _ in x.groups) + (getattr(x, "shard", (0, 0)),)
     if hasattr(x, "region"):  # a decommitment pass: its trees and output size
         return (tuple(t.bottom for t in x.trees), x.n_words)
     if hasattr(x, "bottom"):  # a tree: its columns' shapes and strides
@@ -1217,7 +1230,7 @@ EVERY_CALL = ("fri_layer", "lut_boundary", "air_check")
 
 # Arguments a kernel updates in place (cloned when kept and for each replay)
 # and record slots it writes (fresh for each replay).
-UPDATED_ARGS = ("acc", "state")
+UPDATED_ARGS = ("acc", "state", "rows")
 WRITTEN_ARGS = ("out",)
 
 
@@ -1450,7 +1463,7 @@ def quotient_work(plan):
     of a batched inversion, about 3 products."""
     n_bytes = ops = 0
     for log in plan.rows:
-        n = 1 << log
+        n = 1 << (log - getattr(plan, "shard", (0, 0))[1])  # a row shard's plan: its block's rows
         widths = [len(cols) for lg, cols, _, _ in plan.groups if lg == log]
         S, G = sum(widths), len(widths)
         n_bytes += 4 * S * n + 8 * n + 16 * n
@@ -1463,6 +1476,13 @@ def witness_work(a: dict):
     coordinates written; the tape and the LogUp arithmetic per row."""
     tp, n = a["tp"], a["main"][0].shape[0] if a["main"] else a["pp"][0].shape[0]
     return 4 * (len(a["main"]) + len(a["pp"])) * n + 16 * tp.n_relations * n, n * witness_row_ops(tp)
+
+
+def add_carry_work(a: dict):
+    """(bytes, operations) of one carry pass: the (4, R) rows read and
+    written once, the carry read once; one add a word."""
+    n = a["rows"].numel()
+    return 8 * n + 16, n * OPS_ADD
 
 
 def domain_work(a: dict):
@@ -1506,6 +1526,7 @@ WORK = {
     "deep_quotient_many": lambda a: quotient_work(a["plan"]),
     "air_witness": witness_work,
     "air_domain": domain_work,
+    "add_carry": add_carry_work,
     "air_check": check_work,
     "oods_eval_many": lambda a: tuple(map(sum, zip(*(oods_work(len(cols), len(chain))
                                                      for cols, chain in a["groups"])))),
@@ -2447,7 +2468,24 @@ MESH_KINDS = ("1", "2", "4", "rows_cols_2x2")  # prover_step's meshes, all on th
 MESH_STEP_SHAPES = {"reference": (8, 5), "full_width": (16, 21)}
 MESH_REL_COLS = 2
 MESH_PROVE_SHARDS = (2, 4)
-MESH_PROVE_KERNELS = ("circle_fft", "blake2s_merkle", "oods_eval", "decommit")  # K1, K2, K7, K9
+# K1, K2, K7, K9, and since the AIR and FRI phases run on row shards K3-K6
+# and K5's carry pass.
+MESH_PROVE_KERNELS = ("circle_fft", "blake2s_merkle", "oods_eval", "decommit", "fri_layer", "deep_quotient",
+                      "air_witness", "add_carry", "air_domain")
+# Every row shard launches these (K7 runs where the coefficients lie), and
+# every row shard but the first the carry pass.
+MESH_ROW_KERNELS = ("circle_fft", "blake2s_merkle", "fri_layer", "deep_quotient", "air_witness", "air_domain")
+# The wrappers of the row-shard modes (phase mesh_kernels): K3 on mirror-
+# assembled blocks, K4's plan of a row shard, K5 on a row block, the carry
+# pass, K6 on a row block with its halo; the PINN proved at log blowups 1
+# and 2 (K6's strides 2 and 4) over MESH_KERNEL_SHARDS shards of the card.
+MESH_KERNEL_TWINS = ("fri_layer", "deep_quotient_many", "air_witness", "add_carry", "air_domain")
+MESH_KERNEL_SHARDS = 4
+MESH_KERNEL_BLOWUPS = (1, 2)
+# The PINN's bytes gathered onto the lead over 4 shards when the AIR and
+# FRI phases still ran on the lead (NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md section 6).
+PARENT_PINN_GATHERED_4 = 852_230_144
 
 
 def logup_work(k: int, n: int):
@@ -2577,10 +2615,14 @@ def phase_mesh_prove(T, S, kernels, serde, tape, card, tag, pie, settings, proof
     the card, or of `devices`): the first prove with every launch counter
     set to 0 just before it and every plain twin refused, the same bytes
     as the path's one-device proof, native/ accepting them; 3 timed proves
-    beside 3 one-device proves; the lead's gathered bytes and the
-    reshards' bytes of one prove, K1 / K2 / K7 / K9 launches per shard,
-    peak device memory.  Every shard must launch K1 and K2.  Returns
-    {shards: launches}."""
+    beside 3 one-device proves; the bytes of one prove gathered onto the
+    lead (gated at or below sharding.expected_gathered_bytes, the formula
+    of the module's docstring), moved between shards and scattered from
+    the lead, K1-K7 and K9 launches per shard, peak device memory (on
+    distinct cards, each card's).  Every row shard must launch K1-K6, and
+    every one but the first K5's carry pass.  Returns {shards: launches}."""
+    from luminair_tpu_torch.air.layout import AirLayout
+
     t_phase = time.perf_counter()
     one_bytes = serde.proof_to_flat_bytes(proof)
     virtual = devices is None
@@ -2600,6 +2642,8 @@ def phase_mesh_prove(T, S, kernels, serde, tape, card, tag, pie, settings, proof
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_counts()
         S.reset_bytes()
+        for d in set(devs):
+            torch.cuda.reset_peak_memory_stats(d)
         with twins_refused(kernels, tape), S.prove_mesh(mesh):
             t0 = time.perf_counter()
             got = T.prove(pie, settings)
@@ -2611,6 +2655,10 @@ def phase_mesh_prove(T, S, kernels, serde, tape, card, tag, pie, settings, proof
                     for k, v in kernels.SHARD_LAUNCHES.items()}
         moved = dict(S.BYTES)
         peak = torch.cuda.max_memory_allocated()
+        peaks = {str(d): torch.cuda.max_memory_allocated(d) for d in sorted(set(devs), key=str)}
+        lay = AirLayout(got.claim, settings)
+        formula = S.expected_gathered_bytes(n, [lay.pp_logs(), lay.main_logs, lay.inter_logs,
+                                                [lay.composition_log] * 4], got.config.log_blowup, got.config.fri)
         pb = serde.proof_to_flat_bytes(got)
         if pb != one_bytes:
             raise AssertionError(f"{tag}: the proof over {mesh} differs from the one-device proof")
@@ -2626,15 +2674,94 @@ def phase_mesh_prove(T, S, kernels, serde, tape, card, tag, pie, settings, proof
               "devices": [str(d) for d in devs], "first_prove_seconds": first_s, "prove_seconds": times,
               "prove_seconds_median": statistics.median(times), "one_device_seconds": one_s,
               "one_device_median": statistics.median(one_s), "gathered_bytes": moved["gathered"],
-              "reshard_bytes": moved["moved"], "launches": {k: v for k, v in launches.items() if v},
-              "launches_by_shard": by_shard, "peak_device_bytes": peak, "proof_bytes_equal_one_device": True,
+              "gathered_bytes_formula": formula,
+              **({"parent_gathered_bytes": PARENT_PINN_GATHERED_4} if tag.startswith("pinn") and n == 4 else {}),
+              "moved_bytes": moved["moved"], "scattered_bytes": moved["scattered"],
+              "launches": {k: v for k, v in launches.items() if v},
+              "launches_by_shard": by_shard, "peak_device_bytes": peak, "peak_device_bytes_by_card": peaks,
+              "proof_bytes_equal_one_device": True,
               "twins_called": 0, "native_verify": "accepted", "native_verify_seconds": verify_s})
-        short = [r for r in range(n) if not all(by_shard.get(str(r), {}).get(k) for k in MESH_PROVE_KERNELS[:2])]
+        short = [r for r in range(n) if not all(by_shard.get(str(r), {}).get(k) for k in MESH_ROW_KERNELS)
+                 or bool(r) != bool(by_shard.get(str(r), {}).get("add_carry"))]
         if short or not any(by_shard.get(str(r), {}).get("oods_eval") for r in range(n)):
-            raise AssertionError(f"{tag} over {n} shards: shards {short} launched no K1 or K2, or none K7: {by_shard}")
+            raise AssertionError(f"{tag} over {n} shards: shards {short} launched not every one of K1-K6 (and the "
+                                 f"carry pass on each but the first), or none K7: {by_shard}")
+        if moved["gathered"] > formula:
+            raise AssertionError(f"{tag} over {n} shards: {moved['gathered']} bytes gathered onto the lead, the "
+                                 f"formula {formula}")
         out[n] = launches
     emit({"phase": "mesh_proves", "path": tag, "virtual": virtual, "seconds": time.perf_counter() - t_phase})
     return out
+
+
+def phase_mesh_kernels(T, S, kernels, tape, f, dev, card, tag, pie, settings) -> tuple:
+    """K3-K6 in their row-shard modes at the path's shapes, against their
+    twins: the card PIE proved under prove_mesh over MESH_KERNEL_SHARDS
+    shards of the card at each of MESH_KERNEL_BLOWUPS, every call of the
+    modes' wrappers kept (recording; the counters set to 0 just before the
+    prove and its launches by shard read just after), then each kept call
+    through its kernel and through its twin on the same inputs -- K5 on a
+    row block (the twin with the same carry argument), the carry pass, K6
+    on a row block with its row offset and halo, K4's plan of a row shard,
+    K3 on a block assembled in nested mirror order -- bit for bit.  Fails
+    if a word differs, a shard did not launch K3-K6 (and each but the first
+    the carry pass), or a mode never ran: K6 with a halo at each stride, a
+    K4 plan of a shard r > 0, a carry pass.  Then the largest carry pass
+    and K6 call with a halo timed.  Returns ({kernel: max_abs_err}, the
+    kernels line's add_carry row)."""
+    t_phase = time.perf_counter()
+    twins = {k: v for k, v in path_twins(kernels, tape, f).items() if k in MESH_KERNEL_TWINS}
+    mesh = S.make_chip_mesh(MESH_KERNEL_SHARDS, devices=[dev] * MESH_KERNEL_SHARDS)
+    errs, row, halo_ms = {}, None, {}
+    for blowup in MESH_KERNEL_BLOWUPS:
+        kept, calls = {}, {}
+        cfg = T.PcsConfig(fri=T.FriConfig(log_blowup_factor=blowup))
+        kernels.reset_counts()
+        with recording(kernels, twins, kept, calls), S.prove_mesh(mesh):
+            T.prove(pie, settings, cfg)
+        torch.cuda.synchronize()
+        by_shard = {str(k): dict(v) for k, v in kernels.SHARD_LAUNCHES.items()}
+        by_kernel = replay(kernels, twins, kept, calls)
+        domains = [a for key, a in kept.items() if key[0] == "air_domain" and a["halo"] is not None]
+        modes = {
+            "air_domain with a halo": sum(1 for a in domains if a["stride"] == 1 << blowup),
+            "deep_quotient_many of a shard r > 0": sum(1 for key, a in kept.items()
+                                                       if key[0] == "deep_quotient_many" and a["plan"].shard[0] > 0),
+            "add_carry": calls.get("add_carry", 0),
+        }
+        short = [r for r in range(mesh.size) if not all(by_shard.get(str(r), {}).get(k) for k in (
+            "fri_layer", "deep_quotient", "air_witness", "air_domain")) or bool(r) != bool(by_shard.get(str(r), {}).get(
+                "add_carry"))]
+        checked = {k: by_kernel[twins[k][0]] for k in MESH_KERNEL_TWINS}
+        emit({"phase": "mesh_kernels", "path": tag, "card": card, "shards": mesh.size, "log_blowup": blowup,
+              "launches_by_shard": by_shard, "calls": calls, "modes": modes,
+              "checked": {k: {"calls_kept": len(r["shapes"]), "max_abs_err": r["max_abs_err"]}
+                          for k, r in checked.items()}})
+        for name, r in checked.items():
+            errs[twins[name][0]] = max(errs.get(twins[name][0], 0), r["max_abs_err"])
+        bad = [k for k, r in checked.items() if r["max_abs_err"] != 0 or not r["shapes"]]
+        if bad or short or not all(modes.values()):
+            raise AssertionError(f"{tag} over {mesh.size} shards at log blowup {blowup}: kernels that disagree with "
+                                 f"their twins or never ran {bad}, shards that missed a launch {short}, modes {modes}")
+        if blowup == MESH_KERNEL_BLOWUPS[0]:
+            a = max((a for key, a in kept.items() if key[0] == "add_carry"), key=lambda a: a["rows"].numel())
+            rows, carry = a["rows"].clone(), a["carry"]
+            row = dict(shape=f"the carry pass of a row block, {tuple(rows.shape)} (K5's last entry)",
+                       err=errs["add_carry"], ms=time_ms(lambda: kernels.add_carry(rows, carry)),
+                       plain_ms=time_ms(lambda: kernels.add_carry_plain(rows, carry)), bound=bound(*add_carry_work(a)))
+        a = max(domains, key=lambda a: a["is_first"].shape[0])
+        ka = replay_args(a)
+        halo_ms[f"stride {a['stride']}, block {a['is_first'].shape[0]} rows of {a['tp'].name}"] = (
+            time_ms(lambda: kernels.air_domain(**ka)), bound(*domain_work(a))[0])
+        del kept, domains, a, ka
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel_time", "kernel": "add_carry", "shape": row["shape"], "ms": row["ms"],
+          "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0], "bound_by": row["bound"][1]})
+    for shape, (ms, b) in halo_ms.items():
+        emit({"phase": "kernel_time_extra", "kernel": "air_domain", "shape": f"a row block with its halo, {shape}",
+              "ms": ms, "bound_ms": b})
+    emit({"phase": "mesh_kernels_done", "path": tag, "seconds": time.perf_counter() - t_phase})
+    return errs, row
 
 
 def phase_mesh_devices(T, S, kernels, serde, tape, card, tag, pie, settings, proof) -> None:
@@ -2685,18 +2812,19 @@ def main() -> int:
     # (air_check) is on no prove path.
     expect = {
         bench_tag: [k.name for k in kernels.KERNELS
-                    if k.name not in ("trace_reduce", "lut_boundary", "air_check", "logup_sum")],
-        pinn_tag: [k.name for k in kernels.KERNELS if k.name not in ("air_check", "logup_sum")],
+                    if k.name not in ("trace_reduce", "lut_boundary", "air_check", "logup_sum", "add_carry")],
+        pinn_tag: [k.name for k in kernels.KERNELS if k.name not in ("air_check", "logup_sum", "add_carry")],
     }
-    # A prove from a PIE: K1-K10, no trace kernel.  logup_sum is prover_step's (phase mesh_step).
+    # A prove from a PIE: K1-K10, no trace kernel.  logup_sum is prover_step's (phase mesh_step),
+    # add_carry a mesh prove's (phase mesh_prove).
     expect[hs_tag] = expect[b2_tag] = [k.name for k in kernels.KERNELS if k.name not in (
-        "trace_segment", "trace_reduce", "lut_boundary", "air_check", "logup_sum")]
+        "trace_segment", "trace_reduce", "lut_boundary", "air_check", "logup_sum", "add_carry")]
     # K3: the largest input's circle fold and one launch a committed FRI
     # layer (7 layers at N=256, 9 at the PINN).
     k3_limit = {bench_tag: 8, pinn_tag: 10, hs_tag: 10}
     # The run whose launch counts the kernels line gives: the PINN's prove,
     # the check's on the PINN's card PIE.
-    main_path = {"air_check": debug_tag, "logup_sum": "mesh_step"}
+    main_path = {"air_check": debug_tag, "logup_sum": "mesh_step", "add_carry": f"mesh_{pinn_tag}_{MESH_KERNEL_SHARDS}"}
     pinn_host = host_trace(paths[pinn_tag][0])
     emit({"phase": "pinn_host_trace", "batch": PINN_BATCH, "trace_cells": trace_cells(pinn_host[0]),
           "settings_host_seconds": pinn_host[2], "trace_host_seconds": pinn_host[3]})
@@ -2717,6 +2845,9 @@ def main() -> int:
         path_errs["verify_" + tag] = phase_verify(T, kernels, serde, tracing, tape, f, card, tag, pie, settings, proof)
         for n, c in phase_mesh_prove(T, S, kernels, serde, tape, card, tag, pie, settings, proof).items():
             launches[f"mesh_{tag}_{n}"] = c
+        if tag == pinn_tag:
+            path_errs["mesh_kernels"], rows["add_carry"] = phase_mesh_kernels(T, S, kernels, tape, f, dev, card, tag,
+                                                                            pie, settings)
         phase_mesh_devices(T, S, kernels, serde, tape, card, tag, pie, settings, proof)
         del proof
 

@@ -167,6 +167,11 @@ class Tape:
     def n_pows(self) -> int:
         return self.n_constraints + self.n_relations
 
+    @property
+    def next_cols(self) -> List[int]:
+        """The main columns the tape reads at the next row (MAIN_NEXT)."""
+        return sorted({a for op, _, a, _, _ in self.instructions() if op == OP_MAIN_NEXT})
+
     def instructions(self):
         for i in range(0, len(self.words), INS_WORDS):
             yield self.words[i : i + INS_WORDS]
@@ -288,13 +293,26 @@ def element_words(elems) -> List[List[tuple]]:
 # The plain interpreter: whole columns, int64 field arithmetic.
 
 
-def _run(tape: Tape, main, pp, rows: int, next_roll: int, on_relation, on_constraint, dev):
+def _after(col: torch.Tensor, stride: int, nxt) -> torch.Tensor:
+    """Each row's value `stride` rows later: past the end, the halo `nxt`
+    (the rows after the block), or the column's own first rows (cyclic)."""
+    return torch.roll(col, -stride, 0) if nxt is None else torch.cat([col[stride:], nxt])
+
+
+def _before(col: torch.Tensor, stride: int, prev) -> torch.Tensor:
+    """Each row's value `stride` rows earlier: the halo `prev` (the rows
+    before the block) or the column's own last rows (cyclic)."""
+    return torch.roll(col, stride, 0) if prev is None else torch.cat([prev, col[:-stride]])
+
+
+def _run(tape: Tape, main, pp, rows: int, next_roll: int, on_relation, on_constraint, dev, nxt=None):
     regs = [None] * tape.n_regs
+    nxt = nxt or {}
     for op, dst, a, b, c in tape.instructions():
         if op == OP_MAIN:
             regs[dst] = main[a].to(f.I64)
         elif op == OP_MAIN_NEXT:
-            regs[dst] = torch.roll(main[a], -next_roll, 0).to(f.I64)
+            regs[dst] = _after(main[a], next_roll, nxt.get(a)).to(f.I64)
         elif op == OP_PP:
             regs[dst] = pp[a].to(f.I64)
         elif op == OP_CONST:
@@ -321,9 +339,12 @@ def _denominator(ew, kind, v0, v1, dev):
     return d if v1 is None else f.add(d, f.qm31_mul_m31(alpha, v1))
 
 
-def witness_plain(tape: Tape, main: Sequence[torch.Tensor], pp: Sequence[torch.Tensor], ew):
+def witness_plain(tape: Tape, main: Sequence[torch.Tensor], pp: Sequence[torch.Tensor], ew, carry=None):
     """(interaction columns (4E, N) int32 -- row 4b + k is coordinate k of
-    entry b --, claimed sum (4,) int32)."""
+    entry b --, claimed sum (4,) int32).  With `carry` (4 words), the rows
+    are a block of a larger trace: the last entry's running sum starts
+    from the carry, the sum of the blocks before it, and the claimed sum
+    is the block's last row."""
     ref = (list(main) + list(pp))[0]
     n, dev = ref.shape[0], ref.device
     cols = []
@@ -339,11 +360,13 @@ def witness_plain(tape: Tape, main: Sequence[torch.Tensor], pp: Sequence[torch.T
     # The last column's running sum down the rows; partial sums stay below
     # 2^31 * rows, inside int64.
     cols[-1] = torch.cumsum(cols[-1], dim=1) % f.P
+    if carry is not None:
+        cols[-1] = f.add(cols[-1], torch.tensor(f.qm31_words(carry), dtype=f.I64, device=dev)[:, None])
     out = torch.cat(cols).to(f.I32)
     return out, out[-4:, -1].clone()
 
 
-def _logup(tape: Tape, inter, is_first, claimed, ew, stride: int, emit):
+def _logup(tape: Tape, inter, is_first, claimed, ew, stride: int, emit, prev=None):
     """`on_relation` for `_run` that calls emit(c, K + b) with entry b's
     LogUp constraint c (M, 4) int64:
         (S_b - S_{b-1} [- S_last(r - stride) + is_first * claimed]) * d_b - n_b
@@ -357,7 +380,7 @@ def _logup(tape: Tape, inter, is_first, claimed, ew, stride: int, emit):
         s = torch.stack([inter[4 * b + k] for k in range(4)], dim=-1).to(f.I64)
         diff = s if state["prev"] is None else f.sub(s, state["prev"])
         if b == tape.n_relations - 1:
-            s_prev = torch.roll(s, stride, 0)
+            s_prev = _before(s, stride, None if prev is None else torch.stack(list(prev), dim=-1).to(f.I64))
             cl = torch.tensor(claimed, dtype=f.I64, device=dev)
             diff = f.add(f.sub(diff, s_prev), f.qm31_mul_m31(cl, is_first.to(f.I64)))
         emit(f.sub(f.qm31_mul(diff, d), f.qm31_from_m31(mult)), tape.n_constraints + b)
@@ -391,16 +414,21 @@ def check_plain(tape: Tape, main, pp, inter, is_first, claimed, ew) -> torch.Ten
 
 
 def domain_plain(tape: Tape, main, pp, inter, is_first, claimed, ew, pows, log_trace: int, stride: int,
-                 acc=None):
+                 acc=None, row0: int = 0, log_domain=None, halo=None):
     """Quotient evaluations (M, 4) int32 of one component on its commit
     domain D_log (M = 2^log): sum_i pows[i] * C_i over the K recorded and E
     LogUp constraints (pows: the K + E alpha powers that fall to this
     component), times 1 / V_n(x) of the row.  The next row is a roll
     by `stride`; the last interaction column's previous row the opposite
-    roll.  With `acc`, returns acc + that."""
+    roll.  With `acc`, returns acc + that.
+
+    A row block: rows [row0, row0 + M) of D_log_domain, halo = (next
+    {main index: (stride,)}, prev (4 coordinates, (stride,) each)) the
+    rows after and before the block in place of the rolls' wrap."""
     m = is_first.shape[0]
     dev = is_first.device
-    log = m.bit_length() - 1
+    log = m.bit_length() - 1 if log_domain is None else log_domain
+    nxt, prev = halo if halo is not None else (None, None)
     pw = torch.tensor(pows, dtype=f.I64, device=dev).reshape(-1, 4)
     total = f.qm31_zero((m,), dev)
     state = {"k": 0}
@@ -413,9 +441,9 @@ def domain_plain(tape: Tape, main, pp, inter, is_first, claimed, ew, pows, log_t
         add(v, state["k"])
         state["k"] += 1
 
-    on_relation = _logup(tape, inter, is_first, claimed, ew, stride, add)
-    _run(tape, main, pp, m, stride, on_relation, on_constraint, dev)
-    xs = circle.domain_table(log, dev)[0].to(f.I64)
+    on_relation = _logup(tape, inter, is_first, claimed, ew, stride, add, prev)
+    _run(tape, main, pp, m, stride, on_relation, on_constraint, dev, nxt)
+    xs = circle.domain_table(log, dev)[0][row0 : row0 + m].to(f.I64)
     q = f.qm31_mul_m31(total, f.inv(circle.coset_vanishing_eval(xs, log_trace)))
     if acc is not None:
         q = f.add(acc.to(f.I64), q)

@@ -21,6 +21,13 @@
 //   with pows[K + b]; then acc / V_n(x_r), V_n = pi^(n-1)(x).  MAIN_NEXT
 //   reads row r + stride, the previous row of the last entry r - stride.
 //   With `accumulate` the quotient is added into out (n, 4) in place.
+//   A launch may cover one row block of the domain (a mesh's row shard;
+//   lum_air_domain_halo): the reads past the block's ends go to its halo
+//   (AirArgs.next, .prev: the neighbouring blocks' `stride` rows, wrapping
+//   at the domain's ends), and xs starts at the block's first row.  A whole
+//   domain (lum_air_domain) wraps with a mask and reads no halo.
+// The carry pass (lum_m31_add_carry): a row block's prefix sums plus the
+//   sum of every earlier block, one QM31 word on the card.
 // The check (air_check), per trace row r: the same K + E constraints
 //   without the alpha powers and the 1 / V_n factor (V_n vanishes on the
 //   trace domain), next row r + 1, previous row r - 1 (cyclic); one word
@@ -52,7 +59,7 @@ __global__ void air_witness_kernel(const __grid_constant__ AirArgs a) {
   uint32_t* out = (uint32_t*)a.out;
   qm31 s = {0, 0, 0, 0};
   int b = 0;
-  lum::run_tape(
+  lum::run_tape<false>(
       s_tape, a, r, [](uint32_t) {},
       [&](int kind, uint32_t m, uint32_t v0, uint32_t v1, bool two) {
         qm31 d = lum::denominator(a, kind, v0, v1, two);
@@ -74,12 +81,23 @@ __device__ __forceinline__ qm31 load_inter(const AirArgs& a, int b, long long r)
 // Entry b's LogUp constraint at row r:
 //   (S_b - S_{b-1} [- S_last(r - stride) + is_first * claimed]) * d_b - n_b.
 // `prev` holds S_{b-1}(r) (zero before the first entry) and becomes S_b(r).
+// The row r - stride wraps at the column's start, or with Halo comes from
+// a.prev before the block's start.
+template <bool Halo>
 __device__ __forceinline__ qm31 logup_constraint(const AirArgs& a, int b, long long r, qm31& prev,
                                                  uint32_t m, qm31 d) {
   qm31 s = load_inter(a, b, r);
   qm31 diff = lum::qsub(s, prev);
   if (b == a.n_rel - 1) {
-    qm31 s_prev = load_inter(a, b, (r - a.stride) & (a.n - 1));
+    qm31 s_prev;
+    if (!Halo) {
+      s_prev = load_inter(a, b, (r - a.stride) & (a.n - 1));
+    } else if (r >= a.stride) {
+      s_prev = load_inter(a, b, r - a.stride);
+    } else {  // the halo: the rows before the block
+      s_prev = {((const uint32_t*)a.prev[0])[r], ((const uint32_t*)a.prev[1])[r], ((const uint32_t*)a.prev[2])[r],
+                ((const uint32_t*)a.prev[3])[r]};
+    }
     uint32_t first = ((const uint32_t*)a.is_first)[r];
     diff = lum::qadd(lum::qsub(diff, s_prev), lum::qmul_m31(lum::qword(a.claimed), first));
   }
@@ -87,6 +105,7 @@ __device__ __forceinline__ qm31 logup_constraint(const AirArgs& a, int b, long l
   return lum::qsub(lum::qmul(diff, d), {m, 0u, 0u, 0u});
 }
 
+template <bool Halo>
 __global__ void air_domain_kernel(const __grid_constant__ AirArgs a) {
   __shared__ int s_tape[lum::TAPE_INS_WORDS * lum::TAPE_MAX_INS];
   lum::load_tape(a, s_tape);
@@ -95,14 +114,14 @@ __global__ void air_domain_kernel(const __grid_constant__ AirArgs a) {
   qm31 acc = {0, 0, 0, 0};
   qm31 prev = {0, 0, 0, 0};
   int k = 0, b = 0;
-  lum::run_tape(
+  lum::run_tape<Halo>(
       s_tape, a, r,
       [&](uint32_t v) {
         acc = lum::qadd(acc, lum::qmul_m31(lum::qword(a.pows[k]), v));
         k++;
       },
       [&](int kind, uint32_t m, uint32_t v0, uint32_t v1, bool two) {
-        qm31 c = logup_constraint(a, b, r, prev, m, lum::denominator(a, kind, v0, v1, two));
+        qm31 c = logup_constraint<Halo>(a, b, r, prev, m, lum::denominator(a, kind, v0, v1, two));
         acc = lum::qadd(acc, lum::qmul(c, lum::qword(a.pows[a.n_constraints + b])));
         b++;
       });
@@ -129,14 +148,14 @@ __global__ void air_check_kernel(const __grid_constant__ AirArgs a) {
   uint32_t mask = 0;
   qm31 prev = {0, 0, 0, 0};
   int k = 0, b = 0;
-  lum::run_tape(
+  lum::run_tape<false>(
       s_tape, a, r,
       [&](uint32_t v) {
         if (v != 0u) mask |= 1u << k;
         k++;
       },
       [&](int kind, uint32_t m, uint32_t v0, uint32_t v1, bool two) {
-        qm31 c = logup_constraint(a, b, r, prev, m, lum::denominator(a, kind, v0, v1, two));
+        qm31 c = logup_constraint<false>(a, b, r, prev, m, lum::denominator(a, kind, v0, v1, two));
         if ((c.a | c.b | c.c | c.d) != 0u) mask |= 1u << (a.n_constraints + b);
         b++;
       });
@@ -229,6 +248,14 @@ __global__ void scan_tile_apply(uint32_t* data, long long n, int nb, const uint3
   }
 }
 
+// data[c][r] += carry[c] for the `cols` contiguous rows of length n.
+__global__ void add_carry_kernel(uint32_t* data, long long n, const uint32_t* __restrict__ carry) {
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  uint32_t* col = data + blockIdx.y * n;
+  col[r] = lum::add(col[r], carry[blockIdx.y]);
+}
+
 unsigned blocks_for(long long n, int threads) { return (unsigned)((n + threads - 1) / threads); }
 
 }  // namespace
@@ -247,7 +274,15 @@ extern "C" int lum_air_witness(const AirArgs* args, void* stream) {
 
 extern "C" int lum_air_domain(const AirArgs* args, void* stream) {
   if (args->n > 0) {
-    air_domain_kernel<<<blocks_for(args->n, 128), 128, 0, (cudaStream_t)stream>>>(*args);
+    air_domain_kernel<false><<<blocks_for(args->n, 128), 128, 0, (cudaStream_t)stream>>>(*args);
+  }
+  return (int)cudaGetLastError();
+}
+
+// A row block of the domain with its halo (AirArgs.next, .prev).
+extern "C" int lum_air_domain_halo(const AirArgs* args, void* stream) {
+  if (args->n > 0) {
+    air_domain_kernel<true><<<blocks_for(args->n, 128), 128, 0, (cudaStream_t)stream>>>(*args);
   }
   return (int)cudaGetLastError();
 }
@@ -269,6 +304,15 @@ extern "C" int lum_m31_scan(uint32_t* data, long long n, int cols, uint32_t* sum
     scan_tile_sums<<<grid, SCAN_THREADS, 0, s>>>(data, n, nb, sums);
     scan_tile_offsets<<<cols, 1024, 0, s>>>(sums, nb);
     scan_tile_apply<<<grid, SCAN_THREADS, 0, s>>>(data, n, nb, sums);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The carry pass: `carry` (cols words on the card) added to each of `cols`
+// contiguous rows of length n, in place.
+extern "C" int lum_m31_add_carry(uint32_t* data, long long n, int cols, const uint32_t* carry, void* stream) {
+  if (n > 0 && cols > 0) {
+    add_carry_kernel<<<dim3(blocks_for(n, 256), cols), 256, 0, (cudaStream_t)stream>>>(data, n, carry);
   }
   return (int)cudaGetLastError();
 }

@@ -43,11 +43,17 @@ struct AirArgs {
   unsigned long long xs;                   // domain x coordinates (domain)
   unsigned long long out;                  // witness (4E, n) / quotient (n, 4)
   unsigned long long tape;                 // int32 program in device memory
-  long long n;                             // rows (a power of two)
+  // The halo of a row block (read only by a launch with Halo = true):
+  // next[x] holds the `stride` rows that follow the block in main column
+  // x, prev[k] the `stride` rows that precede it in coordinate k of the
+  // last relation entry.
+  unsigned long long next[TAPE_MAX_MAIN];
+  unsigned long long prev[4];
+  long long n;                             // rows of the block (a power of two)
   int n_ins;
   int n_rel;                               // E
   int n_constraints;                       // K
-  int stride;                              // next row = r + stride (mod n)
+  int stride;                              // next row = r + stride (mod n; a block: at most n)
   int log_trace;                           // trace log of the component
   int accumulate;                          // domain: out += quotient
   uint32_t elems[TAPE_KINDS][2][4];        // lookup elements z, alpha per kind
@@ -75,18 +81,25 @@ __device__ __forceinline__ void load_tape(const AirArgs& a, int* s_tape) {
 // Runs the tape at row r.  on_constraint(value) for each recorded
 // constraint, on_relation(kind, mult, v0, v1, two_values) for each relation
 // entry, in tape order.  The register file is a local array: the largest
-// tape needs 13 registers.
-template <class OnConstraint, class OnRelation>
+// tape needs 13 registers.  MAIN_NEXT wraps at the column's end (a whole
+// domain), or with Halo reads past the block's end from a.next.
+template <bool Halo, class OnConstraint, class OnRelation>
 __device__ __forceinline__ void run_tape(const int* tape, const AirArgs& a, long long r,
                                          OnConstraint on_constraint, OnRelation on_relation) {
   uint32_t reg[TAPE_MAX_REGS];
-  const long long rn = (r + a.stride) & (a.n - 1);
+  const long long rn = Halo ? r + a.stride : (r + a.stride) & (a.n - 1);
   for (int i = 0; i < a.n_ins; i++) {
     const int* in = tape + TAPE_INS_WORDS * i;
     const int op = in[0], d = in[1], x = in[2], y = in[3], z = in[4];
     switch (op) {
       case OP_MAIN: reg[d] = ((const uint32_t*)a.main[x])[r]; break;
-      case OP_MAIN_NEXT: reg[d] = ((const uint32_t*)a.main[x])[rn]; break;
+      case OP_MAIN_NEXT:
+        if constexpr (Halo) {
+          reg[d] = rn < a.n ? ((const uint32_t*)a.main[x])[rn] : ((const uint32_t*)a.next[x])[rn - a.n];
+        } else {
+          reg[d] = ((const uint32_t*)a.main[x])[rn];
+        }
+        break;
       case OP_PP: reg[d] = ((const uint32_t*)a.pp[x])[r]; break;
       case OP_CONST: reg[d] = (uint32_t)x; break;
       case OP_ADD: reg[d] = add(reg[x], reg[y]); break;

@@ -263,6 +263,8 @@ class AirArgs(ctypes.Structure):
         ("xs", ctypes.c_uint64),
         ("out", ctypes.c_uint64),
         ("tape", ctypes.c_uint64),
+        ("next", ctypes.c_uint64 * TAPE_MAX_MAIN),
+        ("prev", ctypes.c_uint64 * 4),
         ("n", ctypes.c_longlong),
         ("n_ins", ctypes.c_int),
         ("n_rel", ctypes.c_int),
@@ -298,11 +300,20 @@ AIR_WITNESS = Kernel(
     {"lum_air_witness": [_P], "lum_m31_scan": [_P, _LL, _I, _P]},
     abi=_AIR_ABI,
 )
+# K5's carry pass on row shards: the cumulative sum across the shards that
+# jax.jit derives from _shard_dim's row sharding of build_interaction.
+ADD_CARRY = Kernel(
+    "add_carry",
+    "air.cu",
+    "luminair_tpu/parallel/accel.py:1079-1084 (_jit_witness under _shard_dim; build_interaction's cumsum)",
+    {"lum_m31_add_carry": [_P, _LL, _I, _P]},
+    abi=_AIR_ABI,
+)
 AIR_DOMAIN = Kernel(
     "air_domain",
     "air.cu",
     "luminair_tpu/parallel/accel.py:1112 (_jit_domain; DomainEval)",
-    {"lum_air_domain": [_P]},
+    {"lum_air_domain": [_P], "lum_air_domain_halo": [_P]},
     abi=_AIR_ABI,
 )
 AIR_CHECK = Kernel(
@@ -556,7 +567,7 @@ LOGUP_SUM = Kernel(
 
 KERNELS = (
     CIRCLE_FFT, MERKLE, FRI_LAYER, DEEP_QUOTIENT, AIR_WITNESS, AIR_DOMAIN, OODS_EVAL, CHANNEL, DECOMMIT, GRIND_POW,
-    TRACE_SEGMENT, TRACE_REDUCE, LUT_BOUNDARY, AIR_CHECK, LOGUP_SUM,
+    TRACE_SEGMENT, TRACE_REDUCE, LUT_BOUNDARY, AIR_CHECK, LOGUP_SUM, ADD_CARRY,
 )
 
 
@@ -1007,20 +1018,28 @@ class QuotientPlan:
     first-appearance order.  A, B and C must come from a sample point: they
     lie in u * CM31.  Holds the descriptor of csrc/quotient.cuh (int64
     words, CTAs of `cta_rows` rows, built on the host) and, on the card,
-    its one upload."""
+    its one upload.
 
-    def __init__(self, groups: Sequence[tuple], cta_rows: int = QUOTIENT_CTA_ROWS):
+    shard = (r, s): the columns are row block r of 2^s, 2^(log - s) rows
+    from row r 2^(log - s) of D_log; the descriptor counts those rows and
+    points its domain tables at the block's first row (quotient.cuh reads
+    the row index for nothing else)."""
+
+    def __init__(self, groups: Sequence[tuple], cta_rows: int = QUOTIENT_CTA_ROWS, shard: tuple = (0, 0)):
         self.groups = [(log, list(cols), np.asarray(g, dtype=np.int64), np.asarray(c, dtype=np.int64))
                        for log, cols, g, c in groups]
         _require(len(self.groups) > 0, "deep_quotient_many: no group")
         self.dev = dev = self.groups[0][1][0].device
+        r, s = self.shard = shard
+        _require(0 <= r < 1 << s and all(log >= s for log, *_ in self.groups),
+                 "deep_quotient_many: a row block of every log")
         rank: Dict[int, int] = {}  # logs in first-appearance order
         for log, cols, gammas, consts in self.groups:
             rank.setdefault(log, len(rank))
             _require(len(cols) > 0 and gammas.shape == (len(cols), 4), "deep_quotient_many: one gamma per column")
             _require(consts.shape == (5, 4), "deep_quotient_many: consts (5, 4)")
         logs = np.array(list(rank))
-        n = np.left_shift(1, logs)
+        n = np.left_shift(1, logs - s)
         r0, ctas = np.cumsum(n) - n, -(-n // cta_rows)
         self.rows = dict(zip(logs.tolist(), r0.tolist()))  # the first output row of each log
         self.n_rows, self.n_ctas = int(n.sum()), int(ctas.sum())
@@ -1042,13 +1061,16 @@ class QuotientPlan:
         recs[:, 0] = [len(self.groups[i][1]) for i in order]
         recs[:, 1] = np.cumsum(recs[:, 0]) - recs[:, 0]
         self._domains = [circle.domain_table(log, dev) for log in rank]  # kept alive: the descriptor points at them
-        table = np.stack([logs, np.cumsum(per_log) - per_log, per_log, np.cumsum(ctas) - ctas, ctas, r0,
-                          [xs.data_ptr() for xs, _ in self._domains], [ys.data_ptr() for _, ys in self._domains]], 1)
+        first = 4 * r * n  # the block's first row in each log's domain tables, in bytes
+        table = np.stack([logs - s, np.cumsum(per_log) - per_log, per_log, np.cumsum(ctas) - ctas, ctas, r0,
+                          [xs.data_ptr() for xs, _ in self._domains] + first,
+                          [ys.data_ptr() for _, ys in self._domains] + first], 1)
         ptrs = []
         for i in order:
             log, cols = self.groups[i][:2]
-            _require(all(c.dtype == f.I32 and c.shape == (1 << log,) and c.device == dev and c.is_contiguous()
-                         for c in cols), f"deep_quotient_many: columns must be contiguous int32 (2^{log},) on one device")
+            _require(all(c.dtype == f.I32 and c.shape == (1 << (log - s),) and c.device == dev and c.is_contiguous()
+                         for c in cols),
+                     f"deep_quotient_many: columns must be contiguous int32 (2^{log - s},) on one device")
             ptrs += [c.data_ptr() for c in cols]
         gw = folded[: len(ptrs)].astype(np.uint32).reshape(-1).view(np.int64)
         head = np.array([len(logs), G, len(ptrs)], dtype=np.int64)
@@ -1065,25 +1087,29 @@ def deep_quotient_many(plan: QuotientPlan) -> Dict[int, torch.Tensor]:
         return deep_quotient_many_plain(plan)
     out = torch.empty((plan.n_rows, 4), dtype=f.I32, device=plan.dev)
     DEEP_QUOTIENT.launch("lum_deep_quotient", plan.dev, plan.words.data_ptr(), plan.n_ctas, out.data_ptr())
-    return {log: out[r0 : r0 + (1 << log)] for log, r0 in plan.rows.items()}
+    s = plan.shard[1]
+    return {log: out[r0 : r0 + (1 << (log - s))] for log, r0 in plan.rows.items()}
 
 
 def deep_quotient_many_plain(plan: QuotientPlan) -> Dict[int, torch.Tensor]:
     """The same sums, group by group through deep_quotient_plain, whose
     denominator is the general QM31 line A x - B y + C."""
+    r, s = plan.shard
     out: Dict[int, torch.Tensor] = {}
     for log, cols, gammas, consts in plan.groups:
-        out[log] = deep_quotient_plain(cols, gammas, consts, log, out.get(log))
+        out[log] = deep_quotient_plain(cols, gammas, consts, log, out.get(log), r << (log - s))
     return {log: out[log] for log in plan.rows}
 
 
-def deep_quotient_plain(cols, gammas, consts, log: int, acc=None) -> torch.Tensor:
+def deep_quotient_plain(cols, gammas, consts, log: int, acc=None, row0: int = 0) -> torch.Tensor:
+    """One group's quotients at rows [row0, row0 + len(cols[0])) of D_log."""
     dev = cols[0].device
-    xs, ys = (t.to(f.I64) for t in circle.domain_table(log, dev))
+    rows = cols[0].shape[0]
+    xs, ys = (t[row0 : row0 + rows].to(f.I64) for t in circle.domain_table(log, dev))
     g = torch.as_tensor(gammas, dtype=f.I64, device=dev)
     A, B, C, acc_a, acc_c0 = torch.as_tensor(consts, dtype=f.I64, device=dev).unbind(0)
     den = f.add(f.sub(f.qm31_mul_m31(A, xs), f.qm31_mul_m31(B, ys)), C)
-    num = f.qm31_zero((1 << log,), dev)
+    num = f.qm31_zero((rows,), dev)
     for j, c in enumerate(cols):
         num = f.add(num, f.qm31_mul_m31(g[j], c.to(f.I64)))
     num = f.sub(f.sub(num, f.qm31_mul_m31(acc_a, xs)), acc_c0)
@@ -1109,23 +1135,46 @@ def _ptrs(cols: Sequence[torch.Tensor], device: torch.device) -> List[int]:
     return [c.data_ptr() for c in cols]
 
 
-def _air_args(tp, main, pp, ew, n: int, dev: torch.device) -> AirArgs:
+def _air_args(tp, main, pp, ew, n: int, dev: torch.device, stride: int = 1, inter=(), halo=None) -> AirArgs:
+    """The launch's arguments over n rows.  halo = (next, prev): next {main
+    index: (stride,) rows after the block} for the columns read at the next
+    row, prev the (stride,) rows before the block of the last relation
+    entry's 4 coordinates; None for a whole domain, which wraps (the
+    kernel then reads no halo)."""
     a = AirArgs()
     a.main[: len(main)] = _ptrs(main, dev)
     a.pp[: len(pp)] = _ptrs(pp, dev)
+    a.inter[: len(inter)] = _ptrs(inter, dev)
     a.tape = tp.tensor(dev).data_ptr()
     a.n, a.n_ins, a.n_rel, a.n_constraints = n, tp.n_ins, tp.n_relations, tp.n_constraints
+    a.stride = stride
     a.elems[:] = [w for kind in ew for q in kind for w in q]
+    if halo is not None:
+        nxt, prev = halo
+        _check_rows(list(nxt.values()) + list(prev), stride, "the halo")
+        for x, c in nxt.items():
+            a.next[x] = _ptrs([c], dev)[0]
+        a.prev[:] = _ptrs(prev, dev)
     return a
 
 
-def air_witness(tp, main: Sequence[torch.Tensor], pp: Sequence[torch.Tensor], ew):
+def _halo_or_wrap(tp, halo, what: str) -> None:
+    _require(halo is None or (len(halo[1]) == 4 and set(halo[0]) == set(tp.next_cols)),
+             f"{what}({tp.name}): a halo has the rows after the block of every column read at the next row "
+             "and the rows before it of the last entry's 4 coordinates")
+
+
+def air_witness(tp, main: Sequence[torch.Tensor], pp: Sequence[torch.Tensor], ew, carry=None):
     """The LogUp interaction of one component on its trace domain: (4E, N)
     int32 -- row 4b + k is coordinate k of entry b, the last entry summed
     down the rows -- and the claimed sum (4,) int32 (see air.cu).
 
     main / pp: the component's padded columns, int32 (N,), in MAIN / PP_IDS
-    order; ew: `tape.element_words` of the drawn lookup elements."""
+    order; ew: `tape.element_words` of the drawn lookup elements.  With
+    `carry` (4 words beside the columns) the columns are a row block of a
+    larger trace and its last entry's sums start from the carry: the sum
+    of every earlier block (`add_carry`); the claimed sum is then the
+    block's last row."""
     _require(len(main) == tp.n_main and len(pp) == tp.n_pp, f"air_witness({tp.name}): column count")
     ref = (list(main) + list(pp))[0]
     n = ref.shape[0]
@@ -1134,33 +1183,64 @@ def air_witness(tp, main: Sequence[torch.Tensor], pp: Sequence[torch.Tensor], ew
     if _on_cpu(ref):
         from .air import tape as tp_mod
 
-        return tp_mod.witness_plain(tp, main, pp, ew)
+        return tp_mod.witness_plain(tp, main, pp, ew, carry)
     dev = ref.device
     out = torch.empty((4 * tp.n_relations, n), dtype=f.I32, device=dev)
     a = _air_args(tp, main, pp, ew, n, dev)
-    a.out, a.stride = out.data_ptr(), 1
+    a.out = out.data_ptr()
     AIR_WITNESS.launch("lum_air_witness", dev, ctypes.addressof(a))
     last = out[-4:]
     sums = torch.empty(4 * ((n + 1023) // 1024), dtype=f.I32, device=dev)
     AIR_WITNESS.launch("lum_m31_scan", dev, last.data_ptr(), n, 4, sums.data_ptr())
+    if carry is not None:
+        add_carry(last, carry)
     return out, last[:, -1]
 
 
+def add_carry(rows: torch.Tensor, carry: torch.Tensor) -> torch.Tensor:
+    """K5's carry pass, in place: (4, R) contiguous int32 rows (the last
+    relation entry's sums of a row block) plus the QM31 `carry` (4 int32
+    words on their device), coordinate by coordinate."""
+    _require(rows.dtype == f.I32 and rows.dim() == 2 and rows.shape[0] == 4 and rows.is_contiguous(),
+             "add_carry: rows (4, R) contiguous int32")
+    _require(carry.dtype == f.I32 and tuple(carry.shape) == (4,) and carry.is_contiguous()
+             and carry.device == rows.device, "add_carry: 4 contiguous int32 words beside the rows")
+    if _on_cpu(rows):
+        return add_carry_plain(rows, carry)
+    ADD_CARRY.launch("lum_m31_add_carry", rows.device, rows.data_ptr(), rows.shape[1], 4, carry.data_ptr())
+    return rows
+
+
+def add_carry_plain(rows: torch.Tensor, carry: torch.Tensor) -> torch.Tensor:
+    rows.copy_(f.add(rows.to(f.I64), carry.to(f.I64)[:, None]).to(f.I32))
+    return rows
+
+
 def air_domain(tp, main, pp, inter, is_first: torch.Tensor, claimed, ew, pows, log_trace: int,
-               stride: int, acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+               stride: int, acc: Optional[torch.Tensor] = None, row0: int = 0, log_domain: Optional[int] = None,
+               halo=None) -> torch.Tensor:
     """Constraint quotients (M, 4) int32 of one component on its commit
     domain D_log, M = 2^log (see air.cu); with `acc`, acc + quotients (the
     kernel adds into `acc` in place).
 
     main / pp: commit-domain evaluations int32 (M,) in MAIN / PP_IDS order;
     inter: the 4E interaction coordinates; claimed: 4 words; pows: the
-    component's K + E alpha powers (`fields.qm31_powers_ints`)."""
+    component's K + E alpha powers (`fields.qm31_powers_ints`).
+
+    A row block: the columns hold rows [row0, row0 + M) of D_log_domain
+    and `halo` = (next, prev) their neighbours' rows (`_air_args`), which
+    wrap at the domain's ends; M at least `stride`."""
     m = is_first.shape[0]
     log = _log2(m)
+    log_domain = log if log_domain is None else log_domain
     _require(len(main) == tp.n_main and len(pp) == tp.n_pp and len(inter) == 4 * tp.n_relations,
              f"air_domain({tp.name}): column count")
     _require(len(pows) == tp.n_pows, f"air_domain({tp.name}): {tp.n_pows} alpha powers")
-    _require(0 < stride < m and log_trace >= 1, "air_domain: bad stride or trace log")
+    _require(0 < stride <= m and log_trace >= 1 and (halo is not None or stride < m),
+             "air_domain: bad stride or trace log")
+    _require(0 <= row0 and row0 % m == 0 and row0 + m <= 1 << log_domain and (halo is not None or m == 1 << log_domain),
+             "air_domain: a row block lies in its domain and has a halo")
+    _halo_or_wrap(tp, halo, "air_domain")
     _check_rows(list(main) + list(pp) + list(inter) + [is_first], m, "air_domain")
     if acc is not None:
         _require(acc.dtype == f.I32 and tuple(acc.shape) == (m, 4) and acc.is_contiguous(),
@@ -1169,17 +1249,16 @@ def air_domain(tp, main, pp, inter, is_first: torch.Tensor, claimed, ew, pows, l
         from .air import tape as tp_mod
 
         return tp_mod.domain_plain(tp, main, pp, inter, is_first, f.qm31_words(claimed), ew, pows,
-                                   log_trace, stride, acc)
+                                   log_trace, stride, acc, row0, log_domain, halo)
     dev = is_first.device
     out = acc if acc is not None else torch.empty((m, 4), dtype=f.I32, device=dev)
-    a = _air_args(tp, main, pp, ew, m, dev)
-    a.inter[: len(inter)] = _ptrs(inter, dev)
+    a = _air_args(tp, main, pp, ew, m, dev, stride, inter, halo)
     a.is_first = _ptrs([is_first], dev)[0]
-    a.xs = circle.domain_table(log, dev)[0].data_ptr()
-    a.out, a.stride, a.log_trace, a.accumulate = out.data_ptr(), stride, log_trace, int(acc is not None)
+    a.xs = circle.domain_table(log_domain, dev)[0].data_ptr() + 4 * row0
+    a.out, a.log_trace, a.accumulate = out.data_ptr(), log_trace, int(acc is not None)
     a.claimed[:] = list(f.qm31_words(claimed))
     a.pows[: 4 * len(pows)] = [w for q in pows for w in q]
-    AIR_DOMAIN.launch("lum_air_domain", dev, ctypes.addressof(a))
+    AIR_DOMAIN.launch("lum_air_domain" if halo is None else "lum_air_domain_halo", dev, ctypes.addressof(a))
     return out
 
 
@@ -1205,10 +1284,9 @@ def air_check(tp, main, pp, inter, is_first: torch.Tensor, claimed, ew) -> torch
         return tp_mod.check_plain(tp, main, pp, inter, is_first, f.qm31_words(claimed), ew)
     dev = is_first.device
     out = torch.empty(n, dtype=f.I32, device=dev)
-    a = _air_args(tp, main, pp, ew, n, dev)
-    a.inter[: len(inter)] = _ptrs(inter, dev)
+    a = _air_args(tp, main, pp, ew, n, dev, 1, inter)
     a.is_first = _ptrs([is_first], dev)[0]
-    a.out, a.stride = out.data_ptr(), 1
+    a.out = out.data_ptr()
     a.claimed[:] = list(f.qm31_words(claimed))
     AIR_CHECK.launch("lum_air_check", dev, ctypes.addressof(a))
     return out

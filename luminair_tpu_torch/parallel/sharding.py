@@ -14,10 +14,13 @@ A tree's commitment under a mesh (`ShardedCommit`):
 
   * the LDE is COLUMN-parallel: each column shard runs K1 (circle iFFT
     and LDE) on its block of the size group's columns over full rows;
+    columns that arrive as row blocks on the row shards (`RowBlocks`: the
+    interaction, the composition) first reach the column shards by the
+    inverse block exchange, never through the lead;
   * the reshard moves the LDE from columns to rows block by block: each
     (source, destination) pair copies only its column block times row
     block into preallocated buffers, never an all-gather; it moves (n -
-    1)/n of the tree's words (`moved_bytes`);
+    1)/n of the tree's words;
   * the Merkle tree is ROW-parallel (crypto/merkle.ShardedMerkleTree):
     each row shard runs K2 on its row block of every column with at least
     one row per shard, the lead device hashes the top log2(n) layers from
@@ -28,13 +31,52 @@ Row shards run over the flattened device array (hosts outermost for a
 mesh, where the columns split over 'cols' first (the transposed order),
 so that there the reshard exchanges blocks between other positions.
 
-Under `prove_mesh` the commitment scheme (pcs/scheme.py) commits every
-tree so, runs K7 per column shard on the coefficients it holds and opens
-each tree with one K9 pass per row shard and one on the lead.  The AIR
-phases (K5, K6) and the FRI chain (K3, K4, K8, K10) run on the lead over
-each tree's evaluations, which the lead assembles from the column blocks:
-the one gather this design keeps (`gathered_bytes`).  The reference's
-`offload_min_rows` is not carried over: the port has no host tail.
+Under `prove_mesh` every phase of prove() runs where its data lies; the
+committed trees' row blocks stay on the row shards (pcs/scheme.TreeProver
+hands them on as RowBlocks), and a phase launches on each row shard
+(counted under kernels.on_shard):
+
+  * K5 (`air_witness_rows`) on each shard's block of a component's
+    padded trace columns, which the lead scatters; the shards' totals go
+    to the lead, their prefix sums come back as carries (K5's carry pass);
+  * K6 (`air_domain_rows`) on each shard's block of a component's commit
+    domain, with its halo: the next shard's first 2^B rows of each
+    column read at the next row, the previous shard's last 2^B rows of
+    the last LogUp entry, wrapping at the domain's ends; the working
+    domain's components add into its row blocks in place, the smaller
+    ones' interpolation and the down-commit run on the column shards
+    (K1; `add_strided_coeffs`, `add_coeff_evals`, `down_commit`);
+  * K7 per column shard on the coefficients it holds; K4 one plan a row
+    shard over its blocks of every column whose commit log has a row per
+    shard (pcs/quotients.py);
+  * the FRI chain (pcs/fri.commit_chain): while a layer's folds leave a
+    row a shard, its tree is a ShardedMerkleTree with K8's step in the
+    top's root pass on the lead, the alpha goes to each shard by a copy
+    in stream order, and each shard runs K3 on the rows its output block
+    needs, assembled in nested mirror order from up to 2^F shards;
+  * K9 one pass a row shard and one on the lead; K10 on the lead.
+
+A component with fewer trace rows than shards runs K5 and K6 on the lead
+(its commit-domain columns gathered there).  The lead gathers nothing
+else but (`expected_gathered_bytes`, with 16-byte QM31 rows, 4-byte
+words, n shards, the lead's own block never counted):
+
+  gathered = sum over the trees' size groups of commit log l < log2(n):
+               4 2^l (C - C_0)       (C columns, C_0 on the lead's shard)
+           + 16 2^g (n - 1) / n      (the FRI layer the chain gathers:
+                                      the first whose folds leave fewer
+                                      rows than shards, else the last;
+                                      none when the largest input's
+                                      circle fold leaves fewer)
+           + 16 2^k (n - 1) / n      for each FRI input of circle log
+                                      k >= log2(n) that joins the chain
+                                      on the lead from there on.
+
+`BYTES` counts them, the bytes moved between shards and those scattered
+from the lead: the column blocks of the columns that lie there (the main
+and preprocessed trees', a small component's quotients) to the other
+column shards, and K5's trace blocks to the other row shards.  The reference's `offload_min_rows` is not carried over:
+the port has no host tail.
 """
 
 from __future__ import annotations
@@ -149,13 +191,17 @@ def make_mesh(n_devices: Optional[int] = None, shape: Optional[Tuple[int, int]] 
 
 
 _MESH: List[Mesh] = []
-# The bytes every sharded commitment moved since the last reset: the
-# reshards' and the lead's copies from other positions.
-BYTES = {"moved": 0, "gathered": 0}
+# The bytes the mesh's copies carried since the last reset, counted by mesh
+# position (a copy within one position is free): "moved" between shards
+# (the block exchanges, halos, FRI assemblies, carries and challenges),
+# "gathered" onto the lead (whole tensors assembled there), "scattered"
+# from the columns that lie on the lead to the other shards (column
+# blocks to the column shards, K5's trace blocks to the row shards).
+BYTES = {"moved": 0, "gathered": 0, "scattered": 0}
 
 
 def reset_bytes() -> None:
-    BYTES.update(moved=0, gathered=0)
+    BYTES.update(moved=0, gathered=0, scattered=0)
 
 
 @contextlib.contextmanager
@@ -165,11 +211,13 @@ def prove_mesh(mesh: Mesh):
         with sharding.prove_mesh(sharding.make_chip_mesh(4)):
             proof = prove(pie, settings)
 
-    The proof's bytes are the single-device proof's.  prove() runs on the
-    lead device (mesh.devices.flat[0]); its `device` must be None or that
-    device, and a PIE's columns must lie there.  The number of devices
-    must be a power of two (rows split evenly).  The reference's
-    `offload_min_rows` has no counterpart: the port has no host tail."""
+    The proof's bytes are the single-device proof's.  prove()'s device is
+    the lead (mesh.devices.flat[0]): its `device` must be None or that
+    device, a PIE's columns must lie there, and the transcript's kernels
+    (K8, K10) run there; its phases run on the shards (module docstring).
+    The number of devices must be a power of two (rows split evenly).
+    The reference's `offload_min_rows` has no counterpart: the port has
+    no host tail."""
     _check_rows(mesh)
     _MESH.append(mesh)
     try:
@@ -200,10 +248,79 @@ def split_evenly(n: int, parts: int) -> List[Tuple[int, int]]:
     return out
 
 
+class RowBlocks(list):
+    """A column set's row blocks over a mesh's row shards: block r lies on
+    row shard r (mesh position r) and holds rows [r R, (r + 1) R) of every
+    column, R the rows over the shard count.  `dim` is the blocks' row
+    dimension: -1 for columns, (R,) or (C, R); 0 for QM31 rows (R, 4)."""
+
+    def __init__(self, mesh: Mesh, blocks, dim: int = -1):
+        super().__init__(blocks)
+        self.mesh, self.dim = mesh, dim
+        assert len(self) == mesh.size
+
+    @property
+    def n_rows(self) -> int:
+        return len(self) * self[0].shape[self.dim]
+
+
+def n_rows(x) -> int:
+    return x.n_rows if isinstance(x, RowBlocks) else x.shape[-1]
+
+
+def count_bytes(kind: str, src_pos: int, dst_pos: int, t: torch.Tensor) -> None:
+    """Add t's bytes to BYTES[kind] when the copy changes mesh position."""
+    if src_pos != dst_pos:
+        BYTES[kind] += t.numel() * t.element_size()
+
+
+def on_lead(x):
+    """A RowBlocks' whole tensor on the lead (the gather: the blocks from
+    other positions counted); any other value as it is."""
+    if not isinstance(x, RowBlocks):
+        return x
+    dim = x.dim % x[0].dim()
+    shape = list(x[0].shape)
+    R, shape[dim] = shape[dim], x.n_rows
+    out = torch.empty(shape, dtype=x[0].dtype, device=x.mesh.lead)
+    for r, b in enumerate(x):
+        out.narrow(dim, r * R, R).copy_(b, non_blocking=True)
+        count_bytes("gathered", r, 0, b)
+    return out
+
+
+def to_shards(mesh: Mesh, t: torch.Tensor) -> List[torch.Tensor]:
+    """A small tensor on the lead (a challenge, a carry) on every row shard's
+    device, in stream order: a copy where the device is another."""
+    out = []
+    for r, (_, dev) in enumerate(mesh.row_shards()):
+        out.append(t.to(dev, non_blocking=True))
+        count_bytes("moved", 0, r, t)
+    return out
+
+
+def stack(cols: list):
+    """One size group's columns as a matrix: (C, N) from tensors, or
+    RowBlocks of (C, R) from RowBlocks of (R,) (a stack on each shard)."""
+    if all(isinstance(c, RowBlocks) for c in cols):
+        mesh = cols[0].mesh
+        return RowBlocks(mesh, [torch.stack([c[r] for c in cols]) for r in range(mesh.size)])
+    assert not any(isinstance(c, RowBlocks) for c in cols), "a size group lies on the lead or on the shards"
+    return torch.stack([c.to(f.I32) for c in cols])
+
+
+def unbind(x) -> list:
+    """The rows of a (C, N) matrix, or of RowBlocks of (C, R): RowBlocks
+    of (R,) views."""
+    if isinstance(x, RowBlocks):
+        return [RowBlocks(x.mesh, [b[k] for b in x]) for k in range(x[0].shape[0])]
+    return list(x.unbind(0))
+
+
 @dataclass
 class ColumnBlock:
     """A column shard's block [c0, c1) of one size group: its coefficients
-    and LDE evaluations on its device."""
+    and evaluations on its device."""
 
     pos: int
     c0: int
@@ -212,87 +329,111 @@ class ColumnBlock:
     evals: Optional[torch.Tensor]
 
 
-def _lde_body(mesh: Mesh, mat, log_blowup: int) -> List[ColumnBlock]:
-    """Column-parallel: each column shard runs K1 on its block of `mat`'s
-    columns ((C, N): a tensor, moved, or host words, uploaded straight to
-    the shard), over full rows."""
+def _col_blocks(mesh: Mesh, mat) -> List[ColumnBlock]:
+    """Each column shard's block of `mat`'s columns over full rows, in
+    `evals`: from a (C, N) tensor on the lead (copied to the shard, its
+    bytes counted as scattered), host words (uploaded straight to it) or
+    RowBlocks of (C, R) -- the inverse of `_reshard`'s block exchange,
+    never through the lead, its bytes counted as moved."""
+    n_cols = mat[0].shape[0] if isinstance(mat, RowBlocks) else mat.shape[0]
     blocks = []
-    for (pos, dev), (c0, c1) in zip(mesh.col_shards(), split_evenly(mat.shape[0], mesh.size)):
+    for (pos, dev), (c0, c1) in zip(mesh.col_shards(), split_evenly(n_cols, mesh.size)):
         if c0 == c1:
             continue
-        if isinstance(mat, torch.Tensor):
+        if isinstance(mat, RowBlocks):
+            R = mat[0].shape[-1]
+            block = torch.empty((c1 - c0, mat.n_rows), dtype=f.I32, device=dev)
+            for r, b in enumerate(mat):
+                part = block[:, r * R : (r + 1) * R]
+                part.copy_(b[c0:c1], non_blocking=True)
+                count_bytes("moved", r, pos, part)
+        elif isinstance(mat, torch.Tensor):
             block = mat[c0:c1].to(dev, non_blocking=True)
+            count_bytes("scattered", 0, pos, block)
         else:
             block = f.u32_to_tensor(mat[c0:c1], dev)
-        with kernels.on_shard(pos):
-            coeffs = fft.ifft(block)
-            evals = fft.extend_coeffs_and_fft(coeffs, log_blowup)
-        blocks.append(ColumnBlock(pos, c0, c1, coeffs, evals))
+        blocks.append(ColumnBlock(pos, c0, c1, None, block))
     return blocks
 
 
-def _reshard(mesh: Mesh, blocks: List[ColumnBlock], n_cols: int, log: int) -> Tuple[List[torch.Tensor], int]:
+def _lde_body(mesh: Mesh, mat, log_blowup: int) -> List[ColumnBlock]:
+    """Column-parallel: each column shard runs K1 on its block of `mat`'s
+    columns (`_col_blocks`) over full rows."""
+    blocks = _col_blocks(mesh, mat)
+    for b in blocks:
+        with kernels.on_shard(b.pos):
+            b.coeffs = fft.ifft(b.evals)
+            b.evals = fft.extend_coeffs_and_fft(b.coeffs, log_blowup)
+    return blocks
+
+
+def _reshard(mesh: Mesh, blocks: List[ColumnBlock], n_cols: int, log: int) -> List[torch.Tensor]:
     """Columns to rows: each row shard's (n_cols, 2^log / n) buffer, filled
-    block by block (a column block's row block, copied); and the bytes
-    that changed mesh position."""
+    block by block (a column block's row block, copied); the bytes that
+    change mesh position counted as moved."""
     shards = mesh.row_shards()
     rows = (1 << log) // len(shards)
     out = [torch.empty((n_cols, rows), dtype=f.I32, device=dev) for _, dev in shards]
-    moved = 0
     for b in blocks:
         for r, (pos, _) in enumerate(shards):
             out[r][b.c0 : b.c1].copy_(b.evals[:, r * rows : (r + 1) * rows], non_blocking=True)
-            moved += 0 if pos == b.pos else 4 * (b.c1 - b.c0) * rows
-    return out, moved
+            count_bytes("moved", b.pos, pos, out[r][b.c0 : b.c1])
+    return out
 
 
-def _gather(mesh: Mesh, blocks: List[ColumnBlock], n_cols: int, log: int) -> Tuple[torch.Tensor, int]:
+def _gather(mesh: Mesh, blocks: List[ColumnBlock], n_cols: int, log: int) -> torch.Tensor:
     """The lead's (n_cols, 2^log) copy of a size group, from the column
-    blocks; the bytes that came from other mesh positions."""
+    blocks; the bytes from other positions counted as gathered."""
     if len(blocks) == 1 and blocks[0].pos == 0:
-        return blocks[0].evals, 0
+        return blocks[0].evals
     out = torch.empty((n_cols, 1 << log), dtype=f.I32, device=mesh.lead)
-    got = 0
     for b in blocks:
         out[b.c0 : b.c1].copy_(b.evals, non_blocking=True)
-        got += 0 if b.pos == 0 else 4 * (b.c1 - b.c0) << log
-    return out, got
+        count_bytes("gathered", b.pos, 0, b.evals)
+    return out
 
 
 class ShardedCommit:
     """One tree's commitment under a mesh (module docstring).
 
-    mats: {trace log: (C, 2^log) columns in commitment order}, tensors or
-    host words.  `blocks` {commit log: [ColumnBlock]} keep the coefficients
-    (for K7); `evals` {commit log: (C, 2^l) on the lead} holds the lead's
-    copies when `gather`, else only the groups of fewer rows than shards
-    (the top's columns); `tree` is the row-sharded Merkle tree (a plain
-    MerkleTree on one shard, or when no group has a row per shard).
-    `moved_bytes`: the reshard's; `gathered_bytes`: the lead's copies from
-    other positions.  On a mesh of one device this is the one-device
-    commit: one column block, no copy, a MerkleTree over every group."""
+    mats: {trace log: (C, 2^log) columns in commitment order}: tensors,
+    host words, or RowBlocks of (C, 2^log / n) on the row shards.
+    `blocks` {commit log: [ColumnBlock]} keep the coefficients (for K7);
+    `evals` {commit log: (C, 2^l) on the lead} holds the groups of fewer
+    rows than shards (the top's columns; every group on one shard); `tree`
+    is the row-sharded Merkle tree (a plain MerkleTree on one shard, or
+    when no group has a row per shard), whose shards hold every other
+    group's row blocks.  `moved_bytes`: the exchanges' and the reshards';
+    `gathered_bytes`: the lead's copies from other positions.  On a mesh
+    of one device this is the one-device commit: one column block, no
+    copy, a MerkleTree over every group."""
 
-    def __init__(self, mesh: Mesh, mats: Dict[int, object], log_blowup: int, gather: bool = True):
+    def __init__(self, mesh: Mesh, mats: Dict[int, object], log_blowup: int):
         s = _check_rows(mesh)
         self.blocks: Dict[int, List[ColumnBlock]] = {}
         self.evals: Dict[int, torch.Tensor] = {}
-        self.moved_bytes = self.gathered_bytes = 0
+        before = dict(BYTES)
         rows_by_log: Dict[int, List[torch.Tensor]] = {}
         for log, mat in mats.items():
             cl = log + log_blowup
+            n_cols = mat[0].shape[0] if isinstance(mat, RowBlocks) else mat.shape[0]
             blocks = _lde_body(mesh, mat, log_blowup)
-            if gather or cl < s or s == 0:
-                self.evals[cl], got = _gather(mesh, blocks, mat.shape[0], cl)
-                self.gathered_bytes += got
-            if cl >= s and s > 0:
-                rows_by_log[cl], moved = _reshard(mesh, blocks, mat.shape[0], cl)
-                self.moved_bytes += moved
+            if cl < s or s == 0:
+                self.evals[cl] = _gather(mesh, blocks, n_cols, cl)
+            else:
+                rows_by_log[cl] = _reshard(mesh, blocks, n_cols, cl)
             for b in blocks:
                 b.evals = None  # the row blocks and the lead's copy hold the values now
             self.blocks[cl] = blocks
-        BYTES["moved"] += self.moved_bytes
-        BYTES["gathered"] += self.gathered_bytes
-        self.tree = _merkle_body(mesh, rows_by_log, {l: e for l, e in self.evals.items() if l < s or s == 0})
+        self.moved_bytes = BYTES["moved"] - before["moved"]
+        self.gathered_bytes = BYTES["gathered"] - before["gathered"]
+        self.tree = _merkle_body(mesh, rows_by_log, self.evals)
+
+    def row_blocks(self, mesh: Mesh, cl: int, j: int) -> RowBlocks:
+        """Column j of commit log cl's group as RowBlocks of (R,) views of
+        the tree's shard blocks."""
+        s = self.tree.log_shards
+        return RowBlocks(mesh, [t.cols_by_log[cl - s][j] for t in self.tree.shards])
 
 
 def _merkle_body(mesh: Mesh, rows_by_log: Dict[int, List[torch.Tensor]], top_cols: Dict[int, torch.Tensor]):
@@ -301,6 +442,163 @@ def _merkle_body(mesh: Mesh, rows_by_log: Dict[int, List[torch.Tensor]], top_col
         return MerkleTree(top_cols)
     shard_cols = [{log: blocks[r] for log, blocks in rows_by_log.items()} for r in range(mesh.size)]
     return ShardedMerkleTree(shard_cols, top_cols, mesh.lead)
+
+
+def expected_gathered_bytes(n: int, tree_logs: List[List[int]], log_blowup: int, fri_config) -> int:
+    """The bytes a prove over n row shards gathers onto the lead (module
+    docstring's formula), from each tree's columns' trace logs (the
+    verifier's layout: `pp_logs()`, `main_logs`, `inter_logs`, the
+    composition's 4 columns) and the proof's effective FRI config.  It
+    assumes that every component has at least n trace rows (a smaller
+    one's K6 also gathers its columns)."""
+    s = n.bit_length() - 1
+    if n == 1:
+        return 0
+    total = 0
+    for logs in tree_logs:
+        for log in set(logs):
+            cols = logs.count(log)
+            if log + log_blowup < s:  # the top's columns, but the lead's own column block
+                total += 4 * (cols - split_evenly(cols, n)[0][1]) << (log + log_blowup)
+
+    def rows(log: int) -> int:  # a row-sharded QM31 vector of 2^log rows, less the lead's block
+        return 16 * ((1 << log) - (1 << (log - s)))
+
+    inputs = sorted({l + log_blowup for logs in tree_logs for l in logs}, reverse=True)
+    kmax = inputs[0]
+    last = fri_config.log_blowup_factor + fri_config.log_last_layer_degree_bound
+    F = max(1, int(fri_config.folds_per_layer))
+    sharded = kmax >= s + 1
+    if not sharded:
+        return total + sum(rows(l) for l in inputs if l >= s)
+    lead_logs = []  # the circle logs of the inputs that join on the lead
+    log = kmax - 1
+    while log > last:
+        folds = min(F, log - last)
+        if sharded and 1 << (log - folds) < n:
+            sharded = False
+            total += rows(log)
+        if not sharded:
+            lead_logs += [l for l in range(log - folds + 1, log + 1) if l in inputs]
+        log -= folds
+    if sharded:
+        total += rows(last)
+    return total + sum(rows(l) for l in lead_logs if l >= s)
+
+
+# --- the AIR phases on row shards ------------------------------------------
+
+
+def air_witness_rows(mesh: Mesh, tp, main: Sequence[torch.Tensor], pp: Sequence[torch.Tensor], ew):
+    """K5 of one component: on the lead where the mesh has one shard or the
+    trace fewer rows than shards, else on each row shard's block of the
+    padded trace columns (lying on the lead, scattered to the shards,
+    bytes counted), with a carry: the shards' totals (n QM31 words) go to
+    the lead, their exclusive prefix sums come back, and K5's carry pass
+    adds each to its shard's last entry (the reference's cumulative sum
+    across row shards, `build_interaction` under `_shard_dim`).  Returns
+    (the interaction, (4E, N) or RowBlocks of (4E, N / n); the claimed
+    sum (4,) on the lead: the last shard's last row)."""
+    N = (list(main) + list(pp))[0].shape[0]
+    if mesh.size == 1 or N < mesh.size:
+        return kernels.air_witness(tp, main, pp, ew)
+    if tp.next_cols:
+        raise ProverError(f"{tp.name}: a witness tape that reads the next row has no halo on row shards")
+    R, lead = N // mesh.size, mesh.lead
+    outs, totals = [], torch.empty((mesh.size, 4), dtype=f.I32, device=lead)
+    for r, (pos, dev) in enumerate(mesh.row_shards()):
+        blocks = []
+        for c in list(main) + list(pp):
+            blocks.append(c[r * R : (r + 1) * R].to(dev, non_blocking=True))
+            count_bytes("scattered", 0, pos, blocks[-1])
+        with kernels.on_shard(pos):
+            out, total = kernels.air_witness(tp, blocks[: len(main)], blocks[len(main) :], ew)
+        totals[r].copy_(total, non_blocking=True)
+        count_bytes("moved", pos, 0, total)
+        outs.append(out)
+    ends = (torch.cumsum(totals.to(f.I64), 0) % f.P).to(f.I32)  # each shard's end: the sum through it
+    for r, (pos, dev) in enumerate(mesh.row_shards()):
+        if r:
+            carry = ends[r - 1].to(dev, non_blocking=True)
+            count_bytes("moved", 0, pos, carry)
+            with kernels.on_shard(pos):
+                kernels.add_carry(outs[r][-4:], carry)
+    return RowBlocks(mesh, outs), ends[-1]
+
+
+def _halo(x: RowBlocks, q: int, rows: slice, r: int, dev) -> torch.Tensor:
+    part = x[q][rows]
+    out = part.to(dev, non_blocking=True)
+    count_bytes("moved", q, r, part)
+    return out
+
+
+def air_domain_rows(tp, main, pp, inter, is_first: RowBlocks, claimed, ew, pows, log_trace: int, stride: int,
+                    acc: Optional[RowBlocks] = None) -> RowBlocks:
+    """K6 of one component on each row shard's block of its commit domain
+    (the committed trees' row blocks, RowBlocks of (R,)): the block's
+    first row sets its domain rows, its halo is the next shard's first
+    `stride` rows of each column read at the next row and the previous
+    shard's last `stride` rows of the last relation entry, wrapping at the
+    domain's ends (R at least `stride`).  With `acc` (RowBlocks of (R, 4))
+    the quotients are added there in place.  Returns RowBlocks of (R,
+    4)."""
+    mesh, n = is_first.mesh, is_first.mesh.size
+    R = is_first[0].shape[0]
+    if R < stride:
+        raise ProverError(f"{tp.name}: a row block of {R} rows is smaller than its halo of {stride}")
+    log_domain = n.bit_length() - 1 + R.bit_length() - 1
+    out = []
+    for r, (pos, dev) in enumerate(mesh.row_shards()):
+        nxt = {x: _halo(main[x], (r + 1) % n, slice(0, stride), r, dev) for x in tp.next_cols}
+        prev = [_halo(c, (r - 1) % n, slice(R - stride, R), r, dev) for c in inter[-4:]]
+        with kernels.on_shard(pos):
+            out.append(kernels.air_domain(tp, [c[r] for c in main], [c[r] for c in pp], [c[r] for c in inter],
+                                          is_first[r], claimed, ew, pows, log_trace, stride,
+                                          acc[r] if acc is not None else None, r * R, log_domain, (nxt, prev)))
+    return RowBlocks(mesh, out, 0)
+
+
+def add_strided_coeffs(mesh: Mesh, acc: Optional[List[ColumnBlock]], q, stride: int, log: int) -> List[ColumnBlock]:
+    """The composition's column work for a component smaller than the
+    working domain D_log: its quotients' 4 coordinate columns (q: RowBlocks
+    of (R, 4), or (M, 4) on the lead) on the column shards (`_col_blocks`),
+    interpolated there (K1), added strided into `acc`, the column shards'
+    (k, 2^log) coefficient blocks (zeros when None)."""
+    cols = RowBlocks(mesh, [b.t() for b in q]) if isinstance(q, RowBlocks) else q.t()
+    blocks = _col_blocks(mesh, cols)
+    if acc is None:
+        acc = [ColumnBlock(b.pos, b.c0, b.c1, torch.zeros((b.c1 - b.c0, 1 << log), dtype=f.I32,
+                                                          device=b.evals.device), None) for b in blocks]
+    for b, a in zip(blocks, acc):
+        with kernels.on_shard(b.pos):
+            coeffs = fft.ifft(b.evals)
+        a.coeffs[:, ::stride] = f.add(a.coeffs[:, ::stride].to(f.I64), coeffs.to(f.I64)).to(f.I32)
+    return acc
+
+
+def add_coeff_evals(comp: RowBlocks, acc: List[ColumnBlock], log: int) -> RowBlocks:
+    """comp (RowBlocks of (R, 4) on D_log) plus the evaluations of the
+    coefficient blocks `acc` (K1 on each column shard, the block exchange
+    to rows)."""
+    for a in acc:
+        with kernels.on_shard(a.pos):
+            a.evals = fft.fft(a.coeffs)
+    rows = _reshard(comp.mesh, acc, 4, log)
+    return RowBlocks(comp.mesh, [f.add(c.to(f.I64), e.t().to(f.I64)).to(f.I32) for c, e in zip(comp, rows)], 0)
+
+
+def down_commit(comp: RowBlocks, stride: int, log: int) -> RowBlocks:
+    """The composition's evaluations on D_log (RowBlocks of (R, 4)) whose
+    coefficients sit on the stride positions, evaluated on D_(log -
+    log2(stride)) instead: on the column shards, K1's iFFT, the strided
+    coefficients, K1's FFT; back to rows.  RowBlocks of (4, R')."""
+    mesh = comp.mesh
+    blocks = _col_blocks(mesh, RowBlocks(mesh, [b.t() for b in comp]))
+    for b in blocks:
+        with kernels.on_shard(b.pos):
+            b.evals = fft.fft(fft.ifft(b.evals)[:, ::stride].contiguous())
+    return RowBlocks(mesh, _reshard(mesh, blocks, 4, log - stride.bit_length() + 1))
 
 
 def _logup_sum_body(mesh: Mesh, values: np.ndarray, mult: np.ndarray, z, alpha) -> torch.Tensor:
@@ -331,7 +629,7 @@ def prover_step(mesh: Mesh, cols, mult_m31, z, alpha, log_blowup: int = 1, n_rel
     log_n = int(cols.shape[-1]).bit_length() - 1
     if cols.ndim != 2 or 1 << log_n != cols.shape[-1]:
         raise ProverError("prover_step: (C, N) columns, N a power of two")
-    commit = ShardedCommit(mesh, {log_n: cols}, log_blowup, gather=False)
+    commit = ShardedCommit(mesh, {log_n: cols}, log_blowup)
     commit.blocks.clear()  # the coefficients serve no OODS value here
     cl, tree = log_n + log_blowup, commit.tree
     if isinstance(tree, ShardedMerkleTree):

@@ -41,6 +41,7 @@ twiddles of the queried positions alone (circle.domain_points_at).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -51,8 +52,9 @@ from .. import circle
 from .. import fields as f
 from .. import fft
 from .. import kernels
-from ..crypto.merkle import MerkleTree, open_trees, verify_decommitment
+from ..crypto.merkle import MerkleTree, ShardedMerkleTree, open_trees, verify_decommitment
 from ..errors import ProverError
+from ..parallel import sharding
 from .config import FriConfig
 
 
@@ -113,17 +115,104 @@ def layer_schedule(kmax: int, last_line_log: int, folds_per_layer: int):
     return out
 
 
+def _mirror_runs(size_log: int, folds: int, a: int, m: int) -> List[List[int]]:
+    """The rows a row block's folds read, as starts of runs of m rows: the
+    block's output rows [a, a + m) after `folds` folds of a layer of
+    2^size_log rows, and before fold t (runs[t], in the nested mirror
+    order: fold t pairs rows (j, N_t - 1 - j), so the runs of level t are
+    those of level t + 1, then their mirrors in reverse).  Laid out in that
+    order on one shard, K3's own (i, N - 1 - i) pairing is the global
+    one."""
+    runs = [[a]]
+    for t in range(folds - 1, -1, -1):
+        size = 1 << (size_log - t)
+        runs.insert(0, runs[0] + [size - st - m for st in reversed(runs[0])])
+    return runs
+
+
+def _assemble(src, starts: List[int], m: int, r: int, dev) -> torch.Tensor:
+    """Rows [st, st + m) of `src` (RowBlocks of (R, 4)) for each start, in
+    order, in one (len(starts) m, 4) buffer on `dev` (row shard r); each
+    run lies in one block.  The runs from other positions count as moved."""
+    R = src[0].shape[0]
+    out = torch.empty((len(starts) * m, 4), dtype=f.I32, device=dev)
+    for k, st in enumerate(starts):
+        q, off = divmod(st, R)
+        out[k * m : (k + 1) * m].copy_(src[q][off : off + m], non_blocking=True)
+        sharding.count_bytes("moved", q, r, out[k * m : (k + 1) * m])
+    return out
+
+
+@functools.lru_cache(maxsize=512)
+def _local_twiddles(log_size: int, stage: int, starts: tuple, m: int, dev: torch.device) -> torch.Tensor:
+    """A stage's twiddles at the runs `starts` of m rows, in order, on
+    `dev` (cached per shard)."""
+    tw = circle.twiddle_stage(log_size, stage, True, dev)
+    return torch.cat([tw[st : st + m] for st in starts])
+
+
+def _fold_rows(src, size_log: int, twiddles: List[tuple], mixes: list, alphas: List[torch.Tensor], t0: int,
+               alpha0s: Optional[List[torch.Tensor]]):
+    """One K3 launch a row shard: len(twiddles) <= FRI_MAX_FOLDS folds of a
+    layer of 2^size_log rows held as RowBlocks of (R, 4), into RowBlocks of
+    the output.  Shard r assembles the rows its output block needs in
+    nested mirror order (`_mirror_runs`) from up to 2^F shards, fold t's
+    twiddles ((log, stage) of a twiddle table) and the joining input
+    mixes[t] (RowBlocks, of 2^(size_log - t) rows) gathered the same way;
+    alphas / alpha0s: each shard's copy of the challenges."""
+    mesh = src.mesh
+    F = len(twiddles)
+    m = (1 << size_log) >> F >> (mesh.size.bit_length() - 1)
+    out = []
+    for r, (pos, dev) in enumerate(mesh.row_shards()):
+        runs = _mirror_runs(size_log, F, r * m, m)
+        tws = [_local_twiddles(log, stage, tuple(runs[t + 1]), m, f.device_key(dev))
+               for t, (log, stage) in enumerate(twiddles)]
+        mx = [None if x is None else (_assemble(x, runs[t], m, r, dev),
+                                      _local_twiddles(size_log - t, 0, tuple(runs[t + 1]), m, f.device_key(dev)))
+              for t, x in enumerate(mixes)]
+        values = _assemble(src, runs[0], m, r, dev)
+        with kernels.on_shard(pos):
+            out.append(kernels.fri_layer(values, tws, alphas[r], t0, mx,
+                                         alpha0s[r] if any(x is not None for x in mixes) else None))
+    return sharding.RowBlocks(mesh, out, 0)
+
+
+def fold_layer_rows(values, kmax: int, line_log: int, folds: int, alphas, alpha0s, inputs) -> "sharding.RowBlocks":
+    """fold_layer on row shards (`_fold_rows`), one launch a shard for every
+    kernels.FRI_MAX_FOLDS folds; the joining inputs are RowBlocks."""
+    for t in range(0, folds, kernels.FRI_MAX_FOLDS):
+        F = min(kernels.FRI_MAX_FOLDS, folds - t)
+        size = line_log - t
+        values = _fold_rows(values, size, [(kmax, kmax - (size - u)) for u in range(F)],
+                            [inputs.get(size - u) for u in range(F)], alphas, t, alpha0s)
+    return values
+
+
 def commit_chain(inputs: Dict[int, torch.Tensor], last_line_log: int, folds_per_layer: int,
                  digest: bytes, counter: int):
     """The commit chain on the inputs' device from a channel state (digest,
     counter), ended by its one download.  Returns the chain's final
     (digest, counter), its roots and alphas, alpha0 (uint32 words), the
     last layer ((2^last_line_log, 4) int64 on the host) and the committed
-    layers [(log, evals, MerkleTree)] (on the device)."""
+    layers [(log, evals, MerkleTree)] (on the device).
+
+    Inputs may be RowBlocks of (2^log / n, 4) over a mesh's n row shards
+    (the others lie on its lead).  Then a layer stays row-sharded while its
+    folds' output has at least a row per shard (so at least 2 n rows): its
+    tree is a ShardedMerkleTree (K2 per shard, the top and K8's step on the
+    lead), the alpha K8 writes there goes to each shard by a copy in stream
+    order, and each shard folds its output block (`fold_layer_rows`, K3;
+    the largest input's circle fold likewise).  The first layer below
+    that, or the last layer, is gathered onto the lead, with any input
+    that joins from there on, and the chain finishes there as on one
+    device."""
     logs = sorted(inputs, reverse=True)
     kmax = logs[0]
     schedule = layer_schedule(kmax, last_line_log, folds_per_layer)
-    dev = inputs[kmax].device
+    mesh = next((x.mesh for x in inputs.values() if isinstance(x, sharding.RowBlocks)), None)
+    dev = mesh.lead if mesh is not None else inputs[kmax].device
+    n = mesh.size if mesh is not None else 1
 
     head = np.zeros(RECORD_HEAD + LAYER_WORDS * len(schedule), dtype=np.uint32)
     head[:8] = np.frombuffer(digest, dtype="<u4")
@@ -131,13 +220,26 @@ def commit_chain(inputs: Dict[int, torch.Tensor], last_line_log: int, folds_per_
     rec = f.u32_to_tensor(head, dev)  # the one upload
     state, alpha0 = rec[: kernels.CHANNEL_WORDS], rec[kernels.CHANNEL_WORDS : RECORD_HEAD]
     kernels.channel_draw_felt(state, alpha0)
-    cur = fold_circle_to_line(inputs[kmax], kmax, alpha0)
+    cur, alpha0s = inputs[kmax], None
+    if isinstance(cur, sharding.RowBlocks) and 1 << (kmax - 1) >= n:
+        alpha0s = sharding.to_shards(mesh, alpha0)
+        cur = _fold_rows(cur, kmax, [(kmax, 0)], [None], alpha0s, 0, None)
+    else:
+        cur = fold_circle_to_line(sharding.on_lead(cur), kmax, alpha0)
     layers = []
     for i, (log, folds) in enumerate(schedule):
         slot = rec[RECORD_HEAD + LAYER_WORDS * i : RECORD_HEAD + LAYER_WORDS * (i + 1)]
+        if isinstance(cur, sharding.RowBlocks) and 1 << (log - folds) >= n:
+            tree = ShardedMerkleTree([{log: b.t()} for b in cur], {}, dev, state, slot)
+            layers.append((log, cur, tree))
+            cur = fold_layer_rows(cur, kmax, log, folds, sharding.to_shards(mesh, slot[8:]), alpha0s, inputs)
+            continue
+        cur = sharding.on_lead(cur)
         tree = MerkleTree({log: cur.t()}, state, slot)
         layers.append((log, cur, tree))
-        cur = fold_layer(cur, kmax, log, folds, slot[8:], alpha0, inputs)
+        joining = {l: sharding.on_lead(inputs[l]) for l in range(log - folds + 1, log + 1) if l in inputs}
+        cur = fold_layer(cur, kmax, log, folds, slot[8:], alpha0, joining)
+    cur = sharding.on_lead(cur)
 
     words = f.tensor_to_u32(torch.cat([rec, cur.reshape(-1)]))  # the one download
     slots = words[RECORD_HEAD : len(rec)].reshape(-1, LAYER_WORDS)

@@ -30,6 +30,7 @@ import torch
 from .. import fields as f
 from .. import kernels, tracing
 from ..errors import ProverError
+from ..parallel import sharding
 
 
 @dataclass
@@ -103,16 +104,36 @@ def accumulate_quotients(
 ) -> Dict[int, torch.Tensor]:
     """Quotient evaluations per commit log on the full commitment domains.
 
-    column_evals: {(tree, col): (2^commit_log,) int32 evaluations}; gamma a
-    (4,) int64 QM31.  Returns {commit_log: (2^log, 4) int32}, logs in
-    first-appearance order: every group in one call of K4."""
+    column_evals: {(tree, col): (2^commit_log,) int32 evaluations, or
+    their RowBlocks over a mesh's row shards}; gamma a (4,) int64 QM31.
+    Returns {commit_log: (2^log, 4) int32, or RowBlocks of (2^log / n,
+    4)}: the logs whose columns lie on the lead in one call of K4 there,
+    the row-sharded logs in one call on each row shard, over its blocks
+    (`QuotientPlan`'s shard); a plan's gammas and constants are the same
+    on every shard, in its one upload."""
     timer = tracing.current("prove")
     with timer.span("3b_quotients.constants"):
         groups = quotient_groups(samples, column_evals, gamma)
     with timer.span("3b_quotients.plan"):
-        plan = kernels.QuotientPlan(groups)
+        lead = [g for g in groups if not isinstance(g[1][0], sharding.RowBlocks)]
+        rows = [g for g in groups if isinstance(g[1][0], sharding.RowBlocks)]
+        plans = [(None, kernels.QuotientPlan(lead))] if lead else []
+        if rows:
+            mesh = rows[0][1][0].mesh
+            s = mesh.size.bit_length() - 1
+            plans += [(pos, kernels.QuotientPlan([(log, [c[r] for c in cols], g, k) for log, cols, g, k in rows],
+                                                 shard=(r, s))) for r, (pos, _) in enumerate(mesh.row_shards())]
     with timer.span("3b_quotients.launch"):
-        return kernels.deep_quotient_many(plan)
+        out, by_shard = {}, []
+        for pos, plan in plans:
+            if pos is None:
+                out.update(kernels.deep_quotient_many(plan))
+                continue
+            with kernels.on_shard(pos):
+                by_shard.append(kernels.deep_quotient_many(plan))
+        for log in by_shard[0] if by_shard else ():
+            out[log] = sharding.RowBlocks(mesh, [q[log] for q in by_shard], 0)
+        return out
 
 
 def quotients_at_positions(

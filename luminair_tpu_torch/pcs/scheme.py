@@ -8,11 +8,13 @@ through DEEP quotients and FRI, prover and verifier.
 Every tree is committed through sharding.ShardedCommit, over the mesh of
 parallel/sharding.prove_mesh or else a mesh of the columns' one device.
 Under a mesh of several shards that is K1 per column shard, the block
-reshard, K2 per row shard and the top on the lead; the OODS values come
-from one K7 call per column shard on the coefficients it holds, and each
-tree is opened by one K9 pass per row shard and one on the lead.  The quotients,
-FRI and the PoW run on the lead over each tree's evaluations, which the
-lead assembles from the column blocks.
+reshard, K2 per row shard and the top on the lead; the tree's evaluations
+stay in row blocks on the row shards (`TreeProver.evals`).  The OODS
+values come from one K7 call per column shard on the coefficients it
+holds; the quotients from one K4 call per row shard over its blocks; FRI
+folds each layer on the row shards while its folds leave a row a shard
+(K3, the layers' trees sharded, pcs/fri.py); the PoW runs on the lead;
+each tree is opened by one K9 pass per row shard and one on the lead.
 
 FRI commits on the card with its channel there (pcs/fri.py, K8); the PoW
 nonce is searched on the card (kernels.grind_pow, K10); the opening of
@@ -65,14 +67,20 @@ class TreeProver:
     commitment runs over the current mesh, or a mesh of the columns' one
     device: the coefficients lie on the column shards (`coeff_shards[c]`:
     the mesh position holding column c's) and `merkle` is row-sharded
-    where the mesh has more than one shard."""
+    where the mesh has more than one shard.  `evals[c]` is column c's
+    evaluations: RowBlocks of its row blocks on the row shards (views of
+    the tree's shard blocks) where its commit domain has a row per shard
+    and the mesh more than one, else the whole column on the lead.
 
-    def __init__(self, columns: List[torch.Tensor], log_blowup: int):
+    columns: tensors (N,), or RowBlocks of (N / n,) blocks already on the
+    row shards (a size group is all one or all the other)."""
+
+    def __init__(self, columns: List, log_blowup: int):
         self.log_blowup = log_blowup
         self.trace_logs = []
         for col in columns:
-            log = int(col.shape[0]).bit_length() - 1
-            assert 1 << log == col.shape[0]
+            log = sharding.n_rows(col).bit_length() - 1
+            assert 1 << log == sharding.n_rows(col)
             self.trace_logs.append(log)
         self.commit_logs = [l + log_blowup for l in self.trace_logs]
         by_log: Dict[int, List[int]] = {}
@@ -80,17 +88,17 @@ class TreeProver:
             by_log.setdefault(log, []).append(i)
         self.mesh = sharding.current_mesh() or sharding.Mesh([columns[0].device], ("chips",))
         commit = sharding.ShardedCommit(
-            self.mesh, {log: torch.stack([columns[i].to(f.I32) for i in idxs]) for log, idxs in by_log.items()},
-            log_blowup)
+            self.mesh, {log: sharding.stack([columns[i] for i in idxs]) for log, idxs in by_log.items()}, log_blowup)
         self.coeffs: List[torch.Tensor] = [None] * len(columns)
         self.coeff_shards: List[int] = [None] * len(columns)
-        self.evals: List[torch.Tensor] = [None] * len(columns)
+        self.evals: List = [None] * len(columns)
         for log, idxs in by_log.items():
-            for b in commit.blocks[log + log_blowup]:
+            cl = log + log_blowup
+            for b in commit.blocks[cl]:
                 for j in range(b.c0, b.c1):
                     self.coeffs[idxs[j]], self.coeff_shards[idxs[j]] = b.coeffs[j - b.c0], b.pos
             for j, i in enumerate(idxs):
-                self.evals[i] = commit.evals[log + log_blowup][j]
+                self.evals[i] = commit.evals[cl][j] if cl in commit.evals else commit.row_blocks(self.mesh, cl, j)
         self.merkle = commit.tree
 
     @property
@@ -187,7 +195,7 @@ class CommitmentSchemeProver:
         # 3. PoW (K10 on the card) + queries.
         with timer.span("3b_pow"):
             bits = self.config.pow_bits
-            nonce = kernels.grind_pow(ch.digest, bits, quotients[max(quotients)].device)
+            nonce = kernels.grind_pow(ch.digest, bits, self.trees[0].mesh.lead)
             if not ch.check_pow_nonce(bits, nonce):
                 raise ProverError(f"the proof-of-work nonce {nonce} fails its {bits}-bit check")
         ch.mix_u64(nonce)

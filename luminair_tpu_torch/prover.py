@@ -10,8 +10,10 @@
             (pcs/scheme.py).
 
 Column work runs on one torch device: CUDA unless the caller passes
-device="cpu"; under parallel/sharding.prove_mesh the commitments run over
-the mesh and the rest on its lead device.  The transcript and the proof's scalars stay on the host.
+device="cpu"; under parallel/sharding.prove_mesh every phase runs over
+the mesh, on the row shards that hold each tree's row blocks (K5 with a
+carry, K6 with a halo, K4, FRI), and the transcript's kernels on its
+lead.  The transcript and the proof's scalars stay on the host.
 Before returning, prove() replays the transcript and checks the composition
 identity at the OODS point (selfcheck.py); a mismatch raises ProverError.
 """
@@ -119,12 +121,13 @@ def _prove_once(pie: LuminairPie, settings, config: PcsConfig, dev: torch.device
         ew = tape.element_words(elems)
         inter_cols: List[torch.Tensor] = []
         claimed: Dict[str, torch.Tensor] = {}
+        mesh = pcs.trees[0].mesh
         for c in layout.components:
             cols = padded_by_comp.pop(c.name)
-            out, claimed[c.name] = kernels.air_witness(
-                tape.record(c, witness=True), [cols[n] for n in c.MAIN], [pp_by_id[p] for p in c.PP_IDS], ew
+            out, claimed[c.name] = sharding.air_witness_rows(
+                mesh, tape.record(c, witness=True), [cols[n] for n in c.MAIN], [pp_by_id[p] for p in c.PP_IDS], ew
             )
-            inter_cols.extend(out.unbind(0))
+            inter_cols.extend(sharding.unbind(out))
         # One download for every claimed sum.
         sums_u32 = f.tensor_to_u32(torch.stack(list(claimed.values())))
         interaction_claim = LuminairInteractionClaim(dict(zip(claimed, sums_u32)))
@@ -135,8 +138,7 @@ def _prove_once(pie: LuminairPie, settings, config: PcsConfig, dev: torch.device
     # ---- phase 3a: composition poly ------------------------------------
     with timer.span("phase3a_composition"):
         alpha = f.qm31_words(channel.draw_felt())
-        comp_evals = _composition(layout, claim, pcs, config.log_blowup, interaction_claim.sums, alpha, ew, dev)
-        pcs.commit([comp_evals[:, k] for k in range(4)])
+        pcs.commit(_composition(layout, claim, pcs, config.log_blowup, interaction_claim.sums, alpha, ew, dev))
 
     # ---- phase 3b: OODS + FRI ------------------------------------------
     with timer.span("phase3b_oods_fri"):
@@ -169,8 +171,9 @@ def _main_column(col, dev: torch.device) -> torch.Tensor:
     return f.u32_to_tensor(col, dev)
 
 
-def _composition(layout, claim, pcs, B, claimed, alpha, ew, dev) -> torch.Tensor:
-    """(2^(max_log+1), 4) int32 evaluations of the composition polynomial.
+def _composition(layout, claim, pcs, B, claimed, alpha, ew, dev) -> list:
+    """The 4 coordinate columns of the composition polynomial's evaluations
+    on D_(max_log+1).
 
     Constraints are evaluated pointwise on each component's commit domain
     (trace log + B), where "next row" is a roll by 2^B, and divided by the
@@ -180,32 +183,21 @@ def _composition(layout, claim, pcs, B, claimed, alpha, ew, dev) -> torch.Tensor
     evaluated once at the end.  At B >= 2 the working domain is larger than
     the composition's degree bound, so the sum is down-committed to
     D_{max_log+1}.  The alpha powers run on across components in canonical
-    order."""
+    order.
+
+    Under a mesh whose shards each hold a row of the largest trace, the
+    working domain is row-sharded (`_composition_rows`); otherwise it lies
+    on the lead, the trees' row blocks gathered there."""
+    mesh = pcs.trees[0].mesh
+    if mesh.size > 1 and 1 << claim.max_log_size >= mesh.size:
+        return _composition_rows(layout, claim, pcs, B, claimed, alpha, ew, mesh)
     comp_log = claim.max_log_size + B
     comp_evals = torch.zeros((1 << comp_log, 4), dtype=f.I32, device=dev)
     comp_coeffs = None  # (4, 2^comp_log) int32
-    acc_pow = (1, 0, 0, 0)
-    tree_pp, tree_main, tree_inter = pcs.trees[0], pcs.trees[1], pcs.trees[2]
-    for c in layout.components:
-        tp = tape.record(c)
-        n = claim.log_sizes[c.name]
-        s0, _ = layout.main_slices[c.name]
-        b0, b1 = layout.inter_slices[c.name]
-        pows, acc_pow = f.qm31_powers_ints(acc_pow, alpha, tp.n_pows)
-        stride = 1 << (comp_log - n - B)
-        q = kernels.air_domain(
-            tp,
-            tree_main.evals[s0 : s0 + len(c.MAIN)],
-            [tree_pp.evals[layout.pp_index(pid)] for pid in c.PP_IDS],
-            tree_inter.evals[4 * b0 : 4 * b1],
-            tree_pp.evals[layout.pp_index(layout.is_first_id(c.name))],
-            claimed[c.name],
-            ew,
-            pows,
-            n,
-            1 << B,
-            acc=comp_evals if stride == 1 else None,
-        )
+    for c, tp, n, stride, pows, cols in _component_quotient_args(layout, claim, pcs, B, alpha):
+        cols = {k: [sharding.on_lead(x) for x in v] for k, v in cols.items()}
+        q = kernels.air_domain(tp, cols["main"], cols["pp"], cols["inter"], cols["is_first"][0], claimed[c.name],
+                               ew, pows, n, 1 << B, acc=comp_evals if stride == 1 else None)
         if stride == 1:
             comp_evals = q
             continue
@@ -221,4 +213,56 @@ def _composition(layout, claim, pcs, B, claimed, alpha, ew, dev) -> torch.Tensor
         # the working domain sit on the stride-2^(B-1) positions.
         ct = fft.ifft(comp_evals.t().contiguous())
         comp_evals = fft.fft(ct[:, :: 1 << (B - 1)].contiguous()).t()
-    return comp_evals
+    return [comp_evals[:, k] for k in range(4)]
+
+
+def _component_quotient_args(layout, claim, pcs, B, alpha):
+    """Per component in canonical order: (component, tape, trace log, its
+    stride in the working domain, its alpha powers, its commit-domain
+    columns {main, pp, inter, is_first} as the trees hold them)."""
+    comp_log = claim.max_log_size + B
+    acc_pow = (1, 0, 0, 0)
+    tree_pp, tree_main, tree_inter = pcs.trees[0], pcs.trees[1], pcs.trees[2]
+    for c in layout.components:
+        tp = tape.record(c)
+        n = claim.log_sizes[c.name]
+        s0, _ = layout.main_slices[c.name]
+        b0, b1 = layout.inter_slices[c.name]
+        pows, acc_pow = f.qm31_powers_ints(acc_pow, alpha, tp.n_pows)
+        cols = {
+            "main": tree_main.evals[s0 : s0 + len(c.MAIN)],
+            "pp": [tree_pp.evals[layout.pp_index(pid)] for pid in c.PP_IDS],
+            "inter": tree_inter.evals[4 * b0 : 4 * b1],
+            "is_first": [tree_pp.evals[layout.pp_index(layout.is_first_id(c.name))]],
+        }
+        yield c, tp, n, 1 << (comp_log - n - B), pows, cols
+
+
+def _composition_rows(layout, claim, pcs, B, claimed, alpha, ew, mesh) -> list:
+    """`_composition` with the working domain in row blocks: K6 on each row
+    shard's blocks of a component's columns with their halos
+    (sharding.air_domain_rows; a component with fewer trace rows than
+    shards on the lead, over its gathered columns), the smaller
+    components' interpolation and the down-commit on the column shards
+    (K1, the blocks exchanged).  RowBlocks columns."""
+    comp_log = claim.max_log_size + B
+    rows = (1 << comp_log) // mesh.size
+    comp = sharding.RowBlocks(mesh, [torch.zeros((rows, 4), dtype=f.I32, device=d) for _, d in mesh.row_shards()], 0)
+    comp_coeffs = None  # the column shards' blocks of the (4, 2^comp_log) coefficients
+    for c, tp, n, stride, pows, cols in _component_quotient_args(layout, claim, pcs, B, alpha):
+        if 1 << n >= mesh.size:
+            q = sharding.air_domain_rows(tp, cols["main"], cols["pp"], cols["inter"], cols["is_first"][0],
+                                         claimed[c.name], ew, pows, n, 1 << B, acc=comp if stride == 1 else None)
+        else:
+            cols = {k: [sharding.on_lead(x) for x in v] for k, v in cols.items()}
+            q = kernels.air_domain(tp, cols["main"], cols["pp"], cols["inter"], cols["is_first"][0],
+                                   claimed[c.name], ew, pows, n, 1 << B)
+        if stride == 1:
+            comp = q  # the kernel added into comp in place; the twin returns the sum
+        else:
+            comp_coeffs = sharding.add_strided_coeffs(mesh, comp_coeffs, q, stride, comp_log)
+    if comp_coeffs is not None:
+        comp = sharding.add_coeff_evals(comp, comp_coeffs, comp_log)
+    comp = sharding.down_commit(comp, 1 << (B - 1), comp_log) if B > 1 else sharding.RowBlocks(
+        mesh, [b.t() for b in comp])
+    return sharding.unbind(comp)

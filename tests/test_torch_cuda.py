@@ -754,7 +754,8 @@ def test_prove_from_card_trace_never_touches_the_host(dev, monkeypatch):
     pie = T.gen_trace(cx, settings)
     assert all(c.is_cuda for t in pie.trace_tables.values() for c in t.padded.values())
     proof = T.prove(pie, settings, device=dev)
-    assert all(v > 0 for k, v in kernels.counts().items() if k not in ("air_check", "logup_sum")), kernels.counts()
+    assert all(v > 0 for k, v in kernels.counts().items() if k not in ("air_check", "logup_sum", "add_carry")), \
+        kernels.counts()
     _check_fri_launches(proof)
     monkeypatch.undo()
     cpu_cx = _graph("all_ops")
@@ -891,12 +892,130 @@ def test_bench_graph_prove_on_a_virtual_mesh_of_the_card(dev):
         mesh_bytes = serde.proof_to_flat_bytes(T.prove(pie, settings))
     assert mesh_bytes == one
     for r in range(4):
-        assert all(kernels.SHARD_LAUNCHES[r].get(k) for k in ("circle_fft", "blake2s_merkle", "decommit")), r
+        assert all(kernels.SHARD_LAUNCHES[r].get(k) for k in ("circle_fft", "blake2s_merkle", "decommit", "fri_layer",
+                                                              "deep_quotient", "air_witness", "air_domain")), r
     assert sum(1 for r in range(4) if kernels.SHARD_LAUNCHES[r].get("oods_eval")) >= 2
     cpu_cx = graph()
     cpu_settings = T.gen_circuit_settings(cpu_cx, device="cpu")
     cpu = T.prove(T.gen_trace(cpu_cx, cpu_settings, device="cpu"), cpu_settings, device="cpu")
     assert mesh_bytes == serde.proof_to_flat_bytes(cpu)
+
+
+def _split(mesh, t, dim=-1):
+    from luminair_tpu_torch.parallel import sharding as S
+
+    return S.RowBlocks(mesh, [b.contiguous() for b in t.chunk(mesh.size, dim)], dim)
+
+
+@pytest.mark.parametrize("name", ["mul", "sum_reduce", "max_reduce"])
+def test_air_witness_with_a_carry_on_a_virtual_mesh(dev, name):
+    """K5 on each of 4 row shards of the card, the totals' exchange and the
+    carry pass: the twin's whole interaction and claimed sum; one block
+    with a given carry against the twin with it."""
+    from luminair_tpu_torch.air import tape
+    from luminair_tpu_torch.air.components import COMPONENTS_BY_NAME
+    from luminair_tpu_torch.parallel import sharding as S
+
+    comp = COMPONENTS_BY_NAME[name]
+    tp = tape.record(comp, witness=True)
+    rng = np.random.default_rng(7)
+    n = 1 << 12
+    main, pp = [_rnd(rng, dev, n) for _ in comp.MAIN], [_rnd(rng, dev, n) for _ in comp.PP_IDS]
+    ew = [[tuple(int(w) for w in rng.integers(0, f.P, 4)) for _ in range(2)] for _ in kernels.ELEM_KINDS]
+    want, want_claimed = tape.witness_plain(tp, main, pp, ew)
+    kernels.reset_counts()
+    got, claimed = S.air_witness_rows(_virtual("4", dev), tp, main, pp, ew)
+    assert all(kernels.SHARD_LAUNCHES[r] == ({"air_witness": 2} if r == 0 else {"air_witness": 2, "add_carry": 1})
+               for r in range(4)), kernels.SHARD_LAUNCHES
+    assert torch.equal(S.on_lead(got), want) and torch.equal(claimed, want_claimed)
+    carry, part = _rnd(rng, dev, 4), slice(n // 2, n)
+    out, total = kernels.air_witness(tp, [c[part] for c in main], [c[part] for c in pp], ew, carry)
+    plain, plain_total = tape.witness_plain(tp, [c[part] for c in main], [c[part] for c in pp], ew, carry)
+    assert torch.equal(out, plain) and torch.equal(total, plain_total)
+
+
+@pytest.mark.parametrize("log_blowup", [1, 2])
+@pytest.mark.parametrize("name", ["mul", "sum_reduce", "max_reduce"])
+def test_air_domain_with_halos_on_a_virtual_mesh(dev, name, log_blowup):
+    """K6 on each of 4 row shards of the card, each block's halo from its
+    neighbours (wrapping at the domain's ends), into an accumulator: the
+    twin's quotients on the whole domain added to it."""
+    from luminair_tpu_torch.air import tape
+    from luminair_tpu_torch.air.components import COMPONENTS_BY_NAME
+    from luminair_tpu_torch.parallel import sharding as S
+
+    comp = COMPONENTS_BY_NAME[name]
+    tp = tape.record(comp)
+    rng = np.random.default_rng(11 + log_blowup)
+    log = 11
+    m = 1 << (log + log_blowup)
+    main, pp = [_rnd(rng, dev, m) for _ in comp.MAIN], [_rnd(rng, dev, m) for _ in comp.PP_IDS]
+    inter, is_first = [_rnd(rng, dev, m) for _ in range(4 * tp.n_relations)], _rnd(rng, dev, m)
+    claimed = tuple(int(w) for w in rng.integers(0, f.P, 4))
+    ew = [[tuple(int(w) for w in rng.integers(0, f.P, 4)) for _ in range(2)] for _ in kernels.ELEM_KINDS]
+    pows = [tuple(int(w) for w in rng.integers(0, f.P, 4)) for _ in range(tp.n_pows)]
+    acc = _rnd(rng, dev, m, 4)
+    want = tape.domain_plain(tp, main, pp, inter, is_first, claimed, ew, pows, log, 1 << log_blowup, acc)
+    mesh = _virtual("4", dev)
+    blocks = S.RowBlocks(mesh, [b.clone() for b in acc.chunk(4)], 0)
+    kernels.reset_counts()
+    got = S.air_domain_rows(tp, [_split(mesh, c) for c in main], [_split(mesh, c) for c in pp],
+                            [_split(mesh, c) for c in inter], _split(mesh, is_first), claimed, ew, pows, log,
+                            1 << log_blowup, blocks)
+    assert all(kernels.SHARD_LAUNCHES[r] == {"air_domain": 1} for r in range(4))
+    assert torch.equal(S.on_lead(got), want)
+
+
+def test_quotient_plans_on_row_blocks_of_the_card(dev):
+    """One K4 call a row shard, its domain tables from the block's first
+    row: the twin's quotients of the whole domain, block by block."""
+    from luminair_tpu_torch import circle
+    from luminair_tpu_torch.pcs import quotients as q
+
+    rng = np.random.default_rng(3)
+    pt = circle.point_from_t_qm31(torch.from_numpy(rng.integers(0, f.P, 4)))
+    samples, evals = [], {}
+    for i, log in enumerate([14, 12, 14, 13, 12]):
+        evals[(0, i)] = _rnd(rng, dev, 1 << log)
+        samples.append(q.ColumnSample(log, 0, i, pt, rng.integers(0, f.P, 4).astype(np.uint32)))
+    groups = q.quotient_groups(samples, evals, torch.from_numpy(rng.integers(0, f.P, 4)))
+    want = kernels.deep_quotient_many_plain(kernels.QuotientPlan(groups))
+    for shards in (2, 4, 8):
+        s = shards.bit_length() - 1
+        parts = [kernels.deep_quotient_many(kernels.QuotientPlan(
+            [(log, [c.chunk(shards)[r].contiguous() for c in cols], g, k) for log, cols, g, k in groups],
+            shard=(r, s))) for r in range(shards)]
+        for log, w in want.items():
+            assert torch.equal(torch.cat([p[log] for p in parts]), w), (shards, log)
+
+
+@pytest.mark.parametrize("folds", [1, 2, 3])
+def test_fri_chain_on_mirror_assembled_blocks(dev, folds):
+    """The commit chain with its inputs on 4 row shards of the card (K3 on
+    each shard's blocks assembled in nested mirror order, the layers'
+    trees sharded) equals the one-device chain on the card; K3 launches on
+    every shard."""
+    from luminair_tpu_torch import fft
+    from luminair_tpu_torch.parallel import sharding as S
+    from luminair_tpu_torch.pcs import fri
+
+    rng = np.random.default_rng(folds)
+    inputs = {}
+    for log in (16, 15, 13, 12):
+        coeffs = torch.zeros((4, 1 << log), dtype=torch.int32, device=dev)
+        coeffs[:, ::2] = _rnd(rng, dev, 4, 1 << (log - 1))
+        inputs[log] = fft.fft(coeffs).t().contiguous()
+    digest = rng.integers(0, f.P, 8).astype("<u4").tobytes()
+    one = fri.commit_chain(inputs, 3, folds, digest, 3)
+    mesh = _virtual("4", dev)
+    kernels.reset_counts()
+    got = fri.commit_chain({k: _split(mesh, v, 0) for k, v in inputs.items()}, 3, folds, digest, 3)
+    assert all(kernels.SHARD_LAUNCHES[r].get("fri_layer") for r in range(4))
+    assert got[:2] == one[:2] and torch.equal(got[5], one[5])
+    for a, b in zip(got[2] + got[3] + [got[4]], one[2] + one[3] + [one[4]], strict=True):
+        assert np.array_equal(a, b)
+    for (_, evals, tree), (_, whole, whole_tree) in zip(got[6], one[6], strict=True):
+        assert torch.equal(S.on_lead(evals), whole) and np.array_equal(tree.root, whole_tree.root)
 
 
 @pytest.fixture
@@ -935,3 +1054,29 @@ def test_kernel_on_the_second_card_while_the_first_is_current(second_card, kerne
         assert open_trees([tree], [q])[0][1].shape[1] == 8
     assert got.device == second_card and torch.cuda.current_device() == 0
     assert torch.equal(got, want)
+
+
+def test_bench_graph_prove_over_two_cards(second_card):
+    """The N=16 bench graph's card PIE proved over cuda:0 and cuda:1: the
+    one-device bytes, every phase's launches on both cards (the alphas,
+    carries and halos cross between them in stream order)."""
+    from luminair_tpu_torch import prelude as T
+    from luminair_tpu_torch import serde
+    from luminair_tpu_torch.parallel import sharding as S
+
+    cx = T.Graph()
+    rng = np.random.default_rng(0)
+    a = cx.tensor((16, 16)).set(rng.normal(size=(16, 16)))
+    b = cx.tensor((16, 16)).set(rng.normal(size=(16, 16)))
+    (a * b + a).retrieve()
+    cx.compile()
+    settings = T.gen_circuit_settings(cx, device="cuda:0")
+    pie = T.gen_trace(cx, settings, device="cuda:0")
+    one = serde.proof_to_flat_bytes(T.prove(pie, settings, device="cuda:0"))
+    kernels.reset_counts()
+    with S.prove_mesh(S.make_chip_mesh(2)):
+        got = serde.proof_to_flat_bytes(T.prove(pie, settings))
+    assert got == one
+    for r in range(2):
+        assert all(kernels.SHARD_LAUNCHES[r].get(k) for k in ("fri_layer", "deep_quotient", "air_witness",
+                                                              "air_domain")), r

@@ -2,7 +2,7 @@
 (batch 256, chip_smoke.py's graph), in the design of whichever tree is
 given, so that two commits can be measured in turns in one run on one card.
 
-    python3 tools/kernel_timing.py [--tree DIR] [--kernels K3,T4,K8,K10,prove]
+    python3 tools/kernel_timing.py [--tree DIR] [--kernels K3,T4,K8,K10,prove,K6]
 
 DIR (default: this repository) is the root of a checkout whose
 luminair_tpu_torch is imported; the measurement code (this file and
@@ -55,8 +55,14 @@ chip_smoke.Profiled) is this repository's.  --kernels picks from:
        high_security(), log blowup 2) from their card PIEs: after a
        warm-up, PROVE_TIMES proves each timed to a synchronise (their
        median, and each phase's median from the tracing spans), and one
-       profiled prove's device ms of every kernel, so that a change in
-       the wall time can be told apart as the host's or the device's.
+       profiled prove's device ms, in all and by device record (kernel or
+       copy: [ms, count] under its name's first 80 characters), so that a change in
+       the wall time can be told apart as the host's or the device's;
+  K6   K5 and K6 on the PINN's mul component (chip_smoke.py's tape
+       kernels): K5 at its 2^21 trace rows, K6 at its commit domain of
+       blowup 1 and 2 (2^22 and 2^23 rows, stride 2 and 4), each call's
+       CUDA-event median of TAPE_REPS after a warm-up, on inputs drawn
+       from one seed.
 
 Each line names the card and its power limit (nvidia-smi).
 """
@@ -71,6 +77,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
@@ -78,7 +85,8 @@ import chip_smoke  # noqa: E402
 REPS = 50  # calls per profiled or enqueued batch
 PROVES = 5
 PROVE_TIMES = 9  # timed proves a path (`prove`)
-KINDS = ("K3", "T4", "K8", "K10", "trace_segment", "profiler_window", "prove")
+TAPE_REPS = 31  # timed calls of a tape kernel (`K6`)
+KINDS = ("K3", "T4", "K8", "K10", "trace_segment", "profiler_window", "prove", "K6")
 
 # Design choices of the trace segment kernel, each undone in a copy of csrc/.
 VARIANTS = {
@@ -346,10 +354,38 @@ def prove_times(T, BS, tracing, emit) -> None:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             phases.append(tracing.last_phases("prove"))
-        dev = device_ms(lambda: T.prove(pie, settings, cfg), ())
+        dev = device_ms(lambda: T.prove(pie, settings, cfg), ("",))
         emit({"phase": "prove", "path": tag, "prove_s": times, "prove_s_median": statistics.median(times),
               "phases_s_median": {k: statistics.median(p.get(k, 0.0) for p in phases) for k in phases[0]},
-              "prove_device_ms": dev["all_kernels_ms"]})
+              "prove_device_ms": dev["all_kernels_ms"], "device_ms_by_name": dev["by_name"]})
+
+
+def tape_times(kernels, emit, dev) -> None:
+    """The `K6` lines above."""
+    from luminair_tpu_torch.air import tape
+    from luminair_tpu_torch.air.components import COMPONENTS_BY_NAME
+
+    comp, log = COMPONENTS_BY_NAME["mul"], 21
+    rng = np.random.default_rng(21)
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.integers(0, (1 << 31) - 1, size=shape, dtype=np.int64).astype(np.int32)).to(dev)
+
+    def words(k):
+        return tuple(int(x) for x in rng.integers(0, (1 << 31) - 1, k))
+
+    ew = [[words(4) for _ in range(2)] for _ in tape.ELEM_KINDS]
+    tpw, tpd = tape.record(comp, witness=True), tape.record(comp)
+    main, pp = [rnd(1 << log) for _ in comp.MAIN], [rnd(1 << log) for _ in comp.PP_IDS]
+    calls = {f"air_witness 2^{log}": lambda: kernels.air_witness(tpw, main, pp, ew)}
+    for blowup in (1, 2):
+        m = 1 << (log + blowup)
+        args = (tpd, [rnd(m) for _ in comp.MAIN], [rnd(m) for _ in comp.PP_IDS],
+                [rnd(m) for _ in range(4 * tpd.n_relations)], rnd(m), words(4), ew,
+                [words(4) for _ in range(tpd.n_pows)], log, 1 << blowup)
+        calls[f"air_domain 2^{log + blowup}, stride {1 << blowup}"] = lambda args=args: kernels.air_domain(*args)
+    for name, call in calls.items():
+        emit({"phase": "tape", "call": name, "ms": chip_smoke.time_ms(call, TAPE_REPS)})
 
 
 def trace_segment_variants(kernels, T, BS, tree: Path, emit) -> None:
@@ -458,6 +494,8 @@ def main() -> int:
         settings_t4(kernels, T, BS, tracing, emit, layer_form)
     if "trace_segment" in kinds:
         trace_segment_variants(kernels, T, BS, tree, emit)
+    if "K6" in kinds:
+        tape_times(kernels, emit, dev)
     if "prove" in kinds:
         prove_times(T, BS, tracing, emit)
     if not {"K3", "K8", "K10", "profiler_window"} & set(kinds):
