@@ -95,9 +95,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      memory beside blowup 1's;
   6e. check_pie_constraints (air/debug.py) on the PINN's card PIE (phase
      debug): empty, K5 and air_check the only launches of the first call
-     (counters reset just before it, read just after), its seconds cold and
-     warm; mul.out changed at row 3 names constraint 1 of mul at row 3
-     alone; every air_check call of a run through kernel and twin;
+     (counters reset just before it, read just after), air_check exactly
+     once (every component in one launch), its seconds cold and warm;
+     mul.out changed at row 3 names constraint 1 of mul at row 3 alone;
+     every air_check call of a run through kernel and twin; the PINN's
+     whole check launch timed beside its twin and bound;
   7. the six op graphs (models/op_graphs.py): the card's settings and PIE
      against the host interpreter's, each trace segment and step through
      kernel and twin, and all_ops proved on the card and accepted by the native
@@ -108,6 +110,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      check_pie_constraints on every op graph's card PIE (empty) and on
      twelve card PIEs with one cell changed, each the same dict as the
      port's check on the CPU, every air_check call through kernel and twin;
+     then air_check_many over all 18 compiled components in one launch, on
+     random words and on small words with their honest interaction, at
+     the op graphs' row counts and at the PINN's, each bit for bit against
+     its twin (random words set every constraint's bit in the twin);
   7b. the three port examples (examples/torch_*.py), each main() on the
      card (phase example): its printed lines, seconds and launches; each
      passes its own assertions, and examples/out/ keeps its bytes;
@@ -127,7 +133,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      between shards and scattered from the lead, K1-K7 and K9 launches per
      shard, peak memory (each card's on distinct cards); every row shard
      must launch K1-K6, and each but the first K5's carry pass,
-     add_carry), and over the distinct cards where there
+     add_carry, exactly once a prove: every component's block in one
+     launch; shard 0 none), and over the distinct cards where there
      are two or more (else a mesh_devices line: "ran": false); after the
      PINN's, K3-K6 in their row-shard modes at the PINN's shapes (phase
      mesh_kernels): its card PIE proved over 4 shards of the card at log
@@ -222,7 +229,7 @@ PORT_KERNEL_NAMES = (
     "deep_quotient_kernel", "air_witness_kernel", "scan_tile", "air_domain_kernel",
     "oods_partial_kernel", "oods_combine_kernel", "channel_draw_kernel",
     "decommit_kernel", "grind_pow_kernel", "trace_segment_kernel", "trace_reduce_kernel",
-    "lut_boundary_kernel", "air_check_kernel",
+    "lut_boundary_kernel", "check_tapes_kernel",
 )
 
 
@@ -1225,8 +1232,8 @@ def describe(x):
 
 
 # Wrappers whose every call is kept and replayed, not one a shape: each K3
-# layer and each T4 boundary of a path, each check of a PIE's component.
-EVERY_CALL = ("fri_layer", "lut_boundary", "air_check")
+# layer and each T4 boundary of a path, each check of a PIE.
+EVERY_CALL = ("fri_layer", "lut_boundary", "air_check_many")
 
 # Arguments a kernel updates in place (cloned when kept and for each replay)
 # and record slots it writes (fresh for each replay).
@@ -1241,17 +1248,25 @@ def flat(out, args=None) -> torch.Tensor:
         out = torch.tensor([out], dtype=torch.int64)
     elif isinstance(out, dict):  # K4: per log
         out = torch.cat([v.reshape(-1) for v in out.values()])
-    elif isinstance(out, tuple):
+    elif isinstance(out, (tuple, list)):  # K5: columns and sum; the carry pass: its blocks
         out = torch.cat([o.reshape(-1) for o in out])
     written = [args[k].reshape(-1).to(out.device, out.dtype) for k in WRITTEN_ARGS if args and args.get(k) is not None]
     return torch.cat([out.reshape(-1)] + written) if written else out
+
+
+def cloned(x):
+    """A copy of an argument that a kernel updates in place: a tensor, or a
+    list of them (the carry pass's blocks)."""
+    if isinstance(x, (list, tuple)):
+        return [t.clone() for t in x]
+    return x.clone() if x is not None else None
 
 
 def replay_args(a: dict) -> dict:
     args = dict(a)
     for k in UPDATED_ARGS:
         if args.get(k) is not None:
-            args[k] = args[k].clone()
+            args[k] = cloned(args[k])
     for k in WRITTEN_ARGS:
         if args.get(k) is not None:
             args[k] = torch.zeros_like(args[k])
@@ -1285,7 +1300,7 @@ class recording:
             if name in EVERY_CALL:
                 key += (self.calls[name],)
             if key not in self.kept:
-                self.kept[key] = {k: v.clone() if k in UPDATED_ARGS and v is not None else v for k, v in a.items()}
+                self.kept[key] = {k: cloned(v) if k in UPDATED_ARGS else v for k, v in a.items()}
             before = WORK_AFTER[name][0](a) if name in WORK_AFTER else None
             out = fn(*args, **kw)
             work = WORK[name](a) if name in WORK else WORK_AFTER[name][1](a, out, before) if name in WORK_AFTER else None
@@ -1479,10 +1494,11 @@ def witness_work(a: dict):
 
 
 def add_carry_work(a: dict):
-    """(bytes, operations) of one carry pass: the (4, R) rows read and
-    written once, the carry read once; one add a word."""
-    n = a["rows"].numel()
-    return 8 * n + 16, n * OPS_ADD
+    """(bytes, operations) of one carry pass: its (4, R) blocks read and
+    written once, a QM31 carry a block read once; one add a word."""
+    blocks = [a["rows"]] if isinstance(a["rows"], torch.Tensor) else a["rows"]
+    n = sum(b.numel() for b in blocks)
+    return 8 * n + 16 * len(blocks), n * OPS_ADD
 
 
 def domain_work(a: dict):
@@ -1502,6 +1518,12 @@ def check_work(a: dict):
     tp, n = a["tp"], a["is_first"].shape[0]
     n_cols = len(a["main"]) + len(a["pp"]) + len(a["inter"]) + 1
     return 4 * (n_cols + 1) * n, n * check_row_ops(tp)
+
+
+def check_many_work(a: dict):
+    """(bytes, operations) of one air_check_many call: each component's."""
+    works = [check_work(dict(zip(("tp", "main", "pp", "inter", "is_first"), c))) for c in a["comps"]]
+    return sum(w[0] for w in works), sum(w[1] for w in works)
 
 
 def channel_bytes() -> int:
@@ -1527,7 +1549,7 @@ WORK = {
     "air_witness": witness_work,
     "air_domain": domain_work,
     "add_carry": add_carry_work,
-    "air_check": check_work,
+    "air_check_many": check_many_work,
     "oods_eval_many": lambda a: tuple(map(sum, zip(*(oods_work(len(cols), len(chain))
                                                      for cols, chain in a["groups"])))),
     "trace_segment": lambda a: segment_work(a["seg"]),
@@ -2253,9 +2275,8 @@ DEBUG_MUTATIONS = (
 )
 
 
-def debug_twins(tape, f):
-    return {"air_check": ("air_check", lambda a: tape.check_plain(
-        a["tp"], a["main"], a["pp"], a["inter"], a["is_first"], f.qm31_words(a["claimed"]), a["ew"]), ("tp", "is_first"))}
+def debug_twins(kernels):
+    return {"air_check_many": ("air_check", lambda a: kernels.air_check_many_plain(a["comps"], a["ew"]), ())}
 
 
 def host_form(pie):
@@ -2277,10 +2298,12 @@ def mutate_cell(f, pie, table: str, column: str, row: int) -> int:
 def phase_debug_pinn(T, kernels, tape, f, card, tag, pie, settings):
     """check_pie_constraints on the PINN's card PIE: the first call (cold)
     with every launch counter set to 0 just before it and read just after
-    (K5 and air_check only, an empty result), DEBUG_WARM more; then one run
-    with every air_check call kept, and mul.out changed at row 3 (the check
-    must name constraint 1 of mul at row 3 alone); each kept call through
-    kernel and twin.  Returns (launches, {kernel: max_abs_err})."""
+    (K5 and air_check only, air_check exactly once: every component in one
+    launch; an empty result), DEBUG_WARM more; then one run with every
+    air_check call kept, and mul.out changed at row 3 (the check must name
+    constraint 1 of mul at row 3 alone); each kept call through kernel and
+    twin; the honest run's check launch timed beside its twin and bound.
+    Returns (launches, {kernel: max_abs_err})."""
     from luminair_tpu_torch.air.debug import check_pie_constraints
 
     t_phase = time.perf_counter()
@@ -2293,7 +2316,7 @@ def phase_debug_pinn(T, kernels, tape, f, card, tag, pie, settings):
     launches = kernels.counts()
     launched = sorted(k for k, v in launches.items() if v)
     launches["fri_channel_steps_in_root_passes"] = kernels.CHANNEL.hosted
-    if got != {} or launched != sorted(DEBUG_KERNELS) or kernels.CHANNEL.hosted:
+    if got != {} or launched != sorted(DEBUG_KERNELS) or launches["air_check"] != 1 or kernels.CHANNEL.hosted:
         raise AssertionError(f"{tag}: check_pie_constraints returned {got}, launched {launches}")
     warm_s = []
     for _ in range(DEBUG_WARM):
@@ -2301,7 +2324,7 @@ def phase_debug_pinn(T, kernels, tape, f, card, tag, pie, settings):
         check_pie_constraints(pie, settings)
         torch.cuda.synchronize()
         warm_s.append(time.perf_counter() - t0)
-    twins, kept, calls = debug_twins(tape, f), {}, {}
+    twins, kept, calls = debug_twins(kernels), {}, {}
     with recording(kernels, twins, kept, calls) as rec:
         check_pie_constraints(pie, settings)
     old = mutate_cell(f, pie, "mul", "out", 3)
@@ -2309,7 +2332,15 @@ def phase_debug_pinn(T, kernels, tape, f, card, tag, pie, settings):
         mutated = check_pie_constraints(pie, settings)
     pie.trace_tables["mul"].padded["out"][3] = old
     row = replay(kernels, twins, kept, calls)["air_check"]
-    del kept
+    whole = kept[("air_check_many", 1)]
+    b = bound(*check_many_work(whole))
+    emit({"phase": "kernel_time_extra", "kernel": "air_check", "path": tag,
+          "shape": f"the check's one launch: {len(whole['comps'])} components, "
+                   f"{sum(c[4].shape[0] for c in whole['comps'])} rows",
+          "ms": time_ms(lambda: kernels.air_check_many(whole["comps"], whole["ew"])),
+          "plain_ms": time_ms(lambda: kernels.air_check_many_plain(whole["comps"], whole["ew"])),
+          "bound_ms": b[0], "bound_by": b[1]})
+    del kept, whole
     phase_profile(tag, "check", lambda: check_pie_constraints(pie, settings))
     emit({"phase": "debug", "path": tag, "card": card, "result": got, "first_seconds": cold_s, "warm_seconds": warm_s,
           "warm_seconds_median": statistics.median(warm_s), "launches": {k: launches[k] for k in DEBUG_KERNELS},
@@ -2323,15 +2354,79 @@ def phase_debug_pinn(T, kernels, tape, f, card, tag, pie, settings):
     return launches, {"air_check": row["max_abs_err"]}
 
 
-def phase_debug_graphs(T, kernels, tape, f, card, graphs):
+def bits_of(words: torch.Tensor) -> int:
+    """The OR of a tensor's int32 words, as an unsigned int."""
+    out = 0
+    for v in words.unique().tolist():
+        out |= v & 0xFFFFFFFF
+    return out
+
+
+def every_component_check(kernels, tape, f, dev, logs: dict, what: str) -> int:
+    """air_check_many over every compiled component in one launch, each at
+    2^logs[name] rows, on random words and on small words (0-2) with
+    their honest interaction (K5's twin), is_first the trace domain's,
+    against air_check_many_plain at max_abs_err 0 (outside any counted
+    run).  Random words must set every constraint's bit somewhere in the
+    twin's words, so that a bit the kernel drops shows.  Returns the
+    max_abs_err."""
+    from luminair_tpu_torch.air.components import ALL_COMPONENTS
+
+    rng = np.random.default_rng(15)
+    ew = [[tuple(int(x) for x in rng.integers(0, f.P, 4)) for _ in range(2)] for _ in tape.ELEM_KINDS]
+    err = 0
+    for fill in ("random", "honest"):
+        comps = []
+        for comp in ALL_COMPONENTS:
+            n, tp = 1 << logs[comp.name], tape.record(comp)
+
+            def col():
+                return torch.from_numpy(rng.integers(0, 3 if fill == "honest" else f.P, n).astype(np.int32)).to(dev)
+
+            main, pp = [col() for _ in comp.MAIN], [col() for _ in comp.PP_IDS]
+            is_first = torch.zeros(n, dtype=torch.int32, device=dev)
+            is_first[0] = 1
+            if fill == "honest":
+                inter, claimed = tape.witness_plain(tape.record(comp, witness=True), main, pp, ew)
+                comps.append((tp, main, pp, list(inter.unbind(0)), is_first, tuple(int(x) for x in claimed.cpu())))
+            else:
+                comps.append((tp, main, pp, [col() for _ in range(4 * tp.n_relations)], is_first,
+                              tuple(int(x) for x in rng.integers(0, f.P, 4))))
+        got, want = kernels.air_check_many(comps, ew), kernels.air_check_many_plain(comps, ew)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        parts = zip(comps, got.split([c[4].shape[0] for c in comps]), want.split([c[4].shape[0] for c in comps]))
+        differ, unset = {}, []
+        for (tp, *_), g, w in parts:
+            x = g ^ w
+            if x.any():
+                differ[tp.name] = {"rows": int((x != 0).sum()), "bits": hex(bits_of(x))}
+            seen = bits_of(w)
+            if fill == "random" and seen != (1 << tp.n_pows) - 1:
+                unset.append(tp.name)
+        emit({"phase": "kernel_check", "kernel": "air_check", "check": f"every component, {what}, {fill} words",
+              "components": len(comps), "rows": {c[0].name: c[4].shape[0] for c in comps}, "max_abs_err": e,
+              "components_that_differ": differ, "random_words_leave_bits_unset": unset})
+        if e != 0 or unset:
+            raise AssertionError(f"air_check over every component ({what}, {fill} words) disagrees with its twin "
+                                 f"in {sorted(differ)}, or its twin leaves bits unset in {unset}")
+        err = max(err, e)
+        del comps, got, want
+    return err
+
+
+def phase_debug_graphs(T, kernels, tape, f, card, graphs, pinn_logs):
     """check_pie_constraints on each op graph's card PIE (empty), and on the
     card PIEs of DEBUG_MUTATIONS against the port's check on the CPU of
     the same PIE's host form; every air_check call through kernel and twin.
-    Returns {kernel: max_abs_err}."""
+    Then `every_component_check` at the op graphs' row counts (each
+    component at its largest table among them) and at the PINN's (its
+    components at theirs, the rest at the op graphs').  Returns {kernel:
+    max_abs_err}."""
     from luminair_tpu_torch.air.debug import check_pie_constraints
 
     t0 = time.perf_counter()
-    twins, kept, calls = debug_twins(tape, f), {}, {}
+    twins, kept, calls = debug_twins(kernels), {}, {}
     found = {}
     with recording(kernels, twins, kept, calls):
         for name, (pie, settings, _, _) in graphs.items():
@@ -2354,7 +2449,16 @@ def phase_debug_graphs(T, kernels, tape, f, card, graphs):
           "shapes": len(row["shapes"]), "max_abs_err": row["max_abs_err"]})
     if row["max_abs_err"] != 0 or not row["shapes"]:
         raise AssertionError(f"air_check disagrees with its twin on the op graphs, or never ran: {row}")
-    return {"air_check": row["max_abs_err"]}
+    from luminair_tpu_torch.air.components import ALL_COMPONENTS
+
+    tables = [t for pie, *_ in graphs.values() for t in pie.trace_tables.values() if t.n_rows]
+    smallest = min(t.log_size for t in tables)
+    graph_logs = {c.name: max([t.log_size for t in tables if t.name == c.name], default=smallest)
+                  for c in ALL_COMPONENTS}
+    dev = torch.device("cuda", 0)
+    err = max(row["max_abs_err"], every_component_check(kernels, tape, f, dev, graph_logs, "op graphs' rows"),
+              every_component_check(kernels, tape, f, dev, {**graph_logs, **pinn_logs}, "the PINN's rows"))
+    return {"air_check": err}
 
 
 EXAMPLES = ("torch_simple", "torch_risk_assessment", "torch_black_scholes_nn")
@@ -2620,7 +2724,8 @@ def phase_mesh_prove(T, S, kernels, serde, tape, card, tag, pie, settings, proof
     of the module's docstring), moved between shards and scattered from
     the lead, K1-K7 and K9 launches per shard, peak device memory (on
     distinct cards, each card's).  Every row shard must launch K1-K6, and
-    every one but the first K5's carry pass.  Returns {shards: launches}."""
+    every one but the first K5's carry pass exactly once (every component's
+    block in one launch), the first none.  Returns {shards: launches}."""
     from luminair_tpu_torch.air.layout import AirLayout
 
     t_phase = time.perf_counter()
@@ -2682,10 +2787,10 @@ def phase_mesh_prove(T, S, kernels, serde, tape, card, tag, pie, settings, proof
               "proof_bytes_equal_one_device": True,
               "twins_called": 0, "native_verify": "accepted", "native_verify_seconds": verify_s})
         short = [r for r in range(n) if not all(by_shard.get(str(r), {}).get(k) for k in MESH_ROW_KERNELS)
-                 or bool(r) != bool(by_shard.get(str(r), {}).get("add_carry"))]
+                 or by_shard.get(str(r), {}).get("add_carry", 0) != int(r > 0)]
         if short or not any(by_shard.get(str(r), {}).get("oods_eval") for r in range(n)):
             raise AssertionError(f"{tag} over {n} shards: shards {short} launched not every one of K1-K6 (and the "
-                                 f"carry pass on each but the first), or none K7: {by_shard}")
+                                 f"carry pass once on each but the first, none on the first), or none K7: {by_shard}")
         if moved["gathered"] > formula:
             raise AssertionError(f"{tag} over {n} shards: {moved['gathered']} bytes gathered onto the lead, the "
                                  f"formula {formula}")
@@ -2705,9 +2810,9 @@ def phase_mesh_kernels(T, S, kernels, tape, f, dev, card, tag, pie, settings) ->
     on a row block with its row offset and halo, K4's plan of a row shard,
     K3 on a block assembled in nested mirror order -- bit for bit.  Fails
     if a word differs, a shard did not launch K3-K6 (and each but the first
-    the carry pass), or a mode never ran: K6 with a halo at each stride, a
-    K4 plan of a shard r > 0, a carry pass.  Then the largest carry pass
-    and K6 call with a halo timed.  Returns ({kernel: max_abs_err}, the
+    the carry pass exactly once, the first none), or a mode never ran: K6
+    with a halo at each stride, a K4 plan of a shard r > 0, a carry pass.
+    Then the largest carry pass and K6 call with a halo timed.  Returns ({kernel: max_abs_err}, the
     kernels line's add_carry row)."""
     t_phase = time.perf_counter()
     twins = {k: v for k, v in path_twins(kernels, tape, f).items() if k in MESH_KERNEL_TWINS}
@@ -2730,8 +2835,8 @@ def phase_mesh_kernels(T, S, kernels, tape, f, dev, card, tag, pie, settings) ->
             "add_carry": calls.get("add_carry", 0),
         }
         short = [r for r in range(mesh.size) if not all(by_shard.get(str(r), {}).get(k) for k in (
-            "fri_layer", "deep_quotient", "air_witness", "air_domain")) or bool(r) != bool(by_shard.get(str(r), {}).get(
-                "add_carry"))]
+            "fri_layer", "deep_quotient", "air_witness", "air_domain"))
+            or by_shard.get(str(r), {}).get("add_carry", 0) != int(r > 0)]
         checked = {k: by_kernel[twins[k][0]] for k in MESH_KERNEL_TWINS}
         emit({"phase": "mesh_kernels", "path": tag, "card": card, "shards": mesh.size, "log_blowup": blowup,
               "launches_by_shard": by_shard, "calls": calls, "modes": modes,
@@ -2744,9 +2849,11 @@ def phase_mesh_kernels(T, S, kernels, tape, f, dev, card, tag, pie, settings) ->
             raise AssertionError(f"{tag} over {mesh.size} shards at log blowup {blowup}: kernels that disagree with "
                                  f"their twins or never ran {bad}, shards that missed a launch {short}, modes {modes}")
         if blowup == MESH_KERNEL_BLOWUPS[0]:
-            a = max((a for key, a in kept.items() if key[0] == "add_carry"), key=lambda a: a["rows"].numel())
-            rows, carry = a["rows"].clone(), a["carry"]
-            row = dict(shape=f"the carry pass of a row block, {tuple(rows.shape)} (K5's last entry)",
+            a = max((a for key, a in kept.items() if key[0] == "add_carry"),
+                    key=lambda a: sum(b.numel() for b in a["rows"]))
+            rows, carry = cloned(a["rows"]), a["carry"]
+            row = dict(shape=f"the carry pass of a row shard: {len(rows)} blocks (K5's last entries), "
+                             f"{sum(b.numel() for b in rows)} words, the largest (4, {max(b.shape[1] for b in rows)})",
                        err=errs["add_carry"], ms=time_ms(lambda: kernels.add_carry(rows, carry)),
                        plain_ms=time_ms(lambda: kernels.add_carry_plain(rows, carry)), bound=bound(*add_carry_work(a)))
         a = max(domains, key=lambda a: a["is_first"].shape[0])
@@ -2900,7 +3007,7 @@ def main() -> int:
                                                proof)
     del pie, settings, proof
     phase_op_graph_blowups(T, serde, card, graphs)
-    path_errs["debug_op_graphs"] = phase_debug_graphs(T, kernels, tape, f, card, graphs)
+    path_errs["debug_op_graphs"] = phase_debug_graphs(T, kernels, tape, f, card, graphs, pinn_logs)
     del graphs
     phase_examples(kernels, card)
     phase_parity(T, serde)

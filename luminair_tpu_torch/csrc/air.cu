@@ -1,6 +1,7 @@
-// K5: the LogUp interaction columns, K6: the constraint quotients on a
-// component's commit domain, and the trace-domain constraint check -- one
-// interpreter of the component's tape (tape.cuh) with one thread per row.
+// K5: the LogUp interaction columns and K6: the constraint quotients on a
+// component's commit domain -- one interpreter of the component's tape
+// (tape.cuh) with one thread per row; K5's carry pass across row blocks;
+// and the trace-domain constraint check, compiled per component.
 //
 // Replaces the JAX package's `_jit_witness` (parallel/accel.py, which traces
 // WitnessEval.build_interaction) and `_jit_domain` (which traces DomainEval
@@ -26,25 +27,29 @@
 //   (AirArgs.next, .prev: the neighbouring blocks' `stride` rows, wrapping
 //   at the domain's ends), and xs starts at the block's first row.  A whole
 //   domain (lum_air_domain) wraps with a mask and reads no halo.
-// The carry pass (lum_m31_add_carry): a row block's prefix sums plus the
-//   sum of every earlier block, one QM31 word on the card.
-// The check (air_check), per trace row r: the same K + E constraints
-//   without the alpha powers and the 1 / V_n factor (V_n vanishes on the
-//   trace domain), next row r + 1, previous row r - 1 (cyclic); one word
-//   per row, bit i set when constraint i is nonzero there (a QM31
-//   constraint when any of its coordinates is).  Replaces the JAX
-//   package's host `_CheckEval` (air/debug.py).
+// The carry pass (lum_m31_add_carry): row blocks' prefix sums plus the
+//   sum of every earlier block, one QM31 word each on the card; one launch
+//   takes every block of a row shard (CarryArgs), 16 bytes a thread.
+// The check (air_check, lum_air_check): the trace-domain constraint check
+//   of every component of a PIE in one launch, each component's tape
+//   compiled (check.cuh, check_tapes.cuh).  Replaces the JAX package's
+//   host `_CheckEval` (air/debug.py).
 //
 // Bound on this card: the integer ALU.  Per row K6 does ~20-100 M31 ops for
 // the tape, a QM31 product per constraint, two per LogUp entry and one M31
 // inverse; K5 a QM31 inverse per entry.  Bytes are 4 per column read and
-// 16 per QM31 written.  The tape sits in shared memory (every thread reads
-// the same instruction: a broadcast); the register file is a local array,
-// which the L1 cache holds.
+// 16 per QM31 written.  K5 and K6 interpret the tape: it sits in shared
+// memory (every thread reads the same instruction: a broadcast), and the
+// register file is a local array, which the L1 cache holds.  The check
+// runs compiled tapes, its registers in registers.  The carry pass is
+// bound by its bytes.
 
 #include <cuda_runtime.h>
 
+#include "check.cuh"
 #include "tape.cuh"
+
+static_assert(lum::CHECK_ELEM_KINDS == lum::TAPE_KINDS, "check.cuh and tape.cuh disagree on the element kinds");
 
 namespace {
 
@@ -137,29 +142,9 @@ __global__ void air_domain_kernel(const __grid_constant__ AirArgs a) {
   lum::qstore(out, acc);
 }
 
-// One word per trace row: bit i set when constraint i does not vanish there
-// (the K recorded constraints, then entry b's LogUp constraint as bit K + b;
-// K + E <= TAPE_MAX_POWS = 32).  The wrapper passes stride 1.
-__global__ void air_check_kernel(const __grid_constant__ AirArgs a) {
-  __shared__ int s_tape[lum::TAPE_INS_WORDS * lum::TAPE_MAX_INS];
-  lum::load_tape(a, s_tape);
-  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= a.n) return;
-  uint32_t mask = 0;
-  qm31 prev = {0, 0, 0, 0};
-  int k = 0, b = 0;
-  lum::run_tape<false>(
-      s_tape, a, r,
-      [&](uint32_t v) {
-        if (v != 0u) mask |= 1u << k;
-        k++;
-      },
-      [&](int kind, uint32_t m, uint32_t v0, uint32_t v1, bool two) {
-        qm31 c = logup_constraint<false>(a, b, r, prev, m, lum::denominator(a, kind, v0, v1, two));
-        if ((c.a | c.b | c.c | c.d) != 0u) mask |= 1u << (a.n_constraints + b);
-        b++;
-      });
-  ((uint32_t*)a.out)[r] = mask;
+// The check: one thread a row of one component (check.cuh).
+__global__ void __launch_bounds__(lum::CHECK_THREADS) check_tapes_kernel(const __grid_constant__ lum::CheckArgs a) {
+  lum::check_cta_row(a, blockIdx.x, threadIdx.x);
 }
 
 // ---------------------------------------------------------------------------
@@ -248,12 +233,47 @@ __global__ void scan_tile_apply(uint32_t* data, long long n, int nb, const uint3
   }
 }
 
-// data[c][r] += carry[c] for the `cols` contiguous rows of length n.
-__global__ void add_carry_kernel(uint32_t* data, long long n, const uint32_t* __restrict__ carry) {
-  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  uint32_t* col = data + blockIdx.y * n;
-  col[r] = lum::add(col[r], carry[blockIdx.y]);
+// The carry pass's blocks: (4, R) int32 rows each, block b's carry the
+// QM31 at carry[4b..4b+3].  Mirrored by kernels.CarryBlock / CarryArgs.
+constexpr int CARRY_MAX_BLOCKS = 32;
+constexpr int CARRY_THREADS = 256;
+
+struct CarryBlock {
+  unsigned long long rows;  // (4, R) contiguous int32
+  long long len;            // R
+  int row_ctas;             // CTAs a coordinate row
+  int vec;                  // 16 bytes a thread: R a multiple of 4, rows 16-byte aligned
+  int cta0;                 // its first CTA
+  int pad;
+};
+
+struct CarryArgs {
+  CarryBlock blocks[CARRY_MAX_BLOCKS];
+  unsigned long long carry;  // (n_blocks, 4) int32 on the card
+  int n_blocks;
+  int n_ctas;
+};
+
+// rows[k][j] += carry[k] of one block: a CTA takes 256 units of one
+// coordinate row k, a unit 16 bytes (or one word where R is not a multiple
+// of 4).
+__global__ void __launch_bounds__(CARRY_THREADS) add_carry_kernel(const __grid_constant__ CarryArgs a) {
+  int b = 0;
+  for (int i = 1; i < a.n_blocks; i++) b = a.blocks[i].cta0 <= (int)blockIdx.x ? i : b;
+  const CarryBlock& k = a.blocks[b];
+  const int cta = (int)blockIdx.x - k.cta0, coord = cta / k.row_ctas;
+  const long long j = (long long)(cta - coord * k.row_ctas) * CARRY_THREADS + threadIdx.x;
+  const uint32_t c = ((const uint32_t*)a.carry)[4 * b + coord];
+  uint32_t* row = (uint32_t*)k.rows + coord * k.len;
+  if (k.vec) {
+    if (4 * j >= k.len) return;
+    lum::u32x4* p = (lum::u32x4*)row + j;
+    lum::u32x4 v = *p;
+    for (int i = 0; i < 4; i++) v.v[i] = lum::add(v.v[i], c);
+    *p = v;
+  } else if (j < k.len) {
+    row[j] = lum::add(row[j], c);
+  }
 }
 
 unsigned blocks_for(long long n, int threads) { return (unsigned)((n + threads - 1) / threads); }
@@ -264,6 +284,11 @@ unsigned blocks_for(long long n, int threads) { return (unsigned)((n + threads -
 extern "C" long long lum_air_args_size() { return (long long)sizeof(AirArgs); }
 extern "C" long long lum_tape_max_regs() { return lum::TAPE_MAX_REGS; }
 extern "C" long long lum_tape_max_ins() { return lum::TAPE_MAX_INS; }
+extern "C" long long lum_check_args_size() { return (long long)sizeof(lum::CheckArgs); }
+extern "C" long long lum_check_threads() { return lum::CHECK_THREADS; }
+extern "C" long long lum_check_kinds() { return lum::CHECK_KINDS; }
+extern "C" long long lum_carry_args_size() { return (long long)sizeof(CarryArgs); }
+extern "C" long long lum_carry_threads() { return CARRY_THREADS; }
 
 extern "C" int lum_air_witness(const AirArgs* args, void* stream) {
   if (args->n > 0) {
@@ -287,9 +312,10 @@ extern "C" int lum_air_domain_halo(const AirArgs* args, void* stream) {
   return (int)cudaGetLastError();
 }
 
-extern "C" int lum_air_check(const AirArgs* args, void* stream) {
-  if (args->n > 0) {
-    air_check_kernel<<<blocks_for(args->n, 128), 128, 0, (cudaStream_t)stream>>>(*args);
+// Every component of a check (CheckArgs) in one launch.
+extern "C" int lum_air_check(const lum::CheckArgs* args, void* stream) {
+  if (args->n_ctas > 0) {
+    check_tapes_kernel<<<args->n_ctas, lum::CHECK_THREADS, 0, (cudaStream_t)stream>>>(*args);
   }
   return (int)cudaGetLastError();
 }
@@ -308,11 +334,11 @@ extern "C" int lum_m31_scan(uint32_t* data, long long n, int cols, uint32_t* sum
   return (int)cudaGetLastError();
 }
 
-// The carry pass: `carry` (cols words on the card) added to each of `cols`
-// contiguous rows of length n, in place.
-extern "C" int lum_m31_add_carry(uint32_t* data, long long n, int cols, const uint32_t* carry, void* stream) {
-  if (n > 0 && cols > 0) {
-    add_carry_kernel<<<dim3(blocks_for(n, 256), cols), 256, 0, (cudaStream_t)stream>>>(data, n, carry);
+// The carry pass over every block of `args`, in place.
+extern "C" int lum_m31_add_carry(const void* args, void* stream) {
+  const CarryArgs& a = *(const CarryArgs*)args;
+  if (a.n_ctas > 0) {
+    add_carry_kernel<<<a.n_ctas, CARRY_THREADS, 0, (cudaStream_t)stream>>>(a);
   }
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,9 @@
 """The port's hand-written Hopper kernels: build, binding, wrappers.
 
 The CUDA C++ sources under csrc/ (with the headers csrc/m31.cuh,
-blake2s.cuh, channel.cuh, decommit.cuh, fft.cuh, fri.cuh, lut.cuh,
-merkle.cuh, oods.cuh, quotient.cuh, tape.cuh and trace.cuh)
+blake2s.cuh, channel.cuh, check.cuh, check_tapes.cuh (generated by
+air/tape_cuda.py), decommit.cuh, fft.cuh, fri.cuh, lut.cuh, merkle.cuh,
+oods.cuh, quotient.cuh, tape.cuh and trace.cuh)
 are compiled at first use with nvcc for sm_90a, one shared
 library per source, all sources compiled at once, into build/kernels/ at
 the repository root; each library is named by a hash of its source and
@@ -293,6 +294,89 @@ _AIR_ABI = {
     "lum_tape_max_ins": TAPE_MAX_INS,
 }
 
+# The check's launch (csrc/check.cuh): each component's compiled tape
+# (csrc/check_tapes.cuh), its columns in one pointer table, its rows in
+# CTAs of CHECK_THREADS.
+CHECK_MAX_COMPS = 32
+CHECK_MAX_COLS = 512
+CHECK_THREADS = 256
+CHECK_TAPES_HEADER = "check_tapes.cuh"
+_CHECK_TAPE_LINE = re.compile(r"^// tape (\d+) (\w+) ([0-9a-f]{64})$", re.M)
+
+
+class CheckComp(ctypes.Structure):
+    """Mirror of lum::CheckComp (csrc/check.cuh)."""
+
+    _fields_ = [
+        ("n", ctypes.c_longlong),
+        ("out", ctypes.c_longlong),
+        ("kind", ctypes.c_int),
+        ("col0", ctypes.c_int),
+        ("cta0", ctypes.c_int),
+        ("pad", ctypes.c_int),
+        ("claimed", ctypes.c_uint32 * 4),
+    ]
+
+
+class CheckArgs(ctypes.Structure):
+    """Mirror of lum::CheckArgs (csrc/check.cuh), passed by value: 5,808
+    bytes of kernel parameters (above 4 KB: CUDA 12.1 or later)."""
+
+    _fields_ = [
+        ("cols", ctypes.c_uint64 * CHECK_MAX_COLS),
+        ("comps", CheckComp * CHECK_MAX_COMPS),
+        ("out", ctypes.c_uint64),
+        ("n_comps", ctypes.c_int),
+        ("n_ctas", ctypes.c_int),
+        ("elems", ctypes.c_uint32 * (len(ELEM_KINDS) * 2 * 4)),
+    ]
+
+
+def tape_digest(tp) -> str:
+    """sha256 of a tape: its component's name, its shape (main and
+    preprocessed columns, registers, constraints, relation entries: the
+    generated code hard-codes the column layout they give) and its int32
+    words (little-endian).  How the compiled check tapes name the tape
+    each was generated from."""
+    return _digest_of((tp.name, tp.n_main, tp.n_pp, tp.n_regs, tp.n_constraints, tp.n_relations), tuple(tp.words))
+
+
+@functools.lru_cache(maxsize=64)
+def _digest_of(shape: tuple, words: tuple) -> str:
+    h = hashlib.sha256(repr(shape).encode())
+    h.update(np.asarray(words, dtype="<i4").tobytes())
+    return h.hexdigest()
+
+
+@functools.lru_cache(maxsize=None)
+def compiled_check_tapes(header: Optional[Path] = None) -> Dict[str, tuple]:
+    """{component: (kind, tape digest)} of the tapes compiled into the
+    check (the manifest of csrc/check_tapes.cuh)."""
+    path = header or _CSRC / CHECK_TAPES_HEADER
+    if not path.exists():  # before its first generation
+        return {}
+    text = path.read_text()
+    return {name: (int(kind), digest) for kind, name, digest in _CHECK_TAPE_LINE.findall(text)}
+
+
+# K5's carry pass: every (4, R) block of one shard in one launch.
+CARRY_MAX_BLOCKS = 32
+CARRY_THREADS = 256
+
+
+class CarryBlock(ctypes.Structure):
+    """Mirror of CarryBlock (csrc/air.cu)."""
+
+    _fields_ = [("rows", ctypes.c_uint64), ("len", ctypes.c_longlong), ("row_ctas", ctypes.c_int),
+                ("vec", ctypes.c_int), ("cta0", ctypes.c_int), ("pad", ctypes.c_int)]
+
+
+class CarryArgs(ctypes.Structure):
+    """Mirror of CarryArgs (csrc/air.cu), passed by value."""
+
+    _fields_ = [("blocks", CarryBlock * CARRY_MAX_BLOCKS), ("carry", ctypes.c_uint64),
+                ("n_blocks", ctypes.c_int), ("n_ctas", ctypes.c_int)]
+
 AIR_WITNESS = Kernel(
     "air_witness",
     "air.cu",
@@ -306,8 +390,8 @@ ADD_CARRY = Kernel(
     "add_carry",
     "air.cu",
     "luminair_tpu/parallel/accel.py:1079-1084 (_jit_witness under _shard_dim; build_interaction's cumsum)",
-    {"lum_m31_add_carry": [_P, _LL, _I, _P]},
-    abi=_AIR_ABI,
+    {"lum_m31_add_carry": [_P]},
+    abi={"lum_carry_args_size": ctypes.sizeof(CarryArgs), "lum_carry_threads": CARRY_THREADS},
 )
 AIR_DOMAIN = Kernel(
     "air_domain",
@@ -321,7 +405,8 @@ AIR_CHECK = Kernel(
     "air.cu",
     "luminair_tpu/air/debug.py:20 (_CheckEval, host numpy)",
     {"lum_air_check": [_P]},
-    abi=_AIR_ABI,
+    abi={"lum_check_args_size": ctypes.sizeof(CheckArgs), "lum_check_threads": CHECK_THREADS,
+         "lum_check_kinds": len(compiled_check_tapes())},
 )
 OODS_EVAL = Kernel(
     "oods_eval",
@@ -1197,22 +1282,41 @@ def air_witness(tp, main: Sequence[torch.Tensor], pp: Sequence[torch.Tensor], ew
     return out, last[:, -1]
 
 
-def add_carry(rows: torch.Tensor, carry: torch.Tensor) -> torch.Tensor:
-    """K5's carry pass, in place: (4, R) contiguous int32 rows (the last
-    relation entry's sums of a row block) plus the QM31 `carry` (4 int32
-    words on their device), coordinate by coordinate."""
-    _require(rows.dtype == f.I32 and rows.dim() == 2 and rows.shape[0] == 4 and rows.is_contiguous(),
-             "add_carry: rows (4, R) contiguous int32")
-    _require(carry.dtype == f.I32 and tuple(carry.shape) == (4,) and carry.is_contiguous()
-             and carry.device == rows.device, "add_carry: 4 contiguous int32 words beside the rows")
-    if _on_cpu(rows):
+def add_carry(rows, carry: torch.Tensor):
+    """K5's carry pass, in place: each (4, R) block of `rows` (the last
+    relation entry's sums of a row block: a tensor, or a list of them)
+    plus its QM31 carry, coordinate by coordinate.  carry: int32 on the
+    blocks' device, (C, 4) for a list of C blocks (row c is block c's),
+    (4,) for one tensor.  On the card, one launch for the whole list."""
+    blocks = [rows] if isinstance(rows, torch.Tensor) else list(rows)
+    _require(0 < len(blocks) <= CARRY_MAX_BLOCKS, f"add_carry: 1 to {CARRY_MAX_BLOCKS} blocks, got {len(blocks)}")
+    for b in blocks:
+        _require(b.dtype == f.I32 and b.dim() == 2 and b.shape[0] == 4 and b.is_contiguous(),
+                 "add_carry: rows (4, R) contiguous int32")
+    want = (4,) if isinstance(rows, torch.Tensor) else (len(blocks), 4)
+    _require(carry.dtype == f.I32 and tuple(carry.shape) == want and carry.is_contiguous()
+             and all(b.device == carry.device for b in blocks),
+             f"add_carry: carry {want} contiguous int32 on the blocks' device")
+    if _on_cpu(carry):
         return add_carry_plain(rows, carry)
-    ADD_CARRY.launch("lum_m31_add_carry", rows.device, rows.data_ptr(), rows.shape[1], 4, carry.data_ptr())
+    a = CarryArgs()
+    a.carry, a.n_blocks = carry.data_ptr(), len(blocks)
+    ctas = 0
+    for slot, b in zip(a.blocks, blocks):
+        R = b.shape[1]
+        vec = R % 4 == 0 and b.data_ptr() % 16 == 0
+        row_ctas = max(1, -(-(R // 4 if vec else R) // CARRY_THREADS))
+        slot.rows, slot.len, slot.row_ctas, slot.vec, slot.cta0 = b.data_ptr(), R, row_ctas, int(vec), ctas
+        ctas += 4 * row_ctas
+    a.n_ctas = ctas
+    ADD_CARRY.launch("lum_m31_add_carry", carry.device, ctypes.addressof(a))
     return rows
 
 
-def add_carry_plain(rows: torch.Tensor, carry: torch.Tensor) -> torch.Tensor:
-    rows.copy_(f.add(rows.to(f.I64), carry.to(f.I64)[:, None]).to(f.I32))
+def add_carry_plain(rows, carry: torch.Tensor):
+    blocks = [rows] if isinstance(rows, torch.Tensor) else list(rows)
+    for b, c in zip(blocks, carry.reshape(-1, 4)):
+        b.copy_(f.add(b.to(f.I64), c.to(f.I64)[:, None]).to(f.I32))
     return rows
 
 
@@ -1266,30 +1370,93 @@ def air_check(tp, main, pp, inter, is_first: torch.Tensor, claimed, ew) -> torch
     """Which of a component's constraints fail where on its trace domain:
     (N,) int32, bit i of row r set when constraint i does not vanish at r --
     the K recorded constraints in tape order, then entry b's LogUp
-    constraint as bit K + b (see air.cu).  Next row r + 1, previous row
-    r - 1, cyclic.
+    constraint as bit K + b (see csrc/check.cuh).  Next row r + 1,
+    previous row r - 1, cyclic.
 
     main / pp: the component's padded trace columns int32 (N,) in MAIN /
     PP_IDS order; inter: its 4E interaction coordinates (`air_witness`);
-    is_first: the trace domain's is_first column; claimed: 4 words."""
-    n = is_first.shape[0]
-    _log2(n)
-    _require(len(main) == tp.n_main and len(pp) == tp.n_pp and len(inter) == 4 * tp.n_relations,
-             f"air_check({tp.name}): column count")
-    _require(tp.n_pows <= TAPE_MAX_POWS, f"air_check({tp.name}): {tp.n_pows} constraints, a word holds 32")
-    _check_rows(list(main) + list(pp) + list(inter) + [is_first], n, "air_check")
-    if _on_cpu(is_first):
-        from .air import tape as tp_mod
+    is_first: the trace domain's is_first column; claimed: 4 words.  The
+    case of one component of `air_check_many`."""
+    return air_check_many([(tp, main, pp, inter, is_first, claimed)], ew)
 
-        return tp_mod.check_plain(tp, main, pp, inter, is_first, f.qm31_words(claimed), ew)
-    dev = is_first.device
-    out = torch.empty(n, dtype=f.I32, device=dev)
-    a = _air_args(tp, main, pp, ew, n, dev, 1, inter)
-    a.is_first = _ptrs([is_first], dev)[0]
-    a.out = out.data_ptr()
-    a.claimed[:] = list(f.qm31_words(claimed))
+
+def _check_kind(tp) -> int:
+    """The compiled check tape of `tp`'s component; raises when none is
+    compiled from this tape."""
+    kind, digest = compiled_check_tapes().get(tp.name, (None, None))
+    _require(kind is not None and digest == tape_digest(tp),
+             f"air_check({tp.name}): no compiled check tape for this tape (csrc/{CHECK_TAPES_HEADER}; regenerate it "
+             "with python3 -m luminair_tpu_torch.air.tape_cuda)")
+    return kind
+
+
+def _check_table(comps: Sequence[tuple]):
+    """Validates a check's components (`air_check_many`) in one pass over
+    their columns; returns (each one's compiled tape, each one's column
+    addresses: main, pp, inter, is_first; their device)."""
+    _require(0 < len(comps) <= CHECK_MAX_COMPS, f"air_check: 1 to {CHECK_MAX_COMPS} components, got {len(comps)}")
+    dev = comps[0][4].device
+    kinds, ptrs, n_cols = [], [], 0
+    for tp, main, pp, inter, is_first, _ in comps:
+        n = is_first.shape[0]
+        _log2(n)
+        if len(main) != tp.n_main or len(pp) != tp.n_pp or len(inter) != 4 * tp.n_relations:
+            raise KernelError(f"air_check({tp.name}): column count")
+        if tp.n_pows > TAPE_MAX_POWS:
+            raise KernelError(f"air_check({tp.name}): {tp.n_pows} constraints, a word holds 32")
+        kinds.append(_check_kind(tp))
+        shape, mine = (n,), []
+        for c in (*main, *pp, *inter, is_first):
+            if c.dtype != f.I32 or c.shape != shape:
+                raise KernelError(f"air_check: columns must be int32 ({n},)")
+            if c.device != dev or not c.is_contiguous():
+                raise KernelError("air_check: every column of a check on one device, contiguous")
+            mine.append(c.data_ptr())
+        ptrs.append(mine)
+        n_cols += len(mine)
+    _require(n_cols <= CHECK_MAX_COLS, f"air_check: {n_cols} columns, a launch takes {CHECK_MAX_COLS}")
+    return kinds, ptrs, dev
+
+
+def air_check_many(comps: Sequence[tuple], ew) -> torch.Tensor:
+    """The check of several components (`air_check`) in one launch: their
+    words one after another, (sum of N,) int32.  comps: (tp, main, pp,
+    inter, is_first, claimed) of each, as `air_check` takes them, every
+    column on one device; at most CHECK_MAX_COMPS components and
+    CHECK_MAX_COLS columns in all (main, pp, inter and is_first)."""
+    kinds, ptrs, dev = _check_table(comps)
+    if dev.type == "cpu":
+        return air_check_many_plain(comps, ew)
+    _require(dev.type == "cuda", f"unsupported device {dev}")
+    out = torch.empty(sum(c[4].shape[0] for c in comps), dtype=f.I32, device=dev)
+    a = _check_args(comps, kinds, ptrs, ew, out)
     AIR_CHECK.launch("lum_air_check", dev, ctypes.addressof(a))
     return out
+
+
+def _check_args(comps, kinds: Sequence[int], ptrs: Sequence[List[int]], ew, out: torch.Tensor) -> CheckArgs:
+    """The launch's table (`_check_table`'s kinds and addresses): each
+    component's columns in `cols` from its col0, its rows from its cta0 in
+    CTAs of CHECK_THREADS and from word `out` of out."""
+    a = CheckArgs()
+    a.out, a.n_comps = out.data_ptr(), len(comps)
+    a.elems[:] = [w for kind in ew for q in kind for w in q]
+    col = cta = row = 0
+    for slot, kind, mine, c in zip(a.comps, kinds, ptrs, comps):
+        a.cols[col : col + len(mine)] = mine
+        n = c[4].shape[0]
+        slot.n, slot.out, slot.kind, slot.col0, slot.cta0 = n, row, kind, col, cta
+        slot.claimed[:] = list(f.qm31_words(c[5]))
+        col, cta, row = col + len(mine), cta + -(-n // CHECK_THREADS), row + n
+    a.n_ctas = cta
+    return a
+
+
+def air_check_many_plain(comps: Sequence[tuple], ew) -> torch.Tensor:
+    from .air import tape as tp_mod
+
+    return torch.cat([tp_mod.check_plain(tp, main, pp, inter, is_first, f.qm31_words(claimed), ew)
+                      for tp, main, pp, inter, is_first, claimed in comps])
 
 
 # ---------------------------------------------------------------------------

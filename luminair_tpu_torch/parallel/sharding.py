@@ -36,9 +36,11 @@ committed trees' row blocks stay on the row shards (pcs/scheme.TreeProver
 hands them on as RowBlocks), and a phase launches on each row shard
 (counted under kernels.on_shard):
 
-  * K5 (`air_witness_rows`) on each shard's block of a component's
-    padded trace columns, which the lead scatters; the shards' totals go
-    to the lead, their prefix sums come back as carries (K5's carry pass);
+  * K5 (`air_witness_many`) on each shard's block of every component's
+    padded trace columns, which the lead scatters; each shard's totals go
+    to the lead in one copy, their prefix sums come back as carries, one
+    copy a shard, and each shard but the first launches one carry pass
+    over its blocks of every component (K5's carry pass);
   * K6 (`air_domain_rows`) on each shard's block of a component's commit
     domain, with its halo: the next shard's first 2^B rows of each
     column read at the next row, the previous shard's last 2^B rows of
@@ -83,7 +85,7 @@ from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -489,41 +491,67 @@ def expected_gathered_bytes(n: int, tree_logs: List[List[int]], log_blowup: int,
 # --- the AIR phases on row shards ------------------------------------------
 
 
-def air_witness_rows(mesh: Mesh, tp, main: Sequence[torch.Tensor], pp: Sequence[torch.Tensor], ew):
-    """K5 of one component: on the lead where the mesh has one shard or the
-    trace fewer rows than shards, else on each row shard's block of the
-    padded trace columns (lying on the lead, scattered to the shards,
-    bytes counted), with a carry: the shards' totals (n QM31 words) go to
-    the lead, their exclusive prefix sums come back, and K5's carry pass
-    adds each to its shard's last entry (the reference's cumulative sum
-    across row shards, `build_interaction` under `_shard_dim`).  Returns
-    (the interaction, (4E, N) or RowBlocks of (4E, N / n); the claimed
-    sum (4,) on the lead: the last shard's last row)."""
-    N = (list(main) + list(pp))[0].shape[0]
-    if mesh.size == 1 or N < mesh.size:
-        return kernels.air_witness(tp, main, pp, ew)
-    if tp.next_cols:
-        raise ProverError(f"{tp.name}: a witness tape that reads the next row has no halo on row shards")
-    R, lead = N // mesh.size, mesh.lead
-    outs, totals = [], torch.empty((mesh.size, 4), dtype=f.I32, device=lead)
+def air_witness_many(mesh: Mesh, comps: Iterable[tuple], ew) -> List[tuple]:
+    """K5 of every component, comps: (witness tape, main, pp) each, the
+    padded trace columns on the lead.  Returns (interaction, claimed sum)
+    of each in order: the interaction (4E, N), or RowBlocks of (4E, N / n)
+    over n row shards; the claimed sum (4,) on the lead.
+
+    On one shard each component runs on the lead as it comes.  Over n
+    shards, a component with fewer trace rows than shards runs on the lead
+    too; every other runs on each row shard's block of its columns
+    (scattered from the lead, bytes counted), and then, for all of them
+    together: each shard's totals (its last entry's last row, a QM31 word
+    a component) go to the lead as one (C, 4) copy, one cumulative sum over
+    the shards gives every shard's carries, each shard after the first
+    receives its C carries in one copy and launches one carry pass over
+    its C last-entry blocks (the reference's cumulative sum across row
+    shards, `build_interaction` under `_shard_dim`).  A claimed sum is its
+    component's last shard's last row."""
+    if mesh.size == 1:
+        return [kernels.air_witness(tp, main, pp, ew) for tp, main, pp in comps]
+    comps = list(comps)
+    out: List[Optional[tuple]] = [None] * len(comps)
+    sharded = []
+    for i, (tp, main, pp) in enumerate(comps):
+        if (list(main) + list(pp))[0].shape[0] < mesh.size:
+            out[i] = kernels.air_witness(tp, main, pp, ew)
+        elif tp.next_cols:
+            raise ProverError(f"{tp.name}: a witness tape that reads the next row has no halo on row shards")
+        else:
+            sharded.append(i)
+    if not sharded:
+        return out
+    lead, C = mesh.lead, len(sharded)
+    blocks: List[List[torch.Tensor]] = []  # [shard][component]: (4E, R)
+    totals = torch.empty((mesh.size, C, 4), dtype=f.I32, device=lead)
     for r, (pos, dev) in enumerate(mesh.row_shards()):
-        blocks = []
-        for c in list(main) + list(pp):
-            blocks.append(c[r * R : (r + 1) * R].to(dev, non_blocking=True))
-            count_bytes("scattered", 0, pos, blocks[-1])
-        with kernels.on_shard(pos):
-            out, total = kernels.air_witness(tp, blocks[: len(main)], blocks[len(main) :], ew)
-        totals[r].copy_(total, non_blocking=True)
-        count_bytes("moved", pos, 0, total)
-        outs.append(out)
+        mine, ends = [], []
+        for i in sharded:
+            tp, main, pp = comps[i]
+            R = (list(main) + list(pp))[0].shape[0] // mesh.size
+            cols = []
+            for c in list(main) + list(pp):
+                cols.append(c[r * R : (r + 1) * R].to(dev, non_blocking=True))
+                count_bytes("scattered", 0, pos, cols[-1])
+            with kernels.on_shard(pos):
+                block, total = kernels.air_witness(tp, cols[: len(main)], cols[len(main) :], ew)
+            mine.append(block)
+            ends.append(total)
+        shard_totals = torch.stack(ends)
+        totals[r].copy_(shard_totals, non_blocking=True)
+        count_bytes("moved", pos, 0, shard_totals)
+        blocks.append(mine)
     ends = (torch.cumsum(totals.to(f.I64), 0) % f.P).to(f.I32)  # each shard's end: the sum through it
     for r, (pos, dev) in enumerate(mesh.row_shards()):
         if r:
             carry = ends[r - 1].to(dev, non_blocking=True)
             count_bytes("moved", 0, pos, carry)
             with kernels.on_shard(pos):
-                kernels.add_carry(outs[r][-4:], carry)
-    return RowBlocks(mesh, outs), ends[-1]
+                kernels.add_carry([b[-4:] for b in blocks[r]], carry)
+    for k, i in enumerate(sharded):
+        out[i] = (RowBlocks(mesh, [blocks[r][k] for r in range(mesh.size)]), ends[-1, k])
+    return out
 
 
 def _halo(x: RowBlocks, q: int, rows: slice, r: int, dev) -> torch.Tensor:

@@ -122,11 +122,13 @@ def _prove_once(pie: LuminairPie, settings, config: PcsConfig, dev: torch.device
         inter_cols: List[torch.Tensor] = []
         claimed: Dict[str, torch.Tensor] = {}
         mesh = pcs.trees[0].mesh
-        for c in layout.components:
-            cols = padded_by_comp.pop(c.name)
-            out, claimed[c.name] = sharding.air_witness_rows(
-                mesh, tape.record(c, witness=True), [cols[n] for n in c.MAIN], [pp_by_id[p] for p in c.PP_IDS], ew
-            )
+
+        def witness_inputs():
+            for c in layout.components:
+                cols = padded_by_comp.pop(c.name)
+                yield tape.record(c, witness=True), [cols[n] for n in c.MAIN], [pp_by_id[p] for p in c.PP_IDS]
+
+        for c, (out, claimed[c.name]) in zip(layout.components, sharding.air_witness_many(mesh, witness_inputs(), ew)):
             inter_cols.extend(sharding.unbind(out))
         # One download for every claimed sum.
         sums_u32 = f.tensor_to_u32(torch.stack(list(claimed.values())))

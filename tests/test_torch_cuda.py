@@ -924,7 +924,7 @@ def test_air_witness_with_a_carry_on_a_virtual_mesh(dev, name):
     ew = [[tuple(int(w) for w in rng.integers(0, f.P, 4)) for _ in range(2)] for _ in kernels.ELEM_KINDS]
     want, want_claimed = tape.witness_plain(tp, main, pp, ew)
     kernels.reset_counts()
-    got, claimed = S.air_witness_rows(_virtual("4", dev), tp, main, pp, ew)
+    got, claimed = S.air_witness_many(_virtual("4", dev), [(tp, main, pp)], ew)[0]
     assert all(kernels.SHARD_LAUNCHES[r] == ({"air_witness": 2} if r == 0 else {"air_witness": 2, "add_carry": 1})
                for r in range(4)), kernels.SHARD_LAUNCHES
     assert torch.equal(S.on_lead(got), want) and torch.equal(claimed, want_claimed)
@@ -1080,3 +1080,114 @@ def test_bench_graph_prove_over_two_cards(second_card):
     for r in range(2):
         assert all(kernels.SHARD_LAUNCHES[r].get(k) for k in ("fri_layer", "deep_quotient", "air_witness",
                                                               "air_domain")), r
+
+
+# ---------------------------------------------------------------------------
+# The check of many components in one launch; the carry pass of many blocks.
+
+PINN_COMPONENTS = ["mul", "sum_reduce", "add", "exp2", "recip", "inputs", "exp2_lookup"]
+
+
+def _check_comp(comp, n, rng, dev, fill, ew):
+    """Random words; zeros; or small words (0 to 2: each recorded constraint
+    vanishes on some rows) with the interaction and claimed sum that K5's
+    twin builds from them (every LogUp constraint vanishes)."""
+    tp = tape.record(comp)
+
+    def col():
+        if fill == "random":
+            return _rnd(rng, dev, n)
+        if fill == "honest":
+            return torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)).to(dev)
+        return torch.zeros(n, dtype=f.I32, device=dev)
+
+    main, pp = [col() for _ in comp.MAIN], [col() for _ in comp.PP_IDS]
+    is_first = _rnd(rng, dev, n) if fill == "random" else torch.zeros(n, dtype=f.I32, device=dev)
+    if fill != "random":
+        is_first[0] = 1
+    if fill == "honest":
+        inter, claimed = tape.witness_plain(tape.record(comp, witness=True), main, pp, ew)
+        return tp, main, pp, list(inter.unbind(0)), is_first, tuple(int(x) for x in claimed.cpu())
+    return tp, main, pp, [col() for _ in range(4 * tp.n_relations)], is_first, _words(rng, 1)[0]
+
+
+@pytest.mark.parametrize("fill", ["random", "zeros", "honest"])
+@pytest.mark.parametrize("which", ["pinn", "all"])
+def test_air_check_many_components_in_one_launch(dev, which, fill):
+    """Every PINN component (or all 18) in one launch, each of its own size
+    (1 to 2^13 rows, across CTAs): the twin's words, component by
+    component, from one launch."""
+    names = PINN_COMPONENTS if which == "pinn" else COMPONENT_NAMES
+    rng = np.random.default_rng(300 + len(names) + ["random", "zeros", "honest"].index(fill))
+    ew = _ew(rng)
+    comps = [_check_comp(ALL_COMPONENTS[COMPONENT_NAMES.index(name)], 1 << int(rng.integers(0, 14)), rng, dev, fill,
+                         ew) for name in names]
+    before = kernels.AIR_CHECK.launches
+    got = kernels.air_check_many(comps, ew)
+    assert kernels.AIR_CHECK.launches - before == 1
+    assert got.is_cuda and torch.equal(got, kernels.air_check_many_plain(comps, ew))
+
+
+@pytest.mark.parametrize("name", list(op_graphs.GRAPHS))
+def test_check_of_each_op_graph_is_one_launch(dev, name):
+    """check_pie_constraints on each op graph's card PIE, honest and with
+    one cell of its first table changed: one air_check launch a check, the
+    CPU's dict for the same PIE."""
+    from luminair_tpu_torch import prelude as T
+    from luminair_tpu_torch.air.debug import check_pie_constraints
+    from luminair_tpu_torch.air.pie import LuminairPie, TraceTable
+
+    cx = _graph(name)
+    settings = T.gen_circuit_settings(cx, device=dev)
+    pie = T.gen_trace(cx, settings, device=dev)
+    for mutate in (False, True):
+        if mutate:
+            table = next(t for t in pie.trace_tables.values() if t.n_rows > 1)
+            column = next(iter(table.padded.values()))
+            column[1] = (int(column[1]) + 1) % f.P
+        kernels.reset_counts()
+        got = check_pie_constraints(pie, settings)
+        assert kernels.counts()["air_check"] == 1 and kernels.counts()["air_witness"] > 0
+        host = LuminairPie({k: TraceTable(k, t.host_columns()) for k, t in pie.trace_tables.items()}, pie.metadata)
+        assert got == check_pie_constraints(host, settings, device="cpu")
+        assert mutate or got == {}
+
+
+@pytest.mark.parametrize("lengths", [(1 << 12,), (3, 8, 1 << 10, 1), (1 << 14, 4, 2, 1 << 12, 5, 1 << 13)])
+def test_batched_carry_pass(dev, lengths):
+    """One launch over blocks of 16-byte and of single-word units: the
+    batched twin's words, which are the one-block twin's block by block."""
+    rng = np.random.default_rng(len(lengths))
+    blocks = [_rnd(rng, dev, 4, n) for n in lengths]
+    carry = _rnd(rng, dev, len(blocks), 4)
+    want = [kernels.add_carry_plain(b.clone(), c) for b, c in zip(blocks, carry)]
+    got = [b.clone() for b in blocks]
+    before = kernels.ADD_CARRY.launches
+    kernels.add_carry(got, carry)
+    assert kernels.ADD_CARRY.launches - before == 1
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_witness_of_every_component_with_one_carry_pass_a_shard(dev):
+    """K5 of the PINN's components (and one of fewer rows than shards) over
+    4 row shards of the card: one carry pass on each shard after the
+    first, none on the first; each component's interaction and claimed sum
+    the twin's on its whole columns."""
+    from luminair_tpu_torch.parallel import sharding as S
+
+    rng = np.random.default_rng(17)
+    ew = _ew(rng)
+    comps, logs = [], [12, 11, 12, 10, 12, 9, 1]
+    for name, log in zip(PINN_COMPONENTS, logs):
+        comp = ALL_COMPONENTS[COMPONENT_NAMES.index(name)]
+        n = 1 << log
+        comps.append((tape.record(comp, witness=True), [_rnd(rng, dev, n) for _ in comp.MAIN],
+                      [_rnd(rng, dev, n) for _ in comp.PP_IDS]))
+    kernels.reset_counts()
+    got = S.air_witness_many(_virtual("4", dev), comps, ew)
+    assert {r: kernels.SHARD_LAUNCHES[r].get("add_carry", 0) for r in range(4)} == {0: 0, 1: 1, 2: 1, 3: 1}
+    assert kernels.counts()["add_carry"] == 3
+    for (tp, main, pp), (out, claimed) in zip(comps, got):
+        want, want_claimed = tape.witness_plain(tp, main, pp, ew)
+        assert torch.equal(S.on_lead(out), want) and torch.equal(claimed, want_claimed)
+    assert not isinstance(got[-1][0], S.RowBlocks)  # 2 rows: on the lead, no carry

@@ -97,7 +97,7 @@ def _port_elems(raw):
 def test_witness_on_row_blocks_with_carries(name):
     """The twin on 2, 4 and 8 row blocks, each started from the sum of the
     blocks before it, equals the whole-column twin and the reference's
-    `accel.witness_interaction`; so does sharding.air_witness_rows (the
+    `accel.witness_interaction`; so does sharding.air_witness_many (the
     blocks on a mesh's row shards, the totals' exchange, the carry pass)."""
     comp, ref = _pair(name)
     rng = np.random.default_rng(NAMES.index(name))
@@ -127,9 +127,53 @@ def test_witness_on_row_blocks_with_carries(name):
             out, carry = kernels.air_witness(tp, [c[part] for c in cols], [c[part] for c in pcols], ew, carry)
             blocks.append(out)
         assert torch.equal(torch.cat(blocks, 1), whole) and torch.equal(carry, claimed)
-        got, got_claimed = S.air_witness_rows(_mesh(shards), tp, cols, pcols, ew)
+        got, got_claimed = S.air_witness_many(_mesh(shards), [(tp, cols, pcols)], ew)[0]
         assert isinstance(got, S.RowBlocks) and torch.equal(S.on_lead(got), whole)
         assert torch.equal(got_claimed, claimed)
+
+
+@pytest.mark.parametrize("shards", SHARDS)
+def test_witness_of_every_component_with_one_carry_pass_a_shard(shards):
+    """sharding.air_witness_many over n row shards, several components in
+    one call (one of 4 rows: at 8 shards it has fewer rows than shards and
+    stays on the lead): each interaction and claimed sum the reference's
+    `WitnessEval.build_interaction` (the host code the jitted program
+    traces), the totals gathered in one copy a shard, one carry pass
+    call a shard after the first over every sharded component's block."""
+    rng = np.random.default_rng(40 + shards)
+    raw = _elements(rng)
+    elems = {k: ref_fw.LookupElements(z, a, s) for k, (z, a, s) in raw.items()}
+    ew = _port_elems(raw)
+    comps, want = [], []
+    for name, n in (("mul", 1 << 6), ("sum_reduce", 1 << 5), ("inputs", 4), ("exp2_lookup", 1 << 6)):
+        comp, ref = _pair(name)
+        main = {c: _words(rng, n) for c in comp.MAIN}
+        pp = {p: _words(rng, n) for p in comp.PP_IDS}
+        wev = ref_fw.WitnessEval(main, pp)
+        ref.evaluate(wev, elems)
+        ref_cols, ref_claimed = wev.build_interaction()
+        want.append((np.concatenate([np.asarray(c, dtype=np.uint32).T for c in ref_cols]),
+                     np.asarray(ref_claimed, dtype=np.uint32)))
+        comps.append((tape.record(comp, witness=True), [f.u32_to_tensor(main[c]) for c in comp.MAIN],
+                      [f.u32_to_tensor(pp[p]) for p in comp.PP_IDS]))
+    carries = []
+    real = kernels.add_carry
+
+    def add_carry(rows, carry):
+        carries.append((len(rows), tuple(carry.shape)))
+        return real(rows, carry)
+
+    try:
+        kernels.add_carry = add_carry
+        got = S.air_witness_many(_mesh(shards), comps, ew)
+    finally:
+        kernels.add_carry = real
+    sharded = 3 if shards == 8 else 4
+    assert carries == [(sharded, (sharded, 4))] * (shards - 1)
+    for (out, claimed), (cols, total) in zip(got, want, strict=True):
+        assert np.array_equal(f.tensor_to_u32(S.on_lead(out)), cols)
+        assert np.array_equal(f.tensor_to_u32(claimed), total)
+    assert isinstance(got[2][0], S.RowBlocks) == (shards < 8)
 
 
 def test_add_carry_adds_one_word_a_coordinate():
@@ -379,5 +423,5 @@ def test_scattered_bytes_count_what_leaves_the_lead(shards):
     tp = tape.record(comp, witness=True)
     cols = [f.u32_to_tensor(_words(rng, 1 << log)) for _ in list(comp.MAIN) + list(comp.PP_IDS)]
     S.reset_bytes()
-    S.air_witness_rows(mesh, tp, cols[: len(comp.MAIN)], cols[len(comp.MAIN) :], _port_elems(_elements(rng)))
+    S.air_witness_many(mesh, [(tp, cols[: len(comp.MAIN)], cols[len(comp.MAIN) :])], _port_elems(_elements(rng)))
     assert S.BYTES["scattered"] == 4 * len(cols) * ((1 << log) - ((1 << log) // shards))

@@ -2,7 +2,7 @@
 (batch 256, chip_smoke.py's graph), in the design of whichever tree is
 given, so that two commits can be measured in turns in one run on one card.
 
-    python3 tools/kernel_timing.py [--tree DIR] [--kernels K3,T4,K8,K10,prove,K6]
+    python3 tools/kernel_timing.py [--tree DIR] [--kernels K3,T4,K8,K10,prove,K6,air_check,carry,logup_sum]
 
 DIR (default: this repository) is the root of a checkout whose
 luminair_tpu_torch is imported; the measurement code (this file and
@@ -62,14 +62,36 @@ chip_smoke.Profiled) is this repository's.  --kernels picks from:
        kernels): K5 at its 2^21 trace rows, K6 at its commit domain of
        blowup 1 and 2 (2^22 and 2^23 rows, stride 2 and 4), each call's
        CUDA-event median of TAPE_REPS after a warm-up, on inputs drawn
-       from one seed.
+       from one seed;
+  air_check
+       the constraint check: the one-component call at mul's 2^21 trace
+       rows (chip_smoke.py's tape kernels' inputs) and the check launches
+       of one check_pie_constraints of the PINN's card PIE (recorded from
+       one run, then replayed: the tree's one launch of every component,
+       or its launch a component) -- each the CUDA-event call ms, the
+       host's wall a call over REPS enqueued calls and the device ms a
+       call; the whole check_pie_constraints (host seconds, median of
+       PROVE_TIMES; one profiled call's device records); and the count of
+       local-memory loads and stores (LDL, STL) and of all instructions in
+       the SASS of each kernel of the tree's air library (cuobjdump);
+  carry
+       the PINN proved over 4 shards of the card (a virtual mesh): the
+       carry pass's launches by shard, PROVE_TIMES proves (the median, and
+       phase2_interaction's median), and one profiled prove's device ms
+       and launches of the carry pass and of K5;
+  logup_sum
+       logup_sum at prover_step's full width (2 relation columns, 2^21
+       rows; chip_smoke.step_inputs): its call ms and its device ms a
+       call (REPS calls profiled), beside its bound;
 
 Each line names the card and its power limit (nvidia-smi).
 """
 
 import argparse
+import re
 import shutil
 import statistics
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -86,7 +108,8 @@ REPS = 50  # calls per profiled or enqueued batch
 PROVES = 5
 PROVE_TIMES = 9  # timed proves a path (`prove`)
 TAPE_REPS = 31  # timed calls of a tape kernel (`K6`)
-KINDS = ("K3", "T4", "K8", "K10", "trace_segment", "profiler_window", "prove", "K6")
+KINDS = ("K3", "T4", "K8", "K10", "trace_segment", "profiler_window", "prove", "K6", "air_check", "carry",
+         "logup_sum")
 
 # Design choices of the trace segment kernel, each undone in a copy of csrc/.
 VARIANTS = {
@@ -388,6 +411,122 @@ def tape_times(kernels, emit, dev) -> None:
         emit({"phase": "tape", "call": name, "ms": chip_smoke.time_ms(call, TAPE_REPS)})
 
 
+def _pinn_pie(T, BS):
+    cx, _ = chip_smoke.pinn_graph(T, BS)
+    settings = T.gen_circuit_settings(cx)
+    return T.gen_trace(cx, settings), settings
+
+
+def sass_counts(lib: Path) -> dict:
+    """{kernel (mangled name): {"LDL": n, "STL": n, "instructions": n}} of
+    the SASS of one kernel library (cuobjdump -sass)."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([cuobjdump, "-sass", str(lib)], check=True, capture_output=True, text=True,
+                          timeout=300).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), {"LDL": 0, "STL": 0, "instructions": 0})
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[0-9T]\s+)?([A-Z][A-Z0-9_]*)", line)
+        if cur is not None and m:
+            cur["instructions"] += 1
+            if m.group(1) in ("LDL", "STL"):
+                cur[m.group(1)] += 1
+    return out
+
+
+def check_times(kernels, T, BS, emit, dev) -> None:
+    """The `air_check` lines above."""
+    from luminair_tpu_torch.air import tape
+    from luminair_tpu_torch.air.components import COMPONENTS_BY_NAME
+    from luminair_tpu_torch.air.debug import check_pie_constraints
+
+    emit({"phase": "air_check_sass", "library": kernels.AIR_CHECK.library_path().name,
+          "kernels": sass_counts(kernels.AIR_CHECK.library_path())})
+    comp, log = COMPONENTS_BY_NAME["mul"], 21
+    rng = np.random.default_rng(21)
+
+    def rnd(n):
+        return torch.from_numpy(rng.integers(0, (1 << 31) - 1, size=n, dtype=np.int64).astype(np.int32)).to(dev)
+
+    tp, n = tape.record(comp), 1 << log
+    ew = [[tuple(int(x) for x in rng.integers(0, (1 << 31) - 1, 4)) for _ in range(2)] for _ in tape.ELEM_KINDS]
+    cargs = (tp, [rnd(n) for _ in comp.MAIN], [rnd(n) for _ in comp.PP_IDS],
+             [rnd(n) for _ in range(4 * tp.n_relations)], rnd(n), tuple(int(x) for x in rng.integers(0, 7, 4)), ew)
+    emit({"phase": "air_check", "call": f"mul, 2^{log} rows, one component", "launches_a_call": 1,
+          **per_call(lambda: kernels.air_check(*cargs))})
+    del cargs
+    pie, settings = _pinn_pie(T, BS)
+    name = "air_check_many" if hasattr(kernels, "air_check_many") else "air_check"
+    orig, kept = getattr(kernels, name), []
+
+    def rec(*a, **k):
+        kept.append((a, k))
+        return orig(*a, **k)
+
+    setattr(kernels, name, rec)
+    try:
+        check_pie_constraints(pie, settings)
+    finally:
+        setattr(kernels, name, orig)
+    before = kernels.AIR_CHECK.launches
+    orig(*kept[0][0], **kept[0][1])
+    per_wrapper_call = kernels.AIR_CHECK.launches - before
+    emit({"phase": "air_check", "call": f"the PINN's check: {len(kept)} call(s) of kernels.{name}",
+          "launches_a_check": per_wrapper_call * len(kept),
+          **per_call(lambda: [orig(*a, **k) for a, k in kept])})
+    del kept
+    times = []
+    for _ in range(PROVE_TIMES):
+        t0 = time.perf_counter()
+        check_pie_constraints(pie, settings)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    emit({"phase": "air_check", "call": "check_pie_constraints of the PINN's card PIE", "seconds": times,
+          "seconds_median": statistics.median(times),
+          "device": device_ms(lambda: check_pie_constraints(pie, settings), ("check", "air_witness", "scan_tile"))})
+
+
+def carry_times(kernels, T, BS, tracing, emit, dev) -> None:
+    """The `carry` lines above."""
+    from luminair_tpu_torch.parallel import sharding as S
+
+    pie, settings = _pinn_pie(T, BS)
+    mesh = S.make_chip_mesh(4, devices=[dev] * 4)
+    with S.prove_mesh(mesh):
+        T.prove(pie, settings)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        T.prove(pie, settings)
+        by_shard = {str(k): v.get("add_carry", 0) for k, v in kernels.SHARD_LAUNCHES.items()}
+        times, phase2 = [], []
+        for _ in range(PROVE_TIMES):
+            t0 = time.perf_counter()
+            T.prove(pie, settings)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            phase2.append(tracing.last_phases("prove").get("phase2_interaction"))
+        dev_ms = device_ms(lambda: T.prove(pie, settings), ("add_carry", "air_witness", "scan_tile"))
+    emit({"phase": "carry", "path": "pinn_b256 over 4 shards of the card", "add_carry_launches_by_shard": by_shard,
+          "prove_s": times, "prove_s_median": statistics.median(times), "phase2_interaction_s": phase2,
+          "phase2_interaction_s_median": statistics.median(phase2), "device": dev_ms})
+
+
+def logup_times(kernels, emit, dev) -> None:
+    """The `logup_sum` lines above."""
+    from luminair_tpu_torch import fields as f
+
+    n_cols, log = chip_smoke.MESH_STEP_SHAPES["full_width"]
+    cols, mult, z, alpha = chip_smoke.step_inputs(n_cols, log)
+    values = f.u32_to_tensor(cols[: chip_smoke.MESH_REL_COLS], dev)
+    m = f.u32_to_tensor(mult, dev)
+    emit({"phase": "logup_sum", "shape": [chip_smoke.MESH_REL_COLS, 1 << log],
+          "bound_ms": chip_smoke.bound(*chip_smoke.logup_work(chip_smoke.MESH_REL_COLS, 1 << log))[0],
+          **per_call(lambda: kernels.logup_sum(values, m, z, alpha))})
+
+
 def trace_segment_variants(kernels, T, BS, tree: Path, emit) -> None:
     """The `trace_segment` lines above."""
     csrc = Path(kernels._CSRC)
@@ -498,6 +637,12 @@ def main() -> int:
         tape_times(kernels, emit, dev)
     if "prove" in kinds:
         prove_times(T, BS, tracing, emit)
+    if "air_check" in kinds:
+        check_times(kernels, T, BS, emit, dev)
+    if "carry" in kinds:
+        carry_times(kernels, T, BS, tracing, emit, dev)
+    if "logup_sum" in kinds:
+        logup_times(kernels, emit, dev)
     if not {"K3", "K8", "K10", "profiler_window"} & set(kinds):
         return 0
     cx, _ = chip_smoke.pinn_graph(T, BS)
