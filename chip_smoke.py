@@ -124,6 +124,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      against its twin at prover_step's two shapes (2 relation columns of
      8 x 2^5 and of 16 x 2^21, the PINN's `mul` width and rows), timed at
      the larger beside its twin and bound (with the kernel checks of 4);
+     then through a plan built once, as prover_step calls it (phase
+     logup_plan): the planned call at both shapes against the twin, one
+     plan on four quarters of the full-width rows in turns with a second
+     plan of another z and alpha, each call against the twin, the planned
+     call timed (the kernels line's ms), and the lead's adds of a 4-shard
+     prover_step's LogUp part counted in the host's profiler records
+     (gated to 1);
      after each of bench_n256's and pinn_b256's verify, the path's card
      PIE proved under prove_mesh over 2 and 4 shards of the card (phase
      mesh_prove: counters set to 0 and every twin refused just before the
@@ -134,8 +141,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      shard, peak memory (each card's on distinct cards); every row shard
      must launch K1-K6, and each but the first K5's carry pass,
      add_carry, exactly once a prove: every component's block in one
-     launch; shard 0 none), and over the distinct cards where there
-     are two or more (else a mesh_devices line: "ran": false); after the
+     launch; shard 0 none; in the host's records of one more profiled
+     prove one cumsum and one carry copy a shard after the first), and
+     over the distinct cards where there are two or more (else a mesh_devices line: "ran": false); after the
      PINN's, K3-K6 in their row-shard modes at the PINN's shapes (phase
      mesh_kernels): its card PIE proved over 4 shards of the card at log
      blowups 1 and 2 with every call of K3-K6 and the carry pass kept,
@@ -151,7 +159,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      to the one-shard call's and the twins', the reshard's bytes against
      (n - 1)/n of the tree's, 3 timed calls), and dryrun_multichip(4)
      (luminair_tpu_torch/graft_entry.py; its line says whether the mesh was
-     virtual).
+     virtual);
+ 10. the training script, examples/model/torch_train_black_scholes.py
+     (phase train): 3000 Adam steps of the PINN on the card, its weights
+     written to a temporary directory, the wall time; the last loss below
+     a tenth of the first, every weight finite in load_weights()' shapes,
+     examples/model/weights.npz untouched; 50 steps on the card and on the
+     CPU from the same seed, the losses within rtol 1e-3.
 Then the `kernels` line, and last {"ok": true, "device": {...}}.
 """
 
@@ -322,8 +336,11 @@ class Profiled:
     run again, PROFILE_TRIES windows at most.  Fields: `device`, {device
     record name: [ms, count]}; `host`, the counts of the host's records of
     kernel launches, copies and memory fills (one a runtime or driver
-    call); `lost`, (position among those calls in the window's order, call
-    name) of each call whose correlation id has no device record;
+    call); `ops`, the host's records of aten operators, (name, input
+    shapes, input dtypes, scalar inputs) each, the last three empty but
+    with `record_shapes`; `lost`, (position among those calls in the
+    window's order, call name) of each call whose correlation id has no
+    device record;
     `device_lead_us`, the most by which a device record starts before its
     call's host record; `warm_up_recorded`, how many warm-up launches have
     a device record; `tries`; `wall_ms`, `run` and a synchronise.  The
@@ -337,18 +354,18 @@ class Profiled:
     a warm-up does, mostly.  So a count of work reads the host's records,
     and the device's records name and time that work."""
 
-    def __init__(self, run, need: str = ""):
+    def __init__(self, run, need: str = "", record_shapes: bool = False):
         for self.tries in range(1, PROFILE_TRIES + 1):
-            self._window(run)
+            self._window(run, record_shapes)
             if not need or self.count(need):
                 break
 
-    def _window(self, run):
+    def _window(self, run, record_shapes: bool):
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=record_shapes) as prof:
             for _ in range(PROFILE_WARM_UP_LAUNCHES):
                 torch.cuda._sleep(PROFILE_WARM_UP_CYCLES)
             torch.cuda.synchronize()
@@ -358,7 +375,7 @@ class Profiled:
             torch.cuda.synchronize()
             self.wall_ms = (time.perf_counter() - t0) * 1e3
             time.sleep(PROFILE_PAD_S)
-        on_card, calls = [], []
+        on_card, calls, self.ops = [], [], []
         for e in prof.profiler.kineto_results.events():
             name = e.name()
             if e.device_type() != DeviceType.CPU:
@@ -366,6 +383,9 @@ class Profiled:
                 on_card.append((e.correlation_id(), name, dur, e.start_ns()))
             elif name in HOST_LAUNCH or name.startswith(HOST_COPY + HOST_MEMSET):
                 calls.append((e.start_ns(), e.correlation_id(), name))
+            elif name.startswith("aten::"):
+                self.ops.append((name, e.shapes(), e.dtypes(), e.concrete_inputs()) if record_shapes
+                                else (name, [], [], []))
         calls.sort()
         warm_up = {c for _, c, name in calls[:PROFILE_WARM_UP_LAUNCHES] if name in HOST_LAUNCH}
         if len(warm_up) != PROFILE_WARM_UP_LAUNCHES:
@@ -387,6 +407,9 @@ class Profiled:
 
     def count(self, part: str) -> int:
         return sum(n for k, (_, n) in self.device.items() if part in k)
+
+    def op_count(self, *names: str) -> int:
+        return sum(1 for op in self.ops if op[0] in names)
 
     def ms(self, part: str) -> float:
         return sum(ms for k, (ms, _) in self.device.items() if part in k)
@@ -2642,6 +2665,92 @@ def phase_logup_kernel(kernels, f, dev) -> dict:
     return row
 
 
+def phase_logup_plan(S, kernels, f, dev, card, row: dict) -> None:
+    """logup_sum through a plan built once (kernels.LogupPlan), as
+    prover_step calls it: the planned call at both shapes of
+    phase_logup_kernel against the twin; at full width one plan on the
+    four quarters of the rows (four virtual shards, each into its row of
+    one result) in turns with a second plan of another z and alpha, each
+    call against the twin; the planned call timed beside its bound (the
+    kernels line's ms; `row`, phase_logup_kernel's, keeps the one-off
+    call's as `call_ms`); the lead's adds of a 4-shard prover_step's LogUp
+    part (sharding._logup_sum_body) at full width, counted from the host's
+    records of one profiled call: gated to 1."""
+    err = reused = 0
+    for n_cols, log in MESH_STEP_SHAPES.values():
+        cols, mult, z, alpha = step_inputs(n_cols, log)
+        values, m = f.u32_to_tensor(cols[:MESH_REL_COLS], dev), f.u32_to_tensor(mult, dev)
+        plan = kernels.LogupPlan(z, alpha, MESH_REL_COLS)
+        err = max(err, max_abs_err(plan(values, m), kernels.logup_sum_plain(values, m, z, alpha)))
+    z2, alpha2 = np.random.default_rng(99).integers(1, (1 << 31) - 1, size=(2, 4), dtype=np.uint32)
+    plans = [(plan, z, alpha), (kernels.LogupPlan(z2, alpha2, MESH_REL_COLS), z2, alpha2)]
+    q = values.shape[1] // 4
+    out = torch.empty((4, 4), dtype=f.I32, device=dev)
+    for r in range(4):
+        v, mr = values[:, r * q : (r + 1) * q], m[r * q : (r + 1) * q]
+        for p, zz, aa in plans:
+            p(v, mr, out[r])
+            reused = max(reused, max_abs_err(out[r], kernels.logup_sum_plain(v, mr, zz, aa)))
+    ms = time_ms(lambda: plan(values, m))
+    mesh = S.make_chip_mesh(4, devices=[dev] * 4)
+    body = Profiled(lambda: S._logup_sum_body(mesh, cols[:MESH_REL_COLS], mult, z, alpha), need="logup_sum")
+    adds = body.op_count("aten::add", "aten::add_", "aten::sum")
+    emit({"phase": "logup_plan", "card": card, "shape": [MESH_REL_COLS, values.shape[1]], "max_abs_err": err,
+          "reused_max_abs_err": reused, "planned_call_ms": ms, "call_ms": row["ms"], "bound_ms": row["bound"][0],
+          "bound_by": row["bound"][1], "share_of_bound": row["bound"][0] / ms, "lead_adds_4_shards": adds,
+          "logup_launches_4_shards": body.count("logup_sum")})
+    if err or reused or adds != 1:
+        raise AssertionError(f"logup_plan: max_abs_err {err}, reused plans {reused}, lead adds {adds} (1 planned)")
+    row.update(call_ms=row["ms"], ms=ms)
+
+
+TRAIN_STEPS = 3000  # the training script's default
+TRAIN_CHECK_STEPS = 50  # the card's and the CPU's runs compared
+TRAIN_RTOL = 1e-3  # the loss after TRAIN_CHECK_STEPS, card against CPU (float32 sums in other orders)
+
+
+def phase_train(card) -> None:
+    """examples/model/torch_train_black_scholes.py on the card: TRAIN_STEPS
+    Adam steps from init_params(0), the weights written to a temporary
+    directory, the wall time (to a synchronise); gated: the last loss below
+    the first / 10, every weight finite and in the shapes load_weights()
+    reads, examples/model/weights.npz untouched; then TRAIN_CHECK_STEPS
+    steps on the card and on the CPU, the loss after them within
+    TRAIN_RTOL."""
+    import contextlib
+    import io
+    import tempfile
+
+    mod = example_module("model/torch_train_black_scholes")
+    weights = os.path.join(ROOT, "examples", "model", "weights.npz")
+    before = os.path.exists(weights) and os.stat(weights).st_mtime_ns
+    printed = io.StringIO()
+    with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(printed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, losses = mod.train(TRAIN_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lines = printed.getvalue().splitlines()
+        mod.save_weights(model, os.path.join(d, "w.npz"))
+        saved = dict(np.load(os.path.join(d, "w.npz")))
+        card_check = mod.train(TRAIN_CHECK_STEPS)[1][-1]
+        cpu_check = mod.train(TRAIN_CHECK_STEPS, device="cpu")[1][-1]
+    shapes = {k: list(v.shape) for k, v in saved.items()}
+    finite = all(np.isfinite(v).all() for v in saved.values())
+    after = os.path.exists(weights) and os.stat(weights).st_mtime_ns
+    emit({"phase": "train", "card": card, "steps": TRAIN_STEPS, "seconds": wall, "first_loss": float(losses[0]),
+          "final_loss": float(losses[-1]), "weights_shapes": shapes, "weights_finite": finite,
+          "printed": lines, f"card_loss_after_{TRAIN_CHECK_STEPS}": float(card_check),
+          f"cpu_loss_after_{TRAIN_CHECK_STEPS}": float(cpu_check), "weights_npz_untouched": before == after})
+    want = {"w1": [2, 64], "b1": [64], "w2": [64, 64], "b2": [64], "w3": [64, 1], "b3": [1]}
+    if not (losses[-1] < losses[0] / 10 and finite and shapes == want and before == after
+            and abs(card_check - cpu_check) <= TRAIN_RTOL * abs(cpu_check)):
+        raise AssertionError(f"train: losses {losses[0]} -> {losses[-1]}, finite {finite}, shapes {shapes}, "
+                             f"weights.npz untouched {before == after}, after {TRAIN_CHECK_STEPS} steps card "
+                             f"{card_check} against CPU {cpu_check}")
+
+
 def plain_step(kernels, f, dev, cols, mult, z, alpha):
     """prover_step's result from the plain twins on the card, one device."""
     t = f.u32_to_tensor(cols, dev)
@@ -2725,7 +2834,10 @@ def phase_mesh_prove(T, S, kernels, serde, tape, card, tag, pie, settings, proof
     the lead, K1-K7 and K9 launches per shard, peak device memory (on
     distinct cards, each card's).  Every row shard must launch K1-K6, and
     every one but the first K5's carry pass exactly once (every component's
-    block in one launch), the first none.  Returns {shards: launches}."""
+    block in one launch), the first none.  In the host's records of one
+    more prove (profiled, every twin refused): one cumsum (the carries)
+    and one carry copy a shard after the first.  Returns {shards:
+    launches}."""
     from luminair_tpu_torch.air.layout import AirLayout
 
     t_phase = time.perf_counter()
@@ -2775,6 +2887,10 @@ def phase_mesh_prove(T, S, kernels, serde, tape, card, tag, pie, settings, proof
                 T.prove(pie, settings)
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
+        with twins_refused(kernels, tape), S.prove_mesh(mesh):
+            ops = Profiled(lambda: T.prove(pie, settings), record_shapes=True).ops
+        cumsums = sum(1 for op in ops if op[0] == "aten::cumsum")
+        carries = [op[1][0] for op in ops if carry_copy(op)]
         emit({"phase": "mesh_prove", "path": tag, "card": card, "shards": n, "virtual": mesh.virtual,
               "devices": [str(d) for d in devs], "first_prove_seconds": first_s, "prove_seconds": times,
               "prove_seconds_median": statistics.median(times), "one_device_seconds": one_s,
@@ -2785,7 +2901,11 @@ def phase_mesh_prove(T, S, kernels, serde, tape, card, tag, pie, settings, proof
               "launches": {k: v for k, v in launches.items() if v},
               "launches_by_shard": by_shard, "peak_device_bytes": peak, "peak_device_bytes_by_card": peaks,
               "proof_bytes_equal_one_device": True,
-              "twins_called": 0, "native_verify": "accepted", "native_verify_seconds": verify_s})
+              "twins_called": 0, "native_verify": "accepted", "native_verify_seconds": verify_s,
+              "cumsums": cumsums, "carry_copies": len(carries), "carry_copy_shapes": carries})
+        if cumsums != 1 or len(carries) != n - 1:
+            raise AssertionError(f"{tag} over {n} shards: {cumsums} cumsums (1 planned) and {len(carries)} carry "
+                                 f"copies (one a shard after the first) in the host's records of a prove")
         short = [r for r in range(n) if not all(by_shard.get(str(r), {}).get(k) for k in MESH_ROW_KERNELS)
                  or by_shard.get(str(r), {}).get("add_carry", 0) != int(r > 0)]
         if short or not any(by_shard.get(str(r), {}).get("oods_eval") for r in range(n)):
@@ -2797,6 +2917,16 @@ def phase_mesh_prove(T, S, kernels, serde, tape, card, tag, pie, settings, proof
         out[n] = launches
     emit({"phase": "mesh_proves", "path": tag, "virtual": virtual, "seconds": time.perf_counter() - t_phase})
     return out
+
+
+def carry_copy(op) -> bool:
+    """A host record of aten::to (recorded with its shapes) that moves a
+    (C, 4) int32 tensor to a device without waiting: a shard's C carries
+    (sharding.air_witness_many).  On one card it returns the tensor
+    itself, but the host still records the call."""
+    name, shapes, dtypes, scalars = op
+    return (name == "aten::to" and bool(shapes) and len(shapes[0]) == 2 and shapes[0][1] == 4 and dtypes[:1] == ["int"]
+            and True in scalars)
 
 
 def phase_mesh_kernels(T, S, kernels, tape, f, dev, card, tag, pie, settings) -> tuple:
@@ -2938,6 +3068,7 @@ def main() -> int:
     pinn_logs = {k: t.log_size for k, t in pinn_host[0].trace_tables.items() if t.n_rows}
     rows = phase_kernels(kernels, circle, f, dev, pinn_logs)
     rows["logup_sum"] = phase_logup_kernel(kernels, f, dev)
+    phase_logup_plan(S, kernels, f, dev, card, rows["logup_sum"])
 
     launches, path_errs = {}, {}
     # The kernel checks' buffers (2^27-word LDEs) stay out of the first
@@ -3013,6 +3144,7 @@ def main() -> int:
     phase_parity(T, serde)
     launches["mesh_step"] = phase_mesh_step(S, kernels, f, dev, card)
     phase_dryrun(card)
+    phase_train(card)
 
     launches.update({"verify_" + tag: c for tag, c in VERIFY_LAUNCHES.items()})
     line = []

@@ -125,19 +125,27 @@ class Kernel:
         return self._fns
 
     def launch(self, symbol: str, device: torch.device, *args):
-        """One call of `symbol` on `device`'s current stream, with `device`
-        the current device for its duration: the C entry point launches
-        on (and sets attributes of) the current device.  The device is
-        switched only when it is another than the current one."""
-        fn = self._load()[symbol]
-        stream = torch.cuda.current_stream(device).cuda_stream
-        if device.index is None or device.index == torch.cuda.current_device():
+        """One call of `symbol` on `device`'s current stream (`run`)."""
+        self.run(self._load()[symbol], device, *args)
+
+    def run(self, fn, device: torch.device, *args):
+        """One call of the C entry point `fn` (from `_load`, for a caller
+        that keeps it) on `device`'s current stream, with `device` the
+        current device for its duration: the C entry
+        point launches on (and sets attributes of) the current device.  The
+        device is switched only when it is another than the current one."""
+        current = torch.cuda.current_device()
+        index = current if device.index is None else device.index
+        # The stream's handle without making a torch.cuda.Stream object, as
+        # PyTorch's generated code reads it.
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        if index == current:
             err = fn(*args, stream)
         else:
             with torch.cuda.device(device):
                 err = fn(*args, stream)
         if err != 0:
-            raise KernelError(f"{self.name}.{symbol}: CUDA error {err} at launch")
+            raise KernelError(f"{self.name}.{fn.__name__}: CUDA error {err} at launch")
         self.launches += 1
 
 
@@ -1886,34 +1894,77 @@ LOGUP_CTAS_PER_SM = 4
 _LOGUP_SCRATCH: Dict[torch.device, torch.Tensor] = {}
 
 
+class LogupPlan:
+    """logup_sum's launch parameters for one (z, alpha, K), built once and
+    used for any number of row blocks: z's words and alpha's K powers, and
+    per device a LogupArgs with the scratch, K, z and the powers filled,
+    the C entry point and the CTA cap.  A call writes only the values,
+    multiplicities, output, row count and row stride, and launches; the
+    launch copies the parameters, so the next call may rewrite them."""
+
+    def __init__(self, z, alpha, k: int):
+        _require(1 <= k <= LOGUP_MAX_K, f"logup_sum: 1 to {LOGUP_MAX_K} relation columns, got {k}")
+        self.k, self.z, self.alpha = k, _words(z), _words(alpha)
+        self.pows = [w for q in f.qm31_powers_ints((1, 0, 0, 0), self.alpha, k)[0] for w in q]
+        self._on: Dict[torch.device, tuple] = {}
+
+    def args(self) -> "LogupArgs":
+        """A LogupArgs with K, z and the powers filled (no pointers)."""
+        a = LogupArgs(k=self.k)
+        a.z[:] = self.z
+        a.pows[: 4 * self.k] = self.pows
+        return a
+
+    def _device(self, dev: torch.device) -> tuple:
+        got = self._on.get(dev)
+        if got is None:
+            cap = LOGUP_CTAS_PER_SM * _sm_count(dev)
+            if dev not in _LOGUP_SCRATCH:
+                _LOGUP_SCRATCH[dev] = torch.zeros(4 * cap + 1, dtype=f.I32, device=dev)
+            a = self.args()
+            a.partial = _LOGUP_SCRATCH[dev].data_ptr()
+            got = self._on[dev] = (a, ctypes.addressof(a), LOGUP_SUM._load()["lum_logup_sum"], cap)
+        return got
+
+    def __call__(self, values: torch.Tensor, mult: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(4,) int32 QM31: sum_i mult_i / (z - sum_k alpha^k values[k, i]),
+        written into `out` when given (a contiguous (4,) int32 on the
+        values' device, e.g. a row of a result of several blocks).
+        values: (K, n) int32 M31 words, each row contiguous (any row
+        stride); mult: (n,) int32 M31 words on the same device.  The
+        inverse of 0 is 0."""
+        if not (values.dtype == f.I32 and values.dim() == 2 and values.stride(1) == 1
+                and values.shape[0] == self.k):
+            raise KernelError(f"logup_sum: values must be ({self.k}, n) int32 with contiguous rows")
+        n = values.shape[1]
+        if not (n > 0 and mult.dtype == f.I32 and mult.shape == (n,) and mult.is_contiguous()
+                and mult.device == values.device):
+            raise KernelError(f"logup_sum: mult must be ({n},) contiguous int32 beside the values")
+        if out is not None and not (out.dtype == f.I32 and out.shape == (4,) and out.is_contiguous()
+                                    and out.device == values.device):
+            raise KernelError("logup_sum: out must be (4,) contiguous int32 beside the values")
+        if _on_cpu(values):
+            got = logup_sum_plain(values, mult, self.z, self.alpha)
+            return got if out is None else out.copy_(got)
+        dev = values.device
+        a, ptr, fn, cap = self._device(dev)
+        if out is None:
+            out = torch.empty(4, dtype=f.I32, device=dev)
+        a.values, a.mult, a.out, a.n, a.stride = values.data_ptr(), mult.data_ptr(), out.data_ptr(), n, values.stride(0)
+        LOGUP_SUM.run(fn, dev, ptr, min(-(-n // LOGUP_THREADS), cap))
+        return out
+
+
 def logup_sum(values: torch.Tensor, mult: torch.Tensor, z, alpha) -> torch.Tensor:
-    """(4,) int32 QM31: sum_i mult_i / (z - sum_k alpha^k values[k, i]).
-    values: (K, n) int32 M31 words, each row contiguous (any row stride);
-    mult: (n,) int32 M31 words on the same device; z, alpha: QM31 (4
-    words).  The inverse of 0 is 0.  On the card: one launch, its CTAs'
-    partials added by the last one, in a scratch kept per device (its
-    counter zeroed when made and reset by each launch's last CTA: one
-    stream a device)."""
-    _require(values.dtype == f.I32 and values.dim() == 2 and values.stride(1) == 1,
-             "logup_sum: values must be (K, n) int32 with contiguous rows")
-    k, n = values.shape
-    _require(1 <= k <= LOGUP_MAX_K, f"logup_sum: 1 to {LOGUP_MAX_K} relation columns, got {k}")
-    _require(n > 0 and mult.dtype == f.I32 and tuple(mult.shape) == (n,) and mult.is_contiguous()
-             and mult.device == values.device, f"logup_sum: mult must be ({n},) contiguous int32 beside the values")
-    z, alpha = _words(z), _words(alpha)
-    if _on_cpu(values):
-        return logup_sum_plain(values, mult, z, alpha)
-    dev = f.device_key(values.device)
-    ctas = min(-(-n // LOGUP_THREADS), LOGUP_CTAS_PER_SM * _sm_count(dev))
-    if dev not in _LOGUP_SCRATCH:
-        _LOGUP_SCRATCH[dev] = torch.zeros(4 * LOGUP_CTAS_PER_SM * _sm_count(dev) + 1, dtype=f.I32, device=dev)
-    scratch = _LOGUP_SCRATCH[dev]
-    out = torch.empty(4, dtype=f.I32, device=dev)
-    a = LogupArgs(values.data_ptr(), mult.data_ptr(), scratch.data_ptr(), out.data_ptr(), n, values.stride(0), k, 0)
-    a.z[:] = z
-    a.pows[: 4 * k] = [w for q in f.qm31_powers_ints((1, 0, 0, 0), alpha, k)[0] for w in q]
-    LOGUP_SUM.launch("lum_logup_sum", dev, ctypes.addressof(a), ctas)
-    return out
+    """(4,) int32 QM31: sum_i mult_i / (z - sum_k alpha^k values[k, i])
+    (LogupPlan; a caller with several row blocks of one (z, alpha) builds
+    the plan once).  values: (K, n) int32 M31 words, each row contiguous;
+    mult: (n,) int32 on the same device; z, alpha: QM31 (4 words).  On the
+    card: one launch, its CTAs' partials added by the last one, in a
+    scratch kept per device (its counter zeroed when made and reset by
+    each launch's last CTA: one stream a device)."""
+    _require(values.dim() == 2, "logup_sum: values must be (K, n) int32 with contiguous rows")
+    return LogupPlan(z, alpha, values.shape[0])(values, mult)
 
 
 def logup_sum_plain(values: torch.Tensor, mult: torch.Tensor, z, alpha) -> torch.Tensor:

@@ -630,17 +630,49 @@ def down_commit(comp: RowBlocks, stride: int, log: int) -> RowBlocks:
 
 
 def _logup_sum_body(mesh: Mesh, values: np.ndarray, mult: np.ndarray, z, alpha) -> torch.Tensor:
-    """Row-parallel: logup_sum on each row shard's rows (uploaded straight
-    to it), the n sums added on the lead: (4,) int32 there."""
-    total = torch.zeros(4, dtype=f.I64, device=mesh.lead)
-    for (pos, dev), (a, b) in zip(mesh.row_shards(), split_evenly(values.shape[1], mesh.size)):
-        if a == b:
-            continue
-        v, m = f.u32_to_tensor(values[:, a:b], dev), f.u32_to_tensor(mult[a:b], dev)
+    """Row-parallel: logup_sum on each row shard's rows, one plan for all
+    of them (kernels.LogupPlan), each shard's rows staged and copied
+    (`_shard_rows`).  Each shard's (4,) partial goes into its row of one
+    (S, 4) result on the lead: written there by the launch when the shard
+    is on the lead's device, else copied in stream order.  One reduction
+    sums them there (`lead_sum`): (4,) int32 on the lead."""
+    plan = kernels.LogupPlan(z, alpha, values.shape[0])
+    shards = [(pos, dev, a, b) for (pos, dev), (a, b) in zip(mesh.row_shards(),
+                                                                split_evenly(values.shape[1], mesh.size)) if a < b]
+    parts = torch.empty((len(shards), 4), dtype=f.I32, device=mesh.lead)
+    for i, ((pos, dev, _, _), rows) in enumerate(zip(shards, _shard_rows(values, mult, shards))):
         with kernels.on_shard(pos):
-            part = kernels.logup_sum(v, m, z, alpha)
-        total = f.add(total, part.to(mesh.lead).to(f.I64))
-    return total.to(f.I32)
+            if dev == mesh.lead:
+                plan(rows[:-1], rows[-1], parts[i])
+            else:
+                parts[i].copy_(plan(rows[:-1], rows[-1]), non_blocking=True)
+    return lead_sum(parts)
+
+
+def _shard_rows(values: np.ndarray, mult: np.ndarray, shards):
+    """Each shard's relation rows with its multiplicities below them, a
+    (K + 1, b - a) int32 block on its device, yielded in shard order: one
+    host buffer (pinned when the shards are CUDA devices) holds every
+    shard's block contiguous, filled by torch's copy (on all the host's
+    threads; numpy's takes one), and each block is copied as soon as it is
+    filled (asynchronous from pinned memory), so that one shard's copy
+    and launch overlap the next one's fill."""
+    k = values.shape[0]
+    src, src_mult = torch.from_numpy(values.view(np.int32)), torch.from_numpy(mult.view(np.int32))
+    stage = torch.empty((k + 1) * values.shape[1], dtype=f.I32, pin_memory=shards[0][1].type == "cuda")
+    off = 0
+    for _, dev, a, b in shards:
+        block = stage[off : off + (k + 1) * (b - a)].view(k + 1, b - a)
+        block[:k].copy_(src[:, a:b])
+        block[k].copy_(src_mult[a:b])
+        yield block.to(dev, non_blocking=True)
+        off += block.numel()
+
+
+def lead_sum(parts: torch.Tensor) -> torch.Tensor:
+    """(4,) int32: the QM31 sum of the (S, 4) int32 rows of `parts` (M31
+    words), one reduction mod P (S below 2^32)."""
+    return (parts.to(f.I64).sum(0) % f.P).to(f.I32)
 
 
 def prover_step(mesh: Mesh, cols, mult_m31, z, alpha, log_blowup: int = 1, n_rel_cols: int = 2,
@@ -660,11 +692,12 @@ def prover_step(mesh: Mesh, cols, mult_m31, z, alpha, log_blowup: int = 1, n_rel
     commit = ShardedCommit(mesh, {log_n: cols}, log_blowup)
     commit.blocks.clear()  # the coefficients serve no OODS value here
     cl, tree = log_n + log_blowup, commit.tree
+    # Enqueued before the evaluations' download, which waits for the card.
+    claimed = _logup_sum_body(mesh, cols[:n_rel_cols], np.asarray(mult_m31, dtype=np.uint32), z, alpha)
     if isinstance(tree, ShardedMerkleTree):
         evals = np.concatenate([f.tensor_to_u32(t.cols_by_log[cl - tree.log_shards]) for t in tree.shards], axis=1)
     else:
         evals = f.tensor_to_u32(commit.evals[cl])
-    claimed = _logup_sum_body(mesh, cols[:n_rel_cols], np.asarray(mult_m31, dtype=np.uint32), z, alpha)
     if stats is not None:
         stats.update(moved_bytes=commit.moved_bytes, tree_bytes=evals.nbytes)
     return evals, tree.root, f.tensor_to_u32(claimed)

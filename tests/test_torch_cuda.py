@@ -837,6 +837,39 @@ def test_logup_sum(dev, k, log):
         kernels.logup_sum(_rnd(rng, dev, kernels.LOGUP_MAX_K + 1, 4), mult[:4], z, alpha)
 
 
+def test_logup_plan_reused_on_the_card(dev):
+    """Two plans of other (z, alpha), called in turns on four row blocks
+    (rows of another stride) each, into rows of one result and not: each
+    time the twin's sum, one launch a call."""
+    rng = np.random.default_rng(31)
+    values, mult = _rnd(rng, dev, 2, 1 << 14), _rnd(rng, dev, 1 << 14)
+    zs = [rng.integers(0, f.P, 4).tolist() for _ in range(2)]
+    alphas = [rng.integers(0, f.P, 4).tolist() for _ in range(2)]
+    plans = [kernels.LogupPlan(z, a, 2) for z, a in zip(zs, alphas)]
+    out = torch.zeros((4, 4), dtype=torch.int32, device=dev)
+    before = kernels.LOGUP_SUM.launches
+    for r in range(4):
+        rows = slice(r << 12, (r + 1) << 12)
+        for plan, z, a in zip(plans, zs, alphas):
+            want = kernels.logup_sum_plain(values[:, rows], mult[rows], z, a)
+            assert torch.equal(plan(values[:, rows], mult[rows]), want)
+            plan(values[:, rows], mult[rows], out[r])
+            assert torch.equal(out[r], want)
+    assert kernels.LOGUP_SUM.launches - before == 16
+
+
+@pytest.mark.parametrize("s", [1, 4, 64])
+def test_lead_sum_on_the_card(dev, s):
+    from luminair_tpu_torch.parallel import sharding as S
+
+    rng = np.random.default_rng(s)
+    parts = torch.from_numpy((f.P - 1 - rng.integers(0, 4, (s, 4))).astype(np.int32)).to(dev)
+    want = torch.zeros(4, dtype=torch.int64, device=dev)
+    for row in parts:
+        want = f.add(want, row.to(torch.int64))
+    assert torch.equal(S.lead_sum(parts), want.to(torch.int32))
+
+
 def _virtual(mesh_kind, dev):
     from luminair_tpu_torch.parallel import sharding as S
 
@@ -1080,6 +1113,26 @@ def test_bench_graph_prove_over_two_cards(second_card):
     for r in range(2):
         assert all(kernels.SHARD_LAUNCHES[r].get(k) for k in ("fri_layer", "deep_quotient", "air_witness",
                                                               "air_domain")), r
+
+
+def test_prover_step_over_two_cards(second_card):
+    """prover_step over cuda:0 and cuda:1: the CPU's result (the second
+    shard's LogUp partial copied into its row on the lead), the launches
+    the plan names."""
+    from luminair_tpu_torch.parallel import sharding as S
+
+    rng = np.random.default_rng(6)
+    cols = rng.integers(0, f.P, size=(16, 1 << 9), dtype=np.uint32)
+    mult = rng.integers(0, f.P, size=(1 << 9,), dtype=np.uint32)
+    z, alpha = rng.integers(1, f.P, 4, dtype=np.uint32), rng.integers(1, f.P, 4, dtype=np.uint32)
+    mesh = S.make_chip_mesh(2)
+    kernels.reset_counts()
+    got = S.prover_step(mesh, cols, mult, z, alpha)
+    assert {k: v for k, v in kernels.counts().items() if v} == S.step_launches(mesh, 16, 9)
+    assert kernels.SHARD_LAUNCHES[1]["logup_sum"] == 1
+    want = S.prover_step(S.make_chip_mesh(1, devices=["cpu"]), cols, mult, z, alpha)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = (sorted((ROOT / "luminair_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-              + sorted((ROOT / "tools").glob("*.py")) + sorted((ROOT / "examples").glob("torch_*.py")))
+              + sorted((ROOT / "tools").glob("*.py")) + sorted((ROOT / "examples").glob("**/torch_*.py")))
 
 
 def _imported_modules(path: Path):

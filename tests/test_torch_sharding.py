@@ -21,6 +21,7 @@ from luminair_tpu.crypto import merkle as ref_merkle
 from luminair_tpu.parallel import accel
 from luminair_tpu.parallel import sharding as RS
 from luminair_tpu.verifier import verify as ref_verify
+from luminair_tpu_torch import fields as f
 from luminair_tpu_torch import graft_entry, kernels, serde
 from luminair_tpu_torch import prelude as T
 from luminair_tpu_torch.crypto.merkle import MerkleTree, ShardedMerkleTree, open_trees, verify_decommitment
@@ -86,10 +87,13 @@ def test_prover_step_matches_reference_mesh(shape, log_blowup, host_reference):
 @pytest.mark.parametrize("log_blowup", [1, 2])
 @pytest.mark.parametrize("n", [1, 2, 4, 8])
 def test_prover_step_1d_matches_host_reference(n, log_blowup, host_reference):
-    """1-D meshes; one shard gives the single-device result."""
+    """1-D meshes; one shard gives the single-device result.  Also the
+    reference's step with its rows over n devices (an (n, 1) ('rows',
+    'cols') mesh)."""
     cols, mult, z, alpha = _inputs(seed=11 + n)
     got = S.prover_step(_cpu_mesh(n), cols, mult, z, alpha, log_blowup=log_blowup)
     _assert_step(got, RS.host_reference_step(cols, mult, z, alpha, log_blowup=log_blowup))
+    _assert_step(got, RS.prover_step(RS.make_mesh(n, (n, 1)), cols, mult, z, alpha, log_blowup=log_blowup))
 
 
 @pytest.mark.parametrize("k", [1, 2, 3, 8])
@@ -102,6 +106,48 @@ def test_logup_sum_plain_matches_reference_body(k):
     got = kernels.logup_sum(torch.from_numpy(cols[:k].view(np.int32)), torch.from_numpy(mult.view(np.int32)), z,
                             alpha)
     np.testing.assert_array_equal(got.numpy().view(np.uint32), np.asarray(want))
+
+
+def test_logup_plan_used_for_two_challenges():
+    """Two plans of other (z, alpha), called in turns on four row blocks
+    each (into rows of one result, and not), each time the twin's sum; a
+    plan's launch parameters hold its own z and alpha's powers (the
+    reference's QM31 arithmetic)."""
+    from luminair_tpu.fields import qm31
+
+    cols, mult, z, alpha = _inputs(n_cols=3, log_n=8, seed=41)
+    _, _, z2, alpha2 = _inputs(seed=42)
+    v, m = torch.from_numpy(cols.view(np.int32)), torch.from_numpy(mult.view(np.int32))
+    plans = [kernels.LogupPlan(z, alpha, 3), kernels.LogupPlan(z2, alpha2, 3)]
+    out = torch.zeros((4, 4), dtype=torch.int32)
+    for r in range(4):
+        rows = slice(64 * r, 64 * (r + 1))
+        for plan, zz, aa in zip(plans, (z, z2), (alpha, alpha2)):
+            want = kernels.logup_sum_plain(v[:, rows], m[rows], zz, aa)
+            assert torch.equal(plan(v[:, rows], m[rows]), want)
+            plan(v[:, rows], m[rows], out[r])
+            assert torch.equal(out[r], want)
+    for plan, zz, aa in zip(plans, (z, z2), (alpha, alpha2)):
+        a, p = plan.args(), qm31.one()
+        assert list(a.z) == zz.tolist() and a.k == 3
+        for k in range(3):
+            assert list(a.pows[4 * k : 4 * k + 4]) == np.asarray(p).tolist()
+            p = qm31.mul(p, aa)
+        assert not any(a.pows[12:])
+
+
+@pytest.mark.parametrize("s", [1, 2, 3, 4, 8, 64])
+def test_lead_sum_equals_the_sequential_adds(s):
+    """One reduction mod P of S partials against S - 1 adds in turn, on
+    QM31 words near P and random ones."""
+    rng = np.random.default_rng(s)
+    words = np.where(rng.random((s, 4)) < 0.5, (1 << 31) - 2 - rng.integers(0, 4, (s, 4)),
+                     rng.integers(0, (1 << 31) - 1, (s, 4)))
+    parts = torch.from_numpy(words.astype(np.int32))
+    want = torch.zeros(4, dtype=torch.int64)
+    for row in parts:
+        want = f.add(want, row.to(torch.int64))
+    assert torch.equal(S.lead_sum(parts), want.to(torch.int32))
 
 
 def test_logup_sum_checks_its_inputs():

@@ -2,7 +2,7 @@
 (batch 256, chip_smoke.py's graph), in the design of whichever tree is
 given, so that two commits can be measured in turns in one run on one card.
 
-    python3 tools/kernel_timing.py [--tree DIR] [--kernels K3,T4,K8,K10,prove,K6,air_check,carry,logup_sum]
+    python3 tools/kernel_timing.py [--tree DIR] [--kernels K3,T4,K8,K10,prove,K6,air_check,carry,logup_sum,mesh_devices]
 
 DIR (default: this repository) is the root of a checkout whose
 luminair_tpu_torch is imported; the measurement code (this file and
@@ -81,8 +81,21 @@ chip_smoke.Profiled) is this repository's.  --kernels picks from:
        and launches of the carry pass and of K5;
   logup_sum
        logup_sum at prover_step's full width (2 relation columns, 2^21
-       rows; chip_smoke.step_inputs): its call ms and its device ms a
-       call (REPS calls profiled), beside its bound;
+       rows; chip_smoke.step_inputs): its call ms, the host's wall a call
+       over REPS enqueued calls and its device ms a call (REPS calls
+       profiled), beside its bound, and the same for a call of a plan
+       built once where the tree has kernels.LogupPlan; the LogUp part of
+       a 4-shard prover_step at that width in four pieces (logup_split);
+       prover_step's host ms (median of PROVE_TIMES, each to a
+       synchronise) over 1, 2 and 4 shards and 2 x 2 of the card;
+  mesh_devices
+       the bench graph's and the PINN's card PIEs proved over the
+       machine's distinct cards (chip_smoke.phase_mesh_devices: 2 and 4
+       shards where there are that many cards; one line saying that
+       nothing ran below two): the one-device bytes, native/ accepting,
+       seconds beside one device, bytes gathered, moved and scattered,
+       peak memory by card, the cumsum and carry copies in the host's
+       records;
 
 Each line names the card and its power limit (nvidia-smi).
 """
@@ -109,7 +122,7 @@ PROVES = 5
 PROVE_TIMES = 9  # timed proves a path (`prove`)
 TAPE_REPS = 31  # timed calls of a tape kernel (`K6`)
 KINDS = ("K3", "T4", "K8", "K10", "trace_segment", "profiler_window", "prove", "K6", "air_check", "carry",
-         "logup_sum")
+         "logup_sum", "mesh_devices")
 
 # Design choices of the trace segment kernel, each undone in a copy of csrc/.
 VARIANTS = {
@@ -514,17 +527,136 @@ def carry_times(kernels, T, BS, tracing, emit, dev) -> None:
           "phase2_interaction_s_median": statistics.median(phase2), "device": dev_ms})
 
 
+def _host_ms(fn, reps: int = PROVE_TIMES) -> float:
+    """Median host wall of fn followed by a synchronise, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+class _no_launch:
+    """While active, logup_sum's launches are skipped (the host's work
+    before each launch alone): the tree's launch method replaced."""
+
+    def __init__(self, kernels):
+        self.k = kernels.LOGUP_SUM
+        self.attr = "run" if hasattr(self.k, "run") else "launch"
+
+    def __enter__(self):
+        setattr(self.k, self.attr, lambda *a: None)
+
+    def __exit__(self, *exc):
+        delattr(self.k, self.attr)
+
+
+def logup_split(kernels, emit, dev, cols, mult, z, alpha) -> None:
+    """The LogUp part of a 4-shard prover_step at full width on a virtual
+    mesh of the card (sharding._logup_sum_body), in four pieces, each
+    ended by a synchronise: the shards' rows to the card (the parent: a
+    numpy slice and a pageable upload a shard; the change: the staged
+    copies), the wrapper's host work before each launch (launches
+    skipped), the device time of the launches, and the lead's copies and
+    adds; then the whole body (host wall to a synchronise, CUDA events,
+    one profiled call: the host's add records and the device's)."""
+    from luminair_tpu_torch import fields as f
+    from luminair_tpu_torch.parallel import sharding as S
+
+    mesh = S.make_chip_mesh(4, devices=[dev] * 4)
+    values = cols[: chip_smoke.MESH_REL_COLS]
+    bounds = [(a, b) for a, b in S.split_evenly(values.shape[1], 4) if a < b]
+    planned = hasattr(kernels, "LogupPlan")
+    if planned:
+        shards = [(p, d, a, b) for (p, d), (a, b) in zip(mesh.row_shards(), bounds)]
+
+        def upload():
+            return [(r[:-1], r[-1]) for r in S._shard_rows(values, mult, shards)]
+
+        def calls(ups):
+            plan = kernels.LogupPlan(z, alpha, values.shape[0])
+            parts = torch.empty((len(ups), 4), dtype=f.I32, device=dev)
+            for i, (v, m) in enumerate(ups):
+                plan(v, m, parts[i])
+            return parts
+
+        def lead(parts):
+            return S.lead_sum(parts)
+    else:
+        def upload():
+            return [(f.u32_to_tensor(values[:, a:b], dev), f.u32_to_tensor(mult[a:b], dev)) for a, b in bounds]
+
+        def calls(ups):
+            return [kernels.logup_sum(v, m, z, alpha) for v, m in ups]
+
+        def lead(parts):
+            total = torch.zeros(4, dtype=f.I64, device=dev)
+            for part in parts:
+                total = f.add(total, part.to(dev).to(f.I64))
+            return total.to(f.I32)
+
+    ups = upload()
+    parts = calls(ups)
+    torch.cuda.synchronize()
+    with _no_launch(kernels):
+        calls(ups)  # warm-up
+        host = []
+        for _ in range(PROVE_TIMES):
+            t0 = time.perf_counter()
+            calls(ups)
+            host.append((time.perf_counter() - t0) * 1e3)
+    body = chip_smoke.Profiled(lambda: S._logup_sum_body(mesh, values, mult, z, alpha))
+    emit({"phase": "logup_split", "shards": 4, "shape": list(values.shape),
+          "form": "plan" if planned else "a call a shard",
+          "upload_ms": _host_ms(upload), "wrapper_host_ms": statistics.median(host),
+          "device_ms": device_ms(lambda: calls(ups), ("logup_sum",))["ms"], "lead_ms": _host_ms(lambda: lead(parts)),
+          "body_host_ms": _host_ms(lambda: S._logup_sum_body(mesh, values, mult, z, alpha)),
+          "body_call_ms": chip_smoke.time_ms(lambda: S._logup_sum_body(mesh, values, mult, z, alpha)),
+          "body_lead_adds": body.op_count("aten::add", "aten::add_", "aten::sum"),
+          "body_device_ms": {k[:80]: v for k, v in body.device.items()}})
+
+
 def logup_times(kernels, emit, dev) -> None:
     """The `logup_sum` lines above."""
     from luminair_tpu_torch import fields as f
+    from luminair_tpu_torch.parallel import sharding as S
 
     n_cols, log = chip_smoke.MESH_STEP_SHAPES["full_width"]
     cols, mult, z, alpha = chip_smoke.step_inputs(n_cols, log)
     values = f.u32_to_tensor(cols[: chip_smoke.MESH_REL_COLS], dev)
     m = f.u32_to_tensor(mult, dev)
-    emit({"phase": "logup_sum", "shape": [chip_smoke.MESH_REL_COLS, 1 << log],
-          "bound_ms": chip_smoke.bound(*chip_smoke.logup_work(chip_smoke.MESH_REL_COLS, 1 << log))[0],
-          **per_call(lambda: kernels.logup_sum(values, m, z, alpha))})
+    line = {"phase": "logup_sum", "shape": [chip_smoke.MESH_REL_COLS, 1 << log],
+            "bound_ms": chip_smoke.bound(*chip_smoke.logup_work(chip_smoke.MESH_REL_COLS, 1 << log))[0],
+            **per_call(lambda: kernels.logup_sum(values, m, z, alpha))}
+    if hasattr(kernels, "LogupPlan"):
+        plan = kernels.LogupPlan(z, alpha, chip_smoke.MESH_REL_COLS)
+        line["planned"] = per_call(lambda: plan(values, m))
+    emit(line)
+    logup_split(kernels, emit, dev, cols, mult, z, alpha)
+    steps = {}
+    for kind in chip_smoke.MESH_KINDS:
+        mesh = chip_smoke.mesh_of(S, kind, [dev] * 4)
+        steps[kind] = _host_ms(lambda: S.prover_step(mesh, cols, mult, z, alpha, n_rel_cols=chip_smoke.MESH_REL_COLS))
+    emit({"phase": "prover_step", "shape": [n_cols, 1 << log], "host_ms_median": steps})
+
+
+def mesh_devices(kernels, T, BS) -> None:
+    """The `mesh_devices` lines above."""
+    from luminair_tpu_torch import serde
+    from luminair_tpu_torch.air import tape
+    from luminair_tpu_torch.parallel import sharding as S
+
+    card = chip_smoke.phase_card()
+    for tag, build in (("bench_n256", lambda: chip_smoke.bench_graph(T, chip_smoke.N_MAIN)),
+                       ("pinn_b256", lambda: chip_smoke.pinn_graph(T, BS))):
+        cx, _ = build()
+        settings = T.gen_circuit_settings(cx)
+        pie = T.gen_trace(cx, settings)
+        chip_smoke.phase_mesh_devices(T, S, kernels, serde, tape, card, tag, pie, settings, T.prove(pie, settings))
 
 
 def trace_segment_variants(kernels, T, BS, tree: Path, emit) -> None:
@@ -643,6 +775,8 @@ def main() -> int:
         carry_times(kernels, T, BS, tracing, emit, dev)
     if "logup_sum" in kinds:
         logup_times(kernels, emit, dev)
+    if "mesh_devices" in kinds:
+        mesh_devices(kernels, T, BS)
     if not {"K3", "K8", "K10", "profiler_window"} & set(kinds):
         return 0
     cx, _ = chip_smoke.pinn_graph(T, BS)
