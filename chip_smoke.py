@@ -29,8 +29,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      the latency of one dependent Blake2s compression on one thread (K8's
      bound) and of one compression's 240 dependent operations written out
      apart (its floor; both probes in tools/blake2s_latency.cu, built
-     beside the kernels); CUDA-event times of kernel and twin and the least time the
-     card could take for the same work;
+     beside the kernels); the rate of the M31 and QM31 arithmetic on the
+     whole card (tools/field_rate.cu, built beside them too; K5's and
+     K6's operation rate where above the two pipes' issue ceiling);
+     CUDA-event times of kernel and twin and the least time the card
+     could take for the same work;
   5. the bench path: the 256x256 a*b + a graph through Graph -> compile ->
      gen_circuit_settings -> gen_trace -> prove, all on the card by
      default; every kernel of the path must launch between the counters'
@@ -196,6 +199,13 @@ REPS = 7  # timed calls per kernel (median)
 # rate is 132 x 64 x 1.98 GHz = a quarter of the float32 figure.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
+# An SM's 4 schedulers each issue one warp instruction a cycle, 128 lane
+# operations, whichever pipe takes them: the field arithmetic's products
+# go to the FMA pipe as IMAD (64 lanes) beside the ALU's adds, compares
+# and selects (64 lanes), so its ceiling is both pipes at once.  K5's and
+# K6's bounds use it, or tools/field_rate.cu's measured rate where that
+# is higher (field_ops_per_s).
+INT32_ISSUE_OPS_PER_S = 2 * INT32_OPS_PER_S
 
 # Integer instructions per field operation, as the kernels compile them:
 # a multiply is one 32x32->64 product, the Mersenne fold (and, shift,
@@ -240,7 +250,7 @@ def fft_work(words_in: int, words_out: int, log_n: int, n_stages: int, inverse: 
 
 PORT_KERNEL_NAMES = (
     "fft_pass_kernel", "merkle_pass_kernel", "fri_layer_kernel",
-    "deep_quotient_kernel", "air_witness_kernel", "scan_tile", "air_domain_kernel",
+    "deep_quotient_kernel", "air_witness_kernel", "air_domain_kernel",
     "oods_partial_kernel", "oods_combine_kernel", "channel_draw_kernel",
     "decommit_kernel", "grind_pow_kernel", "trace_segment_kernel", "trace_reduce_kernel",
     "lut_boundary_kernel", "check_tapes_kernel",
@@ -255,23 +265,46 @@ def tape_ops(tp) -> int:
     return sum(cost.get(ins[0], 0) for ins in tp.instructions())
 
 
-def witness_row_ops(tp) -> int:
-    """K5 per trace row: the tape, per entry a denominator, a QM31 inverse,
-    a product by the multiplicity and a sum; the scan's 4 adds."""
-    return tape_ops(tp) + tp.n_relations * (OPS_DENOM + OPS_QINV + 4 * OPS_MUL + 4 * OPS_ADD) + 4 * OPS_ADD
+# A QM31 inverse less its M31 inversion: the CM31 norm of each half (two
+# CM31 squares), the norm's M31 norm, and the conjugate's products.
+OPS_QINV_NORMS = OPS_QINV - OPS_INV
+# A row's entries inverted together: the M31 norms' prefix products and the
+# products back, 3 (E - 1), and one M31 inversion for all of them; 1 in
+# place of a zero norm (nonzero and an add) per entry.
+OPS_BATCH_MASK = 4
 
 
-def domain_row_ops(tp, log_trace: int) -> int:
-    """K6 per commit row: the tape, a QM31-by-M31 product and a sum per
-    constraint, per entry a denominator and two QM31 products, the
-    vanishing value's squarings and inverse."""
+def witness_row_ops(tp, batched: bool = True) -> int:
+    """K5 per trace row: the tape, per entry a denominator, its inverse, a
+    product by the multiplicity and a sum; the running sum's 4 adds.  The
+    inverses batched (csrc/air.cuh, PR 17): per entry the norms and
+    conjugate products, one M31 inversion a row and 3 (E - 1) products;
+    unbatched (the count before): a whole QM31 inverse per entry."""
+    E = tp.n_relations
+    per = OPS_DENOM + 4 * OPS_MUL + 4 * OPS_ADD
+    if batched:
+        inverses = E * (OPS_QINV_NORMS + OPS_BATCH_MASK) + 3 * (E - 1) * OPS_MUL + OPS_INV
+    else:
+        inverses = E * OPS_QINV
+    return tape_ops(tp) + E * per + inverses + 4 * OPS_ADD
+
+
+def domain_term_ops(tp) -> int:
+    """K6 per commit row and component: the tape, a QM31-by-M31 product
+    and a sum per constraint, per entry a denominator, two QM31 products
+    and the differences, the last entry's previous row and claimed sum."""
     return (
         tape_ops(tp)
         + tp.n_constraints * (4 * OPS_MUL + 4 * OPS_ADD)
         + tp.n_relations * (OPS_DENOM + 2 * OPS_QMUL + 16 * OPS_ADD)
         + 8 * OPS_ADD + 4 * OPS_MUL
-        + (log_trace - 1) * (OPS_MUL + 2 * OPS_ADD) + OPS_INV + 4 * OPS_MUL
     )
+
+
+def vanishing_ops(log_trace: int) -> int:
+    """K6 per commit row, once for all the components of a domain: V_n's
+    squarings, its inverse and the product by it."""
+    return (log_trace - 1) * (OPS_MUL + 2 * OPS_ADD) + OPS_INV + 4 * OPS_MUL
 
 
 def check_row_ops(tp) -> int:
@@ -432,31 +465,41 @@ def phase_card():
     return out
 
 
-PROBE_SOURCE = os.path.join(ROOT, "tools", "blake2s_latency.cu")
-PROBE = {}  # the latency probes' library (phase_build)
+PROBE_SOURCES = {  # the probes' sources and the symbols each exports
+    "blake2s_latency": ("lum_blake2s_chain", "lum_blake2s_critical_path"),
+    "field_rate": ("lum_field_rate",),
+}
+PROBE = {}  # the probes' functions (phase_build)
 
 
 def start_probe(kernels):
-    """Start nvcc on tools/blake2s_latency.cu (the latency probes, with the
-    kernels' flags and csrc/ headers); returns the function that waits for
-    it and loads the probes into PROBE."""
+    """Start nvcc on each of tools/blake2s_latency.cu (the latency probes)
+    and tools/field_rate.cu (the field arithmetic's rate), with the
+    kernels' flags and csrc/ headers, all at once; returns the function
+    that waits for them and loads their functions into PROBE."""
     import ctypes
 
     os.makedirs(OUT_DIR, exist_ok=True)
-    probe = os.path.join(OUT_DIR, "blake2s_latency.so")
-    proc = subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels._CSRC), "-o", probe,
-                             PROBE_SOURCE], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    procs = {}
+    for name in PROBE_SOURCES:
+        lib = os.path.join(OUT_DIR, name + ".so")
+        procs[name] = lib, subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels._CSRC), "-o", lib,
+             os.path.join(ROOT, "tools", name + ".cu")], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
     def finish():
-        out, err = proc.communicate()
-        if proc.returncode != 0:
-            raise AssertionError(f"tools/blake2s_latency.cu did not build:\n{err}{out}")
-        lib = ctypes.CDLL(probe)
-        for sym in ("lum_blake2s_chain", "lum_blake2s_critical_path"):
-            fn = getattr(lib, sym)
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            PROBE[sym] = fn
+        for name, (path, proc) in procs.items():
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                raise AssertionError(f"tools/{name}.cu did not build:\n{err}{out}")
+            lib = ctypes.CDLL(path)
+            for sym in PROBE_SOURCES[name]:
+                PROBE[sym] = getattr(lib, sym)
+                PROBE[sym].restype = ctypes.c_int
+        for sym in PROBE_SOURCES["blake2s_latency"]:
+            PROBE[sym].argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+        PROBE["lum_field_rate"].argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                                            ctypes.c_int, ctypes.c_void_p]
 
     return finish
 
@@ -569,7 +612,8 @@ def phase_kernels(kernels, circle, f, dev, pinn_logs):
     circle.twiddle_table.cache_clear()  # the checks' tables (K3's of logs 22 and 17) stay out of the paths' peaks
     for name, r in rows.items():
         emit({"phase": "kernel_time", "kernel": name, "shape": r["shape"], "ms": r["ms"],
-              "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1]})
+              "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+              **{f"{k}_ms": r[k][0] for k in ("bound_alu", "bound_before") if k in r}})
     return rows
 
 
@@ -684,7 +728,8 @@ def channel_tree(kernels, cols_by_log, state, on_card: bool) -> torch.Tensor:
 
 
 # The latency of one dependent Blake2s compression on one thread, which
-# bounds K8's steps (blake2s_latency sets it before the first path).
+# bounds K8's steps (blake2s_latency sets it before the first path), and
+# K5's and K6's rate (field_rate, before the kernels' checks).
 MEASURED = {}
 
 
@@ -727,6 +772,50 @@ def blake2s_latency(dev, n: int = 1000) -> float:
           "ns_per_compression_at_max_clock": MEASURED["blake2s_latency_s"] * 1e9,
           "critical_path_ns_at_max_clock": floor / n / max_mhz * 1e3})
     return MEASURED["blake2s_latency_s"]
+
+
+# tools/field_rate.cu's modes: (name, operations a thread a step as the
+# bounds count them, steps a launch).
+FIELD_RATE_MODES = (
+    ("m31_mul", 8 * OPS_MUL, 4096),
+    ("m31_add", 8 * OPS_ADD, 8192),
+    ("qm31_mul_add", 4 * (OPS_QMUL + 4 * OPS_ADD), 512),
+)
+
+
+def field_rate(dev, reps: int = 5) -> float:
+    """Each mode of tools/field_rate.cu on 16 CTAs of 256 threads an SM,
+    timed by CUDA events (the best of `reps` launches after one warm-up):
+    the operations that the bounds count (OPS_MUL, OPS_ADD, OPS_QMUL) a
+    second.  K5's and K6's rate (field_ops_per_s) is the highest of these
+    and of the two pipes' issue ceiling, INT32_ISSUE_OPS_PER_S."""
+    props = torch.cuda.get_device_properties(dev)
+    blocks, threads = 16 * props.multi_processor_count, 256
+    io = torch.randint(1, (1 << 31) - 1, (8 + blocks * threads,), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    line = {"phase": "field_rate", "sms": props.multi_processor_count, "blocks": blocks, "threads": threads}
+    rates = []
+    for mode, (name, ops, steps) in enumerate(FIELD_RATE_MODES):
+        times = []
+        for _ in range(reps + 1):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            if PROBE["lum_field_rate"](mode, io.data_ptr(), steps, blocks, threads, stream) != 0:
+                raise AssertionError(f"field_rate {name}: launch failed")
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        best = min(times[1:])
+        rates.append(blocks * threads * steps * ops / (best * 1e-3))
+        line.update({f"{name}_ms": best, f"{name}_ops_per_s": rates[-1]})
+    MEASURED["field_ops_per_s"] = max(INT32_ISSUE_OPS_PER_S, *rates)
+    clocks = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,clocks.max.sm",
+                             "--format=csv,noheader,nounits"], check=True, capture_output=True, text=True,
+                            timeout=60).stdout.strip().split(",")
+    emit({**line, "alu_ops_per_s": INT32_OPS_PER_S, "issue_ops_per_s": INT32_ISSUE_OPS_PER_S,
+          "k5_k6_ops_per_s": MEASURED["field_ops_per_s"], "sm_clock_mhz_after": float(clocks[0]),
+          "max_sm_clock_mhz": float(clocks[1])})
+    return MEASURED["field_ops_per_s"]
 
 
 POW_GATE_CALLS = 20
@@ -855,12 +944,13 @@ def tape_kernels(kernels, f, dev, pinn_logs, rng, rnd, check):
         err5 |= check(f"air_witness {name} 2^{n}", lambda: torch.cat([o.reshape(-1) for o in kernels.air_witness(tpw, main, pp, ew)]),
                       lambda: torch.cat([o.reshape(-1) for o in tape.witness_plain(tpw, main, pp, ew)]))
         if name == "mul":
-            n_in, n_out = (len(main) + len(pp)) << n, (16 * tpw.n_relations) << n
+            wa = {"comps": [(tpw, main, pp)]}
             rows["air_witness"] = dict(
                 shape=f"mul, 2^{n} rows, {len(main)} columns, E = {tpw.n_relations}", err=0,
                 ms=time_ms(lambda: kernels.air_witness(tpw, main, pp, ew)),
                 plain_ms=time_ms(lambda: tape.witness_plain(tpw, main, pp, ew)),
-                bound=bound(4 * n_in + n_out, (1 << n) * witness_row_ops(tpw)),
+                bound=bound(*witness_work(wa)), bound_alu=bound(*witness_work(wa, alu_only=True)),
+                bound_before=bound(*witness_work(wa, False)),
             )
         del main, pp
         tpd = tape.record(comp)
@@ -888,15 +978,13 @@ def tape_kernels(kernels, f, dev, pinn_logs, rng, rnd, check):
         )
         err6 |= check(f"air_domain {name} 2^{n + 1}", lambda: kernels.air_domain(*args), lambda: tape.domain_plain(*args))
         if name == "mul":
-            base = rnd(m, 4)
-            err6 |= check(f"air_domain {name} 2^{n + 1} accumulate", lambda: kernels.air_domain(*args, acc=base.clone()),
-                          lambda: tape.domain_plain(*args, acc=base))
-            n_cols = len(comp.MAIN) + len(comp.PP_IDS) + 4 * tpd.n_relations + 2  # + is_first, xs
+            da = domain_call(args)
             rows["air_domain"] = dict(
                 shape=f"mul, 2^{n + 1} rows (blowup 1), K = {tpd.n_constraints}, E = {tpd.n_relations}", err=0,
                 ms=time_ms(lambda: kernels.air_domain(*args)),
                 plain_ms=time_ms(lambda: tape.domain_plain(*args)),
-                bound=bound((4 * n_cols + 16) * m, m * domain_row_ops(tpd, n)),
+                bound=bound(*domain_work(da)), bound_alu=bound(*domain_work(da, alu_only=True)),
+                bound_before=bound(*domain_work(da, True)),
             )
         del args
     rows["air_witness"]["err"], rows["air_domain"]["err"], rows["air_check"]["err"] = err5, err6, err_check
@@ -1079,8 +1167,9 @@ def path_launches(kernels, tag, first_s, launches, bottoms, expect, k3_limit, pr
     before it (one prove), and K2's trees with the launches they may take
     (ceil((L + 1) / (t + 1)) each).  Fails if a kernel of the path never
     launched, K2 took more, K7 more than one call (two launches) per prove,
-    K4 more than one, K3 more than `k3_limit` (one a committed FRI layer
-    and one for the largest input's circle fold), K8 other than one launch
+    K4 more than one, K5 or K6 other than one, K3 more than `k3_limit` (one
+    a committed FRI layer and one for the largest input's circle fold), K8
+    other than one launch
     (alpha0) with one step in a K2 root pass per committed FRI layer, or
     K10 other than one."""
     limit = sum(-(-(b + 1) // (kernels.MERKLE_TILE_LOG + 1)) for b in bottoms)
@@ -1097,6 +1186,9 @@ def path_launches(kernels, tag, first_s, launches, bottoms, expect, k3_limit, pr
                              f"K7 {launches['oods_eval']} calls, K4 {launches['deep_quotient']} (at most 1 each)")
     if launches["fri_layer"] > k3_limit:
         raise AssertionError(f"{tag}: K3 took {launches['fri_layer']} launches (at most {k3_limit})")
+    if launches["air_witness"] != 1 or launches["air_domain"] != 1:
+        raise AssertionError(f"{tag}: K5 took {launches['air_witness']} launches and K6 {launches['air_domain']}: "
+                             "one each a prove on one device")
     if launches["fri_channel"] != 1 or in_root_passes != fri_layers or launches["grind_pow"] != 1:
         raise AssertionError(f"{tag}: K8 took {launches['fri_channel']} launches and {in_root_passes} steps in root "
                              f"passes ({fri_layers} FRI layers), K10 {launches['grind_pow']}: 1, {fri_layers}, 1 "
@@ -1201,13 +1293,11 @@ def path_twins(kernels, tape, f):
         "fri_layer": ("fri_layer", lambda a: kernels.fri_layer_plain(
             a["values"], a["twiddles"], a["alpha"], a["t0"], a["mixes"], a["alpha0"]), ("values", "twiddles", "mixes")),
         "deep_quotient_many": ("deep_quotient", lambda a: kernels.deep_quotient_many_plain(a["plan"]), ("plan",)),
-        "air_witness": ("air_witness", lambda a: tape.witness_plain(a["tp"], a["main"], a["pp"], a["ew"],
-                                                                    a.get("carry")), ("tp", "main")),
+        "air_witness_many": ("air_witness", lambda a: kernels.air_witness_many_plain(a["comps"], a["ew"]),
+                             ("comps",)),
         "add_carry": ("add_carry", lambda a: kernels.add_carry_plain(a["rows"], a["carry"]), ("rows",)),
-        "air_domain": ("air_domain", lambda a: tape.domain_plain(
-            a["tp"], a["main"], a["pp"], a["inter"], a["is_first"], f.qm31_words(a["claimed"]), a["ew"],
-            a["pows"], a["log_trace"], a["stride"], a["acc"], a.get("row0", 0), a.get("log_domain"), a.get("halo")),
-            ("tp", "is_first", "stride", "acc", "row0")),
+        "air_domain_many": ("air_domain", lambda a: kernels.air_domain_many_plain(a["blocks"], a["ew"]),
+                            ("blocks",)),
         "oods_eval_many": ("oods_eval", lambda a: kernels.oods_eval_many_plain(a["groups"]), ("groups",)),
         "channel_draw_felt": ("fri_channel", lambda a: kernels.channel_draw_felt_plain(a["state"], a["out"]), ()),
         "decommit": ("decommit", lambda a: kernels.decommit_plain(a["plan"]), ("plan",)),
@@ -1235,6 +1325,11 @@ def describe(x):
         return tuple(x.shape) if x.is_contiguous() else (tuple(x.shape), x.stride())
     if isinstance(x, (list, tuple)) and x and isinstance(x[0], torch.Tensor):
         return (len(x),) + tuple(x[0].shape)
+    if isinstance(x, list) and x and hasattr(x[0], "terms"):  # K6's blocks: each one's components, rows, halo
+        return tuple((tuple(t.tp.name for t in b.terms), b.rows, b.stride, b.row0, b.terms[0].halo is not None)
+                     for b in x)
+    if isinstance(x, list) and x and isinstance(x[0], tuple) and hasattr(x[0][0], "n_relations"):  # K5's components
+        return tuple((c[0].name, describe(list(c[1]) + list(c[2])), len(c) > 3 and c[3] is not None) for c in x)
     if isinstance(x, list) and all(m is None or isinstance(m[0], torch.Tensor) for m in x):  # K3's joining inputs
         return tuple(None if m is None else tuple(m[0].shape) for m in x)
     if hasattr(x, "n_ctas"):  # a DEEP-quotient plan: its groups' logs and widths (and its row shard)
@@ -1271,8 +1366,8 @@ def flat(out, args=None) -> torch.Tensor:
         out = torch.tensor([out], dtype=torch.int64)
     elif isinstance(out, dict):  # K4: per log
         out = torch.cat([v.reshape(-1) for v in out.values()])
-    elif isinstance(out, (tuple, list)):  # K5: columns and sum; the carry pass: its blocks
-        out = torch.cat([o.reshape(-1) for o in out])
+    elif isinstance(out, (tuple, list)):  # K5: interactions and sums; K6: quotients; the carry pass: its blocks
+        out = torch.cat([flat(o) if isinstance(o, (tuple, list)) else o.reshape(-1) for o in out])
     written = [args[k].reshape(-1).to(out.device, out.dtype) for k in WRITTEN_ARGS if args and args.get(k) is not None]
     return torch.cat([out.reshape(-1)] + written) if written else out
 
@@ -1509,11 +1604,26 @@ def quotient_work(plan):
     return n_bytes, ops
 
 
-def witness_work(a: dict):
-    """(bytes, operations) of one K5 call: its columns read once, 4E
-    coordinates written; the tape and the LogUp arithmetic per row."""
-    tp, n = a["tp"], a["main"][0].shape[0] if a["main"] else a["pp"][0].shape[0]
-    return 4 * (len(a["main"]) + len(a["pp"])) * n + 16 * tp.n_relations * n, n * witness_row_ops(tp)
+def field_ops_per_s(alu_only: bool = False) -> float:
+    """The rate of K5's and K6's operations: the issue ceiling of the
+    ALU and FMA pipes together, or tools/field_rate.cu's best measured
+    rate (field_rate) where it is higher; alu_only: the ALU pipe's
+    INT32_OPS_PER_S, as the bounds counted before."""
+    return INT32_OPS_PER_S if alu_only else MEASURED.get("field_ops_per_s", INT32_ISSUE_OPS_PER_S)
+
+
+def witness_work(a: dict, batched: bool = True, alu_only: bool = False):
+    """(bytes, operations, rate) of one K5 call (`air_witness_many`): each
+    component's columns and carry read once, its 4E coordinates and
+    claimed sum written once; the tape and the LogUp arithmetic per row
+    (`witness_row_ops`) at field_ops_per_s.  batched=False: the count
+    before the row's inverses shared one M31 inversion, at the ALU rate."""
+    n_bytes = ops = 0
+    for tp, main, pp, *carry in a["comps"]:
+        n = (list(main) + list(pp))[0].shape[0]
+        n_bytes += 4 * (len(main) + len(pp)) * n + 16 * tp.n_relations * n + 16 + (16 if carry else 0)
+        ops += n * witness_row_ops(tp, batched)
+    return n_bytes, ops, field_ops_per_s(alu_only or not batched)
 
 
 def add_carry_work(a: dict):
@@ -1524,14 +1634,38 @@ def add_carry_work(a: dict):
     return 8 * n + 16 * len(blocks), n * OPS_ADD
 
 
-def domain_work(a: dict):
-    """(bytes, operations) of one K6 call: its columns, the interaction,
-    is_first and xs read once, the (m, 4) quotients written (and read
-    when it accumulates); the tape and the constraint sum per row."""
-    tp, m = a["tp"], a["is_first"].shape[0]
-    n_cols = len(a["main"]) + len(a["pp"]) + len(a["inter"]) + 2
-    n_bytes = (4 * n_cols + 16) * m + (16 * m if a["acc"] is not None else 0)
-    return n_bytes, m * domain_row_ops(tp, a["log_trace"])
+def domain_work(a: dict, per_component: bool = False, alu_only: bool = False):
+    """(bytes, operations, rate) of one K6 call (`air_domain_many`): per
+    block its components' columns (main, pp, interaction, is_first) and
+    halos and its xs read once, its (m, 4) quotients written once; per row
+    each component's terms (`domain_term_ops`) and one V_n
+    (`vanishing_ops`), at field_ops_per_s.  per_component: the count
+    before one launch summed a domain's components, which charged each
+    component its own V_n, xs and (m, 4) written, at the ALU rate."""
+    n_bytes = ops = 0
+    for blk in a["blocks"]:
+        m, C = blk.rows, len(blk.terms)
+        for t in blk.terms:
+            cols = len(t.main) + len(t.pp) + len(t.inter) + 1
+            halo = 0 if t.halo is None else blk.stride * (len(t.tp.next_cols) + 4)
+            n_bytes += 4 * cols * m + 4 * halo
+            ops += m * domain_term_ops(t.tp)
+        if per_component:
+            n_bytes += C * (4 + 16) * m
+            ops += C * m * vanishing_ops(blk.log_trace)
+        else:  # the components' terms summed in registers, one V_n, one write
+            n_bytes += (4 + 16) * m
+            ops += m * (vanishing_ops(blk.log_trace) + (C - 1) * 4 * OPS_ADD)
+    return n_bytes, ops, field_ops_per_s(alu_only or per_component)
+
+
+def domain_call(args) -> dict:
+    """`air_domain_many`'s arguments of one `kernels.air_domain` call."""
+    tp, main, pp, inter, is_first, claimed, ew, pows, log_trace, stride = args[:10]
+    from luminair_tpu_torch import kernels
+
+    term = kernels.DomainTerm(tp, list(main), list(pp), list(inter), is_first, claimed, list(pows))
+    return {"blocks": [kernels.DomainBlock([term], log_trace, stride)], "ew": ew}
 
 
 def check_work(a: dict):
@@ -1569,8 +1703,8 @@ WORK = {
     "merkle_tree": lambda a: merkle_tree_work(a["desc"].cols),
     "fri_layer": fri_layer_work,
     "deep_quotient_many": lambda a: quotient_work(a["plan"]),
-    "air_witness": witness_work,
-    "air_domain": domain_work,
+    "air_witness_many": witness_work,
+    "air_domain_many": domain_work,
     "add_carry": add_carry_work,
     "air_check_many": check_many_work,
     "oods_eval_many": lambda a: tuple(map(sum, zip(*(oods_work(len(cols), len(chain))
@@ -2321,7 +2455,7 @@ def mutate_cell(f, pie, table: str, column: str, row: int) -> int:
 def phase_debug_pinn(T, kernels, tape, f, card, tag, pie, settings):
     """check_pie_constraints on the PINN's card PIE: the first call (cold)
     with every launch counter set to 0 just before it and read just after
-    (K5 and air_check only, air_check exactly once: every component in one
+    (K5 and air_check only, each exactly once: every component in one
     launch; an empty result), DEBUG_WARM more; then one run with every
     air_check call kept, and mul.out changed at row 3 (the check must name
     constraint 1 of mul at row 3 alone); each kept call through kernel and
@@ -2339,7 +2473,8 @@ def phase_debug_pinn(T, kernels, tape, f, card, tag, pie, settings):
     launches = kernels.counts()
     launched = sorted(k for k, v in launches.items() if v)
     launches["fri_channel_steps_in_root_passes"] = kernels.CHANNEL.hosted
-    if got != {} or launched != sorted(DEBUG_KERNELS) or launches["air_check"] != 1 or kernels.CHANNEL.hosted:
+    if (got != {} or launched != sorted(DEBUG_KERNELS) or launches["air_check"] != 1 or launches["air_witness"] != 1
+            or kernels.CHANNEL.hosted):
         raise AssertionError(f"{tag}: check_pie_constraints returned {got}, launched {launches}")
     warm_s = []
     for _ in range(DEBUG_WARM):
@@ -2438,14 +2573,97 @@ def every_component_check(kernels, tape, f, dev, logs: dict, what: str) -> int:
     return err
 
 
+def every_component_air(kernels, tape, f, dev, logs: dict, what: str) -> dict:
+    """K5 and K6 over every compiled component, one launch each (outside
+    any counted run): each component at 2^logs[name] trace rows, K6 on its
+    commit domain at blowup 1 (the components of one trace log in one
+    block, the alpha powers running on), on random words and on small
+    words (0-2) with their honest interaction (K5's twin), against the
+    twins at max_abs_err 0.  Then the largest trace's components as 4 row
+    blocks: K5 of the blocks with their carries in one launch, K6 of the
+    domain's blocks with their halos, a launch a block.  Returns {kernel:
+    max_abs_err}."""
+    from luminair_tpu_torch.air.components import ALL_COMPONENTS
+
+    rng = np.random.default_rng(17)
+    ew = [[tuple(int(x) for x in rng.integers(0, f.P, 4)) for _ in range(2)] for _ in tape.ELEM_KINDS]
+    errs = {"air_witness": 0, "air_domain": 0}
+    for fill in ("random", "honest"):
+        def col(n):
+            return torch.from_numpy(rng.integers(0, 3 if fill == "honest" else f.P, n).astype(np.int32)).to(dev)
+
+        comps, by_log = [], {}
+        start, alpha = [tuple(int(x) for x in rng.integers(0, f.P, 4)) for _ in range(2)]
+        for comp in ALL_COMPONENTS:
+            n = logs[comp.name]
+            tpw, tpd = tape.record(comp, witness=True), tape.record(comp)
+            comps.append((tpw, [col(1 << n) for _ in comp.MAIN], [col(1 << n) for _ in comp.PP_IDS]))
+            m = 1 << (n + 1)
+            main, pp = [col(m) for _ in comp.MAIN], [col(m) for _ in comp.PP_IDS]
+            if fill == "honest":
+                inter, claimed = tape.witness_plain(tpw, main, pp, ew)
+                inter, claimed = [c.contiguous() for c in inter.unbind(0)], tuple(int(x) for x in claimed.cpu())
+                is_first = torch.zeros(m, dtype=torch.int32, device=dev)
+                is_first[0] = 1
+            else:
+                inter, is_first = [col(m) for _ in range(4 * tpd.n_relations)], col(m)
+                claimed = tuple(int(x) for x in rng.integers(0, f.P, 4))
+            pows, start = f.qm31_powers_ints(start, alpha, tpd.n_pows)
+            by_log.setdefault(n, []).append(kernels.DomainTerm(tpd, main, pp, inter, is_first, claimed, pows))
+        outs, claimed = kernels.air_witness_many(comps, ew)
+        want, want_claimed = kernels.air_witness_many_plain(comps, ew)
+        e5 = max([max_abs_err(g, w) for g, w in zip(outs, want)] + [max_abs_err(claimed, want_claimed)])
+        blocks = [kernels.DomainBlock(terms, n, 2) for n, terms in sorted(by_log.items())]
+        got6, want6 = kernels.air_domain_many(blocks, ew), kernels.air_domain_many_plain(blocks, ew)
+        e6 = max(max_abs_err(g, w) for g, w in zip(got6, want6))
+        # The largest trace in 4 row blocks: K5 with each block's carry, K6 with each block's halo.
+        big = max(by_log)
+        parts, R = [], (1 << big) // 4
+        for (tpw, main, pp), w in zip(comps, want):
+            if main and main[0].shape[0] == 1 << big:
+                for r in range(4):
+                    carry = w[-4:, r * R - 1].contiguous() if r else torch.zeros(4, dtype=torch.int32, device=dev)
+                    parts.append(((tpw, [c[r * R : (r + 1) * R] for c in main],
+                                   [c[r * R : (r + 1) * R] for c in pp], carry), w[:, r * R : (r + 1) * R]))
+        e5b = max(max_abs_err(g, w) for g, (_, w) in zip(kernels.air_witness_many([p for p, _ in parts], ew)[0],
+                                                            parts))
+        blk, M = blocks[-1], blocks[-1].rows
+        S = M // 4
+        e6b = 0
+        for r in range(4):
+            nxt0, prev0 = ((r + 1) % 4) * S, (r * S - blk.stride) % M
+            terms = [kernels.DomainTerm(t.tp, [c[r * S : (r + 1) * S] for c in t.main],
+                                        [c[r * S : (r + 1) * S] for c in t.pp], [c[r * S : (r + 1) * S] for c in t.inter],
+                                        t.is_first[r * S : (r + 1) * S], t.claimed, t.pows,
+                                        ({x: t.main[x][nxt0 : nxt0 + blk.stride] for x in t.tp.next_cols},
+                                         [c[prev0 : prev0 + blk.stride] for c in t.inter[-4:]])) for t in blk.terms]
+            got = kernels.air_domain_many([kernels.DomainBlock(terms, blk.log_trace, blk.stride, r * S, big + 1)],
+                                          ew)[0]
+            e6b = max(e6b, max_abs_err(got, want6[-1][r * S : (r + 1) * S]))
+        torch.cuda.synchronize()
+        emit({"phase": "kernel_check", "kernel": "air_witness, air_domain",
+              "check": f"every component in one launch, {what}, {fill} words", "trace_logs": logs,
+              "air_witness_max_abs_err": e5, "air_domain_max_abs_err": e6,
+              "row_blocks": f"{len(parts)} blocks of 2^{big - 2} rows with carries (K5), 4 blocks of the 2^{big + 1}"
+                            f"-row domain of {len(blk.terms)} components with halos (K6)",
+              "air_witness_row_blocks_max_abs_err": e5b, "air_domain_row_blocks_max_abs_err": e6b})
+        if e5 or e6 or e5b or e6b:
+            raise AssertionError(f"K5 or K6 over every component ({what}, {fill} words) disagrees with its twin")
+        errs["air_witness"] = max(errs["air_witness"], e5, e5b)
+        errs["air_domain"] = max(errs["air_domain"], e6, e6b)
+        del comps, by_log, blocks, got6, want6, outs, want, parts
+        torch.cuda.empty_cache()
+    return errs
+
+
 def phase_debug_graphs(T, kernels, tape, f, card, graphs, pinn_logs):
     """check_pie_constraints on each op graph's card PIE (empty), and on the
     card PIEs of DEBUG_MUTATIONS against the port's check on the CPU of
     the same PIE's host form; every air_check call through kernel and twin.
-    Then `every_component_check` at the op graphs' row counts (each
-    component at its largest table among them) and at the PINN's (its
-    components at theirs, the rest at the op graphs').  Returns {kernel:
-    max_abs_err}."""
+    Then `every_component_check` and `every_component_air` at the op
+    graphs' row counts (each component at its largest table among them)
+    and at the PINN's (its components at theirs, the rest at the op
+    graphs').  Returns {kernel: max_abs_err}."""
     from luminair_tpu_torch.air.debug import check_pie_constraints
 
     t0 = time.perf_counter()
@@ -2481,7 +2699,9 @@ def phase_debug_graphs(T, kernels, tape, f, card, graphs, pinn_logs):
     dev = torch.device("cuda", 0)
     err = max(row["max_abs_err"], every_component_check(kernels, tape, f, dev, graph_logs, "op graphs' rows"),
               every_component_check(kernels, tape, f, dev, {**graph_logs, **pinn_logs}, "the PINN's rows"))
-    return {"air_check": err}
+    air = [every_component_air(kernels, tape, f, dev, {k: max(v, 1) for k, v in logs.items()}, what)
+           for logs, what in ((graph_logs, "op graphs' rows"), ({**graph_logs, **pinn_logs}, "the PINN's rows"))]
+    return {"air_check": err, **{k: max(e[k] for e in air) for k in air[0]}}
 
 
 EXAMPLES = ("torch_simple", "torch_risk_assessment", "torch_black_scholes_nn")
@@ -2606,7 +2826,7 @@ MESH_ROW_KERNELS = ("circle_fft", "blake2s_merkle", "fri_layer", "deep_quotient"
 # assembled blocks, K4's plan of a row shard, K5 on a row block, the carry
 # pass, K6 on a row block with its halo; the PINN proved at log blowups 1
 # and 2 (K6's strides 2 and 4) over MESH_KERNEL_SHARDS shards of the card.
-MESH_KERNEL_TWINS = ("fri_layer", "deep_quotient_many", "air_witness", "add_carry", "air_domain")
+MESH_KERNEL_TWINS = ("fri_layer", "deep_quotient_many", "air_witness_many", "add_carry", "air_domain_many")
 MESH_KERNEL_SHARDS = 4
 MESH_KERNEL_BLOWUPS = (1, 2)
 # The PINN's bytes gathered onto the lead over 4 shards when the AIR and
@@ -2832,7 +3052,8 @@ def phase_mesh_prove(T, S, kernels, serde, tape, card, tag, pie, settings, proof
     lead (gated at or below sharding.expected_gathered_bytes, the formula
     of the module's docstring), moved between shards and scattered from
     the lead, K1-K7 and K9 launches per shard, peak device memory (on
-    distinct cards, each card's).  Every row shard must launch K1-K6, and
+    distinct cards, each card's).  Every row shard must launch K1-K6, K5
+    and K6 exactly once (every block of the shard in one launch), and
     every one but the first K5's carry pass exactly once (every component's
     block in one launch), the first none.  In the host's records of one
     more prove (profiled, every twin refused): one cumsum (the carries)
@@ -2907,10 +3128,12 @@ def phase_mesh_prove(T, S, kernels, serde, tape, card, tag, pie, settings, proof
             raise AssertionError(f"{tag} over {n} shards: {cumsums} cumsums (1 planned) and {len(carries)} carry "
                                  f"copies (one a shard after the first) in the host's records of a prove")
         short = [r for r in range(n) if not all(by_shard.get(str(r), {}).get(k) for k in MESH_ROW_KERNELS)
-                 or by_shard.get(str(r), {}).get("add_carry", 0) != int(r > 0)]
+                 or by_shard.get(str(r), {}).get("add_carry", 0) != int(r > 0)
+                 or any(by_shard.get(str(r), {}).get(k) != 1 for k in ("air_witness", "air_domain"))]
         if short or not any(by_shard.get(str(r), {}).get("oods_eval") for r in range(n)):
-            raise AssertionError(f"{tag} over {n} shards: shards {short} launched not every one of K1-K6 (and the "
-                                 f"carry pass once on each but the first, none on the first), or none K7: {by_shard}")
+            raise AssertionError(f"{tag} over {n} shards: shards {short} launched not every one of K1-K6 (K5 and K6 "
+                                 "once each, the carry pass once on each but the first, none on the first), or none "
+                                 f"K7: {by_shard}")
         if moved["gathered"] > formula:
             raise AssertionError(f"{tag} over {n} shards: {moved['gathered']} bytes gathered onto the lead, the "
                                  f"formula {formula}")
@@ -2957,16 +3180,18 @@ def phase_mesh_kernels(T, S, kernels, tape, f, dev, card, tag, pie, settings) ->
         torch.cuda.synchronize()
         by_shard = {str(k): dict(v) for k, v in kernels.SHARD_LAUNCHES.items()}
         by_kernel = replay(kernels, twins, kept, calls)
-        domains = [a for key, a in kept.items() if key[0] == "air_domain" and a["halo"] is not None]
+        calls6 = [a for key, a in kept.items() if key[0] == "air_domain_many"]
+        domains = [b for a in calls6 for b in a["blocks"] if b.terms[0].halo is not None]
         modes = {
-            "air_domain with a halo": sum(1 for a in domains if a["stride"] == 1 << blowup),
+            "air_domain with a halo": sum(1 for b in domains if b.stride == 1 << blowup),
             "deep_quotient_many of a shard r > 0": sum(1 for key, a in kept.items()
                                                        if key[0] == "deep_quotient_many" and a["plan"].shard[0] > 0),
             "add_carry": calls.get("add_carry", 0),
         }
         short = [r for r in range(mesh.size) if not all(by_shard.get(str(r), {}).get(k) for k in (
             "fri_layer", "deep_quotient", "air_witness", "air_domain"))
-            or by_shard.get(str(r), {}).get("add_carry", 0) != int(r > 0)]
+            or by_shard.get(str(r), {}).get("add_carry", 0) != int(r > 0)
+            or any(by_shard.get(str(r), {}).get(k) != 1 for k in ("air_witness", "air_domain"))]
         checked = {k: by_kernel[twins[k][0]] for k in MESH_KERNEL_TWINS}
         emit({"phase": "mesh_kernels", "path": tag, "card": card, "shards": mesh.size, "log_blowup": blowup,
               "launches_by_shard": by_shard, "calls": calls, "modes": modes,
@@ -2986,11 +3211,16 @@ def phase_mesh_kernels(T, S, kernels, tape, f, dev, card, tag, pie, settings) ->
                              f"{sum(b.numel() for b in rows)} words, the largest (4, {max(b.shape[1] for b in rows)})",
                        err=errs["add_carry"], ms=time_ms(lambda: kernels.add_carry(rows, carry)),
                        plain_ms=time_ms(lambda: kernels.add_carry_plain(rows, carry)), bound=bound(*add_carry_work(a)))
-        a = max(domains, key=lambda a: a["is_first"].shape[0])
-        ka = replay_args(a)
-        halo_ms[f"stride {a['stride']}, block {a['is_first'].shape[0]} rows of {a['tp'].name}"] = (
-            time_ms(lambda: kernels.air_domain(**ka)), bound(*domain_work(a))[0])
-        del kept, domains, a, ka
+        a = max(calls6, key=lambda a: sum(b.rows for b in a["blocks"]))
+        ew = a["ew"]
+        halo_ms[f"a shard's launch: {describe(a['blocks'])}"] = (
+            time_ms(lambda: kernels.air_domain_many(a["blocks"], ew)), bound(*domain_work(a))[0])
+        b = max((b for b in domains if any(t.tp.name == "mul" for t in b.terms)), key=lambda b: b.rows)
+        blk = kernels.DomainBlock([t for t in b.terms if t.tp.name == "mul"], b.log_trace, b.stride, b.row0,
+                                  b.log_domain)
+        halo_ms[f"stride {blk.stride}, block {blk.rows} rows of mul alone"] = (
+            time_ms(lambda: kernels.air_domain_many([blk], ew)), bound(*domain_work({"blocks": [blk]}))[0])
+        del kept, domains, a, b, blk, calls6
         torch.cuda.empty_cache()
     emit({"phase": "kernel_time", "kernel": "add_carry", "shape": row["shape"], "ms": row["ms"],
           "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0], "bound_by": row["bound"][1]})
@@ -3037,6 +3267,7 @@ def main() -> int:
     torch.cuda.set_device(dev)
     card = phase_card()
     phase_build(kernels)
+    field_rate(dev)
     bench_tag, pinn_tag = f"bench_n{N_MAIN}", f"pinn_b{PINN_BATCH}"
     hs_tag = pinn_tag + "_hs"
     paths = {

@@ -9,13 +9,13 @@ the first rows where it does not vanish.
 
 On the card (the default): the PIE's columns are read where they lie (a
 card PIE's `padded` tensors; host words are uploaded), the preprocessed
-columns are uploaded once, and per component K5 (`kernels.air_witness`)
-builds the interaction and the claimed sum as the prover does; then one
-launch of `kernels.air_check_many` writes one word per row of every
-component, a bit per failing constraint.  One download of the claimed
-sums, one `torch.nonzero` over the words and one download of the rows it
-finds.  device="cpu" runs the same steps through the kernels' plain
-twins.
+columns are uploaded once, and one launch of K5
+(`kernels.air_witness_many`) builds every component's interaction and
+claimed sum as the prover does; then one launch of
+`kernels.air_check_many` writes one word per row of every component, a
+bit per failing constraint.  One download of the (C, 4) claimed sums, one
+`torch.nonzero` over the words and one download of the rows it finds.
+device="cpu" runs the same steps through the kernels' plain twins.
 """
 
 from __future__ import annotations
@@ -52,20 +52,19 @@ def check_pie_constraints(pie, settings, device=None) -> Dict[str, List[tuple]]:
     comps = []
     for c in layout.components:
         padded = tables[c.name].padded_columns(c.MAIN)
-        main = [_main_column(padded[n], dev) for n in c.MAIN]
-        pp_cols = [pp[p] for p in c.PP_IDS]
-        inter, claimed = kernels.air_witness(tape.record(c, witness=True), main, pp_cols, ew)
-        comps.append((c, main, pp_cols, inter, claimed))
-    sums = f.tensor_to_u32(torch.stack([claimed for *_, claimed in comps]))
+        comps.append((c, [_main_column(padded[n], dev) for n in c.MAIN], [pp[p] for p in c.PP_IDS]))
+    inters, claimed = kernels.air_witness_many([(tape.record(c, witness=True), main, pp_cols)
+                                                for c, main, pp_cols in comps], ew)
+    sums = f.tensor_to_u32(claimed)
     every = kernels.air_check_many(
         [(tape.record(c), main, pp_cols, list(inter.unbind(0)), pp[layout.is_first_id(c.name)], s)
-         for (c, main, pp_cols, inter, _), s in zip(comps, sums)], ew)
+         for (c, main, pp_cols), inter, s in zip(comps, inters, sums)], ew)
     at = torch.nonzero(every).flatten()
     at, bits = torch.stack([at, every[at].to(f.I64) & 0xFFFFFFFF]).cpu().numpy()
 
     out = {}
     start = 0
-    for c, _, _, inter, _ in comps:
+    for (c, _, _), inter in zip(comps, inters):
         n = inter.shape[1]
         here = (at >= start) & (at < start + n)
         rows, row_bits = at[here] - start, bits[here]

@@ -3,11 +3,12 @@ its plain PyTorch interpreter.
 
 A component writes its constraints once (`evaluate(ev, elems)`,
 air/components.py).  `record(comp)` runs that once with symbolic values and
-keeps what it did as a tape: an int32 program that the witness, domain and
-check kernels (csrc/air.cu, csrc/tape.cuh) interpret with one thread per
-row, and that `witness_plain` / `domain_plain` / `check_plain` here
-interpret column-wise for CPU tensors.  Both read the same instructions,
-so there is one definition of each component and one format.
+keeps what it did as a tape: an int32 program that air/tape_cuda.py
+writes out as straight-line CUDA for the witness, domain and check kernels
+(csrc/air_tapes.cuh, csrc/check_tapes.cuh; one thread a row), and that
+`witness_plain` / `domain_plain` / `check_plain` here interpret
+column-wise for CPU tensors.  Both read the same instructions, so there is
+one definition of each component and one format.
 
 Every constraint and every relation input is an M31 expression of main and
 preprocessed columns and integer constants (reduced mod P when recorded:
@@ -39,7 +40,7 @@ widest tape needs few of them.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Dict, List, Sequence
 
 import torch
@@ -48,7 +49,7 @@ from .. import circle
 from .. import fields as f
 # The kernels' ABI: element kinds in table order, and the limits `record` checks.
 from ..kernels import ELEM_KINDS
-from ..kernels import TAPE_MAX_INS as MAX_INS, TAPE_MAX_MAIN as MAX_MAIN, TAPE_MAX_POWS as MAX_POWS
+from ..kernels import TAPE_MAX_MAIN as MAX_MAIN, TAPE_MAX_POWS as MAX_POWS
 from ..kernels import TAPE_MAX_PP as MAX_PP, TAPE_MAX_REGS as MAX_REGS, TAPE_MAX_RELATIONS as MAX_RELATIONS
 from .framework import AirEval
 
@@ -157,7 +158,6 @@ class Tape:
     n_relations: int  # E
     n_main: int
     n_pp: int
-    _dev: Dict[torch.device, torch.Tensor] = field(default_factory=dict, repr=False)
 
     @property
     def n_ins(self) -> int:
@@ -175,13 +175,6 @@ class Tape:
     def instructions(self):
         for i in range(0, len(self.words), INS_WORDS):
             yield self.words[i : i + INS_WORDS]
-
-    def tensor(self, device) -> torch.Tensor:
-        """The int32 program on `device`, uploaded once (per `cuda:i`)."""
-        dev = f.device_key(device)
-        if dev not in self._dev:
-            self._dev[dev] = torch.tensor(self.words, dtype=f.I32).to(dev)
-        return self._dev[dev]
 
 
 def _operands(ins) -> List[int]:
@@ -250,7 +243,6 @@ def _compile(comp, ssa: List[list], witness: bool) -> Tape:
     tape = Tape(comp.name, words, n_regs, n_constraints, n_relations, len(comp.MAIN), len(list(comp.PP_IDS)))
     limits = [
         (tape.n_regs, MAX_REGS, "registers"),
-        (tape.n_ins, MAX_INS, "instructions"),
         (tape.n_main, MAX_MAIN, "main columns"),
         (tape.n_pp, MAX_PP, "preprocessed columns"),
         (tape.n_relations, MAX_RELATIONS, "relation entries"),

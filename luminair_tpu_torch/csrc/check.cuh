@@ -24,14 +24,13 @@
 // through it on the CPU.
 #pragma once
 
-#include "m31.cuh"
+#include "tape_row.cuh"
 
 namespace lum {
 
 constexpr int CHECK_MAX_COMPS = 32;
 constexpr int CHECK_MAX_COLS = 512;
 constexpr int CHECK_THREADS = 256;  // rows of a CTA
-constexpr int CHECK_ELEM_KINDS = 5;  // tape.cuh TAPE_KINDS
 
 // One component of a check launch.  Mirrored by kernels.CheckComp.
 struct CheckComp {
@@ -54,49 +53,12 @@ struct CheckArgs {
   unsigned long long out;  // uint32 words, one per row of every component
   int n_comps;
   int n_ctas;
-  uint32_t elems[CHECK_ELEM_KINDS][2][4];  // lookup elements z, alpha per kind
+  uint32_t elems[TAPE_ELEM_KINDS][2][4];  // lookup elements z, alpha per kind
 };
 
-// 1 when x (below 2^31) is nonzero, else 0, by integer operations alone.
-// A constraint's bit is set with this and not with a comparison: from
-// (x != 0u ? 1u : 0u) ORed into the word, ptxas (CUDA 12.9, -O1 and above)
-// built max_reduce's check with bits 5 and 13 lost on every row; with
-// ptxas -O0, or with this form, every component's word equals the twin's.
-__host__ __device__ __forceinline__ uint32_t nonzero(uint32_t x) { return (x | (0u - x)) >> 31; }
-
-// One row of one component, as the compiled tapes read it.
-struct CheckRow {
-  const CheckArgs& a;
-  const CheckComp& c;
-  const unsigned long long* cols;  // the component's columns
-  long long r, rn, rp;             // this row, the next and the previous (cyclic)
-
-  __host__ __device__ __forceinline__ uint32_t at(int i) const { return ((const uint32_t*)cols[i])[r]; }
-  __host__ __device__ __forceinline__ uint32_t next(int i) const { return ((const uint32_t*)cols[i])[rn]; }
-  __host__ __device__ __forceinline__ qm31 quad(int i, long long row) const {
-    return {((const uint32_t*)cols[i])[row], ((const uint32_t*)cols[i + 1])[row],
-            ((const uint32_t*)cols[i + 2])[row], ((const uint32_t*)cols[i + 3])[row]};
-  }
-
-  // 1 when the LogUp constraint of the entry whose sums start at column
-  // Col does not vanish, else 0.  `prev` holds S_{b-1} (zero before the
-  // first entry) and becomes S_b.  First: is_first's column for the last
-  // entry, -1 for the others.  Kind: the entry's lookup elements; Two: a
-  // relation of two values.
-  template <int Col, int Kind, bool Two, int First>
-  __host__ __device__ __forceinline__ uint32_t logup(qm31& prev, uint32_t m, uint32_t v0, uint32_t v1) const {
-    const qm31 s = quad(Col, r);
-    qm31 diff = qsub(s, prev);
-    if constexpr (First >= 0) {
-      diff = qadd(qsub(diff, quad(Col, rp)), qmul_m31(qload(c.claimed), at(First)));
-    }
-    prev = s;
-    qm31 d = qsub({v0, 0u, 0u, 0u}, qload(a.elems[Kind][0]));
-    if constexpr (Two) d = qadd(d, qmul_m31(qload(a.elems[Kind][1]), v1));
-    const qm31 e = qsub(qmul(diff, d), {m, 0u, 0u, 0u});
-    return nonzero(e.a | e.b | e.c | e.d);
-  }
-};
+// One row of one component, as the compiled check tapes read it: the
+// row accessor shared with K5 and K6 (tape_row.cuh), rows cyclic.
+using CheckRow = TapeRow<false>;
 
 }  // namespace lum
 
@@ -116,7 +78,7 @@ __host__ __device__ __forceinline__ void check_cta_row(const CheckArgs& a, int c
   const CheckComp& c = a.comps[check_comp(a, cta)];
   const long long r = (long long)(cta - c.cta0) * CHECK_THREADS + tid;
   if (r >= c.n) return;
-  const CheckRow q{a, c, a.cols + c.col0, r, (r + 1) & (c.n - 1), (r - 1) & (c.n - 1)};
+  const CheckRow q{a.cols + c.col0, a.elems, c.claimed, r, (r + 1) & (c.n - 1), (r - 1) & (c.n - 1), c.n};
   uint32_t w;
   switch (c.kind) {
 #define LUM_CHECK_CASE(kind, name) \

@@ -1,9 +1,10 @@
 """The port's hand-written Hopper kernels: build, binding, wrappers.
 
 The CUDA C++ sources under csrc/ (with the headers csrc/m31.cuh,
-blake2s.cuh, channel.cuh, check.cuh, check_tapes.cuh (generated by
-air/tape_cuda.py), decommit.cuh, fft.cuh, fri.cuh, lut.cuh, merkle.cuh,
-oods.cuh, quotient.cuh, tape.cuh and trace.cuh)
+air.cuh, air_tapes.cuh and check_tapes.cuh (both generated by
+air/tape_cuda.py), blake2s.cuh, channel.cuh, check.cuh, decommit.cuh,
+fft.cuh, fri.cuh, lut.cuh, merkle.cuh, oods.cuh, quotient.cuh, tape_row.cuh
+and trace.cuh)
 are compiled at first use with nvcc for sm_90a, one shared
 library per source, all sources compiled at once, into build/kernels/ at
 the repository root; each library is named by a hash of its source and
@@ -249,42 +250,15 @@ DEEP_QUOTIENT = Kernel(
          "lum_dq_cta_rows": QUOTIENT_CTA_ROWS},
 )
 
-# The tape's kernel ABI (csrc/tape.cuh): lookup-element kinds in the order
-# of the elements table, and the limits the kernels are compiled for
-# (air/tape.py checks them when it records a component).
+# The tapes' ABI: lookup-element kinds in the order of the elements table
+# (csrc/tape_row.cuh), and the limits air/tape.py checks when it records a
+# component (the check's word holds K + E <= TAPE_MAX_POWS bits).
 ELEM_KINDS = ("node", "sin", "exp2", "log2", "range_check")
 TAPE_MAX_REGS = 16
 TAPE_MAX_MAIN = 32
 TAPE_MAX_PP = 4
 TAPE_MAX_RELATIONS = 8
 TAPE_MAX_POWS = 32
-TAPE_MAX_INS = 128
-
-
-class AirArgs(ctypes.Structure):
-    """Mirror of lum::AirArgs (csrc/tape.cuh), passed to K5/K6 by value."""
-
-    _fields_ = [
-        ("main", ctypes.c_uint64 * TAPE_MAX_MAIN),
-        ("pp", ctypes.c_uint64 * TAPE_MAX_PP),
-        ("inter", ctypes.c_uint64 * (4 * TAPE_MAX_RELATIONS)),
-        ("is_first", ctypes.c_uint64),
-        ("xs", ctypes.c_uint64),
-        ("out", ctypes.c_uint64),
-        ("tape", ctypes.c_uint64),
-        ("next", ctypes.c_uint64 * TAPE_MAX_MAIN),
-        ("prev", ctypes.c_uint64 * 4),
-        ("n", ctypes.c_longlong),
-        ("n_ins", ctypes.c_int),
-        ("n_rel", ctypes.c_int),
-        ("n_constraints", ctypes.c_int),
-        ("stride", ctypes.c_int),
-        ("log_trace", ctypes.c_int),
-        ("accumulate", ctypes.c_int),
-        ("elems", ctypes.c_uint32 * (len(ELEM_KINDS) * 2 * 4)),
-        ("claimed", ctypes.c_uint32 * 4),
-        ("pows", ctypes.c_uint32 * (4 * TAPE_MAX_POWS)),
-    ]
 
 
 # K7's descriptor (csrc/oods.cuh): a head, a record per group, then the
@@ -295,12 +269,6 @@ OODS_MAX_LOG = 32
 OODS_HEAD = 3
 OODS_GROUP_WORDS = 6 + 4 * OODS_MAX_LOG
 
-
-_AIR_ABI = {
-    "lum_air_args_size": ctypes.sizeof(AirArgs),
-    "lum_tape_max_regs": TAPE_MAX_REGS,
-    "lum_tape_max_ins": TAPE_MAX_INS,
-}
 
 # The check's launch (csrc/check.cuh): each component's compiled tape
 # (csrc/check_tapes.cuh), its columns in one pointer table, its rows in
@@ -367,6 +335,95 @@ def compiled_check_tapes(header: Optional[Path] = None) -> Dict[str, tuple]:
     return {name: (int(kind), digest) for kind, name, digest in _CHECK_TAPE_LINE.findall(text)}
 
 
+# K5 and K6 (csrc/air.cuh): each component's witness and domain tapes
+# compiled (csrc/air_tapes.cuh), every component of a phase in one launch,
+# the launch's table a kernel parameter.
+AIR_MAX_COMPS = 32
+AIR_MAX_COLS = 512
+AIR_MAX_POWS = 256
+WITNESS_THREADS = 256  # threads of a K5 CTA
+WITNESS_MAX_ITEMS = 4  # rows a thread of a K5 tile, at most
+# Rows a thread by a launch's rows: (from rows, items), the largest first.
+# On an H100 (tools/kernel_timing.py --kernels K5) bench_n256's 2^18 rows
+# took 0.0271 / 0.0233 / 0.0254 / 0.0247 ms at 1 / 2 / 3 / 4 rows a
+# thread, the PINN's 6.5M rows 0.539 / 0.410 / 0.380 / 0.371 ms.
+WITNESS_ITEMS_AT = ((1 << 20, 4), (1 << 17, 2))
+DOMAIN_THREADS = 256  # rows of a K6 CTA
+AIR_TAPES_HEADER = "air_tapes.cuh"
+_AIR_TAPE_LINE = re.compile(r"^// (witness|domain) (\d+) (\w+) ([0-9a-f]{64})$", re.M)
+
+
+class WitnessComp(ctypes.Structure):
+    """Mirror of lum::WitnessComp (csrc/air.cuh)."""
+
+    _fields_ = [("n", ctypes.c_longlong), ("out", ctypes.c_uint64), ("last", ctypes.c_uint64),
+                ("carry", ctypes.c_uint64), ("kind", ctypes.c_int), ("col0", ctypes.c_int), ("tile0", ctypes.c_int),
+                ("pad", ctypes.c_int)]
+
+
+class WitnessArgs(ctypes.Structure):
+    """Mirror of lum::WitnessArgs (csrc/air.cuh), passed to K5 by value."""
+
+    _fields_ = [
+        ("cols", ctypes.c_uint64 * AIR_MAX_COLS),
+        ("comps", WitnessComp * AIR_MAX_COMPS),
+        ("claimed", ctypes.c_uint64),
+        ("flags", ctypes.c_uint64),
+        ("sums", ctypes.c_uint64),
+        ("counter", ctypes.c_uint64),
+        ("base", ctypes.c_uint64),
+        ("epoch", ctypes.c_uint64),
+        ("n_comps", ctypes.c_int),
+        ("n_tiles", ctypes.c_int),
+        ("rows", ctypes.c_int),
+        ("items", ctypes.c_int),
+        ("elems", ctypes.c_uint32 * (len(ELEM_KINDS) * 2 * 4)),
+    ]
+
+
+class DomainComp(ctypes.Structure):
+    """Mirror of lum::DomainComp (csrc/air.cuh)."""
+
+    _fields_ = [("kind", ctypes.c_int), ("col0", ctypes.c_int), ("pow0", ctypes.c_int), ("pad", ctypes.c_int),
+                ("claimed", ctypes.c_uint32 * 4)]
+
+
+class DomainSpan(ctypes.Structure):
+    """Mirror of lum::DomainSpan (csrc/air.cuh)."""
+
+    _fields_ = [("n", ctypes.c_longlong), ("xs", ctypes.c_uint64), ("out", ctypes.c_uint64),
+                ("stride", ctypes.c_int), ("log_trace", ctypes.c_int), ("comp0", ctypes.c_int),
+                ("n_comps", ctypes.c_int), ("cta0", ctypes.c_int)]
+
+
+class DomainArgs(ctypes.Structure):
+    """Mirror of lum::DomainArgs (csrc/air.cuh), passed to K6 by value."""
+
+    _fields_ = [
+        ("cols", ctypes.c_uint64 * AIR_MAX_COLS),
+        ("comps", DomainComp * AIR_MAX_COMPS),
+        ("spans", DomainSpan * AIR_MAX_COMPS),
+        ("pows", ctypes.c_uint32 * (4 * AIR_MAX_POWS)),
+        ("elems", ctypes.c_uint32 * (len(ELEM_KINDS) * 2 * 4)),
+        ("n_spans", ctypes.c_int),
+        ("n_ctas", ctypes.c_int),
+    ]
+
+
+@functools.lru_cache(maxsize=None)
+def compiled_air_tapes(header: Optional[Path] = None) -> Dict[tuple, tuple]:
+    """{(family, component): (kind, tape digest)} of the witness and domain
+    tapes compiled into K5 and K6 (the manifest of csrc/air_tapes.cuh)."""
+    path = header or _CSRC / AIR_TAPES_HEADER
+    if not path.exists():  # before its first generation
+        return {}
+    return {(family, name): (int(kind), digest) for family, kind, name, digest in _AIR_TAPE_LINE.findall(
+        path.read_text())}
+
+
+_AIR_ABI = {"lum_air_kinds": len(compiled_air_tapes()) // 2}
+
+
 # K5's carry pass: every (4, R) block of one shard in one launch.
 CARRY_MAX_BLOCKS = 32
 CARRY_THREADS = 256
@@ -389,8 +446,9 @@ AIR_WITNESS = Kernel(
     "air_witness",
     "air.cu",
     "luminair_tpu/parallel/accel.py:1068 (_jit_witness; WitnessEval.build_interaction)",
-    {"lum_air_witness": [_P], "lum_m31_scan": [_P, _LL, _I, _P]},
-    abi=_AIR_ABI,
+    {"lum_air_witness": [_P]},
+    abi={**_AIR_ABI, "lum_witness_args_size": ctypes.sizeof(WitnessArgs), "lum_witness_threads": WITNESS_THREADS,
+         "lum_witness_max_items": WITNESS_MAX_ITEMS},
 )
 # K5's carry pass on row shards: the cumulative sum across the shards that
 # jax.jit derives from _shard_dim's row sharding of build_interaction.
@@ -405,8 +463,8 @@ AIR_DOMAIN = Kernel(
     "air_domain",
     "air.cu",
     "luminair_tpu/parallel/accel.py:1112 (_jit_domain; DomainEval)",
-    {"lum_air_domain": [_P], "lum_air_domain_halo": [_P]},
-    abi=_AIR_ABI,
+    {"lum_air_domain": [_P]},
+    abi={**_AIR_ABI, "lum_domain_args_size": ctypes.sizeof(DomainArgs), "lum_domain_threads": DOMAIN_THREADS},
 )
 AIR_CHECK = Kernel(
     "air_check",
@@ -1228,66 +1286,148 @@ def _ptrs(cols: Sequence[torch.Tensor], device: torch.device) -> List[int]:
     return [c.data_ptr() for c in cols]
 
 
-def _air_args(tp, main, pp, ew, n: int, dev: torch.device, stride: int = 1, inter=(), halo=None) -> AirArgs:
-    """The launch's arguments over n rows.  halo = (next, prev): next {main
-    index: (stride,) rows after the block} for the columns read at the next
-    row, prev the (stride,) rows before the block of the last relation
-    entry's 4 coordinates; None for a whole domain, which wraps (the
-    kernel then reads no halo)."""
-    a = AirArgs()
-    a.main[: len(main)] = _ptrs(main, dev)
-    a.pp[: len(pp)] = _ptrs(pp, dev)
-    a.inter[: len(inter)] = _ptrs(inter, dev)
-    a.tape = tp.tensor(dev).data_ptr()
-    a.n, a.n_ins, a.n_rel, a.n_constraints = n, tp.n_ins, tp.n_relations, tp.n_constraints
-    a.stride = stride
+def _air_kind(tp, family: str) -> int:
+    """The compiled `family` ("witness" or "domain") function of `tp`'s
+    component; raises when none is compiled from this tape."""
+    kind, digest = compiled_air_tapes().get((family, tp.name), (None, None))
+    _require(kind is not None and digest == tape_digest(tp),
+             f"air_{family}({tp.name}): no compiled {family} tape for this tape (csrc/{AIR_TAPES_HEADER}; regenerate "
+             "it with python3 -m luminair_tpu_torch.air.tape_cuda)")
+    return kind
+
+
+def _addr(t: torch.Tensor, dev: torch.device, n: int, what: str) -> int:
+    _require(t.dtype == f.I32 and tuple(t.shape) == (n,), f"{what}: columns must be int32 ({n},)")
+    _require(t.device == dev and t.is_contiguous(), f"{what}: every column of a launch on one device, contiguous")
+    return t.data_ptr()
+
+
+def _witness_table(comps: Sequence[tuple]):
+    """Validates a witness launch's components (`air_witness_many`) in one
+    pass over their columns; returns (each one's compiled function, its
+    column addresses: main, then pp; their device)."""
+    _require(0 < len(comps) <= AIR_MAX_COMPS, f"air_witness: 1 to {AIR_MAX_COMPS} components, got {len(comps)}")
+    c0 = comps[0]
+    dev = (list(c0[1]) + list(c0[2]))[0].device
+    kinds, ptrs, n_cols = [], [], 0
+    for tp, main, pp, *carry in comps:
+        _require(len(main) == tp.n_main and len(pp) == tp.n_pp, f"air_witness({tp.name}): column count")
+        _require(tp.n_constraints == 0, f"air_witness({tp.name}): a witness tape (tape.record(comp, witness=True))")
+        kinds.append(_air_kind(tp, "witness"))
+        n = (list(main) + list(pp))[0].shape[0]
+        _log2(n)
+        ptrs.append([_addr(c, dev, n, "air_witness") for c in (*main, *pp)])
+        n_cols += len(ptrs[-1])
+        if carry and carry[0] is not None:
+            _require(carry[0].dtype == f.I32 and tuple(carry[0].shape) == (4,) and carry[0].device == dev
+                     and carry[0].is_contiguous(), "air_witness: a carry is (4,) contiguous int32 beside the columns")
+    _require(n_cols <= AIR_MAX_COLS, f"air_witness: {n_cols} columns, a launch takes {AIR_MAX_COLS}")
+    return kinds, ptrs, dev
+
+
+def witness_items(rows: int) -> int:
+    """Rows a thread of a K5 tile for a launch of `rows` rows in all
+    (WITNESS_ITEMS_AT): a large launch's look-backs, one a tile, cost less
+    the more rows a tile has; a small launch keeps its tiles to fill the
+    card."""
+    return next((items for at, items in WITNESS_ITEMS_AT if rows >= at), 1)
+
+
+def _witness_args(comps, kinds, ptrs, ew, outs, claimed: torch.Tensor, threads: int = WITNESS_THREADS,
+                  items: Optional[int] = None) -> WitnessArgs:
+    """The launch's table (`_witness_table`'s kinds and addresses): each
+    component's columns in `cols` from its col0, its tiles of `items`
+    rounds of `threads` rows (by default `witness_items`) from its tile0,
+    its output outs[c], its carry; the scratch fields are the caller's."""
+    items = witness_items(sum(o.shape[1] for o in outs)) if items is None else items
+    rows = items * threads
+    a = WitnessArgs()
+    a.claimed, a.n_comps, a.rows, a.items = claimed.data_ptr(), len(comps), rows, items
     a.elems[:] = [w for kind in ew for q in kind for w in q]
-    if halo is not None:
-        nxt, prev = halo
-        _check_rows(list(nxt.values()) + list(prev), stride, "the halo")
-        for x, c in nxt.items():
-            a.next[x] = _ptrs([c], dev)[0]
-        a.prev[:] = _ptrs(prev, dev)
+    col = tile = 0
+    for slot, kind, mine, c, out in zip(a.comps, kinds, ptrs, comps, outs):
+        a.cols[col : col + len(mine)] = mine
+        n = out.shape[1]
+        carry = c[3] if len(c) > 3 else None
+        slot.n, slot.out, slot.kind, slot.col0, slot.tile0 = n, out.data_ptr(), kind, col, tile
+        slot.last = out.data_ptr() + 4 * (out.shape[0] - 4) * n
+        slot.carry = carry.data_ptr() if carry is not None else 0
+        col, tile = col + len(mine), tile + -(-n // rows)
+    a.n_tiles = tile
     return a
 
 
-def _halo_or_wrap(tp, halo, what: str) -> None:
-    _require(halo is None or (len(halo[1]) == 4 and set(halo[0]) == set(tp.next_cols)),
-             f"{what}({tp.name}): a halo has the rows after the block of every column read at the next row "
-             "and the rows before it of the last entry's 4 coordinates")
+class _ScanScratch:
+    """K5's look-back state on one device: one int64 buffer -- the tile
+    counter (2 words), a flag word a tile, then 4 words a tile for its
+    aggregate and inclusive prefix (8 int32) --, made zero when made (and
+    made anew, larger, for a launch of more tiles than it holds); the
+    counter's value before the next launch and the last launch's epoch.
+    The kernel never clears it: each launch's flags carry its epoch."""
+
+    def __init__(self, dev: torch.device):
+        self.dev, self.cap, self.buf, self.base, self.epoch = dev, 0, None, 0, 0
+
+    def fill(self, a: WitnessArgs) -> None:
+        if a.n_tiles > self.cap:
+            self.cap = max(a.n_tiles, 2 * self.cap, 1024)
+            self.cap += self.cap % 2  # the sums 16-byte aligned
+            self.buf = torch.zeros(2 + 5 * self.cap, dtype=torch.int64, device=self.dev)
+            self.base = 0
+        p = self.buf.data_ptr()
+        self.epoch += 1
+        a.counter, a.flags, a.sums = p, p + 16, p + 16 + 8 * self.cap
+        a.base, a.epoch = self.base, self.epoch
+
+
+_SCAN_SCRATCH: Dict[torch.device, _ScanScratch] = {}
+
+
+def air_witness_many(comps: Sequence[tuple], ew):
+    """The LogUp interaction of several components in one launch (see
+    csrc/air.cuh): (outs, claimed) -- each component's (4E, N) int32 (row
+    4b + k is coordinate k of entry b, the last entry summed down the rows)
+    and a (C, 4) int32 whose row c is component c's claimed sum.
+
+    comps: (tp, main, pp) or (tp, main, pp, carry) each: its witness tape
+    (`tape.record(comp, witness=True)`), its padded columns int32 (N,) in
+    MAIN / PP_IDS order, every column of the launch on one device; with a
+    carry (4 words beside the columns) its columns are a row block of a
+    larger trace and its last entry's sums start from the carry (the sum
+    of every earlier block), its claimed sum then the block's last row.  ew:
+    `tape.element_words` of the drawn lookup elements.  At most
+    AIR_MAX_COMPS components and AIR_MAX_COLS columns."""
+    kinds, ptrs, dev = _witness_table(comps)
+    if dev.type == "cpu":
+        return air_witness_many_plain(comps, ew)
+    _require(dev.type == "cuda", f"unsupported device {dev}")
+    outs = [torch.empty((4 * c[0].n_relations, (list(c[1]) + list(c[2]))[0].shape[0]), dtype=f.I32, device=dev)
+            for c in comps]
+    claimed = torch.empty((len(comps), 4), dtype=f.I32, device=dev)
+    a = _witness_args(comps, kinds, ptrs, ew, outs, claimed)
+    key = f.device_key(dev)
+    if key not in _SCAN_SCRATCH:
+        _SCAN_SCRATCH[key] = _ScanScratch(key)
+    st = _SCAN_SCRATCH[key]
+    st.fill(a)
+    AIR_WITNESS.launch("lum_air_witness", dev, ctypes.addressof(a))
+    st.base += a.n_tiles
+    return outs, claimed
+
+
+def air_witness_many_plain(comps: Sequence[tuple], ew):
+    from .air import tape as tp_mod
+
+    done = [tp_mod.witness_plain(c[0], c[1], c[2], ew, c[3] if len(c) > 3 else None) for c in comps]
+    return [out for out, _ in done], torch.stack([claimed for _, claimed in done])
 
 
 def air_witness(tp, main: Sequence[torch.Tensor], pp: Sequence[torch.Tensor], ew, carry=None):
     """The LogUp interaction of one component on its trace domain: (4E, N)
-    int32 -- row 4b + k is coordinate k of entry b, the last entry summed
-    down the rows -- and the claimed sum (4,) int32 (see air.cu).
-
-    main / pp: the component's padded columns, int32 (N,), in MAIN / PP_IDS
-    order; ew: `tape.element_words` of the drawn lookup elements.  With
-    `carry` (4 words beside the columns) the columns are a row block of a
-    larger trace and its last entry's sums start from the carry: the sum
-    of every earlier block (`add_carry`); the claimed sum is then the
-    block's last row."""
-    _require(len(main) == tp.n_main and len(pp) == tp.n_pp, f"air_witness({tp.name}): column count")
-    ref = (list(main) + list(pp))[0]
-    n = ref.shape[0]
-    _log2(n)
-    _check_rows(list(main) + list(pp), n, "air_witness")
-    if _on_cpu(ref):
-        from .air import tape as tp_mod
-
-        return tp_mod.witness_plain(tp, main, pp, ew, carry)
-    dev = ref.device
-    out = torch.empty((4 * tp.n_relations, n), dtype=f.I32, device=dev)
-    a = _air_args(tp, main, pp, ew, n, dev)
-    a.out = out.data_ptr()
-    AIR_WITNESS.launch("lum_air_witness", dev, ctypes.addressof(a))
-    last = out[-4:]
-    sums = torch.empty(4 * ((n + 1023) // 1024), dtype=f.I32, device=dev)
-    AIR_WITNESS.launch("lum_m31_scan", dev, last.data_ptr(), n, 4, sums.data_ptr())
-    if carry is not None:
-        add_carry(last, carry)
-    return out, last[:, -1]
+    int32 and its claimed sum (4,) int32 -- the case of one component of
+    `air_witness_many`, with its carry when given."""
+    outs, claimed = air_witness_many([(tp, main, pp) + ((carry,) if carry is not None else ())], ew)
+    return outs[0], claimed[0]
 
 
 def add_carry(rows, carry: torch.Tensor):
@@ -1328,50 +1468,163 @@ def add_carry_plain(rows, carry: torch.Tensor):
     return rows
 
 
+@dataclass
+class DomainTerm:
+    """One component's share of a K6 launch: its tape (`tape.record`), its
+    columns on the domain or row block -- main and pp in MAIN / PP_IDS
+    order, its 4E interaction coordinates, is_first, each int32 (M,) --,
+    its claimed sum (4 words), its K + E alpha powers
+    (`fields.qm31_powers_ints`) and, on a row block, its halo = (next
+    {main index: the (stride,) rows after the block} for every column read
+    at the next row, prev [the (stride,) rows before the block of each of
+    the last entry's 4 coordinates]), which wrap at the domain's ends."""
+
+    tp: object
+    main: list
+    pp: list
+    inter: list
+    is_first: torch.Tensor
+    claimed: tuple
+    pows: list
+    halo: Optional[tuple] = None
+
+
+@dataclass
+class DomainBlock:
+    """One commit domain D_log_domain (M = 2^log_domain rows; log_domain =
+    log_trace + its log blowup), or the row block [row0, row0 + M) of it, with
+    every component whose domain it is; stride = 2^blowup rows a trace
+    step."""
+
+    terms: list
+    log_trace: int
+    stride: int
+    row0: int = 0
+    log_domain: Optional[int] = None
+
+    @property
+    def rows(self) -> int:
+        return self.terms[0].is_first.shape[0]
+
+
+def _halo_or_wrap(tp, halo, what: str) -> None:
+    _require(halo is None or (len(halo[1]) == 4 and set(halo[0]) == set(tp.next_cols)),
+             f"{what}({tp.name}): a halo has the rows after the block of every column read at the next row "
+             "and the rows before it of the last entry's 4 coordinates")
+
+
+_U64 = (1 << 64) - 1
+
+
+def _domain_table(blocks: Sequence[DomainBlock]):
+    """Validates a K6 launch (`air_domain_many`) in one pass over its
+    columns; returns (each term's compiled function, its column addresses:
+    main, pp, inter, is_first, then its halo columns offset as
+    csrc/tape_row.cuh reads them; the device)."""
+    n_terms = sum(len(b.terms) for b in blocks)
+    _require(blocks and all(b.terms for b in blocks) and n_terms <= AIR_MAX_COMPS,
+             f"air_domain: 1 to {AIR_MAX_COMPS} components, got {n_terms}")
+    dev = blocks[0].terms[0].is_first.device
+    kinds, ptrs, n_cols, n_pows = [], [], 0, 0
+    for blk in blocks:
+        m, stride, halo = blk.rows, blk.stride, blk.terms[0].halo is not None
+        log = _log2(m)
+        log_domain = log if blk.log_domain is None else blk.log_domain
+        _require(0 < stride <= m and blk.log_trace >= 1 and (halo or stride < m), "air_domain: bad stride or trace log")
+        _require(0 <= blk.row0 and blk.row0 % m == 0 and blk.row0 + m <= 1 << log_domain
+                 and (halo or m == 1 << log_domain), "air_domain: a row block lies in its domain and has a halo")
+        for t in blk.terms:
+            tp = t.tp
+            _require(len(t.main) == tp.n_main and len(t.pp) == tp.n_pp and len(t.inter) == 4 * tp.n_relations,
+                     f"air_domain({tp.name}): column count")
+            _require(len(t.pows) == tp.n_pows, f"air_domain({tp.name}): {tp.n_pows} alpha powers")
+            _require((t.halo is not None) == halo, "air_domain: every component of a block has a halo, or none")
+            _halo_or_wrap(tp, t.halo, "air_domain")
+            kinds.append(_air_kind(tp, "domain"))
+            mine = [_addr(c, dev, m, "air_domain") for c in (*t.main, *t.pp, *t.inter, t.is_first)]
+            if halo:
+                nxt, prev = t.halo
+                mine += [(_addr(nxt[x], dev, stride, "the halo") - 4 * m) & _U64 for x in tp.next_cols]
+                mine += [_addr(c, dev, stride, "the halo") + 4 * stride for c in prev]
+            else:  # the block's own columns: the reads wrap
+                mine += [(_addr(t.main[x], dev, m, "air_domain") - 4 * m) & _U64 for x in tp.next_cols]
+                mine += [_addr(c, dev, m, "air_domain") + 4 * m for c in t.inter[-4:]]
+            ptrs.append(mine)
+            n_cols += len(mine)
+            n_pows += tp.n_pows
+    _require(n_cols <= AIR_MAX_COLS and n_pows <= AIR_MAX_POWS,
+             f"air_domain: {n_cols} columns and {n_pows} alpha powers, a launch takes {AIR_MAX_COLS} and "
+             f"{AIR_MAX_POWS}")
+    return kinds, ptrs, dev
+
+
+def _domain_args(blocks, kinds, ptrs, ew, outs, threads: int = DOMAIN_THREADS) -> DomainArgs:
+    """The launch's table (`_domain_table`'s kinds and addresses): a span a
+    block, its components from comp0, its rows in CTAs of `threads` from
+    its cta0 into outs[i]."""
+    a = DomainArgs()
+    a.elems[:] = [w for kind in ew for q in kind for w in q]
+    a.n_spans = len(blocks)
+    col = comp = pw = cta = 0
+    for span, blk, out in zip(a.spans, blocks, outs):
+        m = blk.rows
+        log_domain = _log2(m) if blk.log_domain is None else blk.log_domain
+        span.n, span.out, span.stride, span.log_trace = m, out.data_ptr(), blk.stride, blk.log_trace
+        span.xs = circle.domain_table(log_domain, out.device)[0].data_ptr() + 4 * blk.row0
+        span.comp0, span.n_comps, span.cta0 = comp, len(blk.terms), cta
+        for t in blk.terms:
+            slot, mine = a.comps[comp], ptrs[comp]
+            a.cols[col : col + len(mine)] = mine
+            slot.kind, slot.col0, slot.pow0 = kinds[comp], col, pw
+            slot.claimed[:] = list(f.qm31_words(t.claimed))
+            a.pows[4 * pw : 4 * (pw + len(t.pows))] = [w for q in t.pows for w in q]
+            col, comp, pw = col + len(mine), comp + 1, pw + len(t.pows)
+        cta += -(-m // threads)
+    a.n_ctas = cta
+    return a
+
+
+def air_domain_many(blocks: Sequence[DomainBlock], ew) -> List[torch.Tensor]:
+    """K6 of several commit domains (or row blocks) in one launch (see
+    csrc/air.cuh): each block's (M, 4) int32 constraint quotients, the sum
+    over its components of sum_i pows[i] * C_i over their K recorded and E
+    LogUp constraints, divided by V_n(x) of the row.  ew: the lookup
+    elements' words.  Every column on one device; at most AIR_MAX_COMPS
+    components, AIR_MAX_COLS columns (halo columns included) and
+    AIR_MAX_POWS alpha powers."""
+    kinds, ptrs, dev = _domain_table(blocks)
+    if dev.type == "cpu":
+        return air_domain_many_plain(blocks, ew)
+    _require(dev.type == "cuda", f"unsupported device {dev}")
+    outs = [torch.empty((b.rows, 4), dtype=f.I32, device=dev) for b in blocks]
+    a = _domain_args(blocks, kinds, ptrs, ew, outs)
+    AIR_DOMAIN.launch("lum_air_domain", dev, ctypes.addressof(a))
+    return outs
+
+
+def air_domain_many_plain(blocks: Sequence[DomainBlock], ew) -> List[torch.Tensor]:
+    from .air import tape as tp_mod
+
+    outs = []
+    for b in blocks:
+        total = None
+        for t in b.terms:
+            total = tp_mod.domain_plain(t.tp, t.main, t.pp, t.inter, t.is_first, f.qm31_words(t.claimed), ew, t.pows,
+                                        b.log_trace, b.stride, total, b.row0, b.log_domain, t.halo)
+        outs.append(total)
+    return outs
+
+
 def air_domain(tp, main, pp, inter, is_first: torch.Tensor, claimed, ew, pows, log_trace: int,
-               stride: int, acc: Optional[torch.Tensor] = None, row0: int = 0, log_domain: Optional[int] = None,
-               halo=None) -> torch.Tensor:
+               stride: int, row0: int = 0, log_domain: Optional[int] = None, halo=None) -> torch.Tensor:
     """Constraint quotients (M, 4) int32 of one component on its commit
-    domain D_log, M = 2^log (see air.cu); with `acc`, acc + quotients (the
-    kernel adds into `acc` in place).
-
-    main / pp: commit-domain evaluations int32 (M,) in MAIN / PP_IDS order;
-    inter: the 4E interaction coordinates; claimed: 4 words; pows: the
-    component's K + E alpha powers (`fields.qm31_powers_ints`).
-
-    A row block: the columns hold rows [row0, row0 + M) of D_log_domain
-    and `halo` = (next, prev) their neighbours' rows (`_air_args`), which
-    wrap at the domain's ends; M at least `stride`."""
-    m = is_first.shape[0]
-    log = _log2(m)
-    log_domain = log if log_domain is None else log_domain
-    _require(len(main) == tp.n_main and len(pp) == tp.n_pp and len(inter) == 4 * tp.n_relations,
-             f"air_domain({tp.name}): column count")
-    _require(len(pows) == tp.n_pows, f"air_domain({tp.name}): {tp.n_pows} alpha powers")
-    _require(0 < stride <= m and log_trace >= 1 and (halo is not None or stride < m),
-             "air_domain: bad stride or trace log")
-    _require(0 <= row0 and row0 % m == 0 and row0 + m <= 1 << log_domain and (halo is not None or m == 1 << log_domain),
-             "air_domain: a row block lies in its domain and has a halo")
-    _halo_or_wrap(tp, halo, "air_domain")
-    _check_rows(list(main) + list(pp) + list(inter) + [is_first], m, "air_domain")
-    if acc is not None:
-        _require(acc.dtype == f.I32 and tuple(acc.shape) == (m, 4) and acc.is_contiguous(),
-                 "air_domain: acc (M, 4) contiguous int32")
-    if _on_cpu(is_first):
-        from .air import tape as tp_mod
-
-        return tp_mod.domain_plain(tp, main, pp, inter, is_first, f.qm31_words(claimed), ew, pows,
-                                   log_trace, stride, acc, row0, log_domain, halo)
-    dev = is_first.device
-    out = acc if acc is not None else torch.empty((m, 4), dtype=f.I32, device=dev)
-    a = _air_args(tp, main, pp, ew, m, dev, stride, inter, halo)
-    a.is_first = _ptrs([is_first], dev)[0]
-    a.xs = circle.domain_table(log_domain, dev)[0].data_ptr() + 4 * row0
-    a.out, a.log_trace, a.accumulate = out.data_ptr(), log_trace, int(acc is not None)
-    a.claimed[:] = list(f.qm31_words(claimed))
-    a.pows[: 4 * len(pows)] = [w for q in pows for w in q]
-    AIR_DOMAIN.launch("lum_air_domain" if halo is None else "lum_air_domain_halo", dev, ctypes.addressof(a))
-    return out
+    domain D_log, M = 2^log.  A row block: the columns hold rows [row0, row0 +
+    M) of D_log_domain and `halo` = (next, prev) their neighbours' rows
+    (`DomainTerm`), which wrap at the domain's ends; M at least `stride`.
+    The case of one component of `air_domain_many`."""
+    blk = DomainBlock([DomainTerm(tp, list(main), list(pp), list(inter), is_first, claimed, list(pows), halo)],
+                      log_trace, stride, row0, log_domain)
+    return air_domain_many([blk], ew)[0]
 
 
 def air_check(tp, main, pp, inter, is_first: torch.Tensor, claimed, ew) -> torch.Tensor:

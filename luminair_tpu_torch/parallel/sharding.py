@@ -36,17 +36,17 @@ committed trees' row blocks stay on the row shards (pcs/scheme.TreeProver
 hands them on as RowBlocks), and a phase launches on each row shard
 (counted under kernels.on_shard):
 
-  * K5 (`air_witness_many`) on each shard's block of every component's
-    padded trace columns, which the lead scatters; each shard's totals go
-    to the lead in one copy, their prefix sums come back as carries, one
-    copy a shard, and each shard but the first launches one carry pass
-    over its blocks of every component (K5's carry pass);
-  * K6 (`air_domain_rows`) on each shard's block of a component's commit
-    domain, with its halo: the next shard's first 2^B rows of each
-    column read at the next row, the previous shard's last 2^B rows of
-    the last LogUp entry, wrapping at the domain's ends; the working
-    domain's components add into its row blocks in place, the smaller
-    ones' interpolation and the down-commit run on the column shards
+  * K5 (`air_witness_many`), one launch a shard over its block of every
+    component's padded trace columns, which the lead scatters; each
+    shard's totals go to the lead in one copy, their prefix sums come back
+    as carries, one copy a shard, and each shard but the first launches
+    one carry pass over its blocks of every component (K5's carry pass);
+  * K6 (`air_domain_many`), one launch a shard over its block of every
+    commit domain, each component with its halo: the next shard's first
+    2^B rows of each column read at the next row, the previous shard's
+    last 2^B rows of the last LogUp entry, wrapping at the domain's ends;
+    the working domain's sum is the composition's row blocks, the smaller
+    domains' interpolation and the down-commit run on the column shards
     (K1; `add_strided_coeffs`, `add_coeff_evals`, `down_commit`);
   * K7 per column shard on the coefficients it holds; K4 one plan a row
     shard over its blocks of every column whose commit log has a row per
@@ -497,36 +497,40 @@ def air_witness_many(mesh: Mesh, comps: Iterable[tuple], ew) -> List[tuple]:
     of each in order: the interaction (4E, N), or RowBlocks of (4E, N / n)
     over n row shards; the claimed sum (4,) on the lead.
 
-    On one shard each component runs on the lead as it comes.  Over n
-    shards, a component with fewer trace rows than shards runs on the lead
-    too; every other runs on each row shard's block of its columns
-    (scattered from the lead, bytes counted), and then, for all of them
-    together: each shard's totals (its last entry's last row, a QM31 word
-    a component) go to the lead as one (C, 4) copy, one cumulative sum over
-    the shards gives every shard's carries, each shard after the first
-    receives its C carries in one copy and launches one carry pass over
-    its C last-entry blocks (the reference's cumulative sum across row
-    shards, `build_interaction` under `_shard_dim`).  A claimed sum is its
-    component's last shard's last row."""
-    if mesh.size == 1:
-        return [kernels.air_witness(tp, main, pp, ew) for tp, main, pp in comps]
+    On one shard, one launch of every component on the lead (its claimed
+    sums rows of one (C, 4)).  Over n shards a component with fewer trace
+    rows than shards runs on the lead, whole; every other runs on each row
+    shard's block of its columns (scattered from the lead, bytes counted):
+    one launch a shard over its blocks of every component (on the lead with
+    the whole ones too).  Then, for all of them together: each shard's
+    totals (its blocks' claimed sums, a QM31 word a component) go to the
+    lead as one (C, 4) copy, one cumulative sum over the shards gives every
+    shard's carries, each shard after the first receives its C carries in
+    one copy and launches one carry pass over its C last-entry blocks (the
+    reference's cumulative sum across row shards, `build_interaction`
+    under `_shard_dim`).  A claimed sum is its component's last shard's
+    last row."""
     comps = list(comps)
+    if mesh.size == 1:
+        outs, claimed = kernels.air_witness_many(comps, ew)
+        return list(zip(outs, claimed))
     out: List[Optional[tuple]] = [None] * len(comps)
-    sharded = []
+    whole, sharded = [], []
     for i, (tp, main, pp) in enumerate(comps):
         if (list(main) + list(pp))[0].shape[0] < mesh.size:
-            out[i] = kernels.air_witness(tp, main, pp, ew)
+            whole.append(i)
         elif tp.next_cols:
             raise ProverError(f"{tp.name}: a witness tape that reads the next row has no halo on row shards")
         else:
             sharded.append(i)
     if not sharded:
-        return out
-    lead, C = mesh.lead, len(sharded)
+        outs, claimed = kernels.air_witness_many(comps, ew)
+        return list(zip(outs, claimed))
+    C = len(sharded)
     blocks: List[List[torch.Tensor]] = []  # [shard][component]: (4E, R)
-    totals = torch.empty((mesh.size, C, 4), dtype=f.I32, device=lead)
+    totals = torch.empty((mesh.size, C, 4), dtype=f.I32, device=mesh.lead)
     for r, (pos, dev) in enumerate(mesh.row_shards()):
-        mine, ends = [], []
+        mine = []
         for i in sharded:
             tp, main, pp = comps[i]
             R = (list(main) + list(pp))[0].shape[0] // mesh.size
@@ -534,14 +538,17 @@ def air_witness_many(mesh: Mesh, comps: Iterable[tuple], ew) -> List[tuple]:
             for c in list(main) + list(pp):
                 cols.append(c[r * R : (r + 1) * R].to(dev, non_blocking=True))
                 count_bytes("scattered", 0, pos, cols[-1])
-            with kernels.on_shard(pos):
-                block, total = kernels.air_witness(tp, cols[: len(main)], cols[len(main) :], ew)
-            mine.append(block)
-            ends.append(total)
-        shard_totals = torch.stack(ends)
-        totals[r].copy_(shard_totals, non_blocking=True)
-        count_bytes("moved", pos, 0, shard_totals)
-        blocks.append(mine)
+            mine.append((tp, cols[: len(main)], cols[len(main) :]))
+        if r == 0:
+            mine += [comps[i] for i in whole]
+        with kernels.on_shard(pos):
+            outs, claimed = kernels.air_witness_many(mine, ew)
+        totals[r].copy_(claimed[:C], non_blocking=True)
+        count_bytes("moved", pos, 0, claimed[:C])
+        blocks.append(outs[:C])
+        if r == 0:
+            for k, i in enumerate(whole):
+                out[i] = (outs[C + k], claimed[C + k])
     ends = (torch.cumsum(totals.to(f.I64), 0) % f.P).to(f.I32)  # each shard's end: the sum through it
     for r, (pos, dev) in enumerate(mesh.row_shards()):
         if r:
@@ -561,30 +568,54 @@ def _halo(x: RowBlocks, q: int, rows: slice, r: int, dev) -> torch.Tensor:
     return out
 
 
-def air_domain_rows(tp, main, pp, inter, is_first: RowBlocks, claimed, ew, pows, log_trace: int, stride: int,
-                    acc: Optional[RowBlocks] = None) -> RowBlocks:
-    """K6 of one component on each row shard's block of its commit domain
-    (the committed trees' row blocks, RowBlocks of (R,)): the block's
-    first row sets its domain rows, its halo is the next shard's first
-    `stride` rows of each column read at the next row and the previous
-    shard's last `stride` rows of the last relation entry, wrapping at the
-    domain's ends (R at least `stride`).  With `acc` (RowBlocks of (R, 4))
-    the quotients are added there in place.  Returns RowBlocks of (R,
-    4)."""
-    mesh, n = is_first.mesh, is_first.mesh.size
-    R = is_first[0].shape[0]
-    if R < stride:
-        raise ProverError(f"{tp.name}: a row block of {R} rows is smaller than its halo of {stride}")
-    log_domain = n.bit_length() - 1 + R.bit_length() - 1
-    out = []
-    for r, (pos, dev) in enumerate(mesh.row_shards()):
-        nxt = {x: _halo(main[x], (r + 1) % n, slice(0, stride), r, dev) for x in tp.next_cols}
-        prev = [_halo(c, (r - 1) % n, slice(R - stride, R), r, dev) for c in inter[-4:]]
-        with kernels.on_shard(pos):
-            out.append(kernels.air_domain(tp, [c[r] for c in main], [c[r] for c in pp], [c[r] for c in inter],
-                                          is_first[r], claimed, ew, pows, log_trace, stride,
-                                          acc[r] if acc is not None else None, r * R, log_domain, (nxt, prev)))
-    return RowBlocks(mesh, out, 0)
+def air_domain_many(mesh: Mesh, groups: List[tuple], ew) -> list:
+    """K6 of every commit domain of a prove, one launch a row shard.
+    groups: (terms, log_trace, stride) each, terms (tp, main, pp, inter,
+    is_first, claimed, pows) of every component of that trace log, its
+    columns either RowBlocks over the mesh's row shards (the committed
+    trees' blocks, (R,) each) or whole on the lead (a trace of fewer rows
+    than shards).  Returns each group's quotients: RowBlocks of (R, 4), or
+    (M, 4) on the lead.
+
+    Each shard's launch takes its block of every row-sharded domain, each
+    component with its halo -- the next shard's first `stride` rows of
+    each column read at the next row and the previous shard's last
+    `stride` rows of the last relation entry, wrapping at the domain's
+    ends (R at least `stride`) --, and the lead's the whole domains after
+    them, so that a row-sharded domain has one index on every shard."""
+    n = mesh.size
+    blocks: List[list] = [[] for _ in range(n)]  # [shard]: its DomainBlocks of row-sharded domains
+    lead = []  # the whole domains, after blocks[0]'s
+    where = []  # per group: ("rows", index in each shard's list) or ("lead", index in `lead`)
+    for terms, log_trace, stride in groups:
+        if isinstance(terms[0][4], RowBlocks):
+            R = terms[0][4][0].shape[0]
+            if R < stride:
+                raise ProverError(f"{terms[0][0].name}: a row block of {R} rows is smaller than its halo of {stride}")
+            log_domain = n.bit_length() - 1 + R.bit_length() - 1
+            for r, (pos, dev) in enumerate(mesh.row_shards()):
+                mine = []
+                for tp, main, pp, inter, is_first, claimed, pows in terms:
+                    nxt = {x: _halo(main[x], (r + 1) % n, slice(0, stride), r, dev) for x in tp.next_cols}
+                    prev = [_halo(c, (r - 1) % n, slice(R - stride, R), r, dev) for c in inter[-4:]]
+                    mine.append(kernels.DomainTerm(tp, [c[r] for c in main], [c[r] for c in pp],
+                                                   [c[r] for c in inter], is_first[r], claimed, pows, (nxt, prev)))
+                blocks[r].append(kernels.DomainBlock(mine, log_trace, stride, r * R, log_domain))
+            where.append(("rows", len(blocks[0]) - 1))
+        else:
+            terms = [kernels.DomainTerm(tp, [on_lead(c) for c in main], [on_lead(c) for c in pp],
+                                        [on_lead(c) for c in inter], on_lead(is_first), claimed, pows)
+                     for tp, main, pp, inter, is_first, claimed, pows in terms]
+            lead.append(kernels.DomainBlock(terms, log_trace, stride))
+            where.append(("lead", len(lead) - 1))
+    n_rows = len(blocks[0])
+    blocks[0] += lead
+    outs = []
+    for r, (pos, _) in enumerate(mesh.row_shards()):
+        if blocks[r]:
+            with kernels.on_shard(pos):
+                outs.append(kernels.air_domain_many(blocks[r], ew))
+    return [RowBlocks(mesh, [o[i] for o in outs], 0) if kind == "rows" else outs[0][n_rows + i] for kind, i in where]
 
 
 def add_strided_coeffs(mesh: Mesh, acc: Optional[List[ColumnBlock]], q, stride: int, log: int) -> List[ColumnBlock]:

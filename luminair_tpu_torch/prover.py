@@ -3,9 +3,9 @@
   Phase 0:  commit the preprocessed trace (LUT columns, is_first flags);
   Phase 1:  pad and commit the main trace columns per component;
   Phase 2:  draw interaction elements, build the LogUp interaction columns
-            (K5, kernels.air_witness), mix the claimed sums, commit;
-  Phase 3a: composition polynomial from the per-component constraint
-            quotients (K6, kernels.air_domain), commit;
+            (K5, kernels.air_witness_many), mix the claimed sums, commit;
+  Phase 3a: composition polynomial from the constraint quotients of
+            every commit domain (K6, kernels.air_domain_many), commit;
   Phase 3b: OODS sampling, DEEP quotients, FRI, PoW, decommitment
             (pcs/scheme.py).
 
@@ -179,11 +179,13 @@ def _composition(layout, claim, pcs, B, claimed, alpha, ew, dev) -> list:
 
     Constraints are evaluated pointwise on each component's commit domain
     (trace log + B), where "next row" is a roll by 2^B, and divided by the
-    trace domain's vanishing polynomial (K6).  Components whose domain is
-    the working domain (max_log + B) add their quotients into it in place;
-    smaller ones interpolate and land strided in a coefficient vector
-    evaluated once at the end.  At B >= 2 the working domain is larger than
-    the composition's degree bound, so the sum is down-committed to
+    trace domain's vanishing polynomial: K6, one launch for every commit
+    domain, each domain's components summed in registers
+    (kernels.air_domain_many).  The working domain's sum (max_log + B) is
+    the composition's evaluations; each smaller domain's sum is
+    interpolated and lands strided in a coefficient vector evaluated once
+    at the end.  At B >= 2 the working domain is larger than the
+    composition's degree bound, so the sum is down-committed to
     D_{max_log+1}.  The alpha powers run on across components in canonical
     order.
 
@@ -191,15 +193,14 @@ def _composition(layout, claim, pcs, B, claimed, alpha, ew, dev) -> list:
     working domain is row-sharded (`_composition_rows`); otherwise it lies
     on the lead, the trees' row blocks gathered there."""
     mesh = pcs.trees[0].mesh
+    groups = _quotient_groups(layout, claim, pcs, B, alpha, claimed)
     if mesh.size > 1 and 1 << claim.max_log_size >= mesh.size:
-        return _composition_rows(layout, claim, pcs, B, claimed, alpha, ew, mesh)
+        return _composition_rows(claim, B, groups, ew, mesh)
     comp_log = claim.max_log_size + B
-    comp_evals = torch.zeros((1 << comp_log, 4), dtype=f.I32, device=dev)
-    comp_coeffs = None  # (4, 2^comp_log) int32
-    for c, tp, n, stride, pows, cols in _component_quotient_args(layout, claim, pcs, B, alpha):
-        cols = {k: [sharding.on_lead(x) for x in v] for k, v in cols.items()}
-        q = kernels.air_domain(tp, cols["main"], cols["pp"], cols["inter"], cols["is_first"][0], claimed[c.name],
-                               ew, pows, n, 1 << B, acc=comp_evals if stride == 1 else None)
+    blocks = [kernels.DomainBlock([kernels.DomainTerm(*_gathered(t)) for t in terms], n, 1 << B)
+              for terms, n, _ in groups]
+    comp_evals = comp_coeffs = None  # comp_coeffs: (4, 2^comp_log) int32
+    for (_, _, stride), q in zip(groups, kernels.air_domain_many(blocks, ew)):
         if stride == 1:
             comp_evals = q
             continue
@@ -218,49 +219,50 @@ def _composition(layout, claim, pcs, B, claimed, alpha, ew, dev) -> list:
     return [comp_evals[:, k] for k in range(4)]
 
 
-def _component_quotient_args(layout, claim, pcs, B, alpha):
-    """Per component in canonical order: (component, tape, trace log, its
-    stride in the working domain, its alpha powers, its commit-domain
-    columns {main, pp, inter, is_first} as the trees hold them)."""
+def _gathered(term: tuple) -> tuple:
+    """A quotient term (`_quotient_groups`) with its columns on the lead."""
+    tp, main, pp, inter, is_first, claimed, pows = term
+    return (tp, [sharding.on_lead(c) for c in main], [sharding.on_lead(c) for c in pp],
+            [sharding.on_lead(c) for c in inter], sharding.on_lead(is_first), claimed, pows)
+
+
+def _quotient_groups(layout, claim, pcs, B, alpha, claimed) -> list:
+    """The commit domains of a prove: per trace log, in the order of its
+    first component, (its components' terms, the log, its stride in the
+    working domain D_(max_log + B)); a term is (tape, main, pp, inter,
+    is_first, claimed sum, alpha powers) with the columns as the trees
+    hold them, the alpha powers running on across components in canonical
+    order."""
     comp_log = claim.max_log_size + B
     acc_pow = (1, 0, 0, 0)
     tree_pp, tree_main, tree_inter = pcs.trees[0], pcs.trees[1], pcs.trees[2]
+    groups: Dict[int, list] = {}
     for c in layout.components:
         tp = tape.record(c)
         n = claim.log_sizes[c.name]
         s0, _ = layout.main_slices[c.name]
         b0, b1 = layout.inter_slices[c.name]
         pows, acc_pow = f.qm31_powers_ints(acc_pow, alpha, tp.n_pows)
-        cols = {
-            "main": tree_main.evals[s0 : s0 + len(c.MAIN)],
-            "pp": [tree_pp.evals[layout.pp_index(pid)] for pid in c.PP_IDS],
-            "inter": tree_inter.evals[4 * b0 : 4 * b1],
-            "is_first": [tree_pp.evals[layout.pp_index(layout.is_first_id(c.name))]],
-        }
-        yield c, tp, n, 1 << (comp_log - n - B), pows, cols
+        groups.setdefault(n, []).append((
+            tp, tree_main.evals[s0 : s0 + len(c.MAIN)], [tree_pp.evals[layout.pp_index(pid)] for pid in c.PP_IDS],
+            tree_inter.evals[4 * b0 : 4 * b1], tree_pp.evals[layout.pp_index(layout.is_first_id(c.name))],
+            claimed[c.name], pows))
+    return [(terms, n, 1 << (comp_log - n - B)) for n, terms in groups.items()]
 
 
-def _composition_rows(layout, claim, pcs, B, claimed, alpha, ew, mesh) -> list:
-    """`_composition` with the working domain in row blocks: K6 on each row
-    shard's blocks of a component's columns with their halos
-    (sharding.air_domain_rows; a component with fewer trace rows than
-    shards on the lead, over its gathered columns), the smaller
-    components' interpolation and the down-commit on the column shards
-    (K1, the blocks exchanged).  RowBlocks columns."""
+def _composition_rows(claim, B, groups, ew, mesh) -> list:
+    """`_composition` with the working domain in row blocks: K6 one launch
+    a row shard over its blocks of every domain with their halos
+    (sharding.air_domain_many; a domain of fewer trace rows than shards
+    whole in the lead's launch, over its gathered columns), the smaller
+    domains' interpolation and the down-commit on the column shards (K1,
+    the blocks exchanged).  RowBlocks columns."""
     comp_log = claim.max_log_size + B
-    rows = (1 << comp_log) // mesh.size
-    comp = sharding.RowBlocks(mesh, [torch.zeros((rows, 4), dtype=f.I32, device=d) for _, d in mesh.row_shards()], 0)
-    comp_coeffs = None  # the column shards' blocks of the (4, 2^comp_log) coefficients
-    for c, tp, n, stride, pows, cols in _component_quotient_args(layout, claim, pcs, B, alpha):
-        if 1 << n >= mesh.size:
-            q = sharding.air_domain_rows(tp, cols["main"], cols["pp"], cols["inter"], cols["is_first"][0],
-                                         claimed[c.name], ew, pows, n, 1 << B, acc=comp if stride == 1 else None)
-        else:
-            cols = {k: [sharding.on_lead(x) for x in v] for k, v in cols.items()}
-            q = kernels.air_domain(tp, cols["main"], cols["pp"], cols["inter"], cols["is_first"][0],
-                                   claimed[c.name], ew, pows, n, 1 << B)
+    domains = [(terms if 1 << n >= mesh.size else [_gathered(t) for t in terms], n, 1 << B) for terms, n, _ in groups]
+    comp = comp_coeffs = None  # comp_coeffs: the column shards' blocks of the (4, 2^comp_log) coefficients
+    for (_, _, stride), q in zip(groups, sharding.air_domain_many(mesh, domains, ew)):
         if stride == 1:
-            comp = q  # the kernel added into comp in place; the twin returns the sum
+            comp = q
         else:
             comp_coeffs = sharding.add_strided_coeffs(mesh, comp_coeffs, q, stride, comp_log)
     if comp_coeffs is not None:

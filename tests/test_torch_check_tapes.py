@@ -138,12 +138,13 @@ extern "C" void h_check(const lum::CheckArgs* a, const int* order) {
 """
 
 
-def _build(d: Path, check: str, tapes: str):
+def _build(d: Path, check: str, tapes: str, row: str = None):
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no C++ compiler for the host build of csrc/check.cuh")
     (d / "check.cuh").write_text(check)
     (d / kernels.CHECK_TAPES_HEADER).write_text(tapes)
+    (d / "tape_row.cuh").write_text(row if row is not None else (CSRC / "tape_row.cuh").read_text())
     (d / "m31.cuh").write_text((CSRC / "m31.cuh").read_text())
     (d / "shim.cpp").write_text(_SHIM)
     subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(d), "-o", str(d / "check.so"),
@@ -255,26 +256,28 @@ def test_a_launch_past_its_column_table_is_refused():
         kernels.air_check_many([_args(ALL_COMPONENTS[0], 2, rng)] * (kernels.CHECK_MAX_COMPS + 1), _ew(rng))
 
 
-# Each breaks one rule of the check in check.cuh; the host build must then
-# disagree with the twin somewhere on small words with their honest
-# interaction.
+# Each breaks one rule of the check in check.cuh or in the row accessor it
+# shares with K5 and K6 (tape_row.cuh); the host build must then disagree
+# with the twin somewhere on small words with their honest interaction.
 MUTATIONS = {
-    "no claimed sum": ("qmul_m31(qload(c.claimed), at(First))", "qmul_m31(qload(c.claimed), 0u)"),
-    "previous row is this row": ("quad(Col, rp)", "quad(Col, r)"),
-    "next row is this row": ("(r + 1) & (c.n - 1)", "r"),
-    "entries not chained": ("    prev = s;\n", "\n"),
-    "second value dropped": ("if constexpr (Two) d", "if constexpr (false) d"),
-    "rows of another CTA": ("(long long)(cta - c.cta0) * CHECK_THREADS", "(long long)(cta - c.cta0 + 1) * CHECK_THREADS"),
-    "nonzero's bit misplaced": ("return (x | (0u - x)) >> 31;", "return (x | (0u - x)) >> 30;"),
+    "no claimed sum": ("tape_row.cuh", "qmul_m31(qload(claimed), at(First))", "qmul_m31(qload(claimed), 0u)"),
+    "previous row is this row": ("tape_row.cuh", "return quad(Col, rp);", "return quad(Col, r);"),
+    "next row is this row": ("check.cuh", "(r + 1) & (c.n - 1)", "r"),
+    "entries not chained": ("tape_row.cuh", "    prev = s;\n", "\n"),
+    "second value dropped": ("tape_row.cuh", "if constexpr (Two) d", "if constexpr (false) d"),
+    "rows of another CTA": ("check.cuh", "(long long)(cta - c.cta0) * CHECK_THREADS",
+                            "(long long)(cta - c.cta0 + 1) * CHECK_THREADS"),
+    "nonzero's bit misplaced": ("tape_row.cuh", "return (x | (0u - x)) >> 31;", "return (x | (0u - x)) >> 30;"),
 }
 
 
 @pytest.mark.parametrize("mutation", sorted(MUTATIONS))
 def test_mutated_check_fails(tmp_path, mutation):
-    old, new = MUTATIONS[mutation]
-    text = (CSRC / "check.cuh").read_text()
-    assert old in text
-    lib = _build(tmp_path, text.replace(old, new), (CSRC / kernels.CHECK_TAPES_HEADER).read_text())
+    name, old, new = MUTATIONS[mutation]
+    texts = {n: (CSRC / n).read_text() for n in ("check.cuh", "tape_row.cuh")}
+    assert old in texts[name]
+    texts[name] = texts[name].replace(old, new)
+    lib = _build(tmp_path, texts["check.cuh"], (CSRC / kernels.CHECK_TAPES_HEADER).read_text(), texts["tape_row.cuh"])
     rng = np.random.default_rng(11)
     ew = _ew(rng)
     comps = [_honest(c, 1 << 9, rng, ew) for c in ALL_COMPONENTS]

@@ -22,6 +22,21 @@ def dev():
     return torch.device("cuda", 0)
 
 
+def _leaves(x):
+    """The tensors and other values inside a call's arguments: lists,
+    tuples and dicts opened, a K6 block's terms and a term's columns."""
+    if isinstance(x, (list, tuple)):
+        for y in x:
+            yield from _leaves(y)
+    elif isinstance(x, dict):
+        for y in x.values():
+            yield from _leaves(y)
+    elif isinstance(x, (kernels.DomainBlock, kernels.DomainTerm)):
+        yield from _leaves(list(vars(x).values()))
+    else:
+        yield x
+
+
 def _rnd(rng, dev, *shape):
     return torch.from_numpy(rng.integers(0, f.P, size=shape).astype(np.int32)).to(dev)
 
@@ -321,8 +336,6 @@ def test_air_domain(dev, name, log_blowup):
     pows, _ = f.qm31_powers_ints(start, alpha, tp.n_pows)
     args = (tp, main, pp, inter, is_first, claimed, ew, pows, log_trace, 1 << log_blowup)
     assert torch.equal(kernels.air_domain(*args), tape.domain_plain(*args))
-    acc = _rnd(rng, dev, m, 4)
-    assert torch.equal(kernels.air_domain(*args, acc=acc.clone()), tape.domain_plain(*args, acc=acc))
 
 
 # Random words (every constraint fails nearly everywhere) and zeros (every
@@ -378,7 +391,7 @@ def test_prove_path_never_takes_a_plain_twin(dev, monkeypatch):
         fn = getattr(mod, name)
 
         def checked(*args, **kwargs):
-            flat = [a for x in list(args) + list(kwargs.values()) for a in (x if isinstance(x, (list, tuple)) else [x])]
+            flat = list(_leaves([args, kwargs]))
             if any(isinstance(a, torch.Tensor) and a.is_cuda or isinstance(a, (kernels.DecommitPass, kernels.QuotientPlan))
                    and a.dev.type == "cuda" or isinstance(a, torch.device) and a.type == "cuda" for a in flat):
                 raise AssertionError(f"{name} reached with a CUDA tensor")
@@ -417,6 +430,7 @@ def test_prove_path_never_takes_a_plain_twin(dev, monkeypatch):
     assert len(bottoms) == 4 + len(proof.pcs_proof.fri_proof.layer_roots)
     assert kernels.OODS_EVAL.launches == 1
     assert kernels.DEEP_QUOTIENT.launches == 1
+    assert kernels.AIR_WITNESS.launches == 1 and kernels.AIR_DOMAIN.launches == 1
 
 
 def test_verify_on_the_card_recommits_through_the_kernels(dev, monkeypatch):
@@ -602,7 +616,7 @@ def test_check_pie_constraints_from_a_card_pie(dev, cell):
         column[cell[3]] = (int(column[cell[3]]) + 1) % f.P
     kernels.reset_counts()
     got = check_pie_constraints(pie, settings)
-    assert {k for k, v in kernels.counts().items() if v} == {"air_witness", "air_check"}, kernels.counts()
+    assert {k: v for k, v in kernels.counts().items() if v} == {"air_witness": 1, "air_check": 1}, kernels.counts()
     host = LuminairPie({k: TraceTable(k, t.host_columns()) for k, t in pie.trace_tables.items()}, pie.metadata)
     assert got == check_pie_constraints(host, settings, device="cpu")
     assert (got == {}) == (cell is None)
@@ -730,7 +744,7 @@ def test_prove_from_card_trace_never_touches_the_host(dev, monkeypatch):
         fn = getattr(mod, name)
 
         def checked(*args, **kwargs):
-            flat = [a for x in list(args) + list(kwargs.values()) for a in (x if isinstance(x, (list, tuple)) else [x])]
+            flat = list(_leaves([args, kwargs]))
             if any(is_cuda(a) for a in flat):
                 raise AssertionError(f"{name} reached with a CUDA tensor")
             return fn(*args, **kwargs)
@@ -958,7 +972,7 @@ def test_air_witness_with_a_carry_on_a_virtual_mesh(dev, name):
     want, want_claimed = tape.witness_plain(tp, main, pp, ew)
     kernels.reset_counts()
     got, claimed = S.air_witness_many(_virtual("4", dev), [(tp, main, pp)], ew)[0]
-    assert all(kernels.SHARD_LAUNCHES[r] == ({"air_witness": 2} if r == 0 else {"air_witness": 2, "add_carry": 1})
+    assert all(kernels.SHARD_LAUNCHES[r] == ({"air_witness": 1} if r == 0 else {"air_witness": 1, "add_carry": 1})
                for r in range(4)), kernels.SHARD_LAUNCHES
     assert torch.equal(S.on_lead(got), want) and torch.equal(claimed, want_claimed)
     carry, part = _rnd(rng, dev, 4), slice(n // 2, n)
@@ -971,8 +985,9 @@ def test_air_witness_with_a_carry_on_a_virtual_mesh(dev, name):
 @pytest.mark.parametrize("name", ["mul", "sum_reduce", "max_reduce"])
 def test_air_domain_with_halos_on_a_virtual_mesh(dev, name, log_blowup):
     """K6 on each of 4 row shards of the card, each block's halo from its
-    neighbours (wrapping at the domain's ends), into an accumulator: the
-    twin's quotients on the whole domain added to it."""
+    neighbours (wrapping at the domain's ends), after the same domain whole
+    on the lead in the same call: the twin's quotients on the whole domain
+    in both, one launch a shard."""
     from luminair_tpu_torch.air import tape
     from luminair_tpu_torch.air.components import COMPONENTS_BY_NAME
     from luminair_tpu_torch.parallel import sharding as S
@@ -987,16 +1002,15 @@ def test_air_domain_with_halos_on_a_virtual_mesh(dev, name, log_blowup):
     claimed = tuple(int(w) for w in rng.integers(0, f.P, 4))
     ew = [[tuple(int(w) for w in rng.integers(0, f.P, 4)) for _ in range(2)] for _ in kernels.ELEM_KINDS]
     pows = [tuple(int(w) for w in rng.integers(0, f.P, 4)) for _ in range(tp.n_pows)]
-    acc = _rnd(rng, dev, m, 4)
-    want = tape.domain_plain(tp, main, pp, inter, is_first, claimed, ew, pows, log, 1 << log_blowup, acc)
+    want = tape.domain_plain(tp, main, pp, inter, is_first, claimed, ew, pows, log, 1 << log_blowup)
     mesh = _virtual("4", dev)
-    blocks = S.RowBlocks(mesh, [b.clone() for b in acc.chunk(4)], 0)
+    whole = ([(tp, main, pp, inter, is_first, claimed, pows)], log, 1 << log_blowup)
+    rows = ([(tp, [_split(mesh, c) for c in main], [_split(mesh, c) for c in pp], [_split(mesh, c) for c in inter],
+              _split(mesh, is_first), claimed, pows)], log, 1 << log_blowup)
     kernels.reset_counts()
-    got = S.air_domain_rows(tp, [_split(mesh, c) for c in main], [_split(mesh, c) for c in pp],
-                            [_split(mesh, c) for c in inter], _split(mesh, is_first), claimed, ew, pows, log,
-                            1 << log_blowup, blocks)
+    lead, got = S.air_domain_many(mesh, [whole, rows], ew)
     assert all(kernels.SHARD_LAUNCHES[r] == {"air_domain": 1} for r in range(4))
-    assert torch.equal(S.on_lead(got), want)
+    assert torch.equal(lead, want) and torch.equal(S.on_lead(got), want)
 
 
 def test_quotient_plans_on_row_blocks_of_the_card(dev):
@@ -1200,7 +1214,7 @@ def test_check_of_each_op_graph_is_one_launch(dev, name):
             column[1] = (int(column[1]) + 1) % f.P
         kernels.reset_counts()
         got = check_pie_constraints(pie, settings)
-        assert kernels.counts()["air_check"] == 1 and kernels.counts()["air_witness"] > 0
+        assert kernels.counts()["air_check"] == 1 and kernels.counts()["air_witness"] == 1
         host = LuminairPie({k: TraceTable(k, t.host_columns()) for k, t in pie.trace_tables.items()}, pie.metadata)
         assert got == check_pie_constraints(host, settings, device="cpu")
         assert mutate or got == {}
@@ -1244,3 +1258,127 @@ def test_witness_of_every_component_with_one_carry_pass_a_shard(dev):
         want, want_claimed = tape.witness_plain(tp, main, pp, ew)
         assert torch.equal(S.on_lead(out), want) and torch.equal(claimed, want_claimed)
     assert not isinstance(got[-1][0], S.RowBlocks)  # 2 rows: on the lead, no carry
+
+
+# ---------------------------------------------------------------------------
+# K5 and K6: every component in one launch, compiled per component.
+
+
+def _witness_comp(comp, n, rng, dev, fill, carry=False):
+    tp = tape.record(comp, witness=True)
+
+    def col():
+        if fill == "random":
+            return _rnd(rng, dev, n)
+        if fill == "honest":
+            return torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)).to(dev)
+        return torch.zeros(n, dtype=f.I32, device=dev)
+
+    out = (tp, [col() for _ in comp.MAIN], [col() for _ in comp.PP_IDS])
+    return out + ((_rnd(rng, dev, 4),) if carry else ())
+
+
+@pytest.mark.parametrize("fill", ["random", "zeros", "honest"])
+@pytest.mark.parametrize("which", ["pinn", "all"])
+def test_air_witness_of_every_component_in_one_launch(dev, which, fill):
+    """Every PINN component (or all 18) in one K5 launch, each of its own
+    size (1 to 2^17 rows: one tile to 512, look-backs over many 32-tile
+    windows), every third with a carry; three launches in a row on one
+    scratch (each reads only its own epoch's flags): the twins'
+    interactions and (C, 4) claimed sums, word for word."""
+    names = PINN_COMPONENTS if which == "pinn" else COMPONENT_NAMES
+    rng = np.random.default_rng(400 + len(names) + ["random", "zeros", "honest"].index(fill))
+    ew = _ew(rng)
+    comps = [_witness_comp(ALL_COMPONENTS[COMPONENT_NAMES.index(name)], 1 << int(rng.integers(0, 18)), rng, dev,
+                           fill, carry=i % 3 == 1) for i, name in enumerate(names)]
+    want, want_claimed = kernels.air_witness_many_plain(comps, ew)
+    for _ in range(3):
+        before = kernels.AIR_WITNESS.launches
+        outs, claimed = kernels.air_witness_many(comps, ew)
+        assert kernels.AIR_WITNESS.launches - before == 1
+        assert all(torch.equal(g, w) for g, w in zip(outs, want)) and torch.equal(claimed, want_claimed)
+
+
+def _domain_term(comp, m, rng, dev, fill, ew, start, alpha):
+    tp = tape.record(comp)
+    if fill == "honest":
+        main = [torch.from_numpy(rng.integers(0, 3, m).astype(np.int32)).to(dev) for _ in comp.MAIN]
+        pp = [torch.from_numpy(rng.integers(0, 3, m).astype(np.int32)).to(dev) for _ in comp.PP_IDS]
+        inter, claimed = tape.witness_plain(tape.record(comp, witness=True), main, pp, ew)
+        inter, claimed = [c.contiguous() for c in inter.unbind(0)], tuple(int(x) for x in claimed.cpu())
+        is_first = torch.zeros(m, dtype=f.I32, device=dev)
+        is_first[0] = 1
+    else:
+        main, pp = [_rnd(rng, dev, m) for _ in comp.MAIN], [_rnd(rng, dev, m) for _ in comp.PP_IDS]
+        inter, is_first, claimed = [_rnd(rng, dev, m) for _ in range(4 * tp.n_relations)], _rnd(rng, dev, m), \
+            _words(rng, 1)[0]
+    pows, nxt = f.qm31_powers_ints(start, alpha, tp.n_pows)
+    return kernels.DomainTerm(tp, main, pp, inter, is_first, claimed, pows), nxt
+
+
+def _row_blocks(blk, shards):
+    m, stride = blk.rows, blk.stride
+    R = m // shards
+    out = []
+    for r in range(shards):
+        part, nxt0, prev0 = slice(r * R, (r + 1) * R), ((r + 1) % shards) * R, (r * R - stride) % m
+        terms = [kernels.DomainTerm(t.tp, [c[part] for c in t.main], [c[part] for c in t.pp],
+                                    [c[part] for c in t.inter], t.is_first[part], t.claimed, t.pows,
+                                    ({x: t.main[x][nxt0 : nxt0 + stride] for x in t.tp.next_cols},
+                                     [c[prev0 : prev0 + stride] for c in t.inter[-4:]])) for t in blk.terms]
+        out.append(kernels.DomainBlock(terms, blk.log_trace, stride, r * R, m.bit_length() - 1))
+    return out
+
+
+@pytest.mark.parametrize("fill", ["random", "honest"])
+@pytest.mark.parametrize("blowup", [1, 2, 4])
+def test_air_domain_of_every_component_in_one_launch(dev, blowup, fill):
+    """All 18 components grouped by trace log (1 to 13) into commit
+    domains, the alpha powers running on from one to the next: one K6
+    launch whose each domain's quotients are the sum of its components'
+    twins; then the largest domain in 4 row blocks with their halos, a
+    launch a block, the first with every other domain whole (a mesh's
+    lead)."""
+    rng = np.random.default_rng(500 + blowup + len(fill))
+    ew = _ew(rng)
+    start, alpha = _words(rng, 2)
+    logs = {c.name: int(rng.integers(1, 13)) for c in ALL_COMPONENTS}
+    logs["mul"] = logs["sum_reduce"] = logs["max_reduce"] = 13
+    by_log = {}
+    for comp in ALL_COMPONENTS:
+        term, start = _domain_term(comp, 1 << (logs[comp.name] + blowup), rng, dev, fill, ew, start, alpha)
+        by_log.setdefault(logs[comp.name], []).append(term)
+    blocks = [kernels.DomainBlock(terms, log, 1 << blowup) for log, terms in sorted(by_log.items())]
+    want = kernels.air_domain_many_plain(blocks, ew)
+    before = kernels.AIR_DOMAIN.launches
+    got = kernels.air_domain_many(blocks, ew)
+    assert kernels.AIR_DOMAIN.launches - before == 1
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    rows = _row_blocks(blocks[-1], 4)
+    lead = kernels.air_domain_many([rows[0]] + blocks[:-1], ew)
+    parts = [lead[0]] + [kernels.air_domain_many([b], ew)[0] for b in rows[1:]]
+    assert torch.equal(torch.cat(parts), want[-1])
+    assert all(torch.equal(g, w) for g, w in zip(lead[1:], want[:-1]))
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_prove_on_a_virtual_mesh_launches_k5_and_k6_once_a_shard(dev, shards):
+    """all_ops's card PIE over 2 and 4 shards of the card: K5 and K6 one
+    launch a row shard, the carry pass one on each but the first, and the
+    one-device bytes (whose prove makes one K5 and one K6 launch)."""
+    from luminair_tpu_torch import prelude as T
+    from luminair_tpu_torch import serde
+    from luminair_tpu_torch.parallel import sharding as S
+
+    cx = _graph("all_ops")
+    settings = T.gen_circuit_settings(cx)
+    pie = T.gen_trace(cx, settings)
+    kernels.reset_counts()
+    one = serde.proof_to_flat_bytes(T.prove(pie, settings, device=dev))
+    assert kernels.AIR_WITNESS.launches == 1 and kernels.AIR_DOMAIN.launches == 1
+    kernels.reset_counts()
+    with S.prove_mesh(_virtual(str(shards), dev)):
+        assert serde.proof_to_flat_bytes(T.prove(pie, settings)) == one
+    for r in range(shards):
+        got = {k: kernels.SHARD_LAUNCHES[r].get(k, 0) for k in ("air_witness", "air_domain", "add_carry")}
+        assert got == {"air_witness": 1, "air_domain": 1, "add_carry": int(r > 0)}, (r, kernels.SHARD_LAUNCHES)

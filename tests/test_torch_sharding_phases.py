@@ -188,11 +188,11 @@ def test_add_carry_adds_one_word_a_coordinate():
 @pytest.mark.parametrize("log_blowup", [1, 2])
 @pytest.mark.parametrize("name", NAMES)
 def test_domain_on_row_blocks_with_halos(name, log_blowup):
-    """sharding.air_domain_rows over 2, 4 and 8 row shards (each block's
+    """sharding.air_domain_many over 2, 4 and 8 row shards (each block's
     halo from its neighbours, wrapping at both ends) equals the whole-
-    domain twin and the reference's `accel.domain_constraints`; the twin
-    on one block with its halo equals that block of the whole; with an
-    accumulator, acc + the quotients."""
+    domain twin and the reference's `accel.domain_constraints`, also
+    after a whole domain on the lead in the same call; the twin on one
+    block with its halo equals that block of the whole."""
     comp, ref = _pair(name)
     rng = np.random.default_rng(100 + NAMES.index(name) + 10 * log_blowup)
     log = 5
@@ -221,16 +221,16 @@ def test_domain_on_row_blocks_with_halos(name, log_blowup):
     stride = 1 << log_blowup
     whole = tape.domain_plain(tp, *args, f.qm31_words(claimed), ew, pows, log, stride)
     assert np.array_equal(f.tensor_to_u32(whole), np.asarray(want, dtype=np.uint32))
-    base = torch.from_numpy(_words(rng, m, 4).view(np.int32))
     for shards in SHARDS:
         mesh = _mesh(shards)
         main_b, pp_b, inter_b = ([_split(mesh, c) for c in args[i]] for i in range(3))
         first_b = _split(mesh, args[3])
-        got = S.air_domain_rows(tp, main_b, pp_b, inter_b, first_b, claimed, ew, pows, log, stride)
+        rows = ([(tp, main_b, pp_b, inter_b, first_b, claimed, pows)], log, stride)
+        got, = S.air_domain_many(mesh, [rows], ew)
         assert torch.equal(S.on_lead(got), whole), shards
-        acc = S.RowBlocks(mesh, [b.clone() for b in base.chunk(shards)], 0)
-        summed = S.air_domain_rows(tp, main_b, pp_b, inter_b, first_b, claimed, ew, pows, log, stride, acc)
-        assert torch.equal(S.on_lead(summed), f.add(base.to(f.I64), whole.to(f.I64)).to(f.I32))
+        on_lead = ([(tp, *args, claimed, pows)], log, stride)
+        lead, got = S.air_domain_many(mesh, [on_lead, rows], ew)
+        assert torch.equal(lead, whole) and torch.equal(S.on_lead(got), whole), shards
         # The last block alone: its halo wraps to the domain's first rows.
         rows, r = m // shards, shards - 1
         part = slice(r * rows, (r + 1) * rows)
@@ -247,9 +247,41 @@ def test_domain_block_smaller_than_its_halo_raises():
     tp = tape.record(comp)
     mesh = _mesh(8)
     col = _split(mesh, torch.zeros(8, dtype=torch.int32))  # one row a shard, a halo of 2
+    term = (tp, [col] * tp.n_main, [col] * tp.n_pp, [col] * (4 * tp.n_relations), col, (0, 0, 0, 0),
+            [(1, 0, 0, 0)] * tp.n_pows)
     with pytest.raises(ProverError):
-        S.air_domain_rows(tp, [col] * tp.n_main, [col] * tp.n_pp, [col] * (4 * tp.n_relations), col,
-                          (0, 0, 0, 0), tape.element_words({}), [(1, 0, 0, 0)] * tp.n_pows, 2, 2)
+        S.air_domain_many(mesh, [([term], 2, 2)], tape.element_words({}))
+
+
+@pytest.mark.parametrize("shards", SHARDS)
+def test_domain_groups_whole_on_the_lead_between_row_sharded_ones(shards):
+    """sharding.air_domain_many over groups in a prove's order where whole
+    domains on the lead (traces of fewer rows than shards) come before and
+    between row-sharded ones: each group's quotients equal the one-device
+    launch's (kernels.air_domain_many) of the same domains."""
+    rng = np.random.default_rng(70 + shards)
+    mesh, ew = _mesh(shards), _port_elems(_elements(rng))
+    start, alpha = (tuple(int(w) for w in _words(rng, 4)) for _ in range(2))
+    groups, whole = [], []
+    for name, log, sharded in [("add", 2, False), ("mul", 5, True), ("recip", 1, False), ("sum_reduce", 6, True),
+                               ("max_reduce", 4, True)]:
+        comp = next(c for c in ALL_COMPONENTS if c.name == name)
+        tp, m, stride = tape.record(comp), 1 << (log + 1), 2
+        cols = [f.u32_to_tensor(_words(rng, m)) for _ in range(tp.n_main + tp.n_pp + 4 * tp.n_relations + 1)]
+        main, pp = cols[: tp.n_main], cols[tp.n_main : tp.n_main + tp.n_pp]
+        inter, is_first = cols[tp.n_main + tp.n_pp : -1], cols[-1]
+        mine, start = f.qm31_powers_ints(start, alpha, tp.n_pows)
+        claimed = tuple(int(w) for w in _words(rng, 4))
+        whole.append(kernels.DomainBlock([kernels.DomainTerm(tp, main, pp, inter, is_first, claimed, mine)],
+                                         log, stride))
+        if sharded:
+            main, pp, inter = ([_split(mesh, c) for c in cs] for cs in (main, pp, inter))
+            is_first = _split(mesh, is_first)
+        groups.append(([(tp, main, pp, inter, is_first, claimed, mine)], log, stride))
+    want = kernels.air_domain_many(whole, ew)
+    got = S.air_domain_many(mesh, groups, ew)
+    assert [isinstance(g, S.RowBlocks) for g in got] == [False, True, False, True, True]
+    assert all(torch.equal(S.on_lead(g), w) for g, w in zip(got, want))
 
 
 # --- K4: a plan a row shard -------------------------------------------------

@@ -2,7 +2,7 @@
 (batch 256, chip_smoke.py's graph), in the design of whichever tree is
 given, so that two commits can be measured in turns in one run on one card.
 
-    python3 tools/kernel_timing.py [--tree DIR] [--kernels K3,T4,K8,K10,prove,K6,air_check,carry,logup_sum,mesh_devices]
+    python3 tools/kernel_timing.py [--tree DIR] [--kernels K3,T4,K8,K10,prove,K5,K6,air_check,carry,logup_sum,mesh_devices]
 
 DIR (default: this repository) is the root of a checkout whose
 luminair_tpu_torch is imported; the measurement code (this file and
@@ -60,9 +60,19 @@ chip_smoke.Profiled) is this repository's.  --kernels picks from:
        the wall time can be told apart as the host's or the device's;
   K6   K5 and K6 on the PINN's mul component (chip_smoke.py's tape
        kernels): K5 at its 2^21 trace rows, K6 at its commit domain of
-       blowup 1 and 2 (2^22 and 2^23 rows, stride 2 and 4), each call's
-       CUDA-event median of TAPE_REPS after a warm-up, on inputs drawn
-       from one seed;
+       blowup 1 and 2 (2^22 and 2^23 rows, stride 2 and 4) and at the
+       second of its 4 row blocks with its halo (2^20 and 2^21 rows), each
+       call's CUDA-event median of TAPE_REPS after a warm-up (and
+       `per_call`'s call, host and device ms), on inputs drawn from one
+       seed, beside its bound as chip_smoke.py counts it
+       now and as it counted before; and the LDL / STL counts of the SASS
+       of every kernel of the tree's air library (cuobjdump);
+  K5   K5 in a prove of bench_n256 and of the PINN (their card PIEs):
+       the witness calls of one prove recorded, then replayed (`per_call`:
+       call, host and device ms of the prove's calls); where the tree has
+       one launch a phase (kernels.air_witness_many), that launch again at
+       each number of rows a thread (kernels.witness_items) from 1 to
+       WITNESS_MAX_ITEMS;
   air_check
        the constraint check: the one-component call at mul's 2^21 trace
        rows (chip_smoke.py's tape kernels' inputs) and the check launches
@@ -121,7 +131,7 @@ REPS = 50  # calls per profiled or enqueued batch
 PROVES = 5
 PROVE_TIMES = 9  # timed proves a path (`prove`)
 TAPE_REPS = 31  # timed calls of a tape kernel (`K6`)
-KINDS = ("K3", "T4", "K8", "K10", "trace_segment", "profiler_window", "prove", "K6", "air_check", "carry",
+KINDS = ("K3", "T4", "K8", "K10", "trace_segment", "profiler_window", "prove", "K5", "K6", "air_check", "carry",
          "logup_sum", "mesh_devices")
 
 # Design choices of the trace segment kernel, each undone in a copy of csrc/.
@@ -401,6 +411,8 @@ def tape_times(kernels, emit, dev) -> None:
     from luminair_tpu_torch.air import tape
     from luminair_tpu_torch.air.components import COMPONENTS_BY_NAME
 
+    emit({"phase": "air_sass", "library": kernels.AIR_WITNESS.library_path().name,
+          "kernels": sass_counts(kernels.AIR_WITNESS.library_path())})
     comp, log = COMPONENTS_BY_NAME["mul"], 21
     rng = np.random.default_rng(21)
 
@@ -413,15 +425,74 @@ def tape_times(kernels, emit, dev) -> None:
     ew = [[words(4) for _ in range(2)] for _ in tape.ELEM_KINDS]
     tpw, tpd = tape.record(comp, witness=True), tape.record(comp)
     main, pp = [rnd(1 << log) for _ in comp.MAIN], [rnd(1 << log) for _ in comp.PP_IDS]
-    calls = {f"air_witness 2^{log}": lambda: kernels.air_witness(tpw, main, pp, ew)}
+    wa = {"comps": [(tpw, main, pp)]}
+    calls = {f"air_witness 2^{log}": (lambda: kernels.air_witness(tpw, main, pp, ew),
+                                      chip_smoke.witness_work(wa), chip_smoke.witness_work(wa, False))}
     for blowup in (1, 2):
         m = 1 << (log + blowup)
         args = (tpd, [rnd(m) for _ in comp.MAIN], [rnd(m) for _ in comp.PP_IDS],
                 [rnd(m) for _ in range(4 * tpd.n_relations)], rnd(m), words(4), ew,
                 [words(4) for _ in range(tpd.n_pows)], log, 1 << blowup)
-        calls[f"air_domain 2^{log + blowup}, stride {1 << blowup}"] = lambda args=args: kernels.air_domain(*args)
-    for name, call in calls.items():
-        emit({"phase": "tape", "call": name, "ms": chip_smoke.time_ms(call, TAPE_REPS)})
+        # Bounds where the tree has K6's blocks (chip_smoke.domain_work reads them).
+        da = chip_smoke.domain_call(args) if hasattr(kernels, "DomainBlock") else None
+        calls[f"air_domain 2^{log + blowup}, stride {1 << blowup}"] = (
+            lambda args=args: kernels.air_domain(*args), da and chip_smoke.domain_work(da),
+            da and chip_smoke.domain_work(da, True))
+        # The row block of shard 1 of 4 with its halo (PR 14's mesh block).
+        R, stride = m // 4, 1 << blowup
+        part = slice(R, 2 * R)
+        halo = ({x: args[1][x][2 * R : 2 * R + stride] for x in tpd.next_cols},
+                [c[R - stride : R] for c in args[3][-4:]])
+        block = (tpd, [c[part] for c in args[1]], [c[part] for c in args[2]], [c[part] for c in args[3]],
+                 args[4][part]) + args[5:]
+        db = None
+        if da:
+            term = kernels.DomainTerm(tpd, *[list(x) for x in block[1:4]], block[4], args[5], list(args[7]), halo)
+            db = {"blocks": [kernels.DomainBlock([term], log, stride, R, log + blowup)]}
+        calls[f"air_domain block of 2^{log + blowup - 2} rows with its halo, stride {stride}"] = (
+            lambda block=block, halo=halo, R=R, blowup=blowup: kernels.air_domain(
+                *block, row0=R, log_domain=log + blowup, halo=halo),
+            db and chip_smoke.domain_work(db), db and chip_smoke.domain_work(db, True))
+    for name, (call, work, before) in calls.items():
+        line = {"phase": "tape", "call": name, "ms": chip_smoke.time_ms(call, TAPE_REPS), **per_call(call)}
+        if work is not None:
+            line.update(bound_ms=chip_smoke.bound(*work)[0], bound_before_ms=chip_smoke.bound(*before)[0])
+        emit(line)
+
+
+def witness_times(kernels, T, BS, emit) -> None:
+    """The `K5` lines above."""
+    cx, _ = chip_smoke.bench_graph(T, chip_smoke.N_MAIN)
+    bench = T.gen_circuit_settings(cx)
+    inputs = {"bench_n256": (T.gen_trace(cx, bench), bench), "pinn_b256": _pinn_pie(T, BS)}
+    many = hasattr(kernels, "air_witness_many")
+    name = "air_witness_many" if many else "air_witness"
+    for tag, (pie, settings) in inputs.items():
+        orig, kept = getattr(kernels, name), []
+
+        def rec(*a, **k):
+            kept.append((a, k))
+            return orig(*a, **k)
+
+        setattr(kernels, name, rec)
+        try:
+            T.prove(pie, settings)
+        finally:
+            setattr(kernels, name, orig)
+        rows = sum((list(c[1]) + list(c[2]))[0].shape[0] for a, _ in kept for c in a[0]) if many else sum(
+            (list(a[1]) + list(a[2]))[0].shape[0] for a, _ in kept)
+        emit({"phase": "witness", "path": tag, "calls_a_prove": len(kept), "rows": rows,
+              **({"items_default": kernels.witness_items(rows)} if many else {}),
+              **per_call(lambda: [orig(*a, **k) for a, k in kept])})
+        if not many:
+            continue
+        default = kernels.witness_items
+        for items in range(1, kernels.WITNESS_MAX_ITEMS + 1):
+            kernels.witness_items = lambda rows, items=items: items
+            try:
+                emit({"phase": "witness", "path": tag, "items": items, **per_call(lambda: orig(*kept[0][0]))})
+            finally:
+                kernels.witness_items = default
 
 
 def _pinn_pie(T, BS):
@@ -767,6 +838,8 @@ def main() -> int:
         trace_segment_variants(kernels, T, BS, tree, emit)
     if "K6" in kinds:
         tape_times(kernels, emit, dev)
+    if "K5" in kinds:
+        witness_times(kernels, T, BS, emit)
     if "prove" in kinds:
         prove_times(T, BS, tracing, emit)
     if "air_check" in kinds:
