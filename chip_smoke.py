@@ -1082,21 +1082,22 @@ def card_trace(T, cx, counts=None):
     """Settings and PIE from the user's entry points (on the card by
     default), each timed to a synchronise; with `counts`, also the
     launches each of the two made.  Also the sub-spans of the two passes
-    (graph/device_trace.py, each ended by a synchronise)."""
+    (graph/device_trace.py), with tracing on: each ended by a synchronise."""
     from luminair_tpu_torch import tracing
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    settings = T.gen_circuit_settings(cx)
-    torch.cuda.synchronize()
-    settings_s = time.perf_counter() - t0
-    spans = {"settings": tracing.last_phases("settings")}
-    after_settings = counts() if counts else None
-    t0 = time.perf_counter()
-    pie = T.gen_trace(cx, settings)
-    torch.cuda.synchronize()
-    trace_s = time.perf_counter() - t0
-    spans["trace"] = tracing.last_phases("trace")
+    with tracing.enable():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        settings = T.gen_circuit_settings(cx)
+        torch.cuda.synchronize()
+        settings_s = time.perf_counter() - t0
+        spans = {"settings": tracing.last_phases("settings")}
+        after_settings = counts() if counts else None
+        t0 = time.perf_counter()
+        pie = T.gen_trace(cx, settings)
+        torch.cuda.synchronize()
+        trace_s = time.perf_counter() - t0
+        spans["trace"] = tracing.last_phases("trace")
     stages = None
     if counts:
         after = counts()

@@ -60,7 +60,7 @@ def check_pie_constraints(pie, settings, device=None) -> Dict[str, List[tuple]]:
         [(tape.record(c), main, pp_cols, list(inter.unbind(0)), pp[layout.is_first_id(c.name)], s)
          for (c, main, pp_cols), inter, s in zip(comps, inters, sums)], ew)
     at = torch.nonzero(every).flatten()
-    at, bits = torch.stack([at, every[at].to(f.I64) & 0xFFFFFFFF]).cpu().numpy()
+    at, bits = f.to_host(torch.stack([at, every[at].to(f.I64) & 0xFFFFFFFF])).numpy()
 
     out = {}
     start = 0

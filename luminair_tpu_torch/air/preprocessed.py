@@ -27,6 +27,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import fields as f
 from .. import fixed
 
 MIN_LOG_SIZE = 4  # padded tables have at least 16 rows (reference
@@ -89,7 +90,7 @@ class LookupLayout:
         values; -1 if out of range (one vectorised searchsorted).  An int64
         tensor gives a tensor on its device."""
         if isinstance(targets, torch.Tensor):
-            los, his, starts = (torch.from_numpy(a).to(targets.device) for a in self.packed())
+            los, his, starts = (f.to_device(torch.from_numpy(a), targets.device) for a in self.packed())
             return find_index_packed(targets, los, his, starts)
         targets = np.asarray(targets, dtype=np.int64)
         los, his, starts = self.packed()

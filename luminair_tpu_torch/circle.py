@@ -191,7 +191,7 @@ def _twiddle_table(log_size: int, inverse: bool, device: torch.device) -> torch.
     tw = ifft_twiddles(log_size) if inverse else fft_twiddles(log_size)
     if not tw:
         return torch.zeros(0, dtype=f.I32, device=device)
-    return torch.cat(tw).to(f.I32).to(device)
+    return f.to_device(torch.cat(tw).to(f.I32), device)
 
 
 twiddle_table.cache_clear = _twiddle_table.cache_clear
@@ -213,7 +213,7 @@ def domain_table(log_size: int, device):
 @lru_cache(maxsize=64)
 def _domain_table(log_size: int, device: torch.device):
     xs, ys = domain_points(log_size)
-    return xs.to(f.I32).to(device), ys.to(f.I32).to(device)
+    return f.to_device(xs.to(f.I32), device), f.to_device(ys.to(f.I32), device)
 
 
 domain_table.cache_clear = _domain_table.cache_clear

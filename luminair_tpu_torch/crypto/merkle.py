@@ -157,8 +157,7 @@ def open_trees(trees: List, queries: List[Dict[int, np.ndarray]]) -> List[tuple]
     shard that holds a queried row is one pass more over its blocks, on
     its device.  Returns per tree (values: one array per column, logs
     descending, commitment order; witness: (n, 8) uint32 digests)."""
-    timer = tracing.current("prove")
-    with timer.span("3b_decommit.plan"):
+    with tracing.span("3b_decommit.plan"):
         lead, shards = [], {}  # (tree index, desc, queries); shard r -> the same
         for i, (t, q) in enumerate(zip(trees, queries)):
             if isinstance(t, ShardedMerkleTree):
@@ -171,7 +170,7 @@ def open_trees(trees: List, queries: List[Dict[int, np.ndarray]]) -> List[tuple]
                 lead.append((i, t.desc, q))
         plans = {r: kernels.DecommitPass([d for _, d, _ in p], [q for _, _, q in p]) for r, p in shards.items()}
         lead_plan = kernels.DecommitPass([d for _, d, _ in lead], [q for _, _, q in lead])
-    with timer.span("3b_decommit.launch_download"):
+    with tracing.span("3b_decommit.launch_download"):
         outs = {}
         for r, plan in plans.items():
             with kernels.on_shard(r):
@@ -180,7 +179,7 @@ def open_trees(trees: List, queries: List[Dict[int, np.ndarray]]) -> List[tuple]
             lead_out = kernels.decommit(lead_plan)
         lead_words = f.tensor_to_u32(lead_out)
         shard_words = {r: f.tensor_to_u32(w) for r, w in outs.items()}
-    with timer.span("3b_decommit.assembly"):
+    with tracing.span("3b_decommit.assembly"):
         result = lead_plan.split(lead_words)  # a sharded tree's entry: its top's, replaced below
         sharded = [j for j, (i, _, _) in enumerate(lead) if isinstance(trees[i], ShardedMerkleTree)]
         if sharded:

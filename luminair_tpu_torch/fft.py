@@ -84,7 +84,7 @@ def line_ifft_qm31(values: torch.Tensor, twiddles_inv) -> torch.Tensor:
     a = values
     n_blocks, m, stage = 1, L, 0
     while m >= 2:
-        t = twiddles_inv[stage].to(a.device)[:, None]
+        t = f.to_device(twiddles_inv[stage], a.device)[:, None]
         blocks = a.reshape(n_blocks, m, 4)
         v0 = blocks[:, : m // 2]
         v1 = blocks[:, m // 2 :].flip(1)

@@ -7,6 +7,11 @@ Stored columns are int32 tensors holding the same words (canonical M31 values
 are below 2^31); `u32_to_tensor` / `tensor_to_u32` convert from and to the
 uint32 numpy words the transcript and the wire format use.
 
+Every copy between the host and a card goes through the helpers here
+(`u32_to_tensor`, `tensor_to_u32`, `host_i64`, `upload`, `to_device`,
+`to_host`, `copy`), which count its bytes in tracing's store by kind:
+host-to-device from pageable or from pinned memory, device-to-host.
+
 QM31 = CM31[u]/(u^2 - (2+i)), CM31 = M31[i]/(i^2+1).  An element
 (a + b*i) + (c + d*i)*u is the last-axis vector [a, b, c, d], as in the
 reference package's fields/qm31.py.
@@ -19,6 +24,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from . import tracing
+
 P = (1 << 31) - 1
 INV2 = (P + 1) // 2  # 1/2 in M31
 
@@ -30,17 +37,45 @@ I32 = torch.int32
 # Conversions between uint32 numpy words and torch tensors.
 
 
+def _count(src: torch.Tensor, device) -> None:
+    """Counts a copy of `src` to `device` if it crosses between host and
+    card."""
+    to_card = torch.device(device).type == "cuda"
+    if to_card == src.is_cuda:
+        return
+    kind = tracing.D2H if src.is_cuda else tracing.H2D_PINNED if src.is_pinned() else tracing.H2D_PAGEABLE
+    tracing.count(kind, src.numel() * src.element_size())
+
+
+def to_device(t: torch.Tensor, device, non_blocking: bool = False) -> torch.Tensor:
+    """`t.to(device)`, counted."""
+    _count(t, device)
+    return t.to(device, non_blocking=non_blocking)
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """`t.cpu()`, counted."""
+    _count(t, "cpu")
+    return t.cpu()
+
+
+def copy(dst: torch.Tensor, src: torch.Tensor, non_blocking: bool = False) -> torch.Tensor:
+    """`dst.copy_(src)`, counted."""
+    _count(src, dst.device)
+    return dst.copy_(src, non_blocking=non_blocking)
+
+
 def u32_to_tensor(a, device="cpu", dtype=I32) -> torch.Tensor:
     """uint32 numpy words -> int32 tensor (bit-cast) or int64 (value)."""
     arr = np.ascontiguousarray(np.asarray(a, dtype=np.uint32))
     if dtype == I64:
-        return torch.from_numpy(arr.astype(np.int64)).to(device)
-    return torch.from_numpy(arr.view(np.int32)).to(device)
+        return to_device(torch.from_numpy(arr.astype(np.int64)), device)
+    return to_device(torch.from_numpy(arr.view(np.int32)), device)
 
 
 def tensor_to_u32(t: torch.Tensor) -> np.ndarray:
     """int32 (bit-cast words) or int64 (values < 2^32) tensor -> uint32."""
-    t = t.detach().cpu()
+    t = to_host(t.detach())
     if t.dtype == I64:
         return t.numpy().astype(np.uint32)
     return np.ascontiguousarray(t.to(I32).numpy()).view(np.uint32)
@@ -50,7 +85,7 @@ def host_i64(a) -> torch.Tensor:
     """Words (a uint32 numpy array or sequence) or an int64 tensor as an
     int64 CPU tensor of their values."""
     if isinstance(a, torch.Tensor):
-        return a.detach().cpu().to(I64)
+        return to_host(a.detach()).to(I64)
     return torch.from_numpy(np.asarray(a, dtype=np.uint32).astype(np.int64))
 
 
@@ -68,7 +103,7 @@ def upload(a: np.ndarray, device) -> torch.Tensor:
     the card (stream-ordered before the kernels launched after it)."""
     t = torch.from_numpy(np.ascontiguousarray(a))
     if torch.device(device).type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
+        return to_device(t.pin_memory(), device, non_blocking=True)
     return t
 
 
@@ -141,7 +176,7 @@ def inv(a):
 
 @lru_cache(maxsize=256)
 def _constant(values: tuple, device: torch.device) -> torch.Tensor:
-    return torch.tensor(values, dtype=I64, device=device)
+    return to_device(torch.tensor(values, dtype=I64), device)
 
 
 def constant(values, device="cpu") -> torch.Tensor:

@@ -27,8 +27,13 @@ memory, applies f in float64 exactly as the host pre-pass does (the
 device's sin and exp2 are not numpy's), and uploads the result from
 pinned memory as the node's output.
 
-Each pass records its sub-spans (tracing, kinds "trace" and "settings"),
-each ended by a device synchronise on the card.
+Each pass is a root span of its request (tracing, kinds "trace" and
+"settings"; the settings pass makes the request's id and gives it to the
+settings it returns) with its sub-spans, which end with a device
+synchronise only while tracing listens.  No host step relies on a span's
+end: each download waits for the stream (`.cpu()`, or the explicit stream
+synchronise after the LUT boundary's copy), and the pinned host buffer of
+the LUT round trips is written again only after that wait.
 """
 
 from __future__ import annotations
@@ -381,7 +386,7 @@ class _Layout:
         for a in self.parts + [words]:
             host[at : at + len(a)] = a
             at += len(a)
-        arena[self.at_data :].copy_(stage, non_blocking=arena.is_cuda)
+        f.copy(arena[self.at_data :], stage, non_blocking=arena.is_cuda)
 
 
 def _raise_flags(flags: np.ndarray) -> None:
@@ -409,17 +414,17 @@ def _store_outputs(graph: Graph, values: Dict[int, np.ndarray]) -> None:
                 graph.output_data[graph.nodes[src].srcs[0][0]] = data
 
 
-def _timer(kind: str, dev: torch.device) -> tracing.PhaseTimer:
-    """The pass's sub-spans, each ended by a device synchronise on the card."""
-    return tracing.start(kind, (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else None)
-
-
 def gen_trace_device(graph: Graph, settings: CircuitSettings, dev: torch.device) -> LuminairPie:
     """Every PIE column written on `dev` by the trace kernels."""
     if not graph.compiled:
         graph.compile()
-    timer = _timer("trace", dev)
-    with timer.span("plan"):
+    with tracing.root("trace", tracing.request_of(settings), dev):
+        return _trace_pass(graph, settings, dev)
+
+
+def _trace_pass(graph: Graph, settings: CircuitSettings, dev: torch.device) -> LuminairPie:
+    span = tracing.span
+    with span("plan"):
         plan = _Plan(graph)
         lk = settings.lookups
         layouts = {k: getattr(lk, k) for k in _LUT_OPS if getattr(lk, k) is not None}
@@ -427,9 +432,9 @@ def gen_trace_device(graph: Graph, settings: CircuitSettings, dev: torch.device)
         for kind, layout in layouts.items():
             outs = layout.outputs if layout.outputs is not None else lut_reference_outputs(kind, layout.all_values())
             luts[kind] = (*layout.packed(), outs)
-    with timer.span("walk"):
+    with span("walk"):
         layout = _Layout(plan, luts, trace=True, range_check=bool(lk.range_check_bits))
-    with timer.span("allocate"):
+    with span("allocate"):
         storage = {}
         for name, rows in plan.table_rows.items():
             names = TABLE_COLUMNS[name]
@@ -440,23 +445,23 @@ def gen_trace_device(graph: Graph, settings: CircuitSettings, dev: torch.device)
         flags = torch.zeros(len(_FLAGS), dtype=f.I32, device=dev)
         buffers = kernels.TraceBuffers(torch.empty(layout.n_words, dtype=torch.int64, device=dev), storage, hists,
                                        flags, layout.luts)
-    with timer.span("pack"):
+    with span("pack"):
         table = layout.table(buffers)
         words = table.pack()
-    with timer.span("upload"):
+    with span("upload"):
         layout.upload(table, words)
-    with timer.span("launches"):
+    with span("launches"):
         for what, k in layout.program:
             if what == "segment":
                 kernels.trace_segment(table.segment(k))
             else:
                 kernels.trace_reduce(layout.reduce_step(buffers, k))
 
-    with timer.span("download"):  # the one download: flags, then the retrieved outputs
+    with span("download"):  # the one download: flags, then the retrieved outputs
         rids = sorted(graph.to_retrieve)
         arena = buffers.arena
         outs = [arena[o : o + n] for o, n in (layout.region[r] for r in rids)]
-        flat = torch.cat([flags.to(torch.int64)] + outs).cpu().numpy()
+        flat = f.to_host(torch.cat([flags.to(torch.int64)] + outs)).numpy()
         _raise_flags(flat[: len(_FLAGS)])
         values, at = {}, len(_FLAGS)
         for r, o in zip(rids, outs):
@@ -464,7 +469,7 @@ def gen_trace_device(graph: Graph, settings: CircuitSettings, dev: torch.device)
             at += len(o)
         _store_outputs(graph, values)
 
-    with timer.span("assembly"):
+    with span("assembly"):
         tables = {}
         for name, (names, st) in storage.items():
             rows = plan.table_rows[name]
@@ -490,12 +495,20 @@ def gen_circuit_settings_device(graph: Graph, dev: torch.device) -> CircuitSetti
     holds, f on the host, its outputs uploaded from that buffer."""
     if not graph.compiled:
         graph.compile()
-    timer = _timer("settings", dev)
-    with timer.span("plan"):
+    rid = tracing.new_request()
+    with tracing.root("settings", rid, dev):
+        settings = _settings_pass(graph, dev)
+    settings.request = rid
+    return settings
+
+
+def _settings_pass(graph: Graph, dev: torch.device) -> CircuitSettings:
+    span = tracing.span
+    with span("plan"):
         plan = _Plan(graph)
-    with timer.span("walk"):
+    with span("walk"):
         layout = _Layout(plan, {}, trace=False)
-    with timer.span("allocate"):
+    with span("allocate"):
         flags = torch.zeros(len(_FLAGS), dtype=f.I32, device=dev)
         buffers = kernels.TraceBuffers(torch.empty(layout.n_words, dtype=torch.int64, device=dev), flags=flags)
         luts = [k for what, k in layout.program if what == "lut"]
@@ -504,14 +517,14 @@ def gen_circuit_settings_device(graph: Graph, dev: torch.device) -> CircuitSetti
                                   default=0), dtype=torch.int64, device=dev)
         host = torch.empty(max((max(layout.gathered[k][1] + 2, layout.region[k][1]) for k in luts), default=0),
                            dtype=torch.int64, pin_memory=dev.type == "cuda")
-    with timer.span("pack"):
+    with span("pack"):
         table = layout.table(buffers)
         words = table.pack()
-    with timer.span("upload"):
+    with span("upload"):
         layout.upload(table, words)
     ranges = {k: [] for k in _LUT_OPS}
     arena = buffers.arena
-    with timer.span("launches"):  # each LUT's round trip inside it
+    with span("launches"):  # each LUT's round trip inside it
         for what, k in layout.program:
             if what == "segment":
                 kernels.trace_segment(table.segment(k))
@@ -520,21 +533,22 @@ def gen_circuit_settings_device(graph: Graph, dev: torch.device) -> CircuitSetti
             else:
                 node = graph.nodes[k]
                 (so, sn), (go, gn), (oo, on) = src[k], layout.gathered[k], layout.region[k]
-                with timer.span("lut_boundary"):
+                with span("lut_boundary"):
                     boundary = kernels.lut_boundary(arena[so : so + sn], arena[go : go + gn], staging)
-                with timer.span("lut_download"):
+                with span("lut_download"):
                     got = host[: gn + 2]
-                    got.copy_(boundary, non_blocking=True)
-                    if dev.type == "cuda":
+                    f.copy(got, boundary, non_blocking=True)
+                    if dev.type == "cuda":  # the host reads `got` and then rewrites `host`: both wait for this
                         torch.cuda.current_stream(dev).synchronize()
                     got = got.numpy()
-                with timer.span("lut_f"):
+                with span("lut_f"):
                     ranges[node.op].append(lut_range(got[0], got[1]))
                     out = fixed.from_float(LUT_FNS[node.op](fixed.to_float(got[2:])))
-                with timer.span("lut_upload"):
+                with span("lut_upload"):
                     host[:on].numpy()[:] = out
-                    arena[oo : oo + on].copy_(host[:on], non_blocking=True)
-    with timer.span("flags"):
-        _raise_flags(flags.cpu().numpy())
-        settings = settings_from_ranges(ranges, any(n.op in ("less_than", "max_reduce") for n in graph.nodes))
-    return settings
+                    f.copy(arena[oo : oo + on], host[:on], non_blocking=True)
+    with span("flags"):
+        with span("download"):
+            _raise_flags(f.to_host(flags).numpy())
+        with span("settings_from_ranges"):
+            return settings_from_ranges(ranges, any(n.op in ("less_than", "max_reduce") for n in graph.nodes))

@@ -17,7 +17,8 @@ stream, whose error it returns).
 
 Every wrapper has a plain PyTorch twin here (`*_plain`).  A wrapper takes
 the twin only for tensors that lie on the CPU; for CUDA tensors it launches
-its kernel or raises.  Each kernel counts its launches (`Kernel.launches`),
+its kernel or raises.  Each launch counts in tracing's store (`counts()`,
+`Kernel.launches`, `SHARD_LAUNCHES`: views of it since `reset_counts()`),
 so a run can show that its path went through the kernel.
 
 Storage: int32 tensors holding the reference's uint32 words; the kernels
@@ -34,6 +35,7 @@ import re
 import shutil
 import subprocess
 import threading
+from collections.abc import Mapping
 from dataclasses import dataclass, field, replace
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
@@ -44,6 +46,7 @@ import torch
 from . import circle
 from . import fields as f
 from . import fixed
+from . import tracing
 from .air.preprocessed import find_index_packed
 from .crypto import blake2s
 from .errors import KernelError
@@ -81,7 +84,7 @@ def _sources(source: str) -> List[Path]:
 
 
 class Kernel:
-    """One kernel: its CUDA source, C entry points, and a count of launches.
+    """One kernel: its CUDA source and C entry points.
     `abi` maps C functions without arguments to the value each must return:
     the size of a struct passed by value, or a limit that this module and
     the source both use; checked when the library loads."""
@@ -93,9 +96,18 @@ class Kernel:
         self.replaces = replaces
         self.symbols = symbols
         self.abi = abi or {}
-        self.launches = 0
-        self.hosted = 0  # steps of this kernel's work that another kernel's launch ran
         self._fns = None
+
+    @property
+    def launches(self) -> int:
+        """Launches since `reset_counts()`."""
+        return tracing.since_reset("launches." + self.name)
+
+    @property
+    def hosted(self) -> int:
+        """Steps of this kernel's work that another kernel's launch ran,
+        since `reset_counts()`."""
+        return tracing.since_reset("hosted." + self.name)
 
     def library_path(self) -> Path:
         h = hashlib.sha256()
@@ -147,7 +159,7 @@ class Kernel:
                 err = fn(*args, stream)
         if err != 0:
             raise KernelError(f"{self.name}.{fn.__name__}: CUDA error {err} at launch")
-        self.launches += 1
+        tracing.launch(self.name)
 
 
 _LOAD_LOCK = threading.Lock()
@@ -722,38 +734,32 @@ KERNELS = (
 )
 
 
-def reset_counts() -> None:
-    for k in KERNELS:
-        k.launches = k.hosted = 0
-    SHARD_LAUNCHES.clear()
+reset_counts = tracing.reset_counts
 
 
 def counts() -> Dict[str, int]:
+    """Launches by kernel since `reset_counts()`."""
     return {k.name: k.launches for k in KERNELS}
 
 
-# Launches by the shard of a mesh that made them (parallel/sharding.py):
-# {mesh position, or "lead" for the top of a sharded tree: {kernel: n}}.
-SHARD_LAUNCHES: Dict[object, Dict[str, int]] = {}
+class _ShardLaunches(Mapping):
+    """Launches by the shard of a mesh that made them (parallel/sharding.py)
+    since `reset_counts()`: {mesh position, or "lead" for the top of a
+    sharded tree: {kernel: n}}, for every shard entered since."""
+
+    def __getitem__(self, shard):
+        return tracing.shard_launches()[shard]
+
+    def __iter__(self):
+        return iter(tracing.shard_launches())
+
+    def __len__(self):
+        return len(tracing.shard_launches())
 
 
-class on_shard:
-    """While active, the launches made count also under `shard` in
-    SHARD_LAUNCHES."""
-
-    def __init__(self, shard):
-        self.shard = shard
-
-    def __enter__(self):
-        self.before = counts()
-        return self
-
-    def __exit__(self, *exc):
-        mine = SHARD_LAUNCHES.setdefault(self.shard, {})
-        for name, n in counts().items():
-            if n != self.before[name]:
-                mine[name] = mine.get(name, 0) + n - self.before[name]
-        return False
+SHARD_LAUNCHES = _ShardLaunches()
+# While active, the launches made count also under the shard.
+on_shard = tracing.on_shard
 
 
 def _nvcc() -> str:
@@ -999,7 +1005,7 @@ def _merkle_launch(desc: "TreeDesc", tile_log: int = MERKLE_TILE_LOG, run=None, 
         else:
             run(MerklePass(desc.words.data_ptr(), b, tile_log, *ch))
     if state is not None and run is None:
-        CHANNEL.hosted += 1
+        tracing.count("hosted." + CHANNEL.name)
 
 
 def merkle_tree(desc: "TreeDesc", state: Optional[torch.Tensor] = None, slot: Optional[torch.Tensor] = None,
@@ -1897,7 +1903,7 @@ class _PowScratch:
     search at a time a device: the wrapper waits for each."""
 
     def __init__(self, dev: torch.device):
-        self.words = torch.tensor([-1, -1], dtype=torch.int64).to(dev)
+        self.words = f.to_device(torch.tensor([-1, -1], dtype=torch.int64), dev)
         self.parity = 0
         self.result = torch.empty(1, dtype=torch.int64, pin_memory=True)
         self.value = self.result.numpy()
@@ -1939,6 +1945,7 @@ def grind_pow(digest: bytes, bits: int, device) -> int:
     def run(args: PowArgs) -> int:
         args.scratch, args.parity = st.words.data_ptr(), st.parity
         GRIND_POW.launch("lum_grind_pow", device, ctypes.addressof(args), ctas, st.result.data_ptr())
+        tracing.count(tracing.D2H, st.result.element_size())  # the entry point's copy of the result word
         st.parity ^= 1
         return int(st.value[0])
 
@@ -2501,7 +2508,7 @@ class NodeTable:
     def upload(self) -> None:
         """Pack and copy the table alone into its place in the arena."""
         w = self.pack()
-        self.buffers.arena[self.at : self.at + len(w)].copy_(torch.from_numpy(w))
+        f.copy(self.buffers.arena[self.at : self.at + len(w)], torch.from_numpy(w))
 
     def segment(self, k: int) -> "TraceSegment":
         return TraceSegment(self, *self.segments[k])
@@ -2604,8 +2611,8 @@ def _launch_one(s: TraceStep) -> None:
         return
     chain = np.array([(0, 1, 0, shift, 0)], _CHAIN_DTYPE)
     phase = np.array([(0, 1, tiles)], _PHASE_DTYPE)
-    words = torch.from_numpy(np.concatenate([np.frombuffer(bytes(a), np.int64), chain.view(np.int64),
-                                             phase.view(np.int64), np.zeros(1, np.int64)])).to(dev)
+    words = f.to_device(torch.from_numpy(np.concatenate([np.frombuffer(bytes(a), np.int64), chain.view(np.int64),
+                                                         phase.view(np.int64), np.zeros(1, np.int64)])), dev)
     chains = words.data_ptr() + ctypes.sizeof(TraceArgs)
     phases = chains + _CHAIN_DTYPE.itemsize
     args = SegArgs(words.data_ptr(), chains, phases, phases + _PHASE_DTYPE.itemsize, tiles, 0, 1)

@@ -696,7 +696,7 @@ def _shard_rows(values: np.ndarray, mult: np.ndarray, shards):
         block = stage[off : off + (k + 1) * (b - a)].view(k + 1, b - a)
         block[:k].copy_(src[:, a:b])
         block[k].copy_(src_mult[a:b])
-        yield block.to(dev, non_blocking=True)
+        yield f.to_device(block, dev, non_blocking=True)
         off += block.numel()
 
 

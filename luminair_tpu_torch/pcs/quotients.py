@@ -111,10 +111,9 @@ def accumulate_quotients(
     the row-sharded logs in one call on each row shard, over its blocks
     (`QuotientPlan`'s shard); a plan's gammas and constants are the same
     on every shard, in its one upload."""
-    timer = tracing.current("prove")
-    with timer.span("3b_quotients.constants"):
+    with tracing.span("3b_quotients.constants"):
         groups = quotient_groups(samples, column_evals, gamma)
-    with timer.span("3b_quotients.plan"):
+    with tracing.span("3b_quotients.plan"):
         lead = [g for g in groups if not isinstance(g[1][0], sharding.RowBlocks)]
         rows = [g for g in groups if isinstance(g[1][0], sharding.RowBlocks)]
         plans = [(None, kernels.QuotientPlan(lead))] if lead else []
@@ -123,7 +122,7 @@ def accumulate_quotients(
             s = mesh.size.bit_length() - 1
             plans += [(pos, kernels.QuotientPlan([(log, [c[r] for c in cols], g, k) for log, cols, g, k in rows],
                                                  shard=(r, s))) for r, (pos, _) in enumerate(mesh.row_shards())]
-    with timer.span("3b_quotients.launch"):
+    with tracing.span("3b_quotients.launch"):
         out, by_shard = {}, []
         for pos, plan in plans:
             if pos is None:

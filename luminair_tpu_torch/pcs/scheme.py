@@ -136,17 +136,17 @@ class CommitmentSchemeProver:
             calls = by_shard[pos]
             with kernels.on_shard(pos):
                 vals = fft.eval_at_point_many([([self.trees[t].coeffs[c] for t, c, _ in ms], pt) for ms, pt in calls])
-            parts.append(vals.to(lead))
+            parts.append(f.to_device(vals, lead))
             order.extend(m for ms, _ in calls for m in ms)
         if len(parts) == 1:
             return parts[0]
         at = {m: i for i, m in enumerate(order)}
-        return torch.cat(parts)[torch.tensor([at[k] for k in keys], device=lead)]
+        return torch.cat(parts)[f.to_device(torch.tensor([at[k] for k in keys]), lead)]
 
     def prove_values(self, sample_points) -> PcsProof:
         """sample_points[tree][col] = list of (x, y) QM31 points.  Returns the
         opening proof; mixes everything into the channel."""
-        timer = tracing.current("prove")
+        span = tracing.span
         ch = self.channel
         # 1. OODS values from the coefficients, one group per (point, size)
         #    across trees, all groups in one call, downloaded in one transfer.
@@ -156,7 +156,7 @@ class CommitmentSchemeProver:
                 for pi, pt in enumerate(pts):
                     key = (tuple(pt[0].tolist()), tuple(pt[1].tolist()), len(tree.coeffs[c]))
                     groups.setdefault(key, (pt, []))[1].append((t, c, pi))
-        with timer.span("3b_oods_eval"):
+        with span("3b_oods_eval"):
             keys = [key for _, members in groups.values() for key in members]
             evals = self._oods_values(groups, keys)
             flat = f.tensor_to_u32(evals).reshape(-1, 4)
@@ -187,13 +187,13 @@ class CommitmentSchemeProver:
         column_evals = {
             (t, c): ev for t, tree in enumerate(self.trees) for c, ev in enumerate(tree.evals)
         }
-        with timer.span("3b_quotients"):
+        with span("3b_quotients"):
             quotients = accumulate_quotients(samples, column_evals, gamma)
-        with timer.span("3b_fri_commit"):
+        with span("3b_fri_commit"):
             fri_proof, fri_ctx = fri_mod.fri_prove(quotients, self.config.fri, ch)
 
         # 3. PoW (K10 on the card) + queries.
-        with timer.span("3b_pow"):
+        with span("3b_pow"):
             bits = self.config.pow_bits
             nonce = kernels.grind_pow(ch.digest, bits, self.trees[0].mesh.lead)
             if not ch.check_pow_nonce(bits, nonce):
@@ -203,8 +203,8 @@ class CommitmentSchemeProver:
         positions = ch.draw_queries(self.config.fri.n_queries, kmax)
 
         # 4. Decommit FRI layers and trees: one pass.
-        with timer.span("3b_decommit"):
-            with timer.span("3b_decommit.positions"):
+        with span("3b_decommit"):
+            with span("3b_decommit.positions"):
                 fri_queries = fri_mod.fri_queries(fri_ctx, positions)
                 need = fri_mod.needed_input_positions(positions, sorted(quotients), self.config.fri)
                 tree_queries = [{log: need[log] for log in set(tree.commit_logs) if log in need}

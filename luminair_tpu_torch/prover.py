@@ -75,11 +75,12 @@ def prove(pie: LuminairPie, settings, config: Optional[PcsConfig] = None, device
         dev = mesh.lead
         if device is not None and resolve_device(device) != dev:
             raise ProverError(f"prove() under a mesh runs on its lead device {dev}, not {device}")
-    proof = _prove_once(pie, settings, config or PcsConfig(), dev)
-    with tracing.current("prove").span("self_check"):
-        ok = prover_self_check(proof, settings)
-    if not ok:
-        raise ProverError("proof fails its own OODS composition check")
+    with tracing.root("prove", tracing.request_of(settings), dev, phases_sync=True):
+        proof = _prove_once(pie, settings, config or PcsConfig(), dev)
+        with tracing.span("self_check"):
+            ok = prover_self_check(proof, settings)
+        if not ok:
+            raise ProverError("proof fails its own OODS composition check")
     return proof
 
 
@@ -87,7 +88,7 @@ def _prove_once(pie: LuminairPie, settings, config: PcsConfig, dev: torch.device
     if not 1 <= config.log_blowup <= 4:
         raise ProverError("log_blowup_factor must be in 1..4")
     channel = Blake2sChannel()
-    timer = tracing.start("prove", (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else None)
+    span = tracing.span
 
     # ---- claim ----------------------------------------------------------
     tables = {n: t for n, t in pie.trace_tables.items() if t.n_rows > 0}
@@ -99,24 +100,31 @@ def _prove_once(pie: LuminairPie, settings, config: PcsConfig, dev: torch.device
     pcs = CommitmentSchemeProver(config, channel)
 
     # ---- phase 0: preprocessed -----------------------------------------
-    with timer.span("phase0_preprocessed"):
-        pp_cols = [f.u32_to_tensor(c, dev) for c in layout.pp.columns()]
-        pcs.commit(pp_cols)
+    with span("phase0_preprocessed"):
+        with span("build"):
+            host_cols = list(layout.pp.columns())
+        with span("upload"):
+            pp_cols = [f.u32_to_tensor(c, dev) for c in host_cols]
+            del host_cols
+        with span("commit"):
+            pcs.commit(pp_cols)
         pp_by_id = dict(zip(layout.pp.ids(), pp_cols))
 
     # ---- phase 1: main trace -------------------------------------------
-    with timer.span("phase1_main"):
+    with span("phase1_main"):
         main_cols: List[torch.Tensor] = []
         padded_by_comp: Dict[str, Dict[str, torch.Tensor]] = {}
-        for c in layout.components:
-            padded = tables[c.name].padded_columns(c.MAIN)
-            padded_by_comp[c.name] = {n: _main_column(v, dev) for n, v in padded.items()}
-            main_cols.extend(padded_by_comp[c.name][n] for n in c.MAIN)
-        pcs.commit(main_cols)
+        with span("columns"):
+            for c in layout.components:
+                padded = tables[c.name].padded_columns(c.MAIN)
+                padded_by_comp[c.name] = {n: _main_column(v, dev) for n, v in padded.items()}
+                main_cols.extend(padded_by_comp[c.name][n] for n in c.MAIN)
+        with span("commit"):
+            pcs.commit(main_cols)
         del main_cols
 
     # ---- phase 2: interaction ------------------------------------------
-    with timer.span("phase2_interaction"):
+    with span("phase2_interaction"):
         elems = layout.draw_elements(channel)
         ew = tape.element_words(elems)
         inter_cols: List[torch.Tensor] = []
@@ -138,12 +146,12 @@ def _prove_once(pie: LuminairPie, settings, config: PcsConfig, dev: torch.device
         del inter_cols, pp_by_id
 
     # ---- phase 3a: composition poly ------------------------------------
-    with timer.span("phase3a_composition"):
+    with span("phase3a_composition"):
         alpha = f.qm31_words(channel.draw_felt())
         pcs.commit(_composition(layout, claim, pcs, config.log_blowup, interaction_claim.sums, alpha, ew, dev))
 
     # ---- phase 3b: OODS + FRI ------------------------------------------
-    with timer.span("phase3b_oods_fri"):
+    with span("phase3b_oods_fri"):
         # Clamp the FRI last-layer bound to what the smallest committed
         # column admits; the effective value ships in the proof's config.
         min_log = min(min(t.commit_logs) for t in pcs.trees)

@@ -15,6 +15,7 @@ import torch
 
 from . import circle
 from . import fields as f
+from . import tracing
 from .air.framework import ConstraintAccumulator, PointEval
 from .air.layout import AirLayout, recombine_qm31
 from .crypto.channel import Blake2sChannel
@@ -55,6 +56,18 @@ def composition_oods_matches(layout, claim, proof, elems, alpha, z) -> bool:
 
 
 def prover_self_check(proof, settings) -> bool:
+    with tracing.span("replay"):
+        layout, elems, alpha, z = _replay(proof, settings)
+        if layout is None:
+            return False
+    with tracing.span("oods_composition"):
+        return composition_oods_matches(layout, proof.claim, proof, elems, alpha, z)
+
+
+def _replay(proof, settings):
+    """The prover's transcript replayed from the proof: its layout, lookup
+    elements, composition alpha and OODS point (None for each where the
+    LogUp sums do not balance)."""
     channel = Blake2sChannel()
     claim = proof.claim
     claim.mix_into(channel)
@@ -63,10 +76,10 @@ def prover_self_check(proof, settings) -> bool:
     channel.mix_root(proof.roots[1])
     elems = layout.draw_elements(channel)
     if not proof.interaction_claim.is_balanced():
-        return False
+        return None, None, None, None
     proof.interaction_claim.mix_into(channel)
     channel.mix_root(proof.roots[2])
     alpha = _q(channel.draw_felt())
     channel.mix_root(proof.roots[3])
     z = circle.point_from_t_qm31(_q(channel.draw_felt()))
-    return composition_oods_matches(layout, claim, proof, elems, alpha, z)
+    return layout, elems, alpha, z

@@ -15,7 +15,6 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
-import torch
 
 from . import circle
 from . import fields as f
@@ -79,8 +78,13 @@ def verify(proof, settings, expected_config=None, min_security_bits: int = 0, de
         raise StwoVerifierError(
             f"proof offers {config.security_bits()} security bits; caller requires >= {min_security_bits}"
         )
-    timer = tracing.start("verify", (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else None)
-    with timer.span("lut_validation"):
+    with tracing.root("verify", tracing.request_of(settings), dev, phases_sync=True):
+        return _verify(proof, settings, config, dev)
+
+
+def _verify(proof, settings, config, dev) -> bool:
+    span = tracing.span
+    with span("lut_validation"):
         _validate_lut_tables(settings)
     channel = Blake2sChannel()
 
@@ -91,7 +95,7 @@ def verify(proof, settings, expected_config=None, min_security_bits: int = 0, de
 
     # Tree 0: the verifier rebuilds the preprocessed columns and recommits
     # them; the root must be the prover's.
-    with timer.span("preprocessed_recommit"):
+    with span("preprocessed_recommit"):
         expect_root = _preprocessed_root(layout, settings, config.log_blowup, dev)
         if not np.array_equal(expect_root, np.asarray(proof.roots[0])):
             raise StwoVerifierError("preprocessed tree root mismatch")
@@ -111,11 +115,11 @@ def verify(proof, settings, expected_config=None, min_security_bits: int = 0, de
     z = circle.point_from_t_qm31(f.host_i64(channel.draw_felt()))
     sample_points = layout.sample_points(z)
 
-    with timer.span("oods_composition_check"):
+    with span("oods_composition_check"):
         if not composition_oods_matches(layout, claim, proof, elems, alpha, z):
             raise StwoVerifierError("composition polynomial OODS mismatch")
 
-    with timer.span("pcs_fri_decommit"):
+    with span("pcs_fri_decommit"):
         if not pcs.verify_values(sample_points, proof.pcs_proof):
             raise StwoVerifierError("PCS verification failed")
     return True

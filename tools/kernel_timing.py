@@ -823,6 +823,8 @@ def main() -> int:
 
     if Path(kernels.__file__).resolve().parent.parent != tree:
         raise AssertionError(f"imported {kernels.__file__}, not the tree's")
+    if hasattr(tracing, "enable"):  # every span ends with a synchronise, as in trees before tracing listened
+        tracing.enable()
     card = chip_smoke.phase_card()
     kernels.load_all()
     dev = torch.device("cuda", 0)
