@@ -1466,7 +1466,8 @@ def segment_err(kernels, seg) -> float:
     """A segment through its kernel SEGMENT_RUNS times and through its twin,
     each from fresh outputs (a missing barrier shows as words that differ
     only sometimes); then each of its node items alone, as a one-node
-    segment (trace_binary / trace_unary) against the op's twin."""
+    segment (trace_binary / trace_unary / trace_encode) against the op's
+    twin."""
     want = seg.fresh()
     kernels.trace_segment_plain(want)
     err = 0
@@ -1477,10 +1478,11 @@ def segment_err(kernels, seg) -> float:
     for step in seg.fresh().steps():
         if step.op == "pad":
             continue
-        binary = step.op in ("add", "mul", "rem", "less_than")
+        wrapper = ("trace_binary" if step.op in ("add", "mul", "rem", "less_than")
+                   else "trace_encode" if step.op == "encode" else "trace_unary")
         k, p = step.fresh(), step.fresh()
-        (kernels.trace_binary if binary else kernels.trace_unary)(k)
-        (kernels.trace_binary_plain if binary else kernels.trace_unary_plain)(p)
+        getattr(kernels, wrapper)(k)
+        getattr(kernels, wrapper + "_plain")(p)
         err = max(err, trace_err(k.outputs(), p.outputs()))
     return err
 
@@ -1780,7 +1782,7 @@ def phase_path_kernels(T, kernels, tape, f, tag: str, run, expect):
 INT64_OPS_PER_S = INT32_OPS_PER_S / 2
 TRACE_ROW_OPS = {
     "add": 8, "mul": 12, "rem": 12, "less_than": 16, "inputs": 4, "recip": 10, "square": 10, "sqrt": 14,
-    "lut": 8, "contiguous": 8, "sum_reduce": 10, "max_reduce": 18, "pad": 0,
+    "lut": 8, "contiguous": 8, "sum_reduce": 10, "max_reduce": 18, "pad": 0, "encode": 6,
 }
 
 

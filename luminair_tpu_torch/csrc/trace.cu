@@ -8,12 +8,13 @@
 // (:559, one program per segment between LUT nodes).  The host walks the
 // graph once (graph/device_trace.py) and builds one table of node
 // descriptors (TraceArgs) for the pass, uploaded in one copy with the
-// inputs; then:
+// inputs' float64 bits; then:
 //   trace_segment  every add / mul / rem / less_than (T1) and inputs /
 //                  recip / square / sqrt / sin, exp2, log2 / contiguous (T2)
 //                  node of a segment -- the nodes between two reductions,
 //                  and in the settings pass between LUT nodes too -- and,
-//                  in a trace's first segment, every table's padding rows:
+//                  in a pass's first segment, each input's fixed encoding
+//                  (T_ENCODE) and, in a trace, every table's padding rows:
 //                  one cooperative launch of a persistent interpreter;
 //   trace_reduce   sum_reduce / max_reduce (T3), one launch per node, one
 //                  thread per trace row, a segmented scan per CTA;

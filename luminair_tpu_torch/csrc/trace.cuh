@@ -13,7 +13,10 @@
 //     path does; C++ leaves it undefined);
 //   * sqrt takes the float64 estimate of the clamped product (IEEE sqrt is
 //     correctly rounded here and on the host, so the estimate is the same)
-//     and the host's single clamp in each direction, with wrapping squares.
+//     and the host's single clamp in each direction, with wrapping squares;
+//   * an input's encoding (fixed.from_float) rounds x * 2^12 half to even
+//     (the product is exact, rint is numpy's round), NaN gives 0, and the
+//     result saturates at +-2^62 (infinities too).
 // The structs and the enums below are mirrored by luminair_tpu_torch/kernels.py
 // (ViewDesc, TraceArgs, SegPhase, SegArgs, TRACE_OPS, TRACE_COLS), which
 // checks their sizes, their field offsets and the counts when the library
@@ -23,6 +26,7 @@
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace lum {
 
@@ -44,7 +48,8 @@ enum TraceOp : int {
   T_CONTIGUOUS,
   T_SUM_REDUCE,
   T_MAX_REDUCE,
-  T_PAD,  // a table's padding rows: every column given gets out_mult
+  T_PAD,     // a table's padding rows: every column given gets out_mult
+  T_ENCODE,  // an input's float64 bits to its int64 fixed encoding (no columns)
   T_N_OPS
 };
 
@@ -583,6 +588,29 @@ __device__ __forceinline__ void pad_row(const TraceArgs& __restrict__ a, long lo
   pad_word(a.cols, a.view[0].magic[1], a.view[0].shift[1], a.view[0].sizes[1], a.out_mult, r);
 }
 
+// T_ENCODE: the fixed encoding of the double whose bits are `bits`.  NaN
+// is tested on the bits, before any comparison (fmin / fmax would return
+// the other operand, and a fast-math build may drop `x != x`).
+__host__ __device__ __forceinline__ long long fixed_from_bits(long long bits) {
+  constexpr unsigned long long ABS = 0x7fffffffffffffffull, INF = 0x7ff0000000000000ull;
+  if (((unsigned long long)bits & ABS) > INF) return 0;
+#ifdef __CUDA_ARCH__
+  const double x = __longlong_as_double(bits);
+#else
+  double x;
+  memcpy(&x, &bits, sizeof x);
+#endif
+  const double s = rint(x * (double)FP_SCALE);
+  constexpr double LIM = 4611686018427387904.0;  // 2^62
+  return s >= LIM ? (1LL << 62) : (s <= -LIM ? -(1LL << 62) : (long long)s);
+}
+
+// Row r of an encode item: word r of its source, the bits of a double, to
+// word r of its output (another region: the item can run again).
+__device__ __forceinline__ void encode_row(const TraceArgs& __restrict__ a, long long r) {
+  ((long long*)a.out)[r] = fixed_from_bits(load_src((const long long*)a.src[0] + r, a.view[0].fresh));
+}
+
 // Row r of a segment's item.
 __device__ __forceinline__ void segment_row(const TraceArgs& __restrict__ a, long long r) {
   switch (a.op) {
@@ -594,6 +622,9 @@ __device__ __forceinline__ void segment_row(const TraceArgs& __restrict__ a, lon
       break;
     case T_PAD:
       pad_row(a, r);
+      break;
+    case T_ENCODE:
+      encode_row(a, r);
       break;
     default:
       unary_row(a, r);

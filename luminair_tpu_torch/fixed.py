@@ -124,6 +124,15 @@ _T_SCALE = 1 << DEFAULT_FP_SCALE
 _T_P = (1 << 31) - 1
 
 
+def t_from_float(x: torch.Tensor) -> torch.Tensor:
+    """`from_float` on a float64 tensor: x * 2^S rounded half to even, NaN
+    to 0, saturated at +-2^62 (the plain version of the trace kernel's
+    encode item)."""
+    scaled = torch.round(x.to(torch.float64) * _T_SCALE)
+    scaled = torch.nan_to_num(scaled, nan=0.0, posinf=_SAFE_MAX, neginf=-_SAFE_MAX)
+    return torch.clamp(scaled, -_SAFE_MAX, _SAFE_MAX).to(torch.int64)
+
+
 def t_to_m31(v: torch.Tensor) -> torch.Tensor:
     """v mod p (floor-mod), as int64 values in [0, p)."""
     return torch.remainder(v, _T_P)

@@ -11,13 +11,18 @@ a trace, each table's padding rows) as the items of one node table
 (kernels.NodeTable), cut into segments at the reductions (and, in the
 settings pass, at the LUT nodes) and, inside a segment, into phases: an
 item's phase is one more than the latest phase of an item of its segment
-whose output it reads.  The fixed-encoded inputs, constants, LUT tables
-and the node table go to the device in one copy; then each segment is one
-launch of kernels.trace_segment and each reduction one of trace_reduce,
-writing their rows in place.  The only downloads are the range flags and
-the retrieved outputs, together, at the end; the PIE's columns stay where
-they were written and prove() reads them there.  On CPU tensors the
-kernels' plain twins do the same work.
+whose output it reads.  The inputs' float64 bits (unconverted), the
+fixed-encoded constants, the LUT tables and the node table go to the
+device in one copy; then each segment is one launch of
+kernels.trace_segment and each reduction one of trace_reduce, writing
+their rows in place.  The first segment's items begin with one "encode"
+item an input, which writes the input's fixed encoding (fixed.from_float,
+bit for bit) into the input's region of the arena: a reader at its own
+row joins the encode's chain, any other reader waits for a later phase.
+The only downloads are the range flags and the retrieved outputs,
+together, at the end; the PIE's columns stay where they were written and
+prove() reads them there.  On CPU tensors the kernels' plain twins do the
+same work.
 
 The settings pre-pass cannot read LUT outputs (the LUTs do not exist yet),
 so a LUT node's gathered input ends its segment; T4 writes the node's
@@ -67,6 +72,9 @@ DEVICE_OPS = frozenset(_BINARY + _UNARY + _REDUCE + ("copy_to", "copy_from", "co
 #: max_reduce step outside [0, 2^30).
 _FLAGS = _LUT_OPS + ("max_reduce",)
 _P = (1 << 31) - 1
+#: The counter of the input values a pass's encode items turn into fixed
+#: point (in its `launches` span).
+ENCODED_INPUTS = "encoded_inputs"
 
 _IDS = "node_id idx is_last_idx next_node_id next_idx".split()
 _MULTS = ["lhs_mult", "rhs_mult", "out_mult"]
@@ -186,9 +194,10 @@ def _row_aligned(view: View, length: int, rows: int) -> bool:
 
 class _Layout:
     """One pass on the device, planned on the host: every node's output as a
-    region (offset, length) of one int64 arena -- the computed outputs
-    first, then the uploaded inputs, constants and LUT tables (`parts`,
-    from `at_data`), then the node table (at `at_table`); the node table's
+    region (offset, length) of one int64 arena -- the encoded inputs and
+    the computed outputs first, then the uploaded inputs' float64 bits
+    (`raw`), constants and LUT tables (`parts`, from `at_data`), then the
+    node table (at `at_table`); the node table's
     items, chains, phases and segments; and `program`, the pass's launches
     in order: ("segment", k), ("reduce", node id) and, in the settings
     pass, ("lut", node id) after the segment that gathers the LUT's input
@@ -205,6 +214,10 @@ class _Layout:
         self.region: Dict[int, tuple] = {}
         self.gathered: Dict[int, tuple] = {}
         at = 0
+        for nid in plan.input_ids:  # written by the pass's encode items
+            n = g.nodes[nid].out_len
+            self.region[nid] = (at, n)
+            at += n
         for nid in plan.order:
             node = g.nodes[nid]
             if node.op in ("function", "constant", "copy_to", "copy_from"):
@@ -224,8 +237,10 @@ class _Layout:
             at += len(a)
             return (at - len(a), len(a))
 
-        for nid in plan.input_ids:
-            self.region[nid] = put(fixed.from_float(g.input_data.get(nid, np.zeros(g.nodes[nid].out_len))))
+        self.raw = {nid: put(np.ascontiguousarray(g.input_data.get(nid, np.zeros(g.nodes[nid].out_len)),
+                                                  dtype=np.float64).view(np.int64))
+                    for nid in plan.input_ids}
+        self.encoded = sum(n for _, n in self.raw.values())
         for nid in plan.order:
             if g.nodes[nid].op == "constant":
                 self.region[nid] = put(fixed.from_float(np.array([g.nodes[nid].params["value"]])))
@@ -285,6 +300,8 @@ class _Layout:
             if it.out:
                 written[it.out[0]] = chain
 
+        for nid, (off, n) in self.raw.items():
+            add(kernels.TraceItem("encode", n, ((off, n, View.contiguous((n,))),), out=region[nid]))
         if self.trace:
             for it in self._padding():
                 add(it)
@@ -376,9 +393,9 @@ class _Layout:
         return kernels.NodeTable(buffers, self.items, self.chains, self.phases, self.segments, self.at_table)
 
     def upload(self, table: kernels.NodeTable, words: np.ndarray) -> None:
-        """The pass's one host-to-device copy: the inputs, constants and LUT
-        tables, then the node table's `words`, staged once (in pinned memory
-        for a card) into the arena's tail."""
+        """The pass's one host-to-device copy: the inputs' float64 bits, the
+        constants and LUT tables, then the node table's `words`, staged once
+        (in pinned memory for a card) into the arena's tail."""
         arena = table.buffers.arena
         n = arena.numel() - self.at_data
         stage = torch.empty(n, dtype=torch.int64, pin_memory=arena.is_cuda)
@@ -451,6 +468,7 @@ def _trace_pass(graph: Graph, settings: CircuitSettings, dev: torch.device) -> L
     with span("upload"):
         layout.upload(table, words)
     with span("launches"):
+        tracing.count(ENCODED_INPUTS, layout.encoded)
         for what, k in layout.program:
             if what == "segment":
                 kernels.trace_segment(table.segment(k))
@@ -525,6 +543,7 @@ def _settings_pass(graph: Graph, dev: torch.device) -> CircuitSettings:
     ranges = {k: [] for k in _LUT_OPS}
     arena = buffers.arena
     with span("launches"):  # each LUT's round trip inside it
+        tracing.count(ENCODED_INPUTS, layout.encoded)
         for what, k in layout.program:
             if what == "segment":
                 kernels.trace_segment(table.segment(k))

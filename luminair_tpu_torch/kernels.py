@@ -546,7 +546,7 @@ GRIND_POW = Kernel(
 # order, the views' rank limit, a segment's tile.
 TRACE_OPS = (
     "add", "mul", "rem", "less_than", "inputs", "recip", "square", "sqrt", "lut", "contiguous",
-    "sum_reduce", "max_reduce", "pad",
+    "sum_reduce", "max_reduce", "pad", "encode",
 )
 TRACE_COLS = (
     "node_id", "idx", "is_last_idx", "next_node_id", "next_idx", "lhs_id", "next_lhs_id", "rhs_id",
@@ -2350,9 +2350,11 @@ _OP_CODE = {op: i for i, op in enumerate(TRACE_OPS)}
 
 @dataclass
 class TraceItem:
-    """One row range of a pass's node table: a T1 or T2 node's rows, or a
+    """One row range of a pass's node table: a T1 or T2 node's rows, a
     table's padding rows (op "pad", writing `out_mult` into each column of
-    `columns`), by arena offsets and names.
+    `columns`), or an input's fixed encoding (op "encode": word r of its
+    source, the bits of a double, to word r of `out`), by arena offsets and
+    names.
 
     srcs: ((arena offset, length, View), ...); fresh: the sources that its
     launch writes before it (read past the L1 cache); out: (arena offset,
@@ -2638,6 +2640,16 @@ def trace_unary(s: TraceStep) -> None:
     _launch_one(s)
 
 
+def trace_encode(s: TraceStep) -> None:
+    """An input's fixed encoding (fixed.from_float) from its float64 bits,
+    as a one-item segment."""
+    _require(s.op == "encode" and len(s.srcs) == 1 and s.out is not None and len(s.out) >= s.rows
+             and len(s.srcs[0][0]) >= s.rows and not s.cols, "trace_encode: one source, an output, no columns")
+    if _on_cpu(s.srcs[0][0]):
+        return trace_encode_plain(s)
+    _launch_one(s)
+
+
 def trace_reduce(s: TraceStep) -> None:
     """T3: sum_reduce / max_reduce rows of one node, `rows` outputs."""
     _require(s.op in ("sum_reduce", "max_reduce") and len(s.srcs) == 1, f"trace_reduce: op {s.op}")
@@ -2683,6 +2695,8 @@ def trace_segment_plain(seg: TraceSegment) -> None:
     for s in seg.steps():
         if s.op == "pad":
             trace_pad_plain(s)
+        elif s.op == "encode":
+            trace_encode_plain(s)
         elif s.op in _BINARY_OPS:
             trace_binary_plain(s)
         else:
@@ -2692,6 +2706,10 @@ def trace_segment_plain(seg: TraceSegment) -> None:
 def trace_pad_plain(s: TraceStep) -> None:
     for col in s.cols.values():
         col.fill_(s.out_mult)
+
+
+def trace_encode_plain(s: TraceStep) -> None:
+    s.out[: s.rows] = fixed.t_from_float(s.srcs[0][0][: s.rows].view(torch.float64))
 
 
 def _put(cols: Dict[str, torch.Tensor], name: str, value) -> None:

@@ -564,7 +564,8 @@ def test_trace_kernels_match_twins(dev, name, monkeypatch):
     """Every segment and T3 step the card's settings pass and trace launch,
     run again through its kernel and through its plain twin on fresh
     outputs (each segment several times); each segment's node items also
-    alone, as one-node segments (trace_binary / trace_unary)."""
+    alone, as one-node segments (trace_binary / trace_unary /
+    trace_encode)."""
     calls = _recorded_trace(_graph(name), dev, monkeypatch)
     _check_trace_calls(calls)
     for wrapper, x in calls:
@@ -573,10 +574,11 @@ def test_trace_kernels_match_twins(dev, name, monkeypatch):
         for step in x.fresh().steps():
             if step.op == "pad":
                 continue
-            binary = step.op in ("add", "mul", "rem", "less_than")
+            wrapper = ("trace_binary" if step.op in ("add", "mul", "rem", "less_than")
+                       else "trace_encode" if step.op == "encode" else "trace_unary")
             k, p = step.fresh(), step.fresh()
-            (kernels.trace_binary if binary else kernels.trace_unary)(k)
-            (kernels.trace_binary_plain if binary else kernels.trace_unary_plain)(p)
+            getattr(kernels, wrapper)(k)
+            getattr(kernels, wrapper + "_plain")(p)
             assert torch.equal(k.outputs(), p.outputs()), step.op
 
 
@@ -633,6 +635,78 @@ def test_trace_segments_of_paths(dev, path, monkeypatch):
     assert kernels.TRACE_SEGMENT.launches == segments
     assert segments <= 2 + kernels.TRACE_REDUCE.launches + kernels.LUT_BOUNDARY.launches
     _check_trace_calls(calls)
+
+
+@pytest.mark.parametrize("case", ["edges", "normal"])
+def test_encode_on_card_matches_twin(dev, case):
+    """The encode item on the card (a one-item segment) against its twin on
+    the CPU and the host's fixed.from_float, at the encoding's edges
+    (tests/float_edges.py) and on a normal(0, 1) draw of 2^12."""
+    import importlib.util
+    from pathlib import Path
+
+    from luminair_tpu_torch import fixed
+    from luminair_tpu_torch.graph.view import View
+
+    spec = importlib.util.spec_from_file_location("float_edges", Path(__file__).with_name("float_edges.py"))
+    edges = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(edges)  # by path: the card's runs take no conftest, and `tests` may name another package
+    x = edges.edge_floats() if case == "edges" else edges.EDGE_CASES["normal"]
+    bits = torch.from_numpy(x.view(np.int64).copy())
+    step = kernels.TraceStep("encode", [(bits.to(dev), View.contiguous((len(x),)))], len(x),
+                             out=torch.zeros(len(x), dtype=torch.int64, device=dev))
+    kernels.trace_encode(step)
+    p = kernels.TraceStep("encode", [(bits, View.contiguous((len(x),)))], len(x),
+                          out=torch.zeros(len(x), dtype=torch.int64))
+    kernels.trace_encode_plain(p)
+    with np.errstate(all="ignore"):
+        want = fixed.from_float(x)
+    assert np.array_equal(p.out.numpy(), want)
+    assert np.array_equal(step.out.cpu().numpy(), want)
+
+
+def test_bench_graph_encodes_on_card(dev):
+    """The bench graph a * b + a on the card: trace_segment launches once a
+    pass (the encode items ride in the pass's one segment, first), the
+    passes' `encoded_inputs` are the inputs' lengths, and the card's
+    settings, PIE and outputs are the CPU's."""
+    from luminair_tpu_torch import prelude as T
+    from luminair_tpu_torch import tracing
+
+    cx = _bench_graph()
+    n_inputs = sum(len(v) for v in cx.input_data.values())
+    segs = []
+    launch = kernels.trace_segment
+
+    def keep(seg):
+        segs.append(seg)
+        return launch(seg)
+
+    kernels.reset_counts()
+    kernels.trace_segment = keep
+    try:
+        settings = T.gen_circuit_settings(cx, device=dev)
+        pie = T.gen_trace(cx, settings, device=dev)
+    finally:
+        kernels.trace_segment = launch
+    assert kernels.counts()["trace_segment"] == 2 == len(segs)
+    for seg in segs:
+        ops = [it.op for it in seg.items()]
+        assert ops.count("encode") == 2 and ops.index("encode") == 0, ops
+        assert seg.p1 - seg.p0 == 1  # every reader of an input at its own row: no phase added
+    spans = tracing.requests()[-1].spans
+    for kind in ("settings", "trace"):
+        (sp,) = [s for s in spans if s.path == kind + "/launches"]
+        assert sp.counts["encoded_inputs"] == n_inputs
+    cpu = _bench_graph()
+    s_cpu = T.gen_circuit_settings(cpu, device="cpu")
+    p_cpu = T.gen_trace(cpu, s_cpu, device="cpu")
+    assert settings.to_dict() == s_cpu.to_dict()
+    for tname, t in p_cpu.trace_tables.items():
+        for col, v in t.padded.items():
+            assert torch.equal(pie.trace_tables[tname].padded[col].cpu(), v), (tname, col)
+    for rid, v in cpu.output_data.items():
+        assert np.array_equal(cx.output_data[rid], v)
 
 
 def _random_view(rng):

@@ -30,6 +30,7 @@ from luminair_tpu_torch.graph.view import View
 from luminair_tpu_torch.models import black_scholes as bs
 from luminair_tpu_torch.models import op_graphs
 from tests import test_device_trace as ref_graphs
+from tests.float_edges import EDGE_CASES, edge_floats
 from tests.test_torch_pinn import XS, _reference_graph, _small_weights
 
 CPU = torch.device("cpu")
@@ -52,11 +53,25 @@ def _bench(cx, d):
     (a * b + a).retrieve()
 
 
+def _edge_mul_add(cx, d):
+    """a * b + a on inputs at the edges of the fixed encoding: ties, signed
+    zeros and subnormals, NaNs and infinities, the +-2^62 clip, float32
+    values (tests/float_edges.py)."""
+    x = edge_floats()
+    n = len(x)
+    a = cx.tensor((n,)).set(x)
+    b = cx.tensor((n,)).set(np.roll(x[::-1], 5))
+    (a * b + a).retrieve()
+
+
+_BUILDERS = {"bench_n8": _bench, "edge_mul_add": _edge_mul_add}
+
+
 def _ref_case(name):
     if name == "pinn":
         return _reference_graph(_small_weights())
     cx = R.Graph()
-    (_bench if name == "bench_n8" else getattr(ref_graphs, "build_" + name))(cx, ref_graphs.DATA)
+    _BUILDERS.get(name, getattr(ref_graphs, "build_" + name, None))(cx, ref_graphs.DATA)
     cx.compile()
     return cx
 
@@ -67,12 +82,12 @@ def _port_case(name):
         x, _ = bs.build(cx, _small_weights(), batch=XS.shape[0])
         x.set(XS)
     else:
-        (_bench if name == "bench_n8" else op_graphs.GRAPHS[name])(cx, op_graphs.DATA)
+        _BUILDERS.get(name, op_graphs.GRAPHS.get(name))(cx, op_graphs.DATA)
     cx.compile()
     return cx
 
 
-CASES = list(op_graphs.GRAPHS) + ["bench_n8", "pinn"]
+CASES = list(op_graphs.GRAPHS) + ["bench_n8", "pinn", "edge_mul_add"]
 
 
 @pytest.fixture(scope="module")
@@ -184,6 +199,74 @@ def test_fixed_twins_match_reference(op):
             want, got = getattr(ref_fixed, op)(a, b), getattr(fixed, "t_" + op)(ta, tb)
     for w, g in zip(want, got):
         assert np.array_equal(np.asarray(w, dtype=np.int64), g.numpy())
+
+
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_from_float_twin_matches_host(host_rows, case):
+    """The encode item's plain twin (fixed.t_from_float), its kernel's rows
+    (trace.cuh through g++) and the host's fixed.from_float agree bit for
+    bit at the edges of the encoding, with the reference package's."""
+    x = EDGE_CASES[case]
+    want = fixed.from_float(x)
+    assert np.array_equal(want, ref_fixed.from_float(x))
+    assert np.array_equal(fixed.t_from_float(torch.from_numpy(x)).numpy(), want)
+    bits = torch.from_numpy(x.view(np.int64).copy())
+    step = kernels.TraceStep("encode", [(bits, View.contiguous((len(x),)))], len(x),
+                             out=torch.zeros(len(x), dtype=torch.int64))
+    host_rows["trace_encode"](step)
+    assert np.array_equal(step.out.numpy(), want)
+    if case == "clip":
+        assert set(np.abs(want[np.abs(x) >= 2.0**50])) == {1 << 62} and (np.abs(want) < 1 << 62).any()
+
+
+def test_edge_inputs_trace_like_port_host():
+    """The edge graph's device-path settings and PIE (every padded column)
+    and outputs equal the port's host interpreter's (graph/trace.py), bit
+    for bit."""
+    cx = _port_case("edge_mul_add")
+    settings = T.gen_circuit_settings(cx, device="cpu")
+    pie = T.gen_trace(cx, settings, device="cpu")
+    hcx = _port_case("edge_mul_add")
+    hs = port_trace.gen_circuit_settings_host(hcx)
+    host = port_trace.gen_trace_host(hcx, hs)
+    assert serde.settings_to_flat_bytes(settings) == serde.settings_to_flat_bytes(hs)
+    assert list(pie.trace_tables) == list(host.trace_tables)
+    for tname, t in pie.trace_tables.items():
+        names = COMPONENTS_BY_NAME[tname].MAIN
+        want = host.trace_tables[tname].padded_columns(names)
+        for col, v in t.padded_columns(names).items():
+            assert np.array_equal(f.tensor_to_u32(v), want[col]), (tname, col)
+    for rid, v in hcx.output_data.items():
+        assert np.array_equal(cx.output_data[rid], v), rid
+
+
+def test_device_path_encodes_no_input_on_the_host(monkeypatch):
+    """With no LUT, the device path calls fixed.from_float on nothing longer
+    than one value (the constants): the inputs are encoded by the passes'
+    encode items, `encoded_inputs` of them in each pass's `launches` span.
+    The host interpreter, under the same watch, encodes whole inputs."""
+    from luminair_tpu_torch import tracing
+
+    lengths = []
+    real = fixed.from_float
+
+    def watched(x):
+        lengths.append(np.size(x))
+        return real(x)
+
+    monkeypatch.setattr(fixed, "from_float", watched)
+    for name in ("edge_mul_add", "slices", "broadcast"):
+        cx = _port_case(name)
+        assert not any(n.op in ("sin", "exp2", "log2") for n in cx.nodes)
+        T.gen_trace(cx, T.gen_circuit_settings(cx, device="cpu"), device="cpu")
+        n_inputs = sum(len(v) for v in cx.input_data.values())
+        spans = tracing.requests()[-1].spans
+        for kind in ("settings", "trace"):
+            (launches,) = [sp for sp in spans if sp.path == kind + "/launches"]
+            assert launches.counts.get("encoded_inputs") == n_inputs, (name, kind)
+    assert lengths and max(lengths) <= 1, lengths
+    port_trace.gen_trace_host(cx, port_trace.gen_circuit_settings_host(cx))
+    assert max(lengths) > 1
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -423,6 +506,7 @@ def _build_rows(d, header=None):
             rows(step)
 
     return {"trace_binary": runner(lib.h_binary), "trace_unary": runner(lib.h_unary), "trace_pad": rows,
+            "trace_encode": rows,
             "trace_reduce": runner(lib.h_reduce), "reduce_ctas": reduce_ctas, "segment": segment,
             "segment_rows": segment_rows, "gather": gather, "fast_div": lib.h_fast_div}
 
@@ -583,6 +667,10 @@ def _random_step(op, rng):
     elif op == "pad":  # a table's padding rows: every column gets out_mult
         srcs, rows = [], n
         kw = dict(out_mult=5)
+    elif op == "encode":  # an input's float64 bits: the encoding's edges, random words
+        x = torch.from_numpy(np.concatenate([edge_floats().view(np.int64), a.numpy()]))
+        return kernels.TraceStep(op, [(x, View.contiguous((len(x),)))], len(x),
+                                 out=torch.zeros(len(x), dtype=torch.int64))
     else:
         srcs, rows = [(a, view)], n
     n_rows = rows * kw.get("dsize", 1)
@@ -600,7 +688,8 @@ def test_kernel_rows_match_twins_on_extremes(host_rows, op):
     through the twin."""
     step = _random_step(op, np.random.default_rng(TRACE_SEED + kernels.TRACE_OPS.index(op)))
     wrapper = ("trace_binary" if op in ("add", "mul", "rem", "less_than")
-               else "trace_reduce" if op.endswith("_reduce") else "trace_pad" if op == "pad" else "trace_unary")
+               else "trace_reduce" if op.endswith("_reduce") else "trace_" + op if op in ("pad", "encode")
+               else "trace_unary")
     k, p = step.fresh(), step.fresh()
     host_rows[wrapper](k)
     getattr(kernels, wrapper + "_plain")(p)

@@ -43,6 +43,15 @@ chip_smoke.Profiled) is this repository's.  --kernels picks from:
        trace.cuh (copies under build/variants/), and at other tile limits
        (kernels.SEG_MAX_TILES); the build as it is runs first and again
        last (their drift is the yardstick's noise);
+  trace_encode
+       the trace library's SASS (LDL, STL and instructions a kernel,
+       cuobjdump -sass) and resources (registers, stack and local bytes a
+       kernel, cuobjdump -res-usage); the settings pass's and the trace's
+       segments of the PINN (batch 256) and of the bench graph at N = 2048
+       (the `mul_add` cell's), each alone from fresh outputs (device ms a
+       launch, the mean of 5), in ENCODE_ROUNDS rounds; where the tree has
+       the encode item, one segment of two encode items of 2^22 values each
+       (the bench graph's inputs at N = 2048) beside its bound in bytes;
   profiler_window
        where a profiled window loses device records: windows
        (chip_smoke.Profiled) of a prove, then of chip_smoke.LAUNCH_BATCH
@@ -131,8 +140,10 @@ REPS = 50  # calls per profiled or enqueued batch
 PROVES = 5
 PROVE_TIMES = 9  # timed proves a path (`prove`)
 TAPE_REPS = 31  # timed calls of a tape kernel (`K6`)
-KINDS = ("K3", "T4", "K8", "K10", "trace_segment", "profiler_window", "prove", "K5", "K6", "air_check", "carry",
-         "logup_sum", "mesh_devices")
+KINDS = ("K3", "T4", "K8", "K10", "trace_segment", "trace_encode", "profiler_window", "prove", "K5", "K6",
+         "air_check", "carry", "logup_sum", "mesh_devices")
+ENCODE_ROUNDS = 3  # rounds of the segments' timings (`trace_encode`)
+ENCODE_N = 2048  # the bench graph's side (`trace_encode`): the mul_add cell's
 
 # Design choices of the trace segment kernel, each undone in a copy of csrc/.
 VARIANTS = {
@@ -740,29 +751,6 @@ def trace_segment_variants(kernels, T, BS, tree: Path, emit) -> None:
             k._fns = None
         kernels.load_all()
 
-    def segments() -> list:
-        kept, launch = [], kernels.trace_segment
-
-        def keep(seg):
-            kept.append(seg)
-            return launch(seg)
-
-        kernels.trace_segment = keep
-        try:
-            cx, _ = chip_smoke.pinn_graph(T, BS)
-            T.gen_trace(cx, T.gen_circuit_settings(cx))
-        finally:
-            kernels.trace_segment = launch
-        return kept
-
-    def seg_ms(run, n: int = 5) -> float:
-        run()
-        p = chip_smoke.Profiled(lambda: [run() for _ in range(n)])
-        count = p.count("trace_segment_kernel")
-        if not count:
-            raise AssertionError(f"trace_segment: no device record of {n} launches")
-        return p.ms("trace_segment_kernel") / count
-
     builds, variants_dir = {"as_built": csrc}, tree / "build" / "variants"
     for name, (source, old, new) in VARIANTS.items():
         copy = variants_dir / name / "csrc"
@@ -777,15 +765,90 @@ def trace_segment_variants(kernels, T, BS, tree: Path, emit) -> None:
     build_dir, limit = kernels.BUILD_DIR, kernels.SEG_MAX_TILES
     for name, src in builds.items():
         use(src, variants_dir / name.replace("_again", "") / "kernels")
-        segs = segments()
+        segs = kept_segments(kernels, T, chip_smoke.pinn_graph(T, BS)[0])
         for tiles in ((limit, 4096, 1024) if name == "as_built" else (limit,)):
             kernels.SEG_MAX_TILES = tiles
-            ms = [seg_ms(lambda f=seg.fresh(): kernels.trace_segment(f)) for seg in segs]
+            ms = [segment_device_ms(kernels, seg) for seg in segs]
             n_settings = sum(not seg.has_columns for seg in segs)
             emit({"phase": "trace_segment", "build": name, "seg_max_tiles": tiles, "device_ms": ms,
                   "settings_ms": sum(ms[:n_settings]), "trace_ms": sum(ms[n_settings:])})
         kernels.SEG_MAX_TILES = limit
     use(csrc, build_dir)
+
+
+def res_usage(lib: Path) -> dict:
+    """{kernel (mangled name): {"REG": n, "STACK": n, "LOCAL": n, ...}} of
+    one kernel library (cuobjdump -res-usage)."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([cuobjdump, "-res-usage", str(lib)], check=True, capture_output=True, text=True,
+                          timeout=300).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function (\S+):", line)
+        if m:
+            cur = m.group(1)
+            continue
+        if cur is not None and "REG:" in line:
+            out[cur] = {k: int(v) for k, v in re.findall(r"([A-Z]+):(\d+)", line)}
+            cur = None
+    return out
+
+
+def kept_segments(kernels, T, cx) -> list:
+    """Every segment the card's settings pass and trace of `cx` launch."""
+    kept, launch = [], kernels.trace_segment
+
+    def keep(seg):
+        kept.append(seg)
+        return launch(seg)
+
+    kernels.trace_segment = keep
+    try:
+        T.gen_trace(cx, T.gen_circuit_settings(cx))
+    finally:
+        kernels.trace_segment = launch
+    return kept
+
+
+def segment_device_ms(kernels, seg, n: int = 5) -> float:
+    """Device ms a launch of `seg` from fresh outputs, the mean of n."""
+    fresh = seg.fresh()
+    kernels.trace_segment(fresh)
+    p = chip_smoke.Profiled(lambda: [kernels.trace_segment(fresh) for _ in range(n)])
+    count = p.count("trace_segment_kernel")
+    if not count:
+        raise AssertionError(f"trace_segment: no device record of {n} launches")
+    return p.ms("trace_segment_kernel") / count
+
+
+def trace_encode_times(kernels, T, BS, emit, dev) -> None:
+    """The `trace_encode` lines above."""
+    lib = kernels.TRACE_SEGMENT.library_path()
+    emit({"phase": "trace_sass", "library": lib.name, "kernels": sass_counts(lib), "resources": res_usage(lib)})
+    graphs = {"pinn_b256": lambda: chip_smoke.pinn_graph(T, BS)[0],
+              f"bench_n{ENCODE_N}": lambda: chip_smoke.bench_graph(T, ENCODE_N)[0]}
+    for tag, build in graphs.items():
+        segs = kept_segments(kernels, T, build())
+        n_settings = sum(not seg.has_columns for seg in segs)
+        for r in range(ENCODE_ROUNDS):
+            ms = [segment_device_ms(kernels, seg) for seg in segs]
+            emit({"phase": "trace_segments", "graph": tag, "round": r, "device_ms": ms,
+                  "settings_ms": sum(ms[:n_settings]), "trace_ms": sum(ms[n_settings:]),
+                  "items": [[it.op for it in seg.items()].count("encode") for seg in segs]})
+    if "encode" not in kernels.TRACE_OPS:
+        return
+    from luminair_tpu_torch.graph.view import View
+
+    n = 1 << 22
+    arena = torch.zeros(4 * n + kernels.NodeTable.n_words(2, 2, 1), dtype=torch.int64, device=dev)
+    arena[: 2 * n] = torch.randn(2 * n, dtype=torch.float64, device=dev).view(torch.int64)
+    view = View.contiguous((n,))
+    items = [kernels.TraceItem("encode", n, ((k * n, n, view),), out=((2 + k) * n, n)) for k in (0, 1)]
+    table = kernels.NodeTable(kernels.TraceBuffers(arena), items, [(0, 1), (1, 1)], [(0, 2)], [(0, 1)], 4 * n)
+    table.upload()
+    seg = table.segment(0)
+    emit({"phase": "encode_alone", "values": 2 * n, "device_ms": [segment_device_ms(kernels, seg) for _ in range(3)],
+          "bound_ms": chip_smoke.bound(16 * 2 * n, 0)[0], "bytes": 16 * 2 * n})
 
 
 def profiler_window(kernels, T, pie, settings, dev, emit, windows: int = 4) -> None:
@@ -838,6 +901,8 @@ def main() -> int:
         settings_t4(kernels, T, BS, tracing, emit, layer_form)
     if "trace_segment" in kinds:
         trace_segment_variants(kernels, T, BS, tree, emit)
+    if "trace_encode" in kinds:
+        trace_encode_times(kernels, T, BS, emit, dev)
     if "K6" in kinds:
         tape_times(kernels, emit, dev)
     if "K5" in kinds:
