@@ -19,6 +19,9 @@ their rows in place.  The first segment's items begin with one "encode"
 item an input, which writes the input's fixed encoding (fixed.from_float,
 bit for bit) into the input's region of the arena: a reader at its own
 row joins the encode's chain, any other reader waits for a later phase.
+Each pass counts the part of those inputs that repeats its graph's last
+pass (`tracing.H2D_REPEAT`: the very arrays that pass staged, not `set`
+since).
 The only downloads are the range flags and the retrieved outputs,
 together, at the end; the PIE's columns stay where they were written and
 prove() reads them there.  On CPU tensors the kernels' plain twins do the
@@ -43,6 +46,7 @@ the LUT round trips is written again only after that wait.
 
 from __future__ import annotations
 
+import weakref
 from collections import defaultdict
 from dataclasses import dataclass
 from typing import Dict, List
@@ -406,6 +410,22 @@ class _Layout:
         f.copy(arena[self.at_data :], stage, non_blocking=arena.is_cuda)
 
 
+# each graph's input arrays as its last pass staged them
+_STAGED: "weakref.WeakKeyDictionary[Graph, Dict[int, np.ndarray]]" = weakref.WeakKeyDictionary()
+_UNSET = object()
+
+
+def _repeated_bytes(plan: _Plan) -> int:
+    """The bytes of the input tensors a pass stages (float64 each value)
+    that hold the very array the graph's previous pass staged (`set`
+    stores a new one); this pass's arrays are then the ones to compare."""
+    g = plan.graph
+    last = _STAGED.get(g, {})
+    now = {nid: g.input_data.get(nid) for nid in plan.input_ids}
+    _STAGED[g] = now
+    return sum(8 * g.nodes[nid].out_len for nid, a in now.items() if last.get(nid, _UNSET) is a)
+
+
 def _raise_flags(flags: np.ndarray) -> None:
     for kind, bad in zip(_FLAGS, flags):
         if bad and kind == "max_reduce":
@@ -467,6 +487,7 @@ def _trace_pass(graph: Graph, settings: CircuitSettings, dev: torch.device) -> L
         words = table.pack()
     with span("upload"):
         layout.upload(table, words)
+        tracing.count(tracing.H2D_REPEAT, _repeated_bytes(plan))
     with span("launches"):
         tracing.count(ENCODED_INPUTS, layout.encoded)
         for what, k in layout.program:
@@ -540,6 +561,7 @@ def _settings_pass(graph: Graph, dev: torch.device) -> CircuitSettings:
         words = table.pack()
     with span("upload"):
         layout.upload(table, words)
+        tracing.count(tracing.H2D_REPEAT, _repeated_bytes(plan))
     ranges = {k: [] for k in _LUT_OPS}
     arena = buffers.arena
     with span("launches"):  # each LUT's round trip inside it

@@ -10,7 +10,9 @@ and lower every op to its provable form.
 
 High-level ops (matmul, activations, .etc) decompose into the 12 provable
 primitives exactly like luminal's: matmul = broadcast-mul + sum_reduce,
-exp = exp2(x * log2 e), tanh/sigmoid via exp2 + recip, ...
+exp = exp2(x * log2 e), tanh/sigmoid/silu via exp2 + recip, softplus via
+exp2 + log2, softmax via max_reduce + exp2 + sum_reduce + recip, concat via
+pad + add, ...
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ PRIMITIVE_OPS = {
     "max_reduce",
     "contiguous",
 }
+POW2_STEP = 7  # scale_pow2 multiplies by at most 2^-7 at a time (32 raw)
 
 
 @dataclass
@@ -456,6 +459,45 @@ class GraphTensor:
         size = self.shape[dim]
         return self.sum_reduce(dim) * (1.0 / size)
 
+    def silu(self):
+        """x * sigmoid(x)."""
+        return self * self.sigmoid()
+
+    def softplus(self):
+        """ln(1 + e^x) = log2(1 + exp2(x log2 e)) ln 2."""
+        return (self.exp() + 1.0).ln()
+
+    def scale_pow2(self, shift: int):
+        """x * 2^-shift, in products by 2^-7 (32 raw) and a last smaller
+        power: each factor is exact at 12 bits, and truncating twice
+        toward zero truncates once."""
+        out = self
+        while shift > 0:
+            step = min(shift, POW2_STEP)
+            out = out * 2.0**-step
+            shift -= step
+        return out
+
+    def softmax(self, dim: int, shift: int = 0):
+        """2^shift * softmax(x) along `dim`, normalised in this order:
+
+            e = exp2((x - max x) log2 e)     each in (0, 1]
+            s = sum(e) * 2^-shift            (`scale_pow2`: exact steps)
+            p = e * recip(s)                 = 2^shift * softmax(x)
+
+        In 12-bit fixed point recip(s) is 2^24 / raw(s), truncated: over n
+        positions sum(e) is up to n (raw n * 2^12), whose reciprocal falls
+        below one step once n nears 2^12 and is 0 beyond it, so the plain
+        e * recip(sum(e)) (shift 0) returns zeros.  shift = floor(log2 n)
+        keeps s near 1 and its reciprocal at full precision; whoever sums
+        over p scales the sum by 2^-shift afterwards (as attention does),
+        so that no intermediate underflows."""
+        size = self.shape[dim]
+        neg_max = self.max_reduce(dim) * -1.0
+        e = (self + neg_max.insert_dim(dim, size)).exp()
+        r = e.sum_reduce(dim).scale_pow2(shift).recip()
+        return e * r.insert_dim(dim, size)
+
     # -- results -----------------------------------------------------------
 
     def data(self) -> np.ndarray:
@@ -463,6 +505,20 @@ class GraphTensor:
         remap = getattr(self.graph, "_cse_remap", {})
         out = self.graph.output_data[remap.get(self.node_id, self.node_id)]
         return np.asarray(out, dtype=np.float64).reshape(self.shape or (-1,))
+
+
+def concat(parts: List[GraphTensor], dim: int) -> GraphTensor:
+    """The parts joined along `dim`: each padded with zeros to the joined
+    length there (a masked view, materialised by a contiguous node), then
+    added."""
+    total = sum(p.shape[dim] for p in parts)
+    at, out = 0, None
+    for p in parts:
+        n = p.shape[dim]
+        padded = p.pad_dim(dim, at, total - at - n)
+        out = padded if out is None else out + padded
+        at += n
+    return out
 
 
 def _as_tensor(graph: Graph, x, shape) -> GraphTensor:
