@@ -6,22 +6,32 @@ the same per-op logic through the trace kernels (csrc/trace.cu).  The host
 walks the graph once per pass (`_Layout`): it fixes each table's row
 offsets (blocks in toposort order, as the host appends them), the op
 counter and each node's yield multiplicity; gives every node's int64
-output a place in one arena; and lists the pass's T1 and T2 nodes (and, in
-a trace, each table's padding rows) as the items of one node table
+output a place in one arena, the inputs first (a prefix of the same
+offsets in both passes); and lists the pass's T1 and T2 nodes (and, in a
+trace, each table's padding rows) as the items of one node table
 (kernels.NodeTable), cut into segments at the reductions (and, in the
 settings pass, at the LUT nodes) and, inside a segment, into phases: an
 item's phase is one more than the latest phase of an item of its segment
-whose output it reads.  The inputs' float64 bits (unconverted), the
-fixed-encoded constants, the LUT tables and the node table go to the
-device in one copy; then each segment is one launch of
-kernels.trace_segment and each reduction one of trace_reduce, writing
-their rows in place.  The first segment's items begin with one "encode"
-item an input, which writes the input's fixed encoding (fixed.from_float,
-bit for bit) into the input's region of the arena: a reader at its own
-row joins the encode's chain, any other reader waits for a later phase.
-Each pass counts the part of those inputs that repeats its graph's last
-pass (`tracing.H2D_REPEAT`: the very arrays that pass staged, not `set`
-since).
+whose output it reads.
+
+Each graph keeps its inputs' fixed encoding resident on the device
+(`_Resident`, `Graph.resident`): the arena's input prefix as the last pass
+left it, with the generation (`Graph.input_generation`, bumped by each
+`GraphTensor.set`) each input's encoding holds.  A pass takes that prefix
+with one copy on the device, and stages and encodes only the inputs `set`
+since (all of them where the record does not hold: another device, input
+list or length).  Their float64 bits (unconverted), the fixed-encoded
+constants, the LUT tables and the node table go to the device in one copy;
+then each segment is one launch of kernels.trace_segment and each
+reduction one of trace_reduce, writing their rows in place.  The first
+segment's items begin with one "encode" item a staged input, which writes
+the input's fixed encoding (fixed.from_float, bit for bit) into the input's
+region of the arena: a reader at its own row joins the encode's chain, any
+other reader waits for a later phase.  After the launches the encoded
+regions are copied back into the record.  Each pass counts the values it
+took from the record (`tracing.RESIDENT_INPUTS`), the ones it encoded
+(`ENCODED_INPUTS`) and the staged bytes of inputs not `set` since the
+graph's last pass (`tracing.H2D_REPEAT`).
 The only downloads are the range flags and the retrieved outputs,
 together, at the end; the PIE's columns stay where they were written and
 prove() reads them there.  On CPU tensors the kernels' plain twins do the
@@ -46,10 +56,9 @@ the LUT round trips is written again only after that wait.
 
 from __future__ import annotations
 
-import weakref
 from collections import defaultdict
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -106,6 +115,31 @@ TABLE_COLUMNS = {
                          "is_last_step input_mult out_mult".split(),
 }
 _RANGE_CHECK = "range_check"  # the range-check histogram's name in TraceBuffers.hists
+
+
+@dataclass
+class _Resident:
+    """A graph's inputs in fixed point on one device: `values` is the arena's
+    input prefix (`shape`: (input id, length) in its order) as the graph's
+    last pass left it; `generation` the input's generation each encoding
+    holds."""
+
+    shape: tuple
+    values: torch.Tensor
+    generation: Dict[int, int]
+
+
+def _input_shape(plan: "_Plan") -> tuple:
+    return tuple((nid, plan.graph.nodes[nid].out_len) for nid in plan.input_ids)
+
+
+def _resident(plan: "_Plan", dev: torch.device) -> Optional[_Resident]:
+    """The graph's record where it holds the plan's inputs on `dev`, else
+    None."""
+    rec = plan.graph.resident
+    if rec is None or rec.values.device != dev or rec.shape != _input_shape(plan):
+        return None
+    return rec
 
 
 @dataclass
@@ -212,16 +246,22 @@ class _Layout:
     from a chain of its row count: it joins that chain (merging the chains
     of its phase it so reads)."""
 
-    def __init__(self, plan: _Plan, luts: Dict[str, tuple], trace: bool, range_check: bool = False):
+    def __init__(self, plan: _Plan, luts: Dict[str, tuple], trace: bool, range_check: bool = False,
+                 resident: Optional[_Resident] = None):
         g = plan.graph
-        self.plan, self.trace = plan, trace
+        self.plan, self.trace, self.resident = plan, trace, resident
+        gen = g.input_generation
+        # the inputs `set` since the record's encoding, at their generations now
+        self.generation = {nid: gen.get(nid, 0) for nid in plan.input_ids
+                           if resident is None or resident.generation.get(nid) != gen.get(nid, 0)}
         self.region: Dict[int, tuple] = {}
         self.gathered: Dict[int, tuple] = {}
         at = 0
-        for nid in plan.input_ids:  # written by the pass's encode items
+        for nid in plan.input_ids:  # the encode items write them, or the copy from the graph's record
             n = g.nodes[nid].out_len
             self.region[nid] = (at, n)
             at += n
+        self.n_inputs = at
         for nid in plan.order:
             node = g.nodes[nid]
             if node.op in ("function", "constant", "copy_to", "copy_from"):
@@ -243,7 +283,7 @@ class _Layout:
 
         self.raw = {nid: put(np.ascontiguousarray(g.input_data.get(nid, np.zeros(g.nodes[nid].out_len)),
                                                   dtype=np.float64).view(np.int64))
-                    for nid in plan.input_ids}
+                    for nid in self.generation}
         self.encoded = sum(n for _, n in self.raw.values())
         for nid in plan.order:
             if g.nodes[nid].op == "constant":
@@ -396,11 +436,22 @@ class _Layout:
         """The pass's node table over `buffers`."""
         return kernels.NodeTable(buffers, self.items, self.chains, self.phases, self.segments, self.at_table)
 
+    def repeated(self, last: Optional[_Resident]) -> int:
+        """The bytes (8 a value) of the inputs the pass stages whose
+        generation is the one the graph's last record holds: not `set`
+        since, staged again because that record does not hold here."""
+        held = {} if last is None else last.generation
+        return sum(8 * self.region[nid][1] for nid, gen in self.generation.items() if held.get(nid) == gen)
+
     def upload(self, table: kernels.NodeTable, words: np.ndarray) -> None:
-        """The pass's one host-to-device copy: the inputs' float64 bits, the
-        constants and LUT tables, then the node table's `words`, staged once
-        (in pinned memory for a card) into the arena's tail."""
+        """The resident inputs' encoding into the arena's prefix (one copy on
+        the device), then the pass's one host-to-device copy: the staged
+        inputs' float64 bits, the constants and LUT tables, the node table's
+        `words`, staged once (in pinned memory for a card) into the arena's
+        tail."""
         arena = table.buffers.arena
+        if self.encoded < self.n_inputs:
+            arena[: self.n_inputs].copy_(self.resident.values)
         n = arena.numel() - self.at_data
         stage = torch.empty(n, dtype=torch.int64, pin_memory=arena.is_cuda)
         host, at = stage.numpy(), 0
@@ -409,21 +460,24 @@ class _Layout:
             at += len(a)
         f.copy(arena[self.at_data :], stage, non_blocking=arena.is_cuda)
 
+    def keep(self, arena: torch.Tensor) -> None:
+        """After the launches, where the pass encoded inputs: the arena's
+        input prefix into the graph's record (one copy on the device; a new
+        record where none held)."""
+        if not self.generation:
+            return
+        prefix = arena[: self.n_inputs]
+        rec = self.resident or _Resident(_input_shape(self.plan), torch.empty_like(prefix), {})
+        rec.values.copy_(prefix)
+        rec.generation.update(self.generation)
+        self.plan.graph.resident = rec
 
-# each graph's input arrays as its last pass staged them
-_STAGED: "weakref.WeakKeyDictionary[Graph, Dict[int, np.ndarray]]" = weakref.WeakKeyDictionary()
-_UNSET = object()
 
-
-def _repeated_bytes(plan: _Plan) -> int:
-    """The bytes of the input tensors a pass stages (float64 each value)
-    that hold the very array the graph's previous pass staged (`set`
-    stores a new one); this pass's arrays are then the ones to compare."""
-    g = plan.graph
-    last = _STAGED.get(g, {})
-    now = {nid: g.input_data.get(nid) for nid in plan.input_ids}
-    _STAGED[g] = now
-    return sum(8 * g.nodes[nid].out_len for nid, a in now.items() if last.get(nid, _UNSET) is a)
+def _upload(layout: _Layout, table: kernels.NodeTable, words: np.ndarray) -> None:
+    """A pass's `upload` span: the copies and their counters."""
+    layout.upload(table, words)
+    tracing.count(tracing.H2D_REPEAT, layout.repeated(layout.plan.graph.resident))
+    tracing.count(tracing.RESIDENT_INPUTS, layout.n_inputs - layout.encoded)
 
 
 def _raise_flags(flags: np.ndarray) -> None:
@@ -470,7 +524,8 @@ def _trace_pass(graph: Graph, settings: CircuitSettings, dev: torch.device) -> L
             outs = layout.outputs if layout.outputs is not None else lut_reference_outputs(kind, layout.all_values())
             luts[kind] = (*layout.packed(), outs)
     with span("walk"):
-        layout = _Layout(plan, luts, trace=True, range_check=bool(lk.range_check_bits))
+        layout = _Layout(plan, luts, trace=True, range_check=bool(lk.range_check_bits),
+                         resident=_resident(plan, dev))
     with span("allocate"):
         storage = {}
         for name, rows in plan.table_rows.items():
@@ -486,8 +541,7 @@ def _trace_pass(graph: Graph, settings: CircuitSettings, dev: torch.device) -> L
         table = layout.table(buffers)
         words = table.pack()
     with span("upload"):
-        layout.upload(table, words)
-        tracing.count(tracing.H2D_REPEAT, _repeated_bytes(plan))
+        _upload(layout, table, words)
     with span("launches"):
         tracing.count(ENCODED_INPUTS, layout.encoded)
         for what, k in layout.program:
@@ -495,6 +549,7 @@ def _trace_pass(graph: Graph, settings: CircuitSettings, dev: torch.device) -> L
                 kernels.trace_segment(table.segment(k))
             else:
                 kernels.trace_reduce(layout.reduce_step(buffers, k))
+        layout.keep(buffers.arena)
 
     with span("download"):  # the one download: flags, then the retrieved outputs
         rids = sorted(graph.to_retrieve)
@@ -546,7 +601,7 @@ def _settings_pass(graph: Graph, dev: torch.device) -> CircuitSettings:
     with span("plan"):
         plan = _Plan(graph)
     with span("walk"):
-        layout = _Layout(plan, {}, trace=False)
+        layout = _Layout(plan, {}, trace=False, resident=_resident(plan, dev))
     with span("allocate"):
         flags = torch.zeros(len(_FLAGS), dtype=f.I32, device=dev)
         buffers = kernels.TraceBuffers(torch.empty(layout.n_words, dtype=torch.int64, device=dev), flags=flags)
@@ -560,8 +615,7 @@ def _settings_pass(graph: Graph, dev: torch.device) -> CircuitSettings:
         table = layout.table(buffers)
         words = table.pack()
     with span("upload"):
-        layout.upload(table, words)
-        tracing.count(tracing.H2D_REPEAT, _repeated_bytes(plan))
+        _upload(layout, table, words)
     ranges = {k: [] for k in _LUT_OPS}
     arena = buffers.arena
     with span("launches"):  # each LUT's round trip inside it
@@ -588,6 +642,7 @@ def _settings_pass(graph: Graph, dev: torch.device) -> CircuitSettings:
                 with span("lut_upload"):
                     host[:on].numpy()[:] = out
                     f.copy(arena[oo : oo + on], host[:on], non_blocking=True)
+        layout.keep(arena)
     with span("flags"):
         with span("download"):
             _raise_flags(f.to_host(flags).numpy())

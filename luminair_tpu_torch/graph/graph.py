@@ -57,6 +57,8 @@ class Graph:
         self.nodes: List[Node] = []
         self.to_retrieve: set[int] = set()
         self.input_data: Dict[int, np.ndarray] = {}
+        self.input_generation: Dict[int, int] = {}  # each input's count of `set` calls
+        self.resident = None  # the device passes' encoded inputs (graph/device_trace.py)
         self.compiled = False
 
     # -- construction -----------------------------------------------------
@@ -250,9 +252,15 @@ class GraphTensor:
     # -- data binding ------------------------------------------------------
 
     def set(self, data) -> "GraphTensor":
+        """Binds `data` to this input.  The data is bound here: the device
+        passes keep its fixed-point encoding on the device and reuse it
+        until the input's next `set`, so an array changed after `set`
+        (in place too) is `set` again."""
         arr = np.asarray(data, dtype=np.float64).reshape(-1)
         assert len(arr) == self.graph.nodes[self.node_id].out_len
-        self.graph.input_data[self.node_id] = arr
+        g = self.graph
+        g.input_data[self.node_id] = arr
+        g.input_generation[self.node_id] = g.input_generation.get(self.node_id, 0) + 1
         return self
 
     def retrieve(self) -> "GraphTensor":

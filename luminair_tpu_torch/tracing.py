@@ -13,9 +13,11 @@ span's path is its ancestors' names and its own, joined by "/":
 
 Counters add to the innermost open span and to process-wide totals: the
 bytes of every copy between host and device by kind (`H2D_PAGEABLE`,
-`H2D_PINNED`, `D2H`; fields.py's copy helpers count them), the part of a
-trace or settings pass's input bytes that repeats the graph's last pass
-(`H2D_REPEAT`: inputs not `set` since; graph/device_trace.py), each kernel's
+`H2D_PINNED`, `D2H`; fields.py's copy helpers count them), the input bytes
+a trace or settings pass stages though they were not `set` since the graph's
+last pass (`H2D_REPEAT`: 0 while the graph's resident encoding holds), the
+input values a pass takes from that encoding without staging or encoding
+them (`RESIDENT_INPUTS`; both graph/device_trace.py), each kernel's
 launches (``launches.<kernel>``, and ``launches.<kernel>@<shard>`` under
 `on_shard`) and the steps one kernel's launch ran for another
 (``hosted.<kernel>``).  kernels.py's `counts()`, `SHARD_LAUNCHES` and
@@ -56,6 +58,7 @@ logger = logging.getLogger("luminair_tpu_torch")
 HISTORY = 1024  # requests kept
 H2D_PAGEABLE, H2D_PINNED, D2H = "h2d_pageable", "h2d_pinned", "d2h"  # bytes copied
 H2D_REPEAT = "h2d_repeat"  # bytes a trace or settings pass stages for inputs not `set` since the graph's last pass
+RESIDENT_INPUTS = "resident_inputs"  # input values a trace or settings pass takes from the graph's resident encoding
 RANGE_PREFIX = "lum."
 
 

@@ -667,11 +667,15 @@ def test_encode_on_card_matches_twin(dev, case):
 
 def test_bench_graph_encodes_on_card(dev):
     """The bench graph a * b + a on the card: trace_segment launches once a
-    pass (the encode items ride in the pass's one segment, first), the
-    passes' `encoded_inputs` are the inputs' lengths, and the card's
-    settings, PIE and outputs are the CPU's."""
+    pass; the settings pass encodes both inputs (the encode items ride in
+    its one segment, first, `encoded_inputs` the inputs' lengths), the
+    trace pass takes them from the graph's resident encoding and has no
+    encode item; the card's settings, PIE and outputs are the CPU's.  A
+    second request that sets one input again proves the bytes a freshly
+    built graph proves on the card."""
     from luminair_tpu_torch import prelude as T
-    from luminair_tpu_torch import tracing
+    from luminair_tpu_torch import serde, tracing
+    from luminair_tpu_torch.graph.view import View
 
     cx = _bench_graph()
     n_inputs = sum(len(v) for v in cx.input_data.values())
@@ -690,14 +694,17 @@ def test_bench_graph_encodes_on_card(dev):
     finally:
         kernels.trace_segment = launch
     assert kernels.counts()["trace_segment"] == 2 == len(segs)
-    for seg in segs:
+    for seg, encodes in zip(segs, (2, 0)):
         ops = [it.op for it in seg.items()]
-        assert ops.count("encode") == 2 and ops.index("encode") == 0, ops
+        assert ops.count("encode") == encodes and (not encodes or ops.index("encode") == 0), ops
         assert seg.p1 - seg.p0 == 1  # every reader of an input at its own row: no phase added
     spans = tracing.requests()[-1].spans
-    for kind in ("settings", "trace"):
+    for kind, encoded in (("settings", n_inputs), ("trace", 0)):
         (sp,) = [s for s in spans if s.path == kind + "/launches"]
-        assert sp.counts["encoded_inputs"] == n_inputs
+        (up,) = [s for s in spans if s.path == kind + "/upload"]
+        assert sp.counts["encoded_inputs"] == encoded
+        assert up.counts[tracing.RESIDENT_INPUTS] == n_inputs - encoded
+        assert up.counts[tracing.H2D_REPEAT] == 0
     cpu = _bench_graph()
     s_cpu = T.gen_circuit_settings(cpu, device="cpu")
     p_cpu = T.gen_trace(cpu, s_cpu, device="cpu")
@@ -707,6 +714,20 @@ def test_bench_graph_encodes_on_card(dev):
             assert torch.equal(pie.trace_tables[tname].padded[col].cpu(), v), (tname, col)
     for rid, v in cpu.output_data.items():
         assert np.array_equal(cx.output_data[rid], v)
+
+    b = T.GraphTensor(cx, max(cx.input_data), View.contiguous((n_inputs // 2,)))
+    b.set(np.random.default_rng(1).normal(size=len(cx.input_data[b.node_id])))
+    settings = T.gen_circuit_settings(cx, device=dev)
+    proof = T.prove(T.gen_trace(cx, settings, device=dev), settings, device=dev)
+    fresh = _bench_graph()
+    for nid, v in cx.input_data.items():
+        T.GraphTensor(fresh, nid, View.contiguous((len(v),))).set(v.copy())
+    f_settings = T.gen_circuit_settings(fresh, device=dev)
+    f_proof = T.prove(T.gen_trace(fresh, f_settings, device=dev), f_settings, device=dev)
+    assert serde.settings_to_flat_bytes(settings) == serde.settings_to_flat_bytes(f_settings)
+    assert serde.proof_to_flat_bytes(proof) == serde.proof_to_flat_bytes(f_proof)
+    for rid, v in fresh.output_data.items():
+        assert np.array_equal(cx.output_data[rid], v), rid
 
 
 def _random_view(rng):

@@ -242,9 +242,11 @@ def test_edge_inputs_trace_like_port_host():
 
 def test_device_path_encodes_no_input_on_the_host(monkeypatch):
     """With no LUT, the device path calls fixed.from_float on nothing longer
-    than one value (the constants): the inputs are encoded by the passes'
-    encode items, `encoded_inputs` of them in each pass's `launches` span.
-    The host interpreter, under the same watch, encodes whole inputs."""
+    than one value (the constants): the inputs are encoded by the settings
+    pass's encode items, `encoded_inputs` of them in its `launches` span,
+    and the trace pass takes them all from the graph's resident encoding
+    (`resident_inputs` in its `upload` span) and encodes none.  The host
+    interpreter, under the same watch, encodes whole inputs."""
     from luminair_tpu_torch import tracing
 
     lengths = []
@@ -261,9 +263,11 @@ def test_device_path_encodes_no_input_on_the_host(monkeypatch):
         T.gen_trace(cx, T.gen_circuit_settings(cx, device="cpu"), device="cpu")
         n_inputs = sum(len(v) for v in cx.input_data.values())
         spans = tracing.requests()[-1].spans
-        for kind in ("settings", "trace"):
+        for kind, encoded in (("settings", n_inputs), ("trace", 0)):
             (launches,) = [sp for sp in spans if sp.path == kind + "/launches"]
-            assert launches.counts.get("encoded_inputs") == n_inputs, (name, kind)
+            (upload,) = [sp for sp in spans if sp.path == kind + "/upload"]
+            assert launches.counts.get("encoded_inputs") == encoded, (name, kind)
+            assert upload.counts.get(tracing.RESIDENT_INPUTS) == n_inputs - encoded, (name, kind)
     assert lengths and max(lengths) <= 1, lengths
     port_trace.gen_trace_host(cx, port_trace.gen_circuit_settings_host(cx))
     assert max(lengths) > 1
